@@ -1,0 +1,51 @@
+"""Shared pieces of the kernels' plain PyTorch versions.
+
+The plain versions walk the same CSR as the CUDA kernels, one slot at a
+time: step j folds the j-th element (in stream order) of every segment
+that has one, vectorized over segments and columns. So each segment is
+folded in the kernels' order, with the same fp32 operations, on any
+device.
+"""
+from __future__ import annotations
+
+import torch
+
+_INIT = {"sum": 0.0, "mean": 0.0, "min": float("inf"),
+         "max": float("-inf")}
+
+
+def csr_slots(perm: torch.Tensor, offsets: torch.Tensor, num_rows: int):
+    """Yield (active (S,) bool, row (S,) int64) for every slot j: the
+    j-th element of each segment, ``active`` where the segment has one
+    and its id lies in [0, num_rows) (``row`` is clamped in range)."""
+    starts = offsets[:-1].long()
+    deg = (offsets[1:] - offsets[:-1]).long()
+    depth = int(deg.max()) if deg.numel() else 0
+    for j in range(depth):
+        active = deg > j
+        k = (starts + j).clamp(0, max(perm.numel() - 1, 0))
+        row = perm[k].long()
+        active = active & (row >= 0) & (row < num_rows)
+        yield active, row.clamp(0, max(num_rows - 1, 0))
+
+
+def fold_init(agg: str, shape, device) -> torch.Tensor:
+    return torch.full(shape, _INIT[agg], dtype=torch.float32, device=device)
+
+
+def fold(agg: str, acc: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if agg == "min":
+        return torch.minimum(acc, v)
+    if agg == "max":
+        return torch.maximum(acc, v)
+    return acc + v
+
+
+def finalize(agg: str, acc: torch.Tensor,
+             count: torch.Tensor) -> torch.Tensor:
+    """count: (S,) elements folded per segment."""
+    if agg == "mean":
+        return acc / count.clamp(min=1).to(torch.float32)[:, None]
+    if agg in ("min", "max"):
+        return torch.where(torch.isfinite(acc), acc, torch.zeros_like(acc))
+    return acc
