@@ -7,37 +7,49 @@ Phases, in order; any failure exits non-zero with no result line:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of every CUDA kernel from ``src/repro_torch/csrc``;
-3. each kernel against its plain PyTorch version on the card: every
-   aggregation, fp32/bf16/int8 storage, the serving path's shapes and
-   the edge cases (empty segments, -1 and out-of-range ids on each
-   stream, a prime edge count, one-edge segments, large and negative
-   values, a Welford case of near-equal values). sum/mean/var/std hold
-   to rtol 1e-5, atol 1e-6 (same fold order; only rounding of the
-   plain version's separate operations could differ), min/max exactly;
-4. serving of the paper's full-width GCN (``configs.gnn.benchmark_config``)
-   on qm9 graphs through ``repro_torch.launch.serve``: 256 requests at
-   32 graphs per batch, then 2048 and 20480 at 1024 (2 and 20 measured
-   batches). Every request is served with
-   finite outputs, each batch launches the gather kernel twice (one per
-   GCN layer) and the segment kernel three times (add/mean/max pooling),
-   and the first batch matches the port's CPU plain path with the same
-   weights (atol 1e-4, rtol 1e-4);
-5. the full-width output on the first 32 qm9 graphs, weights from the
-   golden file's numpy seed, against the JAX package's output stored in
-   ``src/repro_torch/testdata/gcn_qm9_full.json`` (atol 1e-4, rtol 1e-4);
+3. each kernel against its plain PyTorch version on the card. The
+   gather and segment kernels: every aggregation, fp32/bf16/int8
+   storage, the serving path's shapes (GCN's scaled gathers at F=11/64/
+   128, GAT's softmax-weighted gather at F=128, the pooling, PNA's and
+   GIN's edge-message aggregations at F=11/128) and the edge cases
+   (empty segments, -1 and out-of-range ids on each stream, a prime edge
+   count, one-edge segments, large and negative values, a Welford case
+   of near-equal values); sum/mean/var/std hold to rtol 1e-5, atol 1e-6
+   (same fold order; only rounding of the plain version's separate
+   operations could differ), min/max exactly. The segment-softmax
+   kernel: both GAT layers' logits at both serving shapes and the edge
+   cases (a prime edge count, -1 and >= S ids, ``valid == False``, an
+   empty, a one-edge and a several-thousand-edge segment, +-1e4, -inf
+   and all -inf logits), to rtol 1e-5, atol 1e-7, with exact 0 wherever
+   the plain version gives 0 and every weight finite;
+4. serving of every registered conv (``core.convs.CONV_TYPES``: gcn,
+   sage, gin, pna, gat) at the paper's full width
+   (``configs.gnn.benchmark_config``) on qm9 graphs through
+   ``repro_torch.launch.serve --conv``: 256 requests at 32 graphs per
+   batch and 20480 at 1024 (20 measured batches), and for GCN also 2048
+   at 1024. Every request is served with finite outputs; each batch
+   launches each kernel exactly as ``LAUNCHES_PER_BATCH`` says (the
+   counts are zeroed just before each drain and read just after); the
+   first batch matches the port's CPU plain path with the same weights
+   (atol 1e-4, rtol 1e-4);
+5. for each conv, the full-width output on the first 32 qm9 graphs,
+   weights from the golden file's numpy seed, against the JAX package's
+   output stored in ``src/repro_torch/testdata/{conv}_qm9_full.json``
+   (atol 1e-4, rtol 1e-4);
 6. kernel timings at the serving path's shapes: CUDA events, median of
    25 runs of 10 launches queued behind a spin kernel (device time, not
    the host's launch rate) after a warm-up, beside the plain version
    (which synchronises with the host; its time includes that), one
-   PyTorch library call computing the same function, and the bound
-   (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32; the H100 SXM
-   data sheet).
+   PyTorch library call computing the same function where there is one,
+   and the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32;
+   the H100 SXM data sheet).
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -56,8 +68,21 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 SEGMENT_TOL = dict(rtol=1e-5, atol=1e-6)
+SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 STORAGE = (torch.float32, torch.bfloat16, torch.int8)
+
+KERNELS = ("fused_gather_aggregate", "segment_aggregate", "segment_softmax")
+# kernel launches per served batch, in KERNELS order
+LAUNCHES_PER_BATCH = {
+    "gcn": (2, 3, 0),       # a scaled gather per layer; add/mean/max pooling
+    "sage": (2, 3, 0),      # a mean gather per layer; pooling
+    "gin": (0, 5, 0),       # an edge-message sum per layer; pooling
+    "pna": (0, 11, 0),      # mean/min/max/std towers per layer; pooling
+    "gat": (2, 3, 2),       # a softmax and a weighted gather per layer
+}
+SOFTMAX_NO_LIBRARY = ("no single PyTorch call computes a per-segment "
+                      "softmax")
 
 
 class PhaseError(RuntimeError):
@@ -75,6 +100,16 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def counters() -> dict:
+    """The launch counter of each kernel's wrapper, by kernel name."""
+    from repro_torch.kernels.fused_gather_aggregate.ops import (
+        fused_gather_aggregate)
+    from repro_torch.kernels.segment_aggregate.ops import segment_aggregate
+    from repro_torch.kernels.segment_softmax.ops import segment_softmax
+    return dict(zip(KERNELS, (fused_gather_aggregate, segment_aggregate,
+                              segment_softmax)))
 
 
 def cuda_ms(fn, reps: int = 25, inner: int = 10,
@@ -126,15 +161,16 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def gather_bytes(x, src, csr, n_segments: int) -> int:
+def gather_bytes(x, src, csr, n_segments: int, scaled: bool = True) -> int:
     """Bytes the gather must move for this CSR: the x rows of the distinct
-    sources of valid edges, perm/src/scale of each valid edge (12 B), the
+    sources of valid edges, perm/src (and scale) of each valid edge, the
     offsets and the (S, F) output. Padding edges and unreferenced rows of
     x are never read."""
     n_valid = int(csr.offsets[-1])
     e = csr.perm[:n_valid].long()
     rows = int(torch.unique(src[e]).numel())
-    return (rows * x.shape[1] * x.element_size() + 12 * n_valid
+    return (rows * x.shape[1] * x.element_size()
+            + (12 if scaled else 8) * n_valid
             + nbytes(csr.offsets) + n_segments * x.shape[1] * 4)
 
 
@@ -147,10 +183,55 @@ def segment_bytes(x, csr, n_segments: int) -> int:
             + nbytes(csr.offsets) + n_segments * x.shape[1] * 4)
 
 
+def softmax_bytes(csr, num_edges: int) -> int:
+    """Bytes the segment softmax must move for this CSR: per valid edge
+    its logit, its perm entry and its weight (12 B), per other edge its
+    perm entry and its zero weight (8 B), and the offsets."""
+    n_valid = int(csr.offsets[-1])
+    return 12 * n_valid + 8 * (num_edges - n_valid) + nbytes(csr.offsets)
+
+
 def bound_ms(bytes_moved: int, flops: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def captured_softmax_inputs():
+    """Record the (logits, perm, offsets) of every segment-softmax call
+    the model makes inside the block (GAT: one per layer)."""
+    from repro_torch.core import aggregations as A
+    calls = []
+    real = A._segment_softmax
+
+    def capture(logits, perm, offsets):
+        calls.append((logits.clone(), perm, offsets))
+        return real(logits, perm, offsets)
+
+    A._segment_softmax = capture
+    try:
+        yield calls
+    finally:
+        A._segment_softmax = real
+
+
+def gat_softmax_inputs(dev, batch) -> list:
+    """Both GAT layers' softmax inputs on one packed batch, at the full
+    width and with the weights ``launch.serve`` draws."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.launch import serve
+    from repro_torch.nn.param import init_params
+
+    cfg = benchmark_config("gat")
+    params = init_params(
+        cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), dev)
+    with captured_softmax_inputs() as calls, torch.inference_mode():
+        G.apply_packed(params, cfg, G.packed_to_device(batch, dev))
+    check(len(calls) == cfg.gnn_num_layers,
+          f"GAT made {len(calls)} softmax calls, expected one per layer")
+    return calls
 
 
 # ----------------------------------------------------------- phase 3 --
@@ -178,9 +259,26 @@ def compare(name: str, agg: str, got: torch.Tensor, want: torch.Tensor,
               f"{name} {agg}: max |err| {err} outside {SEGMENT_TOL}")
 
 
+def compare_softmax(label: str, got: torch.Tensor, want: torch.Tensor,
+                    errs: dict) -> None:
+    name = "segment_softmax"
+    check(got.shape == want.shape, f"{name} {label}: shape "
+                                   f"{tuple(got.shape)} != "
+                                   f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite "
+                                           "weight")
+    check(not got[want == 0].any(), f"{name} {label}: nonzero weight "
+                                    "where the plain version gives 0")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+    check(torch.allclose(got, want, **SOFTMAX_TOL),
+          f"{name} {label}: max |err| {err} outside {SOFTMAX_TOL}")
+
+
 def gather_cases(dev, rng, path_batches):
     """(label, x fp32, src, dst, scale, n_src, num_segments) streams."""
     from repro_torch.core import gnn_model as G
+    from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
     cases = []
     for label, batch in path_batches:
         b = G.packed_to_device(batch, dev)
@@ -191,6 +289,13 @@ def gather_cases(dev, rng, path_batches):
             x = torch.randn((n, f), device=dev)
             cases.append((f"{label} F={f}", x, ei[:, 0], ei[:, 1],
                           g["gcn_edge_scale"], n, n))
+        # GAT: softmax weights in the scale slot
+        csr = g["edge_csr"]
+        alpha = segment_softmax_ref(torch.randn(ei.shape[0], device=dev) * 3,
+                                    csr.perm, csr.offsets)
+        x = torch.randn((n, 128), device=dev)
+        cases.append((f"{label} alpha F=128", x, ei[:, 0], ei[:, 1], alpha,
+                      n, n))
     # edge cases: a prime edge count, -1 / out-of-range ids on each
     # stream, empty segments, a one-edge segment, large and negative
     # values, no scale
@@ -224,6 +329,13 @@ def segment_cases(dev, rng, path_batches):
             x = torch.randn((gid.numel(), f), device=dev)
             cases.append((f"{label} pooling F={f}", x, gid, gid < ng, ng,
                           STORAGE))
+        # PNA's towers and GIN's edge sum: edge messages by destination
+        ei = torch.as_tensor(batch["edge_index"], device=dev)
+        n = gid.numel()
+        for f in (11, 128):
+            x = torch.randn((ei.shape[0], f), device=dev)
+            cases.append((f"{label} edge messages F={f}", x, ei[:, 1],
+                          ei[:, 0] >= 0, n, (torch.float32,)))
     e, s, f = 1009, 97, 40
     seg = rng.integers(0, s - 2, e)           # non-contiguous ids
     seg[:4] = [-1, s, s + 7, -5]
@@ -242,6 +354,37 @@ def segment_cases(dev, rng, path_batches):
     return cases
 
 
+def softmax_cases(dev, rng, path_batches):
+    """(label, logits, perm, offsets) streams: both GAT layers' inputs
+    at each serving shape, then the edge cases."""
+    from repro_torch.core import aggregations as A
+    cases = []
+    for label, batch in path_batches:
+        for layer, (z, perm, off) in enumerate(gat_softmax_inputs(dev,
+                                                                  batch)):
+            cases.append((f"{label} GAT layer {layer} E={z.numel()}", z,
+                          perm, off))
+    e, s = 5003, 257                          # a prime edge count
+    seg = rng.integers(0, s - 2, e)           # segments s-2, s-1: special
+    seg[rng.choice(e, 3000, replace=False)] = 11   # a 3000-edge segment
+    seg[seg == 4] = 5                         # segment 4 empty
+    seg[:4] = [-1, s, s + 3, -9]              # padding ids
+    seg[4] = s - 1                            # the only edge into s-1
+    z = rng.standard_normal(e).astype(np.float32) * 6
+    z[::97] = 1e4
+    z[1::89] = -1e4
+    z[2::53] = -np.inf                        # masked slots
+    z[seg == 9] = -np.inf                     # an all -inf segment
+    valid = rng.random(e) < 0.9
+    z_t = torch.as_tensor(z, device=dev)
+    seg_t = torch.as_tensor(seg, dtype=torch.int32, device=dev)
+    for tag, v in (("", None), (", valid mask",
+                                torch.as_tensor(valid, device=dev))):
+        csr = A.build_csr(seg_t, s, v)
+        cases.append((f"edge cases{tag}", z_t, csr.perm, csr.offsets))
+    return cases
+
+
 def kernels_vs_plain(dev, path_batches) -> dict:
     from repro_torch.core import aggregations as A
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
@@ -252,6 +395,9 @@ def kernels_vs_plain(dev, path_batches) -> dict:
         AGGS as SEGMENT_AGGS, segment_aggregate_cuda)
     from repro_torch.kernels.segment_aggregate.ref import (
         segment_aggregate_ref)
+    from repro_torch.kernels.segment_softmax.kernel import (
+        segment_softmax_cuda)
+    from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
 
     rng = np.random.default_rng(3)
     errs: dict = {}
@@ -284,6 +430,11 @@ def kernels_vs_plain(dev, path_batches) -> dict:
                                              agg=agg)
                 compare("segment_aggregate", agg, got, want, errs)
                 n_cmp += 1
+    for label, z, perm, off in softmax_cases(dev, rng, path_batches):
+        got = segment_softmax_cuda(z, perm, off)
+        want = segment_softmax_ref(z, perm, off)
+        compare_softmax(label, got, want, errs)
+        n_cmp += 1
     torch.cuda.synchronize()
     print(f"[3] {n_cmp} kernel-vs-plain comparisons passed; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -291,39 +442,34 @@ def kernels_vs_plain(dev, path_batches) -> dict:
 
 
 # ----------------------------------------------------------- phase 4 --
-def serve_phase(requests: int, batch_graphs: int) -> dict:
+def serve_phase(conv: str, requests: int, batch_graphs: int) -> dict:
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
-    from repro_torch.kernels.fused_gather_aggregate.ops import (
-        fused_gather_aggregate)
-    from repro_torch.kernels.segment_aggregate.ops import segment_aggregate
     from repro_torch.launch import serve
     from repro_torch.nn.param import init_params
     from repro_torch.runtime import scheduler as S
 
-    fused_gather_aggregate.launches = 0
-    segment_aggregate.launches = 0
-    outs, stats = serve.main(["--requests", str(requests),
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    outs, stats = serve.main(["--conv", conv, "--requests", str(requests),
                               "--batch-graphs", str(batch_graphs)])
-    gathers = fused_gather_aggregate.launches
-    segments = segment_aggregate.launches
+    launches = {k: w.launches for k, w in wrappers.items()}
     n_batches = stats["n_batches"] + stats["warmup_batches"]
     check(stats["served"] == requests,
-          f"served {stats['served']} of {requests}")
+          f"{conv}: served {stats['served']} of {requests}")
     check(all(o["status"] == S.SERVED_PACKED for o in stats["outcomes"]),
-          "a request was not served packed")
+          f"{conv}: a request was not served packed")
     check(all(bool(torch.isfinite(o).all()) for o in outs),
-          "non-finite serving output")
-    check(gathers == 2 * n_batches,
-          f"{gathers} gather launches for {n_batches} batches, expected 2 "
-          "per batch")
-    check(segments == 3 * n_batches,
-          f"{segments} segment launches for {n_batches} batches, expected 3 "
-          "per batch")
+          f"{conv}: non-finite serving output")
+    for name, per_batch in zip(KERNELS, LAUNCHES_PER_BATCH[conv]):
+        check(launches[name] == per_batch * n_batches,
+              f"{conv}: {launches[name]} {name} launches for {n_batches} "
+              f"batches, expected {per_batch} per batch")
     # the first batch against the CPU plain path with the same weights
     ds = DATASETS["qm9"]
-    cfg = benchmark_config("gcn")
+    cfg = benchmark_config(conv)
     params = init_params(
         cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), "cpu")
     # packing is greedy in queue order: the first batch needs only a prefix
@@ -335,29 +481,30 @@ def serve_phase(requests: int, batch_graphs: int) -> dict:
         ref = G.apply_packed(params, cfg, G.packed_to_device(first, "cpu"))
     err = float((outs[0].cpu() - ref).abs().max())
     check(torch.allclose(outs[0].cpu(), ref, **MODEL_TOL),
-          f"first batch vs CPU plain path: max |err| {err}")
+          f"{conv}: first batch vs CPU plain path: max |err| {err}")
     lat = sorted(stats["batch_latency_s"])
-    print(f"[4] served {requests} requests at {batch_graphs} graphs/batch "
-          f"({stats['n_batches']} measured batches, {stats['total_s'] * 1e3:.4f}"
-          f" ms): {stats['graphs_per_s']:.1f} graphs/s, batch latency p50 "
-          f"{lat[len(lat) // 2] * 1e3:.4f} ms max {lat[-1] * 1e3:.4f} ms, "
-          f"{gathers} gather + {segments} segment launches over {n_batches} "
-          f"batches (warm-up included), first batch vs CPU max |err| "
-          f"{err:.3e}")
-    return {"gathers": gathers, "segments": segments}
+    print(f"[4] {conv}: served {requests} requests at {batch_graphs} "
+          f"graphs/batch ({stats['n_batches']} measured batches, "
+          f"{stats['total_s'] * 1e3:.4f} ms): {stats['graphs_per_s']:.1f} "
+          f"graphs/s, batch latency p50 {lat[len(lat) // 2] * 1e3:.4f} ms "
+          f"max {lat[-1] * 1e3:.4f} ms, launches over {n_batches} batches "
+          f"(warm-up included): "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; first batch vs CPU max |err| {err:.3e}")
+    return launches
 
 
 # ----------------------------------------------------------- phase 5 --
-def golden_phase(dev) -> float:
+def golden_phase(dev, conv: str) -> float:
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
     from repro_torch.nn.param import materialize_numpy, params_from_jax
 
     gold = json.loads((ROOT / "src/repro_torch/testdata/"
-                       "gcn_qm9_full.json").read_text())
+                       f"{conv}_qm9_full.json").read_text())
     ds = DATASETS[gold["dataset"]]
-    cfg = benchmark_config("gcn", gold["dataset"])
+    cfg = benchmark_config(conv, gold["dataset"])
     graphs = [P.make_graph(ds, i) for i in range(gold["graphs"])]
     batch, k = P.pack_graphs(graphs, gold["node_budget"],
                              gold["edge_budget"], gold["batch_graphs"])
@@ -369,18 +516,34 @@ def golden_phase(dev) -> float:
     want = torch.tensor(gold["out"], dtype=torch.float32)
     err = float((out.cpu() - want).abs().max())
     check(torch.allclose(out.cpu(), want, **MODEL_TOL),
-          f"full-width output vs JAX golden: max |err| {err}")
-    print(f"[5] full-width GCN on {k} qm9 graphs vs the JAX golden output: "
-          f"max |err| {err:.3e}")
+          f"{conv}: full-width output vs JAX golden: max |err| {err}")
+    print(f"[5] full-width {conv} on {k} qm9 graphs vs the JAX golden "
+          f"output: max |err| {err:.3e}")
     return err
 
 
 # ----------------------------------------------------------- phase 6 --
+def gather_widths(conv: str) -> list:
+    """The width of each layer's gather in the paper's model: the input
+    width where the layer aggregates first, else the output width (an
+    attention conv aggregates its projection)."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.core.convs import conv_spec, resolve_dataflow
+    cfg = benchmark_config(conv)
+    widths = []
+    for i in range(cfg.gnn_num_layers):
+        cc = cfg.conv_cfg(i)
+        agg_first = resolve_dataflow(cc) == "aggregate_first" \
+            and not conv_spec(conv).attention
+        widths.append(cc.in_dim if agg_first else cc.out_dim)
+    return widths
+
+
 def timing_phase(dev, path_batches) -> list:
     from repro_torch.configs.gnn import benchmark_config
     from repro_torch.core import aggregations as A
     from repro_torch.core import gnn_model as G
-    from repro_torch.core.convs import resolve_dataflow
+    from repro_torch.core.convs import PNA_AGGS
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
         fused_gather_aggregate_cuda)
     from repro_torch.kernels.fused_gather_aggregate.ref import (
@@ -389,14 +552,59 @@ def timing_phase(dev, path_batches) -> list:
         segment_aggregate_cuda)
     from repro_torch.kernels.segment_aggregate.ref import (
         segment_aggregate_ref)
+    from repro_torch.kernels.segment_softmax.kernel import (
+        segment_softmax_cuda)
+    from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
 
-    cfg = benchmark_config("gcn")
-    widths = []      # the gather width of each GCN layer
-    for i in range(cfg.gnn_num_layers):
-        cc = cfg.conv_cfg(i)
-        widths.append(cc.in_dim if resolve_dataflow(cc) == "aggregate_first"
-                      else cc.out_dim)
     rows = []
+
+    def row(kernel, conv, label, shape, kern, plain, lib, bytes_moved,
+            flops):
+        bound, by = bound_ms(bytes_moved, flops)
+        rows.append(dict(
+            kernel=kernel, conv=conv, batch=label, shape=shape,
+            ms=cuda_ms(kern),
+            plain_ms=cuda_ms(plain, reps=21, inner=2, device_only=False),
+            library_ms=None if lib is None else cuda_ms(lib),
+            bound_ms=bound, bound_by=by))
+
+    def sparse_adj(ei, ok, w, n):
+        return torch.sparse_coo_tensor(
+            torch.stack([ei[ok, 1], ei[ok, 0]]).long(), w[ok], (n, n),
+            check_invariants=True).coalesce().to_sparse_csr()
+
+    def gather_rows(conv, label, layers, src, scale, csr, n, adj, agg,
+                    tag):
+        """One row per (layer, width) of ``layers``."""
+        n_valid = int(csr.offsets[-1])
+        for layer, f in layers:
+            x = torch.randn((n, f), device=dev)
+            row("fused_gather_aggregate", conv, label,
+                f"{tag} layer {layer}: N=S={n} E={src.numel()} (valid "
+                f"{n_valid}) F={f}",
+                lambda: fused_gather_aggregate_cuda(
+                    x, src, scale, csr.perm, csr.offsets, agg=agg),
+                lambda: fused_gather_aggregate_ref(
+                    x, src, scale, csr.perm, csr.offsets, agg=agg),
+                lambda: torch.sparse.mm(adj, x),
+                gather_bytes(x, src, csr, n, scale is not None),
+                2.0 * n_valid * f)
+
+    def segment_row(conv, label, shape, x, csr, s, agg, idx, lib_reduce):
+        lib = None if lib_reduce is None else (
+            lambda: torch.empty((s + 1, x.shape[1]), device=dev)
+            .scatter_reduce_(0, idx, x, lib_reduce, include_self=False))
+        row("segment_aggregate", conv, label, shape,
+            lambda: segment_aggregate_cuda(x, csr.perm, csr.offsets,
+                                           agg=agg),
+            lambda: segment_aggregate_ref(x, csr.perm, csr.offsets,
+                                          agg=agg),
+            lib, segment_bytes(x, csr, s),
+            (4.0 if agg in ("var", "std") else 1.0)
+            * int(csr.offsets[-1]) * x.shape[1])
+
+    lib_reduce = {"sum": "sum", "mean": "mean", "min": "amin",
+                  "max": "amax", "std": None}
     for label, batch in path_batches:
         b = G.packed_to_device(batch, dev)
         g, _, node_mask, gid = G.packed_inputs(b)
@@ -404,91 +612,110 @@ def timing_phase(dev, path_batches) -> list:
         ei = b["edge_index"]
         src = ei[:, 0].contiguous()
         csr = g["edge_csr"]
-        scale = g["gcn_edge_scale"]
-        n_valid = int(csr.offsets[-1])
-        # library yardstick: one sparse CSR product with the same weights
         ok = g["valid_e"]
-        adj = torch.sparse_coo_tensor(
-            torch.stack([ei[ok, 1], ei[ok, 0]]).long(), scale[ok], (n, n),
-            check_invariants=True).coalesce().to_sparse_csr()
-        for layer, f in enumerate(widths):
-            x = torch.randn((n, f), device=dev)
-            kern = cuda_ms(lambda: fused_gather_aggregate_cuda(
-                x, src, scale, csr.perm, csr.offsets, agg="sum"))
-            plain = cuda_ms(lambda: fused_gather_aggregate_ref(
-                x, src, scale, csr.perm, csr.offsets, agg="sum"), reps=21,
-                inner=2, device_only=False)
-            lib = cuda_ms(lambda: torch.sparse.mm(adj, x))
-            bound, by = bound_ms(gather_bytes(x, src, csr, n),
-                                 2.0 * n_valid * f)
-            rows.append(dict(kernel="fused_gather_aggregate", batch=label,
-                             shape=f"GCN layer {layer}: N=S={n} E={src.numel()}"
-                                   f" (valid {n_valid}) F={f}",
-                             ms=kern, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by=by))
+        n_valid = int(csr.offsets[-1])
+        # GCN (library yardstick: one sparse CSR product, same weights)
+        scale = g["gcn_edge_scale"]
+        gather_rows("gcn", label, enumerate(gather_widths("gcn")), src,
+                    scale, csr, n,
+                    sparse_adj(ei, ok, scale, n), "sum", "GCN")
         ng = b["graph_valid"].shape[0]
         pcsr = A.build_csr(gid, ng, node_mask)
-        f = cfg.gnn_output_dim
+        f = benchmark_config("gcn").gnn_output_dim
         x = torch.randn((n, f), device=dev)
         idx = torch.where(node_mask, gid.long(),
                           torch.full_like(gid.long(), ng))[:, None].expand(
                               n, f).contiguous()
-        for agg, lib_reduce in (("sum", "sum"), ("mean", "mean"),
-                                ("max", "amax")):
-            kern = cuda_ms(lambda: segment_aggregate_cuda(
-                x, pcsr.perm, pcsr.offsets, agg=agg))
-            plain = cuda_ms(lambda: segment_aggregate_ref(
-                x, pcsr.perm, pcsr.offsets, agg=agg), reps=21, inner=2,
-                device_only=False)
-            lib = cuda_ms(lambda: torch.empty(
-                (ng + 1, f), device=dev).scatter_reduce_(
-                    0, idx, x, lib_reduce, include_self=False))
-            bound, by = bound_ms(segment_bytes(x, pcsr, ng),
-                                 float(int(pcsr.offsets[-1]) * f))
-            rows.append(dict(kernel="segment_aggregate", batch=label,
-                             shape=f"{agg} pooling: rows={n} S={ng} F={f}",
-                             ms=kern, plain_ms=plain, library_ms=lib,
-                             bound_ms=bound, bound_by=by))
+        for agg in ("sum", "mean", "max"):
+            segment_row("gcn", label, f"{agg} pooling: rows={n} S={ng} "
+                        f"F={f}", x, pcsr, ng, agg, idx, lib_reduce[agg])
+        # GAT: each layer's softmax, then its weighted gather
+        for layer, (z, perm, off) in enumerate(gat_softmax_inputs(dev,
+                                                                  batch)):
+            sm_csr = A.SegmentCSR(perm, off)
+            row("segment_softmax", "gat", label,
+                f"GAT layer {layer}: E={z.numel()} (valid {n_valid}) "
+                f"S={n}",
+                lambda: segment_softmax_cuda(z, perm, off),
+                lambda: segment_softmax_ref(z, perm, off), None,
+                softmax_bytes(sm_csr, z.numel()), 8.0 * n_valid)
+            alpha = segment_softmax_cuda(z, perm, off)
+            gather_rows("gat", label, [(layer, gather_widths("gat")[layer])],
+                        src, alpha, csr, n, sparse_adj(ei, ok, alpha, n),
+                        "sum", "GAT alpha-weighted")
+        # SAGE: mean gathers (library: the product with 1/deg weights)
+        deg = torch.clamp(g["in_deg"], min=1.0)
+        inv_deg = (1.0 / deg)[ei[:, 1].long().clamp(0, n - 1)]
+        gather_rows("sage", label, enumerate(gather_widths("sage")), src,
+                    None, csr, n, sparse_adj(ei, ok, inv_deg, n), "mean",
+                    "SAGE mean")
+        # PNA: the four towers over the edge messages of each layer
+        cfg = benchmark_config("pna")
+        for layer in range(cfg.gnn_num_layers):
+            f = cfg.conv_cfg(layer).in_dim
+            msg = torch.randn((ei.shape[0], f), device=dev)
+            idx = torch.where(ok, ei[:, 1].long(),
+                              torch.full_like(ei[:, 1].long(), n))[
+                                  :, None].expand(-1, f).contiguous()
+            for agg in PNA_AGGS:
+                segment_row("pna", label, f"PNA {agg} tower, layer {layer}:"
+                            f" rows={ei.shape[0]} (valid {n_valid}) S={n} "
+                            f"F={f}", msg, csr, n, agg, idx,
+                            lib_reduce[agg])
     for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
         print(f"[6] {r['kernel']} {r['batch']} {r['shape']}: kernel "
               f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
-              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})")
+              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     return rows
 
 
 def summarize(rows, errs, launches) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
-    largest serving shape (1024 graphs per batch)."""
+    largest serving shape (1024 graphs per batch), for GCN's batch
+    (gather, segment; the figures of the first slice) and GAT's
+    (softmax). ``launches`` counts every phase-4 drain of every conv."""
     meta = {
         "fused_gather_aggregate": dict(
             source="src/repro_torch/csrc/fused_gather_aggregate.cu",
             replaces="src/repro/kernels/fused_gather_aggregate/kernel.py:259",
-            per_batch=2),
+            conv="gcn"),
         "segment_aggregate": dict(
             source="src/repro_torch/csrc/segment_aggregate.cu",
             replaces="src/repro/kernels/segment_aggregate/kernel.py:271",
-            per_batch=3),
+            conv="gcn"),
+        "segment_softmax": dict(
+            source="src/repro_torch/csrc/segment_softmax.cu",
+            replaces="src/repro/kernels/segment_softmax/kernel.py:88",
+            conv="gat"),
     }
     last = rows[-1]["batch"]
     out = []
-    for name, m in meta.items():
-        sel = [r for r in rows if r["kernel"] == name and r["batch"] == last]
+    for i, (name, m) in enumerate(meta.items()):
+        sel = [r for r in rows if r["kernel"] == name and r["batch"] == last
+               and r["conv"] == m["conv"]]
+        check(len(sel) == LAUNCHES_PER_BATCH[m["conv"]][i],
+              f"{name}: {len(sel)} timed launches for a {m['conv']} batch")
         by = "bytes" if all(r["bound_by"] == "bytes" for r in sel) \
             else "operations"
-        out.append({
+        libs = [r["library_ms"] for r in sel]
+        entry = {
             "name": name, "route": "cuda", "source": m["source"],
             "replaces": m["replaces"], "launches": launches[name],
-            "launches_per_batch": m["per_batch"],
+            "launches_per_batch": {c: t[i] for c, t in
+                                   LAUNCHES_PER_BATCH.items()},
             "max_abs_err": errs[name],
             "ms": sum(r["ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
             "bound_ms": sum(r["bound_ms"] for r in sel),
             "bound_by": by,
-            "library_ms": sum(r["library_ms"] for r in sel),
-            "shapes": f"{last}, per batch: " + "; ".join(r["shape"]
-                                                         for r in sel),
-        })
+            "library_ms": None if None in libs else sum(libs),
+            "shapes": f"{m['conv']} {last}, per batch: "
+                      + "; ".join(r["shape"] for r in sel),
+        }
+        if entry["library_ms"] is None:
+            entry["library_note"] = SOFTMAX_NO_LIBRARY
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -497,6 +724,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.configs.gnn import DATASETS
+    from repro_torch.core.convs import CONV_TYPES
     from repro_torch.data import pipeline as P
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -531,15 +759,24 @@ def main() -> int:
             (f"{bg} graphs/batch", P.pack_dataset(queue, nb, eb, bg)[0][0]))
 
     errs = kernels_vs_plain(dev, path_batches)
-    # 2048 requests at 1024 graphs/batch are two measured batches; the
-    # 20480-request drain gives a window of 20 batches for graphs/s
-    runs = [serve_phase(256, 32), serve_phase(2048, 1024),
-            serve_phase(20480, 1024)]
-    launches = {"fused_gather_aggregate": sum(r["gathers"] for r in runs),
-                "segment_aggregate": sum(r["segments"] for r in runs)}
-    golden_phase(dev)
+    check(set(CONV_TYPES) == set(LAUNCHES_PER_BATCH),
+          f"registered convs {CONV_TYPES} != launch table "
+          f"{tuple(LAUNCHES_PER_BATCH)}")
+    launches = dict.fromkeys(KERNELS, 0)
+    for conv in CONV_TYPES:
+        # 2048 requests at 1024 graphs/batch are two measured batches; the
+        # 20480-request drain gives a window of 20 batches for graphs/s
+        drains = [(256, 32), (2048, 1024), (20480, 1024)] if conv == "gcn" \
+            else [(256, 32), (20480, 1024)]
+        for requests, bg in drains:
+            for k, v in serve_phase(conv, requests, bg).items():
+                launches[k] += v
+    for conv in CONV_TYPES:
+        golden_phase(dev, conv)
     rows = timing_phase(dev, path_batches)
     summary = summarize(rows, errs, launches)
+    check(all(k["launches"] > 0 for k in summary["kernels"]),
+          "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -5,14 +5,14 @@ no backend switch: the kernels' wrappers dispatch on the tensor's
 device (a CPU tensor takes the plain PyTorch version, a CUDA tensor the
 hand-written kernel).
 
-Both kernels fold each segment's elements in stream order, as the Pallas
+The kernels fold each segment's elements in stream order, as the Pallas
 kernels' sequential edge loop does, and reach them through a CSR:
 ``build_csr`` stable-sorts the stream by segment id once, and the same
-CSR serves every aggregation over that stream (both GCN layers share the
-edge CSR, the three poolings share the node CSR). Invalid elements — a
-segment id out of [0, num_segments), ``valid == False``, or for the
-gather a source id out of [0, N) — are left out of the CSR, so they are
-dropped outright.
+CSR serves every aggregation over that stream (every layer's gather,
+segment sum, PNA tower and GAT softmax share the edge CSR; the three
+poolings share the node CSR). Invalid elements — a segment id out of
+[0, num_segments), ``valid == False``, or for the gather a source id out
+of [0, N) — are left out of the CSR, so they are dropped outright.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from repro_torch.kernels.fused_gather_aggregate.ops import (
     fused_gather_aggregate)
 from repro_torch.kernels.segment_aggregate.ops import (
     segment_aggregate as _segment_aggregate)
+from repro_torch.kernels.segment_softmax.ops import (
+    segment_softmax as _segment_softmax)
 
 AGGREGATIONS = ("sum", "mean", "min", "max", "var", "std")
 GATHER_AGGREGATIONS = ("sum", "mean", "min", "max")
@@ -102,6 +104,23 @@ def gather_aggregate(agg: str, x: torch.Tensor, src: torch.Tensor,
     return fused_gather_aggregate(x.contiguous(),
                                   src.to(torch.int32).contiguous(), scale,
                                   csr.perm, csr.offsets, agg=agg)
+
+
+def segment_softmax(logits: torch.Tensor, seg_ids: torch.Tensor,
+                    num_segments: int, valid: torch.Tensor | None = None, *,
+                    csr: SegmentCSR | None = None) -> torch.Tensor:
+    """Per-edge softmax weights normalized within each segment (GAT's
+    attention): logits (E,) -> weights (E,) float32, with padding marked
+    by an id out of [0, num_segments) or ``valid == False``. Padding
+    edges get exactly 0, and so does a -inf logit on a valid edge; an
+    all-masked or empty segment gives zeros; the running max is
+    subtracted before every exp, so +-1e4 logits stay finite. The math
+    is fp32 at every precision. ``csr`` (from ``build_csr`` over the same
+    ids) skips rebuilding the CSR."""
+    if csr is None:
+        csr = build_csr(seg_ids, num_segments, valid)
+    return _segment_softmax(logits.to(torch.float32).contiguous(),
+                            csr.perm, csr.offsets)
 
 
 def segment_counts(seg_ids: torch.Tensor, num_segments: int,

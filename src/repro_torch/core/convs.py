@@ -1,58 +1,101 @@
 """Message-passing graph convolutions: the port of ``repro.core.convs``.
 
 Convs are registered (``register_conv``) with their parameter plan,
-their apply function and capability flags; GCN is the one registered
-conv of this port so far. Linear-phi convs carry a dataflow choice —
-transform-then-aggregate or aggregate-then-transform, both exact — that
-``resolve_dataflow`` picks from the same closed-form cost model as the
-reference, so both packages run each layer in the same order.
+their apply function and capability flags, in the reference's order:
+GCN, GraphSAGE, GIN(E), PNA and GAT. Linear-phi convs (GCN, SAGE) carry
+a dataflow choice — transform-then-aggregate or aggregate-then-transform,
+both exact — that ``resolve_dataflow`` picks from the same closed-form
+cost model as the reference, so both packages run each layer in the same
+order.
 
 ``g`` is the dict ``gnn_model.packed_inputs`` builds: ``edge_index``
-(E, 2), ``valid_e``, ``in_deg``/``out_deg``, the hoisted GCN scales and
-the destination CSR ``edge_csr`` shared by every layer.
+(E, 2), ``edge_feat``, ``valid_e``, ``in_deg``/``out_deg``, the hoisted
+GCN scales and the destination CSR ``edge_csr`` shared by every layer.
+The CSR is ``gather_csr``'s: it also drops an edge whose source id is out
+of range. In a packed batch every valid edge has an in-range source, so
+the same CSR serves the gathers, the segment aggregations of GIN and PNA
+and GAT's softmax. A direct caller whose ``g`` has no ``edge_csr`` gets
+the reference's semantics instead: each aggregation builds its CSR from
+the destination ids and ``valid_e`` alone, and a message gathered from an
+out-of-range source is a NaN row (``_gather``), as ``jnp.take`` fills it.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import aggregations as agg_mod
-from repro_torch.nn.layers import linear, linear_plan
+from repro_torch.nn.layers import act, linear, linear_plan
+from repro_torch.nn.param import ParamSpec
+
+PNA_AGGS = ("mean", "min", "max", "std")
+PNA_SCALERS = ("identity", "amplification", "attenuation")
 
 DATAFLOWS = ("auto", "aggregate_first", "transform_first")
+
+PRECISION_GRID = ("fp32", "bf16", "int8")
 
 
 # ------------------------------------------------------- conv registry --
 @dataclasses.dataclass(frozen=True)
 class ConvSpec:
-    """One conv's capability contract."""
+    """One conv's capability contract, field for field the reference's."""
     name: str
     plan: object          # ConvConfig -> param plan
     apply: object         # (params, g, x, ConvConfig) -> (N, F_out)
     # phi is a plain linear map: the planner may reorder the layer
     reorderable: bool = False
+    # the multi-layer residency kernel can run it (linear phi and one
+    # scalar per edge)
+    resident: bool = False
     # carries a per-edge softmax stage: adds the attention term to
-    # dataflow_cost
+    # dataflow_cost; the logit math stays fp32 at every precision
     attention: bool = False
+    # the precision grid the conv's datapath supports
+    precisions: tuple = PRECISION_GRID
+    # partitioned output equals the padded oracle's bitwise at fp32: its
+    # per-segment reductions keep the edge stream's order
+    partition_bitwise: bool = False
+    # enumerated by the design-space exploration and the perf model
+    dse: bool = True
 
 
 CONV_REGISTRY: dict[str, ConvSpec] = {}
+_REGISTRY_LISTENERS: list = []
 
-# registry-derived views, rebuilt by every register call; read them as
-# ``convs.CONV_TYPES`` (attribute access) so late registrations show
+# registry-derived views, rebuilt by every (un)register call; read them
+# as ``convs.CONV_TYPES`` (attribute access) so late registrations show
 CONV_TYPES: tuple = ()
 REORDERABLE_CONVS: tuple = ()
+RESIDENT_CONVS: tuple = ()
 
 
-def register_conv(name: str, plan, apply, **caps) -> ConvSpec:
-    global CONV_TYPES, REORDERABLE_CONVS
-    spec = ConvSpec(name=name, plan=plan, apply=apply, **caps)
-    CONV_REGISTRY[name] = spec
+def _registry_changed() -> None:
+    global CONV_TYPES, REORDERABLE_CONVS, RESIDENT_CONVS
     CONV_TYPES = tuple(CONV_REGISTRY)
     REORDERABLE_CONVS = tuple(n for n, s in CONV_REGISTRY.items()
                               if s.reorderable)
+    RESIDENT_CONVS = tuple(n for n, s in CONV_REGISTRY.items()
+                           if s.resident)
+    for fn in list(_REGISTRY_LISTENERS):
+        fn()
+
+
+def register_conv(name: str, plan, apply, **caps) -> ConvSpec:
+    """Register a conv's (plan, apply) pair and capability flags
+    (``ConvSpec`` fields); the derived views rebuild and every
+    ``on_registry_change`` listener runs."""
+    spec = ConvSpec(name=name, plan=plan, apply=apply, **caps)
+    CONV_REGISTRY[name] = spec
+    _registry_changed()
     return spec
+
+
+def unregister_conv(name: str) -> None:
+    del CONV_REGISTRY[name]
+    _registry_changed()
 
 
 def conv_spec(name: str) -> ConvSpec:
@@ -61,6 +104,12 @@ def conv_spec(name: str) -> ConvSpec:
     except KeyError:
         raise ValueError(f"unknown conv {name!r}; registered: "
                          f"{CONV_TYPES}") from None
+
+
+def on_registry_change(fn) -> None:
+    """Subscribe ``fn`` (no arguments) to registry mutations; it runs
+    synchronously inside every (un)register call."""
+    _REGISTRY_LISTENERS.append(fn)
 
 
 # word-equivalence factor between the cost model's two currencies, kept
@@ -136,6 +185,21 @@ def resolve_dataflow(cfg: ConvConfig) -> str:
         else "aggregate_first"
 
 
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``x[max(idx, 0)]``, as ``jnp.take(x, jnp.maximum(idx, 0))``:
+    a padding id (-1) reads row 0, and an id past the table gives a NaN
+    row (``jnp.take``'s fill mode), never a clamped last row."""
+    idx = idx.long().clamp(min=0)
+    n = x.shape[0]
+    past = (idx >= n).view(-1, *([1] * (x.dim() - 1)))
+    return x[idx.clamp(max=max(n - 1, 0))].masked_fill(past, float("nan"))
+
+
+def edge_endpoints(g: dict) -> tuple:
+    """(src, dst) columns of the COO edge buffer; -1 on padding."""
+    return g["edge_index"][:, 0], g["edge_index"][:, 1]
+
+
 def gcn_normalization(edge_index: torch.Tensor, in_deg: torch.Tensor,
                       valid: torch.Tensor | None = None) -> tuple:
     """GCN symmetric-norm scales from static graph fields: per-edge
@@ -171,7 +235,7 @@ def gcn_apply(params: dict, g: dict, x: torch.Tensor,
     """x' = W (sum_u x_u / sqrt(d_u d_v)) + b  (self loops included),
     run as W (A x) + b (aggregate_first) or A (W x) + b
     (transform_first); the neighbour sum is the fused gather kernel."""
-    src, dst = g["edge_index"][:, 0], g["edge_index"][:, 1]
+    src, dst = edge_endpoints(g)
     n = x.shape[0]
     edge_scale, self_scale = _gcn_scales(g)
     agg_first = resolve_dataflow(cfg) == "aggregate_first"
@@ -184,7 +248,139 @@ def gcn_apply(params: dict, g: dict, x: torch.Tensor,
     return aggr + params["w"]["b"]
 
 
-register_conv("gcn", gcn_plan, gcn_apply, reorderable=True)
+# ------------------------------------------------------------ GraphSAGE --
+def sage_plan(cfg: ConvConfig) -> dict:
+    return {"w_self": linear_plan(cfg.in_dim, cfg.out_dim, bias=True),
+            "w_neigh": linear_plan(cfg.in_dim, cfg.out_dim)}
+
+
+def sage_apply(params: dict, g: dict, x: torch.Tensor,
+               cfg: ConvConfig) -> torch.Tensor:
+    """x' = W1 x_v + W2 mean_u(x_u). The mean is linear, so
+    ``resolve_dataflow`` aggregates at min(F_in, F_out) width; the
+    neighbour mean is the fused gather kernel."""
+    src, dst = edge_endpoints(g)
+    agg_first = resolve_dataflow(cfg) == "aggregate_first"
+    h = x if agg_first else torch.matmul(x, params["w_neigh"]["w"])
+    aggr = agg_mod.gather_aggregate("mean", h, src, dst, x.shape[0],
+                                    g["valid_e"], csr=g.get("edge_csr"))
+    neigh = linear(params["w_neigh"], aggr) if agg_first else aggr
+    return linear(params["w_self"], x) + neigh
+
+
+# ------------------------------------------------------------- GIN(E) ---
+def gin_plan(cfg: ConvConfig) -> dict:
+    p = {"eps": ParamSpec((), init="zeros"),
+         "mlp1": linear_plan(cfg.in_dim, cfg.out_dim, bias=True),
+         "mlp2": linear_plan(cfg.out_dim, cfg.out_dim, bias=True)}
+    if cfg.edge_dim:
+        p["w_edge"] = linear_plan(cfg.edge_dim, cfg.in_dim)
+    return p
+
+
+def gin_apply(params: dict, g: dict, x: torch.Tensor,
+              cfg: ConvConfig) -> torch.Tensor:
+    """x' = MLP((1 + eps) x_v + sum_u relu(x_u + W_e e_uv)). With edge
+    features the message is nonlinear per edge, so it is materialized
+    and summed by the segment kernel; without, the fused gather sums."""
+    src, dst = edge_endpoints(g)
+    n = x.shape[0]
+    csr = g.get("edge_csr")
+    if "w_edge" in params:
+        msg = torch.relu(_gather(x, src)
+                         + linear(params["w_edge"], g["edge_feat"]))
+        aggr = agg_mod.segment_aggregate("sum", msg, dst, n, g["valid_e"],
+                                         csr=csr)
+    else:
+        aggr = agg_mod.gather_aggregate("sum", x, src, dst, n, g["valid_e"],
+                                        csr=csr)
+    h = (1.0 + params["eps"]) * x + aggr
+    h = act(cfg.activation)(linear(params["mlp1"], h))
+    return linear(params["mlp2"], h)
+
+
+# ---------------------------------------------------------------- PNA ---
+def pna_plan(cfg: ConvConfig) -> dict:
+    tower_in = cfg.in_dim * len(PNA_AGGS) * len(PNA_SCALERS)
+    return {"pre": linear_plan(2 * cfg.in_dim + cfg.edge_dim, cfg.in_dim,
+                               bias=True),
+            "post": linear_plan(tower_in + cfg.in_dim, cfg.out_dim,
+                                bias=True)}
+
+
+def pna_apply(params: dict, g: dict, x: torch.Tensor,
+              cfg: ConvConfig) -> torch.Tensor:
+    """Principal Neighbourhood Aggregation: message MLP phi([x_v, x_u,
+    e]), four aggregators (mean/min/max/std) x three degree scalers, then
+    gamma on [x_v, towers]. The concatenation orders fix the meaning of
+    the weights carried over from the reference. The four towers walk
+    one CSR."""
+    src, dst = edge_endpoints(g)
+    n = x.shape[0]
+    feats = [_gather(x, dst), _gather(x, src)]
+    if cfg.edge_dim:
+        feats.append(g["edge_feat"].to(x.dtype))
+    msg = act(cfg.activation)(linear(params["pre"], torch.cat(feats, -1)))
+    csr = g.get("edge_csr")
+    if csr is None:
+        csr = agg_mod.build_csr(dst, n, g["valid_e"])
+    towers = [agg_mod.segment_aggregate(a, msg, dst, n, g["valid_e"],
+                                        csr=csr)
+              for a in PNA_AGGS]
+    deg = torch.clamp(g["in_deg"], min=1.0)
+    logd = torch.log(deg + 1.0)[:, None]
+    scaled = []
+    for t in towers:
+        scaled += [t, t * (logd / cfg.delta), t * (cfg.delta / logd)]
+    return linear(params["post"], torch.cat([x] + scaled, -1))
+
+
+# ---------------------------------------------------------------- GAT ---
+def gat_plan(cfg: ConvConfig) -> dict:
+    p = {"w": linear_plan(cfg.in_dim, cfg.out_dim, bias=True),
+         "w_self": linear_plan(cfg.in_dim, cfg.out_dim),
+         "a_src": ParamSpec((cfg.out_dim,)),
+         "a_dst": ParamSpec((cfg.out_dim,))}
+    if cfg.edge_dim:
+        p["a_edge"] = linear_plan(cfg.edge_dim, 1)
+    return p
+
+
+def gat_apply(params: dict, g: dict, x: torch.Tensor,
+              cfg: ConvConfig) -> torch.Tensor:
+    """x' = W_self x_v + sum_u alpha_uv (W x_u) + b with alpha =
+    softmax_v(LeakyReLU_0.2(a_src.(W x_u) + a_dst.(W x_v) + a_e.e_uv)):
+    the root-weight GAT, no implicit self loops. The logits are fp32 and
+    normalized by the segment-softmax kernel; alpha rides the fused
+    gather's per-edge scale slot, so the (E, F) messages are never
+    materialized."""
+    src, dst = edge_endpoints(g)
+    n = x.shape[0]
+    h = torch.matmul(x, params["w"]["w"])
+    s_src = torch.matmul(h, params["a_src"])
+    s_dst = torch.matmul(h, params["a_dst"])
+    logits = _gather(s_src, src) + _gather(s_dst, dst)
+    if "a_edge" in params:
+        logits = logits + torch.matmul(g["edge_feat"].to(torch.float32),
+                                       params["a_edge"]["w"])[:, 0]
+    # jax.nn.leaky_relu and F.leaky_relu both default to slope 0.01
+    logits = F.leaky_relu(logits, 0.2)
+    csr = g.get("edge_csr")
+    alpha = agg_mod.segment_softmax(logits, dst, n, g["valid_e"], csr=csr)
+    aggr = agg_mod.gather_aggregate("sum", h, src, dst, n, g["valid_e"],
+                                    alpha, csr=csr)
+    return linear(params["w_self"], x) + aggr + params["w"]["b"]
+
+
+# the reference's order and flags (repro/core/convs.py)
+register_conv("gcn", gcn_plan, gcn_apply, reorderable=True, resident=True,
+              partition_bitwise=True)
+register_conv("sage", sage_plan, sage_apply, reorderable=True,
+              resident=True)
+register_conv("gin", gin_plan, gin_apply)
+register_conv("pna", pna_plan, pna_apply)
+register_conv("gat", gat_plan, gat_apply, attention=True,
+              partition_bitwise=True)
 
 
 def conv_plan(cfg: ConvConfig) -> dict:

@@ -126,7 +126,11 @@ def packed_inputs(batch: dict) -> tuple:
     the graph alone is computed here once per batch: degrees (or the
     batch's own ``node_in_deg``/``node_out_deg``, which partitioned
     subgraphs carry), the GCN scales and the destination CSR of the edge
-    stream that every layer's gather walks."""
+    stream that every layer walks. The CSR is ``gather_csr``'s, which
+    also drops edges with an out-of-range source; every valid edge of a
+    packed batch has an in-range source, so it is the same CSR as
+    ``build_csr(dst, valid_e)`` and also serves GIN's edge sum, PNA's
+    four towers and GAT's softmax."""
     x = batch["node_feat"]
     graph_id = batch["node_graph_id"]
     num_graphs = batch["graph_valid"].shape[0]
@@ -190,17 +194,23 @@ def apply_packed(params: dict, cfg: GNNModelConfig,
 
 
 def _as_module(tree: dict) -> nn.Module:
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False)
-             for k, v in tree.items()})
-    return nn.ModuleDict({k: _as_module(v) for k, v in tree.items()})
+    """A parameter tree as nested modules: a tensor leaf becomes a
+    parameter, a subtree a child module (GIN keeps its 0-d ``eps`` beside
+    its ``mlp1``/``mlp2`` subtrees)."""
+    module = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, torch.Tensor):
+            module.register_parameter(
+                k, nn.Parameter(v, requires_grad=False))
+        else:
+            module.add_module(k, _as_module(v))
+    return module
 
 
 def _as_tree(module: nn.Module) -> dict:
-    if isinstance(module, nn.ParameterDict):
-        return dict(module.items())
-    return {k: _as_tree(m) for k, m in module.named_children()}
+    tree = dict(module.named_parameters(recurse=False))
+    tree.update({k: _as_tree(m) for k, m in module.named_children()})
+    return tree
 
 
 class GNNModel(nn.Module):

@@ -1,0 +1,48 @@
+"""Launch of the hand-written CUDA segment-softmax kernel
+(``csrc/segment_softmax.cu``), the port of the Pallas TPU kernels
+``repro/kernels/segment_softmax/kernel.py``,
+``segment_softmax_stats_pallas`` and the per-edge normalization of
+``segment_softmax_pallas``. The source carries the design note: one
+thread per segment over the stably sorted CSR, an online (max, exp-sum)
+fold in stream order in registers, then a second walk that writes the
+weights; the CSR's tail gets zeros.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p]
+
+
+def segment_softmax_cuda(logits: torch.Tensor, perm: torch.Tensor,
+                         offsets: torch.Tensor) -> torch.Tensor:
+    """logits: (E,) float32; perm/offsets: the segment CSR
+    (``core.aggregations.build_csr``) over S = len(offsets) - 1 segments,
+    with every one of the E edges in ``perm`` (the edges past
+    ``offsets[S]`` are written 0). Returns (E,) float32. Launches on the
+    current stream."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"logits must be a CUDA tensor, got "
+                         f"{logits.device}")
+    dev = logits.device
+    e = logits.numel()
+    _build.check_vector("logits", logits, torch.float32, dev)
+    _build.check_vector("perm", perm, torch.int32, dev, e)
+    _build.check_vector("offsets", offsets, torch.int32, dev)
+    num_segments = offsets.numel() - 1
+    if num_segments < 0:
+        raise ValueError("offsets must hold at least one entry")
+    out = torch.empty((e,), dtype=torch.float32, device=dev)
+    fn = _build.function("repro_segment_softmax", _ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(_build.pointer(logits), e, _build.pointer(perm),
+                    _build.pointer(offsets), num_segments,
+                    _build.pointer(out), _build.stream_pointer(dev))
+    _build.check(status, "segment_softmax")
+    return out

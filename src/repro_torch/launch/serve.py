@@ -7,9 +7,11 @@ are rejected explicitly (``rejected_invalid``), and requests too large
 for the packed budgets get ``rejected_oversize``: the port has no padded
 oracle or partitioned program to answer them yet. Serves the paper's
 full-width §VIII-B model (``configs.gnn.benchmark_config``) by default;
-``--reduced`` serves the small config.
+``--reduced`` serves the small config. ``--conv`` takes any conv of the
+port's registry (``core.convs.CONV_TYPES``: gcn, sage, gin, pna, gat),
+and the summary line names the conv served.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --conv gcn \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --conv gat \\
       --requests 256 --batch-graphs 32 [--device cuda|cpu] [--reduced]
 """
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 
 import torch
 
+from repro_torch.core import convs as C
 from repro_torch.core import gnn_model as G
 from repro_torch.data import pipeline as P
 from repro_torch.device import resolve_device
@@ -168,7 +171,8 @@ def gnn_main(args) -> tuple:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Serve packed GraphBatch GNN inference.")
-    ap.add_argument("--conv", default="gcn", choices=["gcn"])
+    ap.add_argument("--conv", default="gcn", choices=C.CONV_TYPES,
+                    help="a registered conv (core.convs.CONV_TYPES)")
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--batch-graphs", type=int, default=32)
     ap.add_argument("--device", default="cuda",

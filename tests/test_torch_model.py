@@ -1,4 +1,4 @@
-"""The port's GCN model (repro_torch) against the JAX package (repro).
+"""The port's model (repro_torch) against the JAX package (repro), on GCN.
 
 Weights are carried from the JAX parameter tree into the port with
 ``params_from_jax``; the same packed batch goes through both packages'
@@ -7,10 +7,11 @@ differ by ~1e-4 on the CPU), under the default ``xla`` backend and under
 ``pallas`` in interpret mode. Tolerance: atol 1e-4, rtol 1e-5 — the
 ``tests/parity.py`` ORACLE_ATOL.
 
-Also holds the golden file ``src/repro_torch/testdata/gcn_qm9_full.json``
-(the JAX package's full-width output that the GPU run is held against):
-the test recomputes it with JAX. ``python tests/test_torch_model.py
---write-golden`` rewrites it.
+Also holds the golden files ``src/repro_torch/testdata/{conv}_qm9_full.json``,
+one per registered conv (the JAX package's full-width output that the
+GPU run is held against): the test recomputes each with JAX.
+``python tests/test_torch_model.py --write-golden`` rewrites them. The
+other convs' parity grid is ``tests/test_torch_convs.py``.
 """
 import dataclasses
 import json
@@ -42,8 +43,8 @@ from repro_torch.nn import param as tprm
 torch.set_num_threads(1)
 
 ATOL, RTOL = parity.ORACLE_ATOL, 1e-5
-GOLDEN = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
-    / "testdata" / "gcn_qm9_full.json"
+TESTDATA = Path(__file__).resolve().parents[1] / "src" / "repro_torch" \
+    / "testdata"
 GOLDEN_SEED = 0
 GOLDEN_GRAPHS = 32
 
@@ -182,18 +183,25 @@ def test_gather_compute_flops_matches_jax():
 
 
 def test_benchmark_config_dataflow_picks():
-    """The paper's GCN: layer 0 (11 -> 128) aggregates first at F=11,
-    layer 1 (128 -> 64) transforms first and gathers at F=64."""
-    cfg = TCfg.benchmark_config("gcn")
-    assert [TC.resolve_dataflow(cfg.conv_cfg(i)) for i in range(2)] \
-        == ["aggregate_first", "transform_first"]
+    """The paper's GCN and SAGE: layer 0 (11 -> 128) aggregates first at
+    F=11, layer 1 (128 -> 64) transforms first and gathers at F=64. The
+    other convs are not reorderable and aggregate first."""
+    for conv in TC.CONV_TYPES:
+        cfg = TCfg.benchmark_config(conv)
+        want = ["aggregate_first", "transform_first"] \
+            if conv in TC.REORDERABLE_CONVS else ["aggregate_first"] * 2
+        assert [TC.resolve_dataflow(cfg.conv_cfg(i)) for i in range(2)] \
+            == want, conv
 
 
 def test_conv_registry():
-    assert TC.CONV_TYPES == ("gcn",) and TC.REORDERABLE_CONVS == ("gcn",)
+    assert TC.CONV_TYPES == ("gcn", "sage", "gin", "pna", "gat")
+    assert TC.REORDERABLE_CONVS == ("gcn", "sage")
     assert TC.conv_spec("gcn").reorderable
+    with pytest.raises(ValueError, match="unknown conv 'cheb'"):
+        TC.conv_spec("cheb")
     with pytest.raises(ValueError, match="unknown conv"):
-        TC.conv_spec("sage")
+        TC.conv_plan(TC.ConvConfig(4, 4, conv="cheb"))
     with pytest.raises(ValueError):
         TC.resolve_dataflow(TC.ConvConfig(4, 4, dataflow="sideways"))
 
@@ -277,22 +285,26 @@ def test_init_params_distribution():
         < 0.01
 
 
-def test_gnn_model_module_names_follow_the_jax_tree():
-    cfg = parity.model_cfg("gcn")
+@pytest.mark.parametrize("conv", ["gcn", "gin", "gat"])
+def test_gnn_model_module_names_follow_the_jax_tree(conv):
+    """Every leaf is a parameter named by its tree path, GIN's 0-d
+    ``eps`` and GAT's 1-D attention vectors included."""
+    cfg = parity.model_cfg(conv)
     params_np = jax_params_np(cfg)
     tcfg = port_cfg(cfg)
     model = TG.GNNModel(tcfg, tprm.params_from_jax(tcfg, params_np, "cpu"))
-    names = {n for n, _ in model.named_parameters()}
-    paths = {"/".join(k.key for k in path) for path, _ in
-             jax.tree_util.tree_flatten_with_path(params_np)[0]}
-    assert names == {p.replace("/", ".") for p in paths}
+    names = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    paths = {"/".join(k.key for k in path).replace("/", "."): v.shape
+             for path, v in jax.tree_util.tree_flatten_with_path(
+                 params_np)[0]}
+    assert names == paths
     batch = small_batch()
     with torch.inference_mode():
         got = model(TG.packed_to_device(batch, "cpu")).numpy()
     np.testing.assert_array_equal(got, port_apply(cfg, params_np, batch))
     drawn = TG.GNNModel(tcfg, generator=torch.Generator().manual_seed(1),
                         device="cpu")
-    assert {n for n, _ in drawn.named_parameters()} == names
+    assert {n for n, _ in drawn.named_parameters()} == set(names)
 
 
 def test_non_fp32_precision_raises():
@@ -312,9 +324,13 @@ def test_activations_match_jax(name):
         np.asarray(JL.act(name)(jnp.asarray(x))), atol=1e-6, rtol=1e-6)
 
 
-# ------------------------------------------------------ golden file --
-def golden_inputs():
-    """The full-width qm9 batch of the golden file and its numpy-seeded
+# ----------------------------------------------------- golden files --
+def golden_path(conv: str) -> Path:
+    return TESTDATA / f"{conv}_qm9_full.json"
+
+
+def golden_inputs(conv: str):
+    """The full-width qm9 batch of a golden file and its numpy-seeded
     weights (drawn over the port's plan, fed to both packages)."""
     ds = JCfg.DATASETS["qm9"]
     graphs = [JP.make_graph(ds, i) for i in range(GOLDEN_GRAPHS)]
@@ -322,37 +338,39 @@ def golden_inputs():
     eb = JP.size_budget(GOLDEN_GRAPHS, ds.avg_nodes * ds.avg_degree)
     batch, k = JP.pack_graphs(graphs, nb, eb, GOLDEN_GRAPHS)
     assert k == GOLDEN_GRAPHS
-    tcfg = TCfg.benchmark_config("gcn")
+    tcfg = TCfg.benchmark_config(conv)
     params = tprm.materialize_numpy(TG.model_plan(tcfg), GOLDEN_SEED)
     return batch, nb, eb, params
 
 
-def golden_record() -> dict:
-    batch, nb, eb, params = golden_inputs()
-    cfg = JCfg.benchmark_config("gcn")
+def golden_record(conv: str) -> dict:
+    batch, nb, eb, params = golden_inputs(conv)
+    cfg = JCfg.benchmark_config(conv)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     out = jax_apply(cfg, jparams, batch, "xla")
     return {"what": "repro.core.gnn_model.apply_packed, jitted, xla "
-                    "backend, benchmark_config('gcn')",
+                    f"backend, benchmark_config('{conv}')",
             "dataset": "qm9", "graphs": GOLDEN_GRAPHS,
             "batch_graphs": GOLDEN_GRAPHS, "node_budget": nb,
             "edge_budget": eb, "seed": GOLDEN_SEED,
             "out": [[float(v) for v in row] for row in out]}
 
 
-def test_golden_file_is_current():
-    stored = json.loads(GOLDEN.read_text())
-    fresh = golden_record()
+@pytest.mark.parametrize("conv", TC.CONV_TYPES)
+def test_golden_file_is_current(conv):
+    stored = json.loads(golden_path(conv).read_text())
+    fresh = golden_record(conv)
     assert {k: v for k, v in stored.items() if k != "out"} \
         == {k: v for k, v in fresh.items() if k != "out"}
     np.testing.assert_allclose(np.asarray(stored["out"]),
                                np.asarray(fresh["out"]), atol=1e-6, rtol=0)
 
 
-def test_port_matches_golden_on_cpu():
-    stored = json.loads(GOLDEN.read_text())
-    batch, _, _, params = golden_inputs()
-    tcfg = TCfg.benchmark_config("gcn")
+@pytest.mark.parametrize("conv", TC.CONV_TYPES)
+def test_port_matches_golden_on_cpu(conv):
+    stored = json.loads(golden_path(conv).read_text())
+    _, _, _, params = golden_inputs(conv)
+    tcfg = TCfg.benchmark_config(conv)
     tp = tprm.params_from_jax(tcfg, params, "cpu")
     tbatch, _ = TP.pack_graphs(
         [TP.make_graph(TCfg.DATASETS["qm9"], i)
@@ -368,6 +386,8 @@ if __name__ == "__main__":
     if sys.argv[1:] != ["--write-golden"]:
         sys.exit("usage: PYTHONPATH=src python tests/test_torch_model.py "
                  "--write-golden")
-    GOLDEN.parent.mkdir(parents=True, exist_ok=True)
-    GOLDEN.write_text(json.dumps(golden_record(), indent=1) + "\n")
-    print(f"wrote {GOLDEN}")
+    TESTDATA.mkdir(parents=True, exist_ok=True)
+    for name in TC.CONV_TYPES:
+        golden_path(name).write_text(
+            json.dumps(golden_record(name), indent=1) + "\n")
+        print(f"wrote {golden_path(name)}")

@@ -132,8 +132,9 @@ def test_serve_defaults_to_cuda():
     args = TS.parser().parse_args([])
     assert args.device == "cuda" and not args.reduced
     assert args.conv == "gcn"
+    assert TS.parser().parse_args(["--conv", "sage"]).conv == "sage"
     with pytest.raises(SystemExit):
-        TS.parser().parse_args(["--conv", "sage"])
+        TS.parser().parse_args(["--conv", "cheb"])
 
 
 def test_jax_cli_quirk_serves_reduced_only():

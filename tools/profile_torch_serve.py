@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where one packed batch's time goes in the PyTorch/CUDA port.
 
-    python3 tools/profile_torch_serve.py [--batch-graphs 32 1024] [--iters 20]
+    python3 tools/profile_torch_serve.py [--conv gcn gat pna] \
+        [--batch-graphs 32 1024] [--iters 20]
 
-For each batch size: the first packed batch of qm9 graphs through the
-full-width GCN (``configs.gnn.benchmark_config("gcn")``, the weights
-``launch.serve`` draws), exactly as ``repro_torch.launch.serve`` runs it (host batch ->
+For each conv and batch size: the first packed batch of qm9 graphs
+through the full-width model (``configs.gnn.benchmark_config(conv)``,
+the weights ``launch.serve`` draws), exactly as
+``repro_torch.launch.serve`` runs it (host batch ->
 ``packed_to_device`` -> ``apply_packed`` -> ``torch.cuda.synchronize``).
 Prints the batch's wall time (host clock, median of ``--iters``), the
 device time per batch from a ``torch.profiler`` trace of the same
@@ -41,7 +43,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_batch(batch_graphs: int, iters: int) -> None:
+def profile_batch(conv: str, batch_graphs: int, iters: int) -> None:
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
@@ -50,7 +52,7 @@ def profile_batch(batch_graphs: int, iters: int) -> None:
 
     dev = torch.device("cuda")
     ds = DATASETS["qm9"]
-    cfg = benchmark_config("gcn")
+    cfg = benchmark_config(conv)
     params = init_params(cfg, torch.Generator().manual_seed(WEIGHT_SEED),
                          dev)
     nb, eb = budgets(batch_graphs, ds)
@@ -80,8 +82,8 @@ def profile_batch(batch_graphs: int, iters: int) -> None:
     if device_ms <= 0:
         raise SystemExit("the profiler trace holds no device time")
     wall = statistics.median(walls)
-    print(f"== {batch_graphs} graphs/batch ({nb} node / {eb} edge budget) "
-          f"on {torch.cuda.get_device_name(0)}")
+    print(f"== {conv}, {batch_graphs} graphs/batch ({nb} node / {eb} edge "
+          f"budget) on {torch.cuda.get_device_name(0)}")
     print(f"batch wall {wall:.4f} ms (median of {iters}); device busy "
           f"{device_ms:.4f} ms per batch; device idle share "
           f"{1 - device_ms / wall:.4f}")
@@ -90,7 +92,11 @@ def profile_batch(batch_graphs: int, iters: int) -> None:
 
 
 def main(argv=None) -> int:
+    from repro_torch.core.convs import CONV_TYPES
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--conv", nargs="+", default=["gcn"],
+                    choices=CONV_TYPES)
     ap.add_argument("--batch-graphs", type=int, nargs="+",
                     default=[32, 1024])
     ap.add_argument("--iters", type=int, default=20)
@@ -98,8 +104,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
-    for bg in args.batch_graphs:
-        profile_batch(bg, args.iters)
+    for conv in args.conv:
+        for bg in args.batch_graphs:
+            profile_batch(conv, bg, args.iters)
     return 0
 
 
