@@ -21,7 +21,13 @@ Phases, in order; any failure exits non-zero with no result line:
    cases (a prime edge count, -1 and >= S ids, ``valid == False``, an
    empty, a one-edge and a several-thousand-edge segment, +-1e4, -inf
    and all -inf logits), to rtol 1e-5, atol 1e-7, with exact 0 wherever
-   the plain version gives 0 and every weight finite;
+   the plain version gives 0 and every weight finite. The resident
+   layer-stack kernel: GCN and SAGE x fp32/bf16/int8 precision rows x
+   skip on/off, at the path's shapes (both full-width layers, K = 2, at
+   32, 256 and 1024 graphs/batch) and on the edge cases (a 3000-edge hub
+   row, bad ids on each stream, N = 1001, F = 96 and 160, K = 1 and 4,
+   no edges), then every activation; to ``STACK_TOL`` on the output
+   scale, each bf16 and int8 output differing from the fp32 one;
 4. serving of every registered conv (``core.convs.CONV_TYPES``: gcn,
    sage, gin, pna, gat) at the paper's full width
    (``configs.gnn.benchmark_config``) on qm9 graphs through
@@ -31,18 +37,29 @@ Phases, in order; any failure exits non-zero with no result line:
    launches each kernel exactly as ``LAUNCHES_PER_BATCH`` says (the
    counts are zeroed just before each drain and read just after); the
    first batch matches the port's CPU plain path with the same weights
-   (atol 1e-4, rtol 1e-4);
+   (atol 1e-4, rtol 1e-4). Then GCN and SAGE through
+   ``apply_packed_resident(fusion_depth=2)`` by ``serve.drain_gnn_queue``
+   at 32, 256 and 1024 graphs/batch (20 measured batches each), with the
+   residency plan's verdict, ``RESIDENT_LAUNCHES`` per batch when it is
+   legal, the first batch against ``apply_packed`` on the card (1e-5 of
+   the output scale) and the CPU plain path (1e-4), and graphs/s and p50
+   beside ``apply_packed``'s on the same queue in the same run;
 5. for each conv, the full-width output on the first 32 qm9 graphs,
    weights from the golden file's numpy seed, against the JAX package's
    output stored in ``src/repro_torch/testdata/{conv}_qm9_full.json``
-   (atol 1e-4, rtol 1e-4);
+   (atol 1e-4, rtol 1e-4), for GCN and SAGE also through the resident
+   path; and the padded per-graph oracle (``gnn_model.apply``) on 8
+   graphs against the rows of ``apply_packed``;
 6. kernel timings at the serving path's shapes: CUDA events, median of
    25 runs of 10 launches queued behind a spin kernel (device time, not
    the host's launch rate) after a warm-up, beside the plain version
    (which synchronises with the host; its time includes that), one
    PyTorch library call computing the same function where there is one,
    and the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32;
-   the H100 SXM data sheet).
+   the H100 SXM data sheet); the resident stack's bound counts the work
+   at the model's real layer widths (``stack_work``), and its time stands
+   beside the same two layers run layer by layer
+   (``gnn_model._backbone``).
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -72,17 +89,42 @@ SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 STORAGE = (torch.float32, torch.bfloat16, torch.int8)
 
-KERNELS = ("fused_gather_aggregate", "segment_aggregate", "segment_softmax")
-# kernel launches per served batch, in KERNELS order
+KERNELS = ("fused_gather_aggregate", "segment_aggregate", "segment_softmax",
+           "fused_layer_stack")
+# kernel launches per served batch of apply_packed, in KERNELS order
 LAUNCHES_PER_BATCH = {
-    "gcn": (2, 3, 0),       # a scaled gather per layer; add/mean/max pooling
-    "sage": (2, 3, 0),      # a mean gather per layer; pooling
-    "gin": (0, 5, 0),       # an edge-message sum per layer; pooling
-    "pna": (0, 11, 0),      # mean/min/max/std towers per layer; pooling
-    "gat": (2, 3, 2),       # a softmax and a weighted gather per layer
+    "gcn": (2, 3, 0, 0),    # a scaled gather per layer; add/mean/max pooling
+    "sage": (2, 3, 0, 0),   # a mean gather per layer; pooling
+    "gin": (0, 5, 0, 0),    # an edge-message sum per layer; pooling
+    "pna": (0, 11, 0, 0),   # mean/min/max/std towers per layer; pooling
+    "gat": (2, 3, 2, 0),    # a softmax and a weighted gather per layer
 }
-SOFTMAX_NO_LIBRARY = ("no single PyTorch call computes a per-segment "
-                      "softmax")
+# per batch of apply_packed_resident(fusion_depth=2) when the plan is
+# legal: both layers in one stack launch, then the pooling
+RESIDENT_LAUNCHES = (0, 3, 0, 1)
+RESIDENT_CONVS = ("gcn", "sage")
+RESIDENT_BATCHES = (32, 256, 1024)
+NO_LIBRARY = {
+    "segment_softmax": "no single PyTorch call computes a per-segment "
+                       "softmax",
+    "fused_layer_stack": "no single PyTorch call computes a GCN/SAGE "
+                         "layer stack",
+}
+# the resident kernel's precision rows [mode, s, lo, hi] and tolerances
+# on the output scale, max|err| <= rtol * max|plain| + atol: fp32 the
+# products sum in another order; bf16 a product summed in another order
+# can round to the neighbouring bf16 value, one ulp (at most 2^-7 of the
+# value, so under 1e-2 of the output scale); int8 one grid step. A bf16
+# or int8 output must also differ from the fp32 one on the same inputs,
+# so that a kernel ignoring the precision row fails.
+INT8_S = 2.0 ** -5
+QP_ROWS = {"fp32": (0.0, 1.0, 0.0, 0.0), "bf16": (1.0, 1.0, 0.0, 0.0),
+           "int8": (2.0, INT8_S, -128 * INT8_S, 127 * INT8_S)}
+STACK_TOL = {"fp32": (1e-5, 1e-6), "bf16": (1e-2, 1e-3),
+             "int8": (5e-2, 1.05 * INT8_S)}
+# the resident path against apply_packed on the card: 1e-5 of the output
+# scale (the same fp32 math, aggregated first at the padded width)
+RESIDENT_RTOL = 1e-5
 
 
 class PhaseError(RuntimeError):
@@ -108,8 +150,9 @@ def counters() -> dict:
         fused_gather_aggregate)
     from repro_torch.kernels.segment_aggregate.ops import segment_aggregate
     from repro_torch.kernels.segment_softmax.ops import segment_softmax
+    from repro_torch.kernels.fused_layer_stack.ops import fused_layer_stack
     return dict(zip(KERNELS, (fused_gather_aggregate, segment_aggregate,
-                              segment_softmax)))
+                              segment_softmax, fused_layer_stack)))
 
 
 def cuda_ms(fn, reps: int = 25, inner: int = 10,
@@ -191,6 +234,38 @@ def softmax_bytes(csr, num_edges: int) -> int:
     return 12 * n_valid + 8 * (num_edges - n_valid) + nbytes(csr.offsets)
 
 
+def stack_work(args, kind: str, has_skip: bool, dims) -> tuple:
+    """(bytes, operations) the resident stack's function needs on these
+    inputs at the model's real layer widths ``dims`` [(in, out), ...],
+    not at the padded table width (the padding columns are zeros that the
+    kernel carries, not work the function needs). Bytes: the table in at
+    the first layer's width and out at the last's, per valid edge its
+    perm entry, source id and scale (12 B), the offsets, the mask and
+    (GCN) self-scale columns, and the unpadded weights the layers read
+    (GCN: W; SAGE: W_self and W_neigh; the skip projection where the
+    widths change) with the bias and precision rows. Padding edges are
+    never read; the table between the fused layers is neither an input
+    nor an output. Operations per layer over the N rows: the edge fold (a
+    multiply and an add per valid edge and input column), the self term
+    (GCN: a multiply and an add) or the mean (SAGE: a divide), 2 in out
+    per product, the bias, the skip (a product and an add, or the add of
+    the identity), the activation and the mask."""
+    x, _, _, _, offsets, self_vec, mask = args[:7]
+    n, e = x.shape[0], int(offsets[-1])
+    n_mats = 1 if kind == "gcn" else 2
+    moved = (4 * n * (dims[0][0] + dims[-1][1]) + 12 * e
+             + nbytes(offsets, mask)
+             + (nbytes(self_vec) if kind == "gcn" else 0))
+    ops = 0.0
+    for i, o in dims:
+        proj = has_skip and i != o
+        moved += 4 * i * o * (n_mats + proj) + 4 * o + 16
+        ops += (2.0 * e * i + (2 if kind == "gcn" else 1) * n * i
+                + 2.0 * n * i * o * (n_mats + proj)
+                + n * o * (1 + (kind == "sage") + has_skip + 2))
+    return moved, ops
+
+
 def bound_ms(bytes_moved: int, flops: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
@@ -214,6 +289,45 @@ def captured_softmax_inputs():
         yield calls
     finally:
         A._segment_softmax = real
+
+
+@contextlib.contextmanager
+def captured_stack_inputs():
+    """Record the (args, kwargs) of every resident-stack call the model
+    makes inside the block."""
+    from repro_torch.core import gnn_model as G
+    calls = []
+    real = G.fused_layer_stack
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    G.fused_layer_stack = capture
+    try:
+        yield calls
+    finally:
+        G.fused_layer_stack = real
+
+
+def resident_stack_inputs(dev, conv: str, batch) -> tuple:
+    """The resident stack's (args, kwargs) on one packed batch: the
+    full-width model with the weights ``launch.serve`` draws, both layers
+    in one launch (fusion_depth 2)."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.launch import serve
+    from repro_torch.nn.param import init_params
+
+    cfg = benchmark_config(conv)
+    params = init_params(
+        cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), dev)
+    with captured_stack_inputs() as calls, torch.inference_mode():
+        G.apply_packed_resident(params, cfg, G.packed_to_device(batch, dev),
+                                fusion_depth=2)
+    check(len(calls) == 1, f"{conv}: {len(calls)} resident stack calls, "
+                           "expected one for both layers")
+    return calls[0]
 
 
 def gat_softmax_inputs(dev, batch) -> list:
@@ -385,7 +499,115 @@ def softmax_cases(dev, rng, path_batches):
     return cases
 
 
-def kernels_vs_plain(dev, path_batches) -> dict:
+def compare_stack(label: str, mode: str, got: torch.Tensor,
+                  want: torch.Tensor, errs: dict) -> None:
+    name = "fused_layer_stack"
+    check(got.shape == want.shape, f"{name} {label}: shape "
+                                   f"{tuple(got.shape)} != "
+                                   f"{tuple(want.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{name} {label}: non-finite")
+    err = float((got - want).abs().max())
+    for key in (name, f"{name} {mode}"):
+        errs[key] = max(errs.get(key, 0.0), err)
+    rtol, atol = STACK_TOL[mode]
+    bound = rtol * float(want.abs().max()) + atol
+    check(err <= bound, f"{name} {label}: max |err| {err} > {bound} "
+                        f"({mode}: rtol {rtol}, atol {atol})")
+
+
+def stack_edge_cases(dev, rng):
+    """(label, args, K) synthetic stacks: a hub row with 3000 in-edges,
+    -1 / out-of-range / negative ids on each stream, N = 1001 (not a
+    multiple of the 32-row tile), widths 96 and 160 (a partial column
+    pass), 1 and 4 layers, and an edgeless stack."""
+    from repro_torch.core import aggregations as A
+    n, e = 1001, 5000
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n, e)
+    src[:4] = [-1, n, n + 7, -3]
+    dst[4:8] = [-1, n, n + 2, -9]
+    dst[rng.choice(np.arange(8, e), 3000, replace=False)] = 5     # hub
+    cases = []
+    for f, k, edges in ((96, 1, True), (160, 4, True), (128, 2, False)):
+        s = src if edges else np.full(e, -1)
+        src_t = torch.as_tensor(s, dtype=torch.int32, device=dev)
+        dst_t = torch.as_tensor(dst, dtype=torch.int32, device=dev)
+        csr = A.gather_csr(src_t, dst_t, n, n)
+
+        def t(*shape, scale=1.0):
+            return torch.as_tensor(rng.standard_normal(shape) * scale,
+                                   dtype=torch.float32, device=dev)
+        args = (t(n, f, scale=2.0), src_t,
+                torch.as_tensor(rng.uniform(0.2, 1.5, e) / 40,
+                                dtype=torch.float32, device=dev),
+                csr.perm, csr.offsets,
+                torch.as_tensor(rng.uniform(0.1, 1.0, n),
+                                dtype=torch.float32, device=dev),
+                torch.as_tensor(rng.random(n) < 0.9, dtype=torch.float32,
+                                device=dev),
+                t(k, f, f, scale=f ** -0.5), t(k, f, f, scale=f ** -0.5),
+                t(k, f, f, scale=f ** -0.5), t(k, f, scale=0.1),
+                torch.zeros((k, 4), device=dev))
+        tag = "hub of 3000, bad ids" if edges else "no edges"
+        cases.append((f"{tag}, N={n} F={f} K={k}", args, k))
+    return cases
+
+
+def stack_vs_plain(dev, resident_batches, errs: dict) -> int:
+    """The resident stack kernel against its plain version: both kinds x
+    the three precision rows x skip on/off, at the serving path's
+    shapes (both layers of the full-width model, K = 2, at 32, 256 and
+    1024 graphs/batch) and on the edge cases; then every activation
+    (fp32) on the first edge case."""
+    from repro_torch.kernels.fused_layer_stack.kernel import (
+        ACT_CODES, fused_layer_stack_cuda)
+    from repro_torch.kernels.fused_layer_stack.ref import (
+        fused_layer_stack_ref)
+
+    rng = np.random.default_rng(5)
+    cases = []
+    for label, batch in resident_batches:
+        for conv in RESIDENT_CONVS:
+            args, _ = resident_stack_inputs(dev, conv, batch)
+            cases.append((f"{conv} {label}", conv, args))
+    edge_cases = stack_edge_cases(dev, rng)
+    for label, args, _ in edge_cases:
+        for conv in RESIDENT_CONVS:
+            cases.append((f"{conv} {label}", conv, args))
+    n_cmp = 0
+    label, args, k = edge_cases[0]
+    full = args[:11] + (torch.tensor([QP_ROWS["fp32"]] * k, device=dev),)
+    for act in ACT_CODES:
+        for kind in RESIDENT_CONVS:
+            got = fused_layer_stack_cuda(*full, kind=kind, activation=act)
+            want = fused_layer_stack_ref(*full, kind=kind, activation=act)
+            compare_stack(f"{kind} {label} {act}", "fp32", got, want, errs)
+            n_cmp += 1
+    for label, kind, args in cases:
+        k = args[8].shape[0]
+        for skip in (True, False):
+            fp32_out = None
+            for mode, row in QP_ROWS.items():     # fp32 first
+                qp = torch.tensor([row] * k, dtype=torch.float32,
+                                  device=dev)
+                full = args[:11] + (qp,)
+                got = fused_layer_stack_cuda(*full, kind=kind,
+                                             has_skip=skip)
+                want = fused_layer_stack_ref(*full, kind=kind,
+                                             has_skip=skip)
+                tag = f"{label} {mode} skip={skip}"
+                compare_stack(tag, mode, got, want, errs)
+                if fp32_out is None:
+                    fp32_out = got
+                else:
+                    check(not torch.equal(got, fp32_out),
+                          f"fused_layer_stack {tag}: equals the fp32 "
+                          "output, the precision row was ignored")
+                n_cmp += 1
+    return n_cmp
+
+
+def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
     from repro_torch.core import aggregations as A
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
         AGGS as GATHER_AGGS, fused_gather_aggregate_cuda)
@@ -435,6 +657,7 @@ def kernels_vs_plain(dev, path_batches) -> dict:
         want = segment_softmax_ref(z, perm, off)
         compare_softmax(label, got, want, errs)
         n_cmp += 1
+    n_cmp += stack_vs_plain(dev, resident_batches, errs)
     torch.cuda.synchronize()
     print(f"[3] {n_cmp} kernel-vs-plain comparisons passed; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -442,6 +665,11 @@ def kernels_vs_plain(dev, path_batches) -> dict:
 
 
 # ----------------------------------------------------------- phase 4 --
+def p50_ms(stats: dict) -> float:
+    lat = sorted(stats["batch_latency_s"])
+    return lat[len(lat) // 2] * 1e3
+
+
 def serve_phase(conv: str, requests: int, batch_graphs: int) -> dict:
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
@@ -482,20 +710,144 @@ def serve_phase(conv: str, requests: int, batch_graphs: int) -> dict:
     err = float((outs[0].cpu() - ref).abs().max())
     check(torch.allclose(outs[0].cpu(), ref, **MODEL_TOL),
           f"{conv}: first batch vs CPU plain path: max |err| {err}")
-    lat = sorted(stats["batch_latency_s"])
     print(f"[4] {conv}: served {requests} requests at {batch_graphs} "
           f"graphs/batch ({stats['n_batches']} measured batches, "
           f"{stats['total_s'] * 1e3:.4f} ms): {stats['graphs_per_s']:.1f} "
-          f"graphs/s, batch latency p50 {lat[len(lat) // 2] * 1e3:.4f} ms "
-          f"max {lat[-1] * 1e3:.4f} ms, launches over {n_batches} batches "
+          f"graphs/s, batch latency p50 {p50_ms(stats):.4f} ms "
+          f"max {max(stats['batch_latency_s']) * 1e3:.4f} ms, launches over {n_batches} batches "
           f"(warm-up included): "
           + ", ".join(f"{k} {v}" for k, v in launches.items())
           + f"; first batch vs CPU max |err| {err:.3e}")
     return launches
 
 
+def resident_phase(dev, conv: str, batch_graphs: int, requests: int) -> dict:
+    """Serve ``conv`` through ``apply_packed_resident(fusion_depth=2)``
+    with ``serve.drain_gnn_queue`` (warm-up drain, then the measured
+    one; the counts cover both), then the same queue through
+    ``apply_packed`` in the same run. Checks the plan's launches per
+    batch, finite outputs, and the first batch against ``apply_packed``
+    on the card (1e-5 of the output scale) and against the CPU plain
+    path (atol/rtol 1e-4)."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.core.convs import residency_plan
+    from repro_torch.data import pipeline as P
+    from repro_torch.device import l2_cache_bytes
+    from repro_torch.launch import serve
+    from repro_torch.nn.param import init_params
+    from repro_torch.runtime import scheduler as S
+
+    ds = DATASETS["qm9"]
+    cfg = benchmark_config(conv)
+    nb, eb = serve.budgets(batch_graphs, ds)
+    plan = residency_plan(
+        [(cfg.conv_cfg(i).in_dim, cfg.conv_cfg(i).out_dim)
+         for i in range(cfg.gnn_num_layers)], nb, conv, 2, edge_budget=eb,
+        l2_bytes=l2_cache_bytes(dev))
+    params = init_params(
+        cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), dev)
+    queue = [P.make_graph(ds, i) for i in range(requests)]
+    # the padded weight stacks depend on the weights only: built once
+    stacks = G.resident_stacks(params, cfg, 2)
+
+    def resident(p, b):
+        return G.apply_packed_resident(p, cfg, b, fusion_depth=2,
+                                       stacks=stacks)
+
+    def packed(p, b):
+        return G.apply_packed(p, cfg, b)
+
+    def drain(fn):
+        _, warm = serve.drain_gnn_queue(fn, params, queue[:batch_graphs],
+                                        nb, eb, batch_graphs, device=dev)
+        outs, stats = serve.drain_gnn_queue(fn, params, queue, nb, eb,
+                                            batch_graphs, device=dev)
+        check(stats["served"] == requests
+              and all(o["status"] == S.SERVED_PACKED
+                      for o in stats["outcomes"]),
+              f"{conv}: served {stats['served']} of {requests}")
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"{conv}: non-finite serving output")
+        return outs, stats, stats["n_batches"] + warm["n_batches"]
+
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    outs, stats, n_batches = drain(resident)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    expected = RESIDENT_LAUNCHES if plan.legal else LAUNCHES_PER_BATCH[conv]
+    for name, per_batch in zip(KERNELS, expected):
+        check(launches[name] == per_batch * n_batches,
+              f"{conv} resident: {launches[name]} {name} launches for "
+              f"{n_batches} batches, expected {per_batch} per batch")
+    pouts, pstats, _ = drain(packed)
+    err_card = float((outs[0] - pouts[0]).abs().max())
+    bound = RESIDENT_RTOL * float(pouts[0].abs().max())
+    check(err_card <= bound, f"{conv} resident vs apply_packed on the card: "
+                             f"max |err| {err_card} > {bound}")
+    cpu_params = init_params(
+        cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), "cpu")
+    first = P.pack_dataset(queue[:2 * batch_graphs], nb, eb,
+                           batch_graphs)[0][0]
+    with torch.inference_mode():
+        ref = G.apply_packed_resident(cpu_params, cfg,
+                                      G.packed_to_device(first, "cpu"),
+                                      fusion_depth=2)
+    err_cpu = float((outs[0].cpu() - ref).abs().max())
+    check(torch.allclose(outs[0].cpu(), ref, **MODEL_TOL),
+          f"{conv} resident: first batch vs CPU plain path: max |err| "
+          f"{err_cpu}")
+    print(f"[4] {conv} resident, fusion_depth 2, {batch_graphs} graphs/batch"
+          f" ({nb} nodes): plan legal={plan.legal} depth={plan.depth} "
+          f"fmax={plan.fmax} ({plan.reason}); {requests} requests: "
+          f"{stats['graphs_per_s']:.1f} graphs/s, p50 {p50_ms(stats):.4f} "
+          f"ms; apply_packed in the same run: "
+          f"{pstats['graphs_per_s']:.1f} graphs/s, p50 "
+          f"{p50_ms(pstats):.4f} ms; launches over {n_batches} batches: "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; first batch vs apply_packed max |err| {err_card:.3e} "
+          f"(bound {bound:.3e}), vs CPU {err_cpu:.3e}")
+    return launches
+
+
 # ----------------------------------------------------------- phase 5 --
-def golden_phase(dev, conv: str) -> float:
+def oracle_phase(dev, conv: str, n_graphs: int = 8) -> float:
+    """The padded per-graph oracle (``gnn_model.apply``, one padded qm9
+    graph at a time) on the card against the rows of ``apply_packed``
+    over the same graphs (atol/rtol 1e-4)."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import serve
+    from repro_torch.nn.param import init_params
+
+    ds = DATASETS["qm9"]
+    cfg = benchmark_config(conv)
+    params = init_params(
+        cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), dev)
+    gb = P.graph_batch(ds, 0, n_graphs)
+    nb, eb = serve.budgets(n_graphs, ds)
+    batch, k = P.pack_graphs([P.make_graph(ds, i) for i in range(n_graphs)],
+                             nb, eb, n_graphs)
+    check(k == n_graphs, f"packed {k} of {n_graphs} graphs")
+    with torch.inference_mode():
+        packed = G.apply_packed(params, cfg, G.packed_to_device(batch, dev))
+        per_graph = torch.stack([
+            G.apply(params, cfg, G.packed_to_device(
+                {key: v[i] for key, v in gb.items()}, dev))
+            for i in range(n_graphs)])
+    err = float((per_graph - packed[:n_graphs]).abs().max())
+    check(bool(torch.isfinite(per_graph).all())
+          and torch.allclose(per_graph, packed[:n_graphs], **MODEL_TOL),
+          f"{conv}: padded oracle vs apply_packed: max |err| {err}")
+    print(f"[5] padded oracle, full-width {conv} on {n_graphs} qm9 graphs "
+          f"({gb['node_feat'].shape[1]}-node frames) vs apply_packed rows: "
+          f"max |err| {err:.3e}")
+    return err
+
+
+def golden_phase(dev, conv: str, resident: bool = False) -> float:
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
@@ -511,14 +863,20 @@ def golden_phase(dev, conv: str) -> float:
     check(k == gold["graphs"], f"packed {k} of {gold['graphs']} graphs")
     params = params_from_jax(
         cfg, materialize_numpy(G.model_plan(cfg), gold["seed"]), dev)
+    fn = G.apply_packed_resident if resident else G.apply_packed
+    stack = counters()["fused_layer_stack"]
+    before = stack.launches
     with torch.inference_mode():
-        out = G.apply_packed(params, cfg, G.packed_to_device(batch, dev))
+        out = fn(params, cfg, G.packed_to_device(batch, dev))
+    check(stack.launches == before + int(resident),
+          f"{conv}: {stack.launches - before} stack launches")
     want = torch.tensor(gold["out"], dtype=torch.float32)
     err = float((out.cpu() - want).abs().max())
+    path = "resident" if resident else "packed"
     check(torch.allclose(out.cpu(), want, **MODEL_TOL),
-          f"{conv}: full-width output vs JAX golden: max |err| {err}")
-    print(f"[5] full-width {conv} on {k} qm9 graphs vs the JAX golden "
-          f"output: max |err| {err:.3e}")
+          f"{conv} {path}: full-width output vs JAX golden: max |err| {err}")
+    print(f"[5] full-width {conv} ({path}) on {k} qm9 graphs vs the JAX "
+          f"golden output: max |err| {err:.3e}")
     return err
 
 
@@ -539,7 +897,7 @@ def gather_widths(conv: str) -> list:
     return widths
 
 
-def timing_phase(dev, path_batches) -> list:
+def timing_phase(dev, path_batches, resident_batches) -> list:
     from repro_torch.configs.gnn import benchmark_config
     from repro_torch.core import aggregations as A
     from repro_torch.core import gnn_model as G
@@ -555,18 +913,25 @@ def timing_phase(dev, path_batches) -> list:
     from repro_torch.kernels.segment_softmax.kernel import (
         segment_softmax_cuda)
     from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
+    from repro_torch.kernels.fused_layer_stack.kernel import (
+        fused_layer_stack_cuda)
+    from repro_torch.kernels.fused_layer_stack.ref import (
+        fused_layer_stack_ref)
+    from repro_torch.launch import serve
+    from repro_torch.nn.param import init_params
 
     rows = []
 
     def row(kernel, conv, label, shape, kern, plain, lib, bytes_moved,
-            flops):
+            flops, **extra):
         bound, by = bound_ms(bytes_moved, flops)
         rows.append(dict(
             kernel=kernel, conv=conv, batch=label, shape=shape,
             ms=cuda_ms(kern),
             plain_ms=cuda_ms(plain, reps=21, inner=2, device_only=False),
             library_ms=None if lib is None else cuda_ms(lib),
-            bound_ms=bound, bound_by=by))
+            bound_ms=bound, bound_by=by,
+            **{k: fn() for k, fn in extra.items()}))
 
     def sparse_adj(ei, ok, w, n):
         return torch.sparse_coo_tensor(
@@ -662,19 +1027,48 @@ def timing_phase(dev, path_batches) -> list:
                             f" rows={ei.shape[0]} (valid {n_valid}) S={n} "
                             f"F={f}", msg, csr, n, agg, idx,
                             lib_reduce[agg])
+    # the resident stack: both layers of the full-width model in one
+    # launch; beside it, the same two layers through the layer-by-layer
+    # path (gather kernel + matmuls, _backbone) on the same batch
+    for label, batch in resident_batches:
+        b = G.packed_to_device(batch, dev)
+        g, x, node_mask, _ = G.packed_inputs(b)
+        for conv in RESIDENT_CONVS:
+            cfg = benchmark_config(conv)
+            params = init_params(
+                cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), dev)
+            args, kw = resident_stack_inputs(dev, conv, batch)
+            n, f = args[0].shape
+            k = args[8].shape[0]
+            check(k == cfg.gnn_num_layers, f"{conv}: K={k}")
+            dims = [(cfg.conv_cfg(i).in_dim, cfg.conv_cfg(i).out_dim)
+                    for i in range(k)]
+            widths = " -> ".join(str(w) for w in
+                                 [dims[0][0]] + [o for _, o in dims])
+            row("fused_layer_stack", conv, label,
+                f"{conv.upper()} K={k}: N={n} widths {widths} (table F={f})"
+                f" E={args[1].numel()} (valid {int(args[4][-1])})",
+                lambda: fused_layer_stack_cuda(*args, **kw),
+                lambda: fused_layer_stack_ref(*args, **kw), None,
+                *stack_work(args, conv, kw["has_skip"], dims),
+                layerwise_ms=lambda: cuda_ms(
+                    lambda: G._backbone(params, cfg, g, x, node_mask)))
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
+        lw = f", layer-by-layer {r['layerwise_ms']:.5f} ms" \
+            if "layerwise_ms" in r else ""
         print(f"[6] {r['kernel']} {r['batch']} {r['shape']}: kernel "
               f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
-              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}){lw}")
     return rows
 
 
 def summarize(rows, errs, launches) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
-    (gather, segment; the figures of the first slice) and GAT's
-    (softmax). ``launches`` counts every phase-4 drain of every conv."""
+    (gather, segment; the figures of the first slice; the resident
+    stack) and GAT's (softmax). ``launches`` counts every phase-4 drain
+    of every conv, resident drains included."""
     meta = {
         "fused_gather_aggregate": dict(
             source="src/repro_torch/csrc/fused_gather_aggregate.cu",
@@ -688,13 +1082,20 @@ def summarize(rows, errs, launches) -> dict:
             source="src/repro_torch/csrc/segment_softmax.cu",
             replaces="src/repro/kernels/segment_softmax/kernel.py:88",
             conv="gat"),
+        "fused_layer_stack": dict(
+            source="src/repro_torch/csrc/fused_layer_stack.cu",
+            replaces="src/repro/kernels/fused_gather_aggregate/"
+                     "residency.py:151",
+            conv="gcn"),
     }
     last = rows[-1]["batch"]
     out = []
     for i, (name, m) in enumerate(meta.items()):
         sel = [r for r in rows if r["kernel"] == name and r["batch"] == last
                and r["conv"] == m["conv"]]
-        check(len(sel) == LAUNCHES_PER_BATCH[m["conv"]][i],
+        per_batch = RESIDENT_LAUNCHES[i] if name == "fused_layer_stack" \
+            else LAUNCHES_PER_BATCH[m["conv"]][i]
+        check(len(sel) == per_batch,
               f"{name}: {len(sel)} timed launches for a {m['conv']} batch")
         by = "bytes" if all(r["bound_by"] == "bytes" for r in sel) \
             else "operations"
@@ -704,6 +1105,8 @@ def summarize(rows, errs, launches) -> dict:
             "replaces": m["replaces"], "launches": launches[name],
             "launches_per_batch": {c: t[i] for c, t in
                                    LAUNCHES_PER_BATCH.items()},
+            "resident_launches_per_batch": {
+                c: RESIDENT_LAUNCHES[i] for c in RESIDENT_CONVS},
             "max_abs_err": errs[name],
             "ms": sum(r["ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
@@ -713,8 +1116,12 @@ def summarize(rows, errs, launches) -> dict:
             "shapes": f"{m['conv']} {last}, per batch: "
                       + "; ".join(r["shape"] for r in sel),
         }
+        if name == "fused_layer_stack":
+            entry["max_abs_err_by_mode"] = {
+                mode: errs[f"{name} {mode}"] for mode in QP_ROWS}
+            entry["layerwise_ms"] = sum(r["layerwise_ms"] for r in sel)
         if entry["library_ms"] is None:
-            entry["library_note"] = SOFTMAX_NO_LIBRARY
+            entry["library_note"] = NO_LIBRARY[name]
         out.append(entry)
     return {"kernels": out}
 
@@ -752,13 +1159,15 @@ def main() -> int:
 
     ds = DATASETS["qm9"]
     queue = [P.make_graph(ds, i) for i in range(2048)]
-    path_batches = []
-    for bg in (32, 1024):
+    batches = {}
+    for bg in RESIDENT_BATCHES:
         nb, eb = serve.budgets(bg, ds)
-        path_batches.append(
-            (f"{bg} graphs/batch", P.pack_dataset(queue, nb, eb, bg)[0][0]))
+        batches[bg] = (f"{bg} graphs/batch",
+                       P.pack_dataset(queue, nb, eb, bg)[0][0])
+    path_batches = [batches[32], batches[1024]]
+    resident_batches = [batches[bg] for bg in RESIDENT_BATCHES]
 
-    errs = kernels_vs_plain(dev, path_batches)
+    errs = kernels_vs_plain(dev, path_batches, resident_batches)
     check(set(CONV_TYPES) == set(LAUNCHES_PER_BATCH),
           f"registered convs {CONV_TYPES} != launch table "
           f"{tuple(LAUNCHES_PER_BATCH)}")
@@ -771,9 +1180,17 @@ def main() -> int:
         for requests, bg in drains:
             for k, v in serve_phase(conv, requests, bg).items():
                 launches[k] += v
+    for conv in RESIDENT_CONVS:
+        for bg in RESIDENT_BATCHES:
+            # 20 measured batches at each size
+            for k, v in resident_phase(dev, conv, bg, 20 * bg).items():
+                launches[k] += v
     for conv in CONV_TYPES:
         golden_phase(dev, conv)
-    rows = timing_phase(dev, path_batches)
+        if conv in RESIDENT_CONVS:
+            golden_phase(dev, conv, resident=True)
+        oracle_phase(dev, conv)
+    rows = timing_phase(dev, path_batches, resident_batches)
     summary = summarize(rows, errs, launches)
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")

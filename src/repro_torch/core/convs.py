@@ -185,6 +185,72 @@ def resolve_dataflow(cfg: ConvConfig) -> str:
         else "aggregate_first"
 
 
+# L2 cache of the H100 (torch.cuda.get_device_properties(...).L2_cache_size
+# reads 52428800 on it): the residency budget where no device is given
+H100_L2_BYTES = 50 * 2 ** 20
+# share of the L2 the resident working set may take; the rest is headroom
+# for the traffic that passes through L2 around it
+L2_FRAC = 0.75
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidencyPlan:
+    """Planner verdict for the multi-layer resident conv stack
+    (``kernels.fused_layer_stack``): whether keeping the node table
+    resident across ``depth`` consecutive layers of one cooperative
+    launch fits the card's L2 budget, and the footprint arithmetic behind
+    the decision."""
+    legal: bool
+    depth: int            # layers fused per launch (min(requested, L))
+    fmax: int             # padded table width (a multiple of 32)
+    l2_required: int      # bytes of the fused group's working set
+    l2_budget: int        # bytes the planner allows (frac * L2)
+    reason: str
+
+
+def residency_plan(layer_dims, node_budget: int, conv: str,
+                   fusion_depth: int, *, edge_budget: int = 0,
+                   l2_bytes: int | None = None) -> ResidencyPlan:
+    """L2-budget rule deciding when multi-layer residency is legal.
+
+    layer_dims: [(in_dim, out_dim), ...] of the conv stack; node_budget /
+    edge_budget: rows of the packed node table / slots of its edge
+    stream. The kernel's working set is two fp32 ``(N, fmax)`` tables
+    (the layer's input and the next layer's, ping-pong), the stacked
+    per-layer weights (three ``fmax x fmax`` matrices, a bias row and a
+    precision row per fused layer), the edge streams (source id and
+    scale per edge slot, the CSR's permutation and offsets) and the
+    self-scale and mask columns; ``fmax`` is the widest layer rounded up
+    to a multiple of 32 (one warp of columns). There is no aggregate
+    table and no quantized shadow: the kernel folds each row's edges into
+    shared memory and casts on the fly. Legal only for
+    ``RESIDENT_CONVS`` (linear phi, one scalar per edge) at
+    ``fusion_depth > 1``, and only when the working set fits ``L2_FRAC``
+    of ``l2_bytes`` (default ``H100_L2_BYTES``)."""
+    l2 = H100_L2_BYTES if l2_bytes is None else int(l2_bytes)
+    budget = int(l2 * L2_FRAC)
+    depth = max(1, min(int(fusion_depth), len(layer_dims)))
+    fmax = max(max(d) for d in layer_dims)
+    fmax = -(-fmax // 32) * 32
+    required = (2 * node_budget * fmax * 4          # current + next table
+                + depth * (3 * fmax * fmax + fmax + 4) * 4   # weights
+                + 3 * edge_budget * 4               # src, scale, CSR perm
+                + (node_budget + 1) * 4             # CSR offsets
+                + 2 * node_budget * 4)              # self scale + mask
+    if conv not in RESIDENT_CONVS:
+        return ResidencyPlan(False, depth, fmax, required, budget,
+                             f"conv {conv!r} not in {RESIDENT_CONVS}")
+    if depth < 2:
+        return ResidencyPlan(False, depth, fmax, required, budget,
+                             "fusion_depth < 2: nothing to keep resident")
+    if required > budget:
+        return ResidencyPlan(False, depth, fmax, required, budget,
+                             f"working set {required} B exceeds "
+                             f"{budget} B L2 budget")
+    return ResidencyPlan(True, depth, fmax, required, budget,
+                         f"{required} B fits {budget} B L2 budget")
+
+
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``x[max(idx, 0)]``, as ``jnp.take(x, jnp.maximum(idx, 0))``:
     a padding id (-1) reads row 0, and an id past the table gives a NaN

@@ -1,7 +1,13 @@
-"""Global graph pooling over a packed batch: the port of the segment
-half of ``repro.core.pooling``. Each method is one segment aggregation
-keyed by the per-node graph id; methods combine by concatenation. Empty
-or fully padded graphs give zeros.
+"""Global graph pooling: the port of ``repro.core.pooling``. Methods
+combine by concatenation, in two forms matching the two execution
+formats:
+
+* ``global_pool(ing)``: one padded graph, a masked dense reduction ->
+  (F,) (the padded per-graph oracle, ``gnn_model.apply``);
+* ``segment_global_pool(ing)``: a packed batch, one segment aggregation
+  keyed by the per-node graph id -> (num_graphs, F).
+
+Empty or fully padded graphs give zeros in both.
 """
 from __future__ import annotations
 
@@ -10,6 +16,28 @@ import torch
 from repro_torch.core.aggregations import SegmentCSR, segment_aggregate
 
 _SEGMENT_AGG = {"add": "sum", "sum": "sum", "mean": "mean", "max": "max"}
+
+
+def global_pool(kind: str, x: torch.Tensor,
+                node_mask: torch.Tensor) -> torch.Tensor:
+    """x: (N, F); node_mask: (N,) bool -> (F,) float32."""
+    m = node_mask[:, None].to(torch.float32)
+    xf = x.to(torch.float32)
+    if kind in ("add", "sum"):
+        return (xf * m).sum(0)
+    if kind == "mean":
+        return (xf * m).sum(0) / torch.clamp(m.sum(), min=1.0)
+    if kind == "max":
+        out = torch.where(node_mask[:, None], xf,
+                          torch.full_like(xf, float("-inf"))).amax(0)
+        return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    raise ValueError(kind)
+
+
+def global_pooling(kinds, x: torch.Tensor,
+                   node_mask: torch.Tensor) -> torch.Tensor:
+    """Concatenation of pooling methods -> (len(kinds) * F,)."""
+    return torch.cat([global_pool(k, x, node_mask) for k in kinds])
 
 
 def segment_global_pool(kind: str, x: torch.Tensor, graph_id: torch.Tensor,

@@ -70,6 +70,22 @@ def graph_dataset(cfg: GraphDataConfig) -> list:
     return [make_graph(cfg, i) for i in range(cfg.num_graphs)]
 
 
+def graph_batch(cfg: GraphDataConfig, step: int, batch_size: int) -> dict:
+    """Stacked padded graphs, the padded per-graph oracle's input;
+    deterministic in step."""
+    idx0 = (step * batch_size) % cfg.num_graphs
+    graphs = [make_graph(cfg, (idx0 + i) % cfg.num_graphs)
+              for i in range(batch_size)]
+    return {
+        "node_feat": np.stack([g.node_feat for g in graphs]),
+        "edge_index": np.stack([g.edge_index for g in graphs]),
+        "edge_feat": np.stack([g.edge_feat for g in graphs]),
+        "num_nodes": np.array([g.num_nodes for g in graphs], np.int32),
+        "num_edges": np.array([g.num_edges for g in graphs], np.int32),
+        "y": np.stack([g.y for g in graphs]),
+    }
+
+
 def size_budget(batch_graphs: int, avg_count: float, slack: float = 1.5,
                 multiple: int = 8) -> int:
     """Budget-sizing rule: slack x the expected total covers the Poisson

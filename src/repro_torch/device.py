@@ -13,6 +13,13 @@ def set_fp32_numerics() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def l2_cache_bytes(device: torch.device) -> int | None:
+    """The L2 cache size of a CUDA device; None for the CPU."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.get_device_properties(device).L2_cache_size)
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The device an entry point runs on. ``"cuda"`` (the default) needs
     a card and raises without one — the port never carries on quietly

@@ -245,11 +245,10 @@ def _chip_smoke():
     return chip_smoke
 
 
-@pytest.mark.parametrize("conv", TC.CONV_TYPES)
-def test_kernel_calls_per_batch_match_chip_smoke_table(conv, monkeypatch):
-    """The per-conv launch table ``chip_smoke.py`` holds the card to,
-    counted here as calls of each kernel wrapper on the CPU path."""
-    calls = {"gather": 0, "segment": 0, "softmax": 0}
+def _count_kernel_calls(conv, monkeypatch, resident):
+    """Calls of each kernel wrapper, in ``chip_smoke.KERNELS`` order, for
+    one small qm9 batch through the CPU path."""
+    calls = {"gather": 0, "segment": 0, "softmax": 0, "stack": 0}
 
     def counting(name, fn):
         def wrapper(*a, **k):
@@ -263,13 +262,37 @@ def test_kernel_calls_per_batch_match_chip_smoke_table(conv, monkeypatch):
                         counting("segment", TA._segment_aggregate))
     monkeypatch.setattr(TA, "_segment_softmax",
                         counting("softmax", TA._segment_softmax))
+    monkeypatch.setattr(TG, "fused_layer_stack",
+                        counting("stack", TG.fused_layer_stack))
     cfg = port_cfg(JCfg.config(conv, reduced=True))
     params = tprm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = TG.packed_to_device(small_batch_qm9(), "cpu")
     with torch.inference_mode():
-        TG.apply_packed(params, cfg, TG.packed_to_device(small_batch_qm9(),
-                                                         "cpu"))
-    table = _chip_smoke().LAUNCHES_PER_BATCH[conv]
-    assert (calls["gather"], calls["segment"], calls["softmax"]) == table
+        if resident:
+            TG.apply_packed_resident(params, cfg, batch, fusion_depth=2)
+        else:
+            TG.apply_packed(params, cfg, batch)
+    return tuple(calls.values())
+
+
+@pytest.mark.parametrize("conv", TC.CONV_TYPES)
+def test_kernel_calls_per_batch_match_chip_smoke_table(conv, monkeypatch):
+    """The per-conv launch table ``chip_smoke.py`` holds the card to,
+    counted here as calls of each kernel wrapper on the CPU path."""
+    assert _count_kernel_calls(conv, monkeypatch, resident=False) \
+        == _chip_smoke().LAUNCHES_PER_BATCH[conv]
+
+
+@pytest.mark.parametrize("conv", TC.CONV_TYPES)
+def test_resident_kernel_calls_per_batch_match_chip_smoke_table(
+        conv, monkeypatch):
+    """``apply_packed_resident(fusion_depth=2)``: GCN and SAGE run both
+    layers in one stack call (``chip_smoke.RESIDENT_LAUNCHES``); the
+    other convs fall back to ``apply_packed``'s table."""
+    cs = _chip_smoke()
+    want = cs.RESIDENT_LAUNCHES if conv in cs.RESIDENT_CONVS \
+        else cs.LAUNCHES_PER_BATCH[conv]
+    assert _count_kernel_calls(conv, monkeypatch, resident=True) == want
 
 
 def small_batch_qm9():

@@ -161,3 +161,31 @@ def test_chip_smoke_bound_arithmetic():
     assert chip_smoke.nbytes(x, None, torch.zeros(3, dtype=torch.int8)) \
         == 4 * 8 * 4 + 3
     assert np.isclose(chip_smoke.MODEL_TOL["atol"], 1e-4)
+
+
+def test_chip_smoke_stack_work_counts_real_widths():
+    """The resident stack's bound counts the model's real layer widths
+    (11 -> 128 -> 64 with projection skips), not the padded table's."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    n, e = 10, 7
+    dims = [(11, 128), (128, 64)]
+
+    def args(f):
+        col = torch.ones(n)
+        return (torch.zeros((n, f)), None, None, None,
+                torch.tensor([0] * 4 + [e] * (n - 3), dtype=torch.int32),
+                col, col)
+    for kind, mats in (("gcn", 1), ("sage", 2)):
+        moved, ops = chip_smoke.stack_work(args(128), kind, True, dims)
+        assert (moved, ops) == chip_smoke.stack_work(args(256), kind, True,
+                                                     dims)
+        products = sum(2.0 * n * i * o * (mats + 1) for i, o in dims)
+        assert products < ops < 1.1 * products
+        weights = sum(4 * i * o * (mats + 1) for i, o in dims)
+        assert moved >= 4 * n * (11 + 64) + 12 * e + weights
+        no_skip = chip_smoke.stack_work(args(128), kind, False, dims)
+        assert no_skip[1] < ops and no_skip[0] < moved

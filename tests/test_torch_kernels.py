@@ -268,6 +268,7 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
 def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"fused_gather_aggregate.cu",
+                                      "fused_layer_stack.cu",
                                       "segment_aggregate.cu",
                                       "segment_softmax.cu"}
     h = _build.source_hash()

@@ -2,13 +2,17 @@
 """Where one packed batch's time goes in the PyTorch/CUDA port.
 
     python3 tools/profile_torch_serve.py [--conv gcn gat pna] \
-        [--batch-graphs 32 1024] [--iters 20]
+        [--batch-graphs 32 1024] [--iters 20] [--resident]
 
 For each conv and batch size: the first packed batch of qm9 graphs
 through the full-width model (``configs.gnn.benchmark_config(conv)``,
 the weights ``launch.serve`` draws), exactly as
 ``repro_torch.launch.serve`` runs it (host batch ->
-``packed_to_device`` -> ``apply_packed`` -> ``torch.cuda.synchronize``).
+``packed_to_device`` -> ``apply_packed`` -> ``torch.cuda.synchronize``);
+``--resident`` runs ``apply_packed_resident(fusion_depth=2)`` instead
+(GCN and SAGE fuse both layers into one resident-stack launch, with
+the padded weight stacks built once beforehand; the other convs fall
+back to ``apply_packed``).
 Prints the batch's wall time (host clock, median of ``--iters``), the
 device time per batch from a ``torch.profiler`` trace of the same
 iterations (kernels and copies, summed by name), and the device's idle
@@ -43,9 +47,11 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_batch(conv: str, batch_graphs: int, iters: int) -> None:
+def profile_batch(conv: str, batch_graphs: int, iters: int,
+                  resident: bool) -> None:
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
+    from repro_torch.core.convs import RESIDENT_CONVS
     from repro_torch.data import pipeline as P
     from repro_torch.launch.serve import WEIGHT_SEED, budgets
     from repro_torch.nn.param import init_params
@@ -58,9 +64,16 @@ def profile_batch(conv: str, batch_graphs: int, iters: int) -> None:
     nb, eb = budgets(batch_graphs, ds)
     queue = [P.make_graph(ds, i) for i in range(batch_graphs)]
     batch = P.pack_dataset(queue, nb, eb, batch_graphs)[0][0]
+    stacks = G.resident_stacks(params, cfg, 2) \
+        if resident and conv in RESIDENT_CONVS else None
 
     def step():
-        G.apply_packed(params, cfg, G.packed_to_device(batch, dev))
+        b = G.packed_to_device(batch, dev)
+        if resident:
+            G.apply_packed_resident(params, cfg, b, fusion_depth=2,
+                                    stacks=stacks)
+        else:
+            G.apply_packed(params, cfg, b)
         torch.cuda.synchronize()
 
     with torch.inference_mode():
@@ -82,8 +95,9 @@ def profile_batch(conv: str, batch_graphs: int, iters: int) -> None:
     if device_ms <= 0:
         raise SystemExit("the profiler trace holds no device time")
     wall = statistics.median(walls)
-    print(f"== {conv}, {batch_graphs} graphs/batch ({nb} node / {eb} edge "
-          f"budget) on {torch.cuda.get_device_name(0)}")
+    path = "apply_packed_resident" if resident else "apply_packed"
+    print(f"== {conv} ({path}), {batch_graphs} graphs/batch ({nb} node / "
+          f"{eb} edge budget) on {torch.cuda.get_device_name(0)}")
     print(f"batch wall {wall:.4f} ms (median of {iters}); device busy "
           f"{device_ms:.4f} ms per batch; device idle share "
           f"{1 - device_ms / wall:.4f}")
@@ -100,13 +114,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-graphs", type=int, nargs="+",
                     default=[32, 1024])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--resident", action="store_true",
+                    help="profile apply_packed_resident(fusion_depth=2)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
     for conv in args.conv:
         for bg in args.batch_graphs:
-            profile_batch(conv, bg, args.iters)
+            profile_batch(conv, bg, args.iters, args.resident)
     return 0
 
 
