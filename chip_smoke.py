@@ -14,9 +14,13 @@ Phases, in order; any failure exits non-zero with no result line:
    GIN's edge-message aggregations at F=11/128) and the edge cases
    (empty segments, -1 and out-of-range ids on each stream, a prime edge
    count, one-edge segments, large and negative values, a Welford case
-   of near-equal values); sum/mean/var/std hold to rtol 1e-5, atol 1e-6
-   (same fold order; only rounding of the plain version's separate
-   operations could differ), min/max exactly. The segment-softmax
+   of near-equal values, F = 256); sum/mean/var/std hold to rtol 1e-5,
+   atol 1e-6 (same fold order; only rounding of the plain version's
+   separate operations could differ), min/max exactly. The one-hot
+   kernels on the same cases and storage types at every tile pair of
+   ``ONEHOT_TILES`` (node_block {32, 64, 128} x edge_block {64, 128,
+   256}), against their plain versions to the same tolerances and, in
+   fp32, bit for bit against the CSR kernels' outputs. The segment-softmax
    kernel: both GAT layers' logits at both serving shapes and the edge
    cases (a prime edge count, -1 and >= S ids, ``valid == False``, an
    empty, a one-edge and a several-thousand-edge segment, +-1e4, -inf
@@ -59,7 +63,23 @@ Phases, in order; any failure exits non-zero with no result line:
    the H100 SXM data sheet); the resident stack's bound counts the work
    at the model's real layer widths (``stack_work``), and its time stands
    beside the same two layers run layer by layer
-   (``gnn_model._backbone``).
+   (``gnn_model._backbone``); the one-hot kernels at GCN's shapes with
+   ``Project``'s default tiles (128, 128), beside the same library call
+   and bound as the CSR kernels (one function), and their time per (node
+   tile x edge tile) step, the source of ``H100Target.
+   kernel_step_overhead``;
+7. ``core.project.Project`` at full width on qm9 graphs
+   (``agg_backend="pallas"``): the paper's Listing 1 for GCN (fixed
+   ``FPX(16, 10)``, ``gather_mode="onehot"``: testbench MAE < 1.0, the
+   program within ``FIXED_GRID_STEPS`` grid steps of the port's CPU run
+   with the same weights, the synthesis report); every conv one-hot at
+   32 graphs/batch (packed MAE <= 1e-4 against the testbench reference,
+   no CSR gather or segment launch inside the generated programs, one
+   batch launching exactly ``ONEHOT_LAUNCHES_PER_BATCH``); GCN and SAGE
+   at ``fusion_depth=2`` (residency engaged, stack launches); GCN at
+   1024 graphs/batch in both gather modes, graphs/s side by side. The
+   counts are set to 0 just before each generated program's run and read
+   just after; the testbench's fp32 reference runs the default kernels.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -82,6 +102,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.kernels._cost import (  # noqa: E402
+    gather_onehot_work, gather_work, nbytes, segment_onehot_work,
+    segment_work, softmax_work, stack_work)
+
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 SEGMENT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -90,20 +114,35 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 STORAGE = (torch.float32, torch.bfloat16, torch.int8)
 
 KERNELS = ("fused_gather_aggregate", "segment_aggregate", "segment_softmax",
-           "fused_layer_stack")
+           "fused_layer_stack", "fused_gather_onehot",
+           "segment_aggregate_onehot")
 # kernel launches per served batch of apply_packed, in KERNELS order
 LAUNCHES_PER_BATCH = {
-    "gcn": (2, 3, 0, 0),    # a scaled gather per layer; add/mean/max pooling
-    "sage": (2, 3, 0, 0),   # a mean gather per layer; pooling
-    "gin": (0, 5, 0, 0),    # an edge-message sum per layer; pooling
-    "pna": (0, 11, 0, 0),   # mean/min/max/std towers per layer; pooling
-    "gat": (2, 3, 2, 0),    # a softmax and a weighted gather per layer
+    "gcn": (2, 3, 0, 0, 0, 0),   # a scaled gather per layer; pooling
+    "sage": (2, 3, 0, 0, 0, 0),  # a mean gather per layer; pooling
+    "gin": (0, 5, 0, 0, 0, 0),   # an edge-message sum per layer; pooling
+    "pna": (0, 11, 0, 0, 0, 0),  # mean/min/max/std towers per layer; pooling
+    "gat": (2, 3, 2, 0, 0, 0),   # a softmax and a weighted gather per layer
 }
+# the same batch under aggregation_scope(gather_mode="onehot")
+# (Project(agg_backend="pallas", gather_mode="onehot")): the gathers and
+# segment aggregations move to the one-hot kernels, GAT keeps its softmax
+ONEHOT_LAUNCHES_PER_BATCH = {
+    conv: (0, 0, t[2], t[3], t[0], t[1])
+    for conv, t in LAUNCHES_PER_BATCH.items()}
 # per batch of apply_packed_resident(fusion_depth=2) when the plan is
 # legal: both layers in one stack launch, then the pooling
-RESIDENT_LAUNCHES = (0, 3, 0, 1)
+RESIDENT_LAUNCHES = (0, 3, 0, 1, 0, 0)
 RESIDENT_CONVS = ("gcn", "sage")
 RESIDENT_BATCHES = (32, 256, 1024)
+# the one-hot kernels' tiles (node_block, edge_block) phase 3 launches
+ONEHOT_TILES = tuple((nb, eb) for nb in (32, 64, 128) for eb in (64, 128, 256))
+ONEHOT_DEFAULT_TILES = (128, 128)     # Project's node_block, edge_block
+# fixed-point outputs of the card against the CPU: FPX(16, 10) rounds
+# after every layer, so a sum in another order (cuBLAS against the CPU's
+# BLAS) can land a value on the neighbouring grid point, and a later
+# layer's rounding of a value so moved can move it one step more
+FIXED_GRID_STEPS = 2
 NO_LIBRARY = {
     "segment_softmax": "no single PyTorch call computes a per-segment "
                        "softmax",
@@ -147,12 +186,21 @@ def card_line() -> str:
 def counters() -> dict:
     """The launch counter of each kernel's wrapper, by kernel name."""
     from repro_torch.kernels.fused_gather_aggregate.ops import (
-        fused_gather_aggregate)
-    from repro_torch.kernels.segment_aggregate.ops import segment_aggregate
+        fused_gather_aggregate, fused_gather_onehot)
+    from repro_torch.kernels.segment_aggregate.ops import (
+        segment_aggregate, segment_aggregate_onehot)
     from repro_torch.kernels.segment_softmax.ops import segment_softmax
     from repro_torch.kernels.fused_layer_stack.ops import fused_layer_stack
     return dict(zip(KERNELS, (fused_gather_aggregate, segment_aggregate,
-                              segment_softmax, fused_layer_stack)))
+                              segment_softmax, fused_layer_stack,
+                              fused_gather_onehot, segment_aggregate_onehot)))
+
+
+def zero_counts() -> dict:
+    wrappers = counters()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
 
 
 def cuda_ms(fn, reps: int = 25, inner: int = 10,
@@ -198,72 +246,6 @@ def cuda_ms(fn, reps: int = 25, inner: int = 10,
             continue
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def gather_bytes(x, src, csr, n_segments: int, scaled: bool = True) -> int:
-    """Bytes the gather must move for this CSR: the x rows of the distinct
-    sources of valid edges, perm/src (and scale) of each valid edge, the
-    offsets and the (S, F) output. Padding edges and unreferenced rows of
-    x are never read."""
-    n_valid = int(csr.offsets[-1])
-    e = csr.perm[:n_valid].long()
-    rows = int(torch.unique(src[e]).numel())
-    return (rows * x.shape[1] * x.element_size()
-            + (12 if scaled else 8) * n_valid
-            + nbytes(csr.offsets) + n_segments * x.shape[1] * 4)
-
-
-def segment_bytes(x, csr, n_segments: int) -> int:
-    """Bytes a segment aggregation must move for this CSR: the valid rows
-    of x with their perm entry (4 B), the offsets and the (S, F)
-    output."""
-    n_valid = int(csr.offsets[-1])
-    return (n_valid * (x.shape[1] * x.element_size() + 4)
-            + nbytes(csr.offsets) + n_segments * x.shape[1] * 4)
-
-
-def softmax_bytes(csr, num_edges: int) -> int:
-    """Bytes the segment softmax must move for this CSR: per valid edge
-    its logit, its perm entry and its weight (12 B), per other edge its
-    perm entry and its zero weight (8 B), and the offsets."""
-    n_valid = int(csr.offsets[-1])
-    return 12 * n_valid + 8 * (num_edges - n_valid) + nbytes(csr.offsets)
-
-
-def stack_work(args, kind: str, has_skip: bool, dims) -> tuple:
-    """(bytes, operations) the resident stack's function needs on these
-    inputs at the model's real layer widths ``dims`` [(in, out), ...],
-    not at the padded table width (the padding columns are zeros that the
-    kernel carries, not work the function needs). Bytes: the table in at
-    the first layer's width and out at the last's, per valid edge its
-    perm entry, source id and scale (12 B), the offsets, the mask and
-    (GCN) self-scale columns, and the unpadded weights the layers read
-    (GCN: W; SAGE: W_self and W_neigh; the skip projection where the
-    widths change) with the bias and precision rows. Padding edges are
-    never read; the table between the fused layers is neither an input
-    nor an output. Operations per layer over the N rows: the edge fold (a
-    multiply and an add per valid edge and input column), the self term
-    (GCN: a multiply and an add) or the mean (SAGE: a divide), 2 in out
-    per product, the bias, the skip (a product and an add, or the add of
-    the identity), the activation and the mask."""
-    x, _, _, _, offsets, self_vec, mask = args[:7]
-    n, e = x.shape[0], int(offsets[-1])
-    n_mats = 1 if kind == "gcn" else 2
-    moved = (4 * n * (dims[0][0] + dims[-1][1]) + 12 * e
-             + nbytes(offsets, mask)
-             + (nbytes(self_vec) if kind == "gcn" else 0))
-    ops = 0.0
-    for i, o in dims:
-        proj = has_skip and i != o
-        moved += 4 * i * o * (n_mats + proj) + 4 * o + 16
-        ops += (2.0 * e * i + (2 if kind == "gcn" else 1) * n * i
-                + 2.0 * n * i * o * (n_mats + proj)
-                + n * o * (1 + (kind == "sage") + has_skip + 2))
-    return moved, ops
 
 
 def bound_ms(bytes_moved: int, flops: float) -> tuple:
@@ -465,6 +447,11 @@ def segment_cases(dev, rng, path_batches):
         rng.standard_normal((e, f)), dtype=torch.float32, device=dev)
     cases.append(("welford near-equal", near, seg_t, None, s,
                   (torch.float32,)))
+    # F = 256: the one-hot kernel's Welford tables at node_block 128 need
+    # 256 KiB, so its columns split over a second grid axis
+    wide = torch.as_tensor(rng.standard_normal((e, 256)) * 3,
+                           dtype=torch.float32, device=dev)
+    cases.append(("F=256", wide, seg_t, None, s, (torch.float32,)))
     return cases
 
 
@@ -610,13 +597,15 @@ def stack_vs_plain(dev, resident_batches, errs: dict) -> int:
 def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
     from repro_torch.core import aggregations as A
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
-        AGGS as GATHER_AGGS, fused_gather_aggregate_cuda)
+        AGGS as GATHER_AGGS, fused_gather_aggregate_cuda,
+        fused_gather_onehot_cuda)
     from repro_torch.kernels.fused_gather_aggregate.ref import (
-        fused_gather_aggregate_ref)
+        fused_gather_aggregate_ref, fused_gather_onehot_ref)
     from repro_torch.kernels.segment_aggregate.kernel import (
-        AGGS as SEGMENT_AGGS, segment_aggregate_cuda)
+        AGGS as SEGMENT_AGGS, segment_aggregate_cuda,
+        segment_aggregate_onehot_cuda)
     from repro_torch.kernels.segment_aggregate.ref import (
-        segment_aggregate_ref)
+        segment_aggregate_onehot_ref, segment_aggregate_ref)
     from repro_torch.kernels.segment_softmax.kernel import (
         segment_softmax_cuda)
     from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
@@ -624,10 +613,26 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
     rng = np.random.default_rng(3)
     errs: dict = {}
     n_cmp = 0
+
+    def onehot_vs(name, agg, launch, want, csr_out, fp32, label):
+        """A one-hot kernel at every tile pair against its plain version
+        (``want``) and, in fp32, bit for bit against the CSR kernel's
+        output (NaN payloads included)."""
+        for nb, eb in ONEHOT_TILES:
+            got = launch(eb, nb)
+            compare(name, agg, got, want, errs)
+            if fp32:
+                check(torch.equal(got.view(torch.int32),
+                                  csr_out.view(torch.int32)),
+                      f"{name} {label} {agg} tiles ({nb}, {eb}): not bit "
+                      "for bit the CSR kernel's output")
+        return len(ONEHOT_TILES)
+
     for label, x, src, dst, scale, n, s in gather_cases(dev, rng,
                                                         path_batches):
         csr = A.gather_csr(src, dst, n, s)
         src32 = src.to(torch.int32).contiguous()
+        dst32 = dst.to(torch.int32).contiguous()
         for dt in STORAGE:
             xt = storage(x, dt, rng)
             sc = scale
@@ -639,10 +644,21 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
                 want = fused_gather_aggregate_ref(xt, src32, sc, csr.perm,
                                                   csr.offsets, agg=agg)
                 compare("fused_gather_aggregate", agg, got, want, errs)
-                n_cmp += 1
+                n_cmp += 1 + onehot_vs(
+                    "fused_gather_onehot", agg,
+                    lambda eb, nb: fused_gather_onehot_cuda(
+                        xt, src32, dst32, sc, s, agg=agg, edge_block=eb,
+                        node_block=nb),
+                    fused_gather_onehot_ref(xt, src32, dst32, sc, s,
+                                            agg=agg),
+                    got, dt == torch.float32, label)
     for label, x, seg, valid, s, dtypes in segment_cases(dev, rng,
                                                          path_batches):
         csr = A.build_csr(seg, s, valid)
+        seg32 = seg.to(torch.int32)
+        if valid is not None:
+            seg32 = torch.where(valid, seg32, torch.full_like(seg32, -1))
+        seg32 = seg32.contiguous()
         for dt in dtypes:
             xt = storage(x, dt, rng)
             for agg in SEGMENT_AGGS:
@@ -651,7 +667,13 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
                 want = segment_aggregate_ref(xt, csr.perm, csr.offsets,
                                              agg=agg)
                 compare("segment_aggregate", agg, got, want, errs)
-                n_cmp += 1
+                n_cmp += 1 + onehot_vs(
+                    "segment_aggregate_onehot", agg,
+                    lambda eb, nb: segment_aggregate_onehot_cuda(
+                        xt, seg32, s, agg=agg, edge_block=eb,
+                        node_block=nb),
+                    segment_aggregate_onehot_ref(xt, seg32, s, agg=agg),
+                    got, dt == torch.float32, label)
     for label, z, perm, off in softmax_cases(dev, rng, path_batches):
         got = segment_softmax_cuda(z, perm, off)
         want = segment_softmax_ref(z, perm, off)
@@ -678,9 +700,7 @@ def serve_phase(conv: str, requests: int, batch_graphs: int) -> dict:
     from repro_torch.nn.param import init_params
     from repro_torch.runtime import scheduler as S
 
-    wrappers = counters()
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = zero_counts()
     outs, stats = serve.main(["--conv", conv, "--requests", str(requests),
                               "--batch-graphs", str(batch_graphs)])
     launches = {k: w.launches for k, w in wrappers.items()}
@@ -771,9 +791,7 @@ def resident_phase(dev, conv: str, batch_graphs: int, requests: int) -> dict:
               f"{conv}: non-finite serving output")
         return outs, stats, stats["n_batches"] + warm["n_batches"]
 
-    wrappers = counters()
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = zero_counts()
     outs, stats, n_batches = drain(resident)
     launches = {k: w.launches for k, w in wrappers.items()}
     expected = RESIDENT_LAUNCHES if plan.legal else LAUNCHES_PER_BATCH[conv]
@@ -903,13 +921,13 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
     from repro_torch.core import gnn_model as G
     from repro_torch.core.convs import PNA_AGGS
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
-        fused_gather_aggregate_cuda)
+        fused_gather_aggregate_cuda, fused_gather_onehot_cuda)
     from repro_torch.kernels.fused_gather_aggregate.ref import (
-        fused_gather_aggregate_ref)
+        fused_gather_aggregate_ref, fused_gather_onehot_ref)
     from repro_torch.kernels.segment_aggregate.kernel import (
-        segment_aggregate_cuda)
+        segment_aggregate_cuda, segment_aggregate_onehot_cuda)
     from repro_torch.kernels.segment_aggregate.ref import (
-        segment_aggregate_ref)
+        segment_aggregate_onehot_ref, segment_aggregate_ref)
     from repro_torch.kernels.segment_softmax.kernel import (
         segment_softmax_cuda)
     from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
@@ -952,8 +970,7 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
                 lambda: fused_gather_aggregate_ref(
                     x, src, scale, csr.perm, csr.offsets, agg=agg),
                 lambda: torch.sparse.mm(adj, x),
-                gather_bytes(x, src, csr, n, scale is not None),
-                2.0 * n_valid * f)
+                *gather_work(x, src, scale, csr.perm, csr.offsets))
 
     def segment_row(conv, label, shape, x, csr, s, agg, idx, lib_reduce):
         lib = None if lib_reduce is None else (
@@ -964,9 +981,7 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
                                            agg=agg),
             lambda: segment_aggregate_ref(x, csr.perm, csr.offsets,
                                           agg=agg),
-            lib, segment_bytes(x, csr, s),
-            (4.0 if agg in ("var", "std") else 1.0)
-            * int(csr.offsets[-1]) * x.shape[1])
+            lib, *segment_work(x, csr.perm, csr.offsets, agg))
 
     lib_reduce = {"sum": "sum", "mean": "mean", "min": "amin",
                   "max": "amax", "std": None}
@@ -994,16 +1009,47 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
         for agg in ("sum", "mean", "max"):
             segment_row("gcn", label, f"{agg} pooling: rows={n} S={ng} "
                         f"F={f}", x, pcsr, ng, agg, idx, lib_reduce[agg])
+        # the same GCN batch on the one-hot schedule, at the default tiles
+        # of Project(gather_mode="onehot"): the same function, so the same
+        # bound and library call as the CSR kernels' rows
+        nb_, eb_ = ONEHOT_DEFAULT_TILES
+        dst = ei[:, 1].contiguous()
+        steps = -(-n // nb_) * -(-ei.shape[0] // eb_)
+        adj = sparse_adj(ei, ok, scale, n)
+        for layer, f_in in enumerate(gather_widths("gcn")):
+            xg = torch.randn((n, f_in), device=dev)
+            row("fused_gather_onehot", "gcn", label,
+                f"GCN layer {layer}: N=S={n} E={ei.shape[0]} (valid "
+                f"{n_valid}) F={f_in}, tiles ({nb_}, {eb_}): {steps} steps",
+                lambda: fused_gather_onehot_cuda(
+                    xg, src, dst, scale, n, edge_block=eb_, node_block=nb_),
+                lambda: fused_gather_onehot_ref(xg, src, dst, scale, n),
+                lambda: torch.sparse.mm(adj, xg),
+                *gather_onehot_work(xg, src, dst, scale, n),
+                steps=lambda: steps)
+        pseg = torch.where(node_mask, gid, torch.full_like(gid, -1))
+        psteps = -(-ng // nb_) * -(-n // eb_)
+        for agg in ("sum", "mean", "max"):
+            lib = lib_reduce[agg]
+            row("segment_aggregate_onehot", "gcn", label,
+                f"{agg} pooling: rows={n} S={ng} F={f}, tiles ({nb_}, "
+                f"{eb_}): {psteps} steps",
+                lambda: segment_aggregate_onehot_cuda(
+                    x, pseg, ng, agg=agg, edge_block=eb_, node_block=nb_),
+                lambda: segment_aggregate_onehot_ref(x, pseg, ng, agg=agg),
+                lambda: torch.empty((ng + 1, f), device=dev).scatter_reduce_(
+                    0, idx, x, lib, include_self=False),
+                *segment_onehot_work(x, pseg, ng, agg),
+                steps=lambda: psteps)
         # GAT: each layer's softmax, then its weighted gather
         for layer, (z, perm, off) in enumerate(gat_softmax_inputs(dev,
                                                                   batch)):
-            sm_csr = A.SegmentCSR(perm, off)
             row("segment_softmax", "gat", label,
                 f"GAT layer {layer}: E={z.numel()} (valid {n_valid}) "
                 f"S={n}",
                 lambda: segment_softmax_cuda(z, perm, off),
                 lambda: segment_softmax_ref(z, perm, off), None,
-                softmax_bytes(sm_csr, z.numel()), 8.0 * n_valid)
+                *softmax_work(z, perm, off))
             alpha = segment_softmax_cuda(z, perm, off)
             gather_rows("gat", label, [(layer, gather_widths("gat")[layer])],
                         src, alpha, csr, n, sparse_adj(ei, ok, alpha, n),
@@ -1057,18 +1103,204 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
         lw = f", layer-by-layer {r['layerwise_ms']:.5f} ms" \
             if "layerwise_ms" in r else ""
+        st = f", {r['ms'] / r['steps'] * 1e6:.2f} ns per step" \
+            if "steps" in r else ""
         print(f"[6] {r['kernel']} {r['batch']} {r['shape']}: kernel "
               f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
-              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}){lw}")
+              f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}){lw}"
+              f"{st}")
+    onehot = [r for r in rows
+              if "steps" in r and r["batch"] == rows[-1]["batch"]]
+    print(f"[6] kernel_step_overhead: "
+          f"{sum(r['ms'] for r in onehot) * 1e-3 / sum(r['steps'] for r in onehot):.4e}"
+          f" s per (node tile x edge tile) step: the one-hot launches of a "
+          f"GCN batch at {rows[-1]['batch']}, their time over their steps")
     return rows
+
+
+# ----------------------------------------------------------- phase 7 --
+PROJECT_DIR = ROOT / "build" / "chip_smoke_project"
+V2_KERNELS = ("fused_gather_aggregate", "segment_aggregate")
+ONEHOT_KERNELS = ("fused_gather_onehot", "segment_aggregate_onehot")
+
+
+def make_project(conv: str, batch_graphs: int, tag: str, **kw):
+    """``Project`` on the full-width ``benchmark_config(conv)`` over qm9
+    graphs, on the pallas backend (the one where the knobs engage)."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core.project import Project
+    return Project(f"{conv}_{tag}", benchmark_config(conv), "regression",
+                   str(PROJECT_DIR / f"{conv}_{tag}"),
+                   dataset_cfg=DATASETS["qm9"], batch_graphs=batch_graphs,
+                   agg_backend="pallas", **kw)
+
+
+def tree_to(tree: dict, device) -> dict:
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def run_testbench(p, n_graphs: int) -> tuple:
+    """gen_hw_model, init_params and gen_testbench (whose fp32 reference
+    runs the default kernels, as in the reference), then the counts set
+    to 0 and ``build_and_run_testbench`` (the generated programs ``_fn``
+    and ``_fn_packed``), the counts read just after."""
+    p.gen_hw_model()
+    p.init_params()
+    p.gen_testbench(n_graphs)
+    wrappers = zero_counts()
+    tb = p.build_and_run_testbench()
+    return tb, {k: w.launches for k, w in wrappers.items()}
+
+
+def check_onehot_only(label: str, launches: dict, expect_onehot) -> None:
+    for name in V2_KERNELS:
+        check(launches[name] == 0, f"{label}: {launches[name]} {name} "
+                                   "launches inside the one-hot programs")
+    for name, want in zip(ONEHOT_KERNELS, expect_onehot):
+        check((launches[name] > 0) == (want > 0),
+              f"{label}: {launches[name]} {name} launches")
+
+
+def listing1_phase(dev) -> dict:
+    """The paper's Listing 1 on the card: GCN at full width, fixed
+    ``FPX(16, 10)``, ``agg_backend="pallas"``, ``gather_mode="onehot"``:
+    testbench MAE < 1.0 (``tests/test_system.py``), the generated program
+    within ``FIXED_GRID_STEPS`` grid steps of the port's CPU run with the
+    same weights, and the synthesis report."""
+    from repro_torch.core.quantization import FPX, quantize_tree
+    kw = dict(float_or_fixed="fixed", fpx=FPX(16, 10), gather_mode="onehot")
+    p = make_project("gcn", 32, "listing1", **kw)
+    tb, launches = run_testbench(p, 64)
+    check(tb["mae"] < 1.0, f"Listing 1: testbench MAE {tb['mae']}")
+    check_onehot_only("Listing 1", launches,
+                      ONEHOT_LAUNCHES_PER_BATCH["gcn"][4:])
+    synth = p.run_vitis_hls_synthesis()
+    check(synth["latency_s"] > 0 and synth["flops"] > 0 and synth["fits_hbm"]
+          and (PROJECT_DIR / "gcn_listing1" / "report.json").exists(),
+          f"Listing 1: synthesis report {synth}")
+    cpu = make_project("gcn", 32, "listing1_cpu", device="cpu", **kw)
+    cpu.gen_hw_model()
+    q_card = quantize_tree(p.params, p.fpx)
+    q_cpu = tree_to(q_card, "cpu")
+    steps = 0.0
+    for g in p._tb_graphs[:16]:
+        a = p._fn(q_card, p._graph_to_el(g)).cpu()
+        b = cpu._fn(q_cpu, cpu._graph_to_el(g))
+        steps = max(steps, float((a - b).abs().max()) / p.fpx.resolution)
+    check(steps <= FIXED_GRID_STEPS,
+          f"Listing 1: card vs CPU {steps} grid steps > {FIXED_GRID_STEPS}")
+    print(f"[7] Listing 1 (GCN full width, fixed {p.fpx}, pallas, onehot, "
+          f"32 graphs/batch): testbench MAE {tb['mae']:.6f} over "
+          f"{tb['n_graphs']} graphs, {tb['mean_runtime_ms']:.4f} ms per "
+          f"graph, packed MAE {tb['packed']['mae']:.6f} at "
+          f"{tb['packed']['graphs_per_s']:.1f} graphs/s; quant error "
+          f"{tb['quant_error']['output']}; card vs CPU {steps:g} grid "
+          f"steps; synthesis latency {synth['latency_ms']:.6f} ms, "
+          f"{synth['flops']:.4g} FLOPs, {synth['bytes_accessed']:.4g} B, "
+          f"temp {synth['temp_bytes']} B, args {synth['arg_bytes']} B, "
+          f"compile {synth['compile_s']:.3f} s, packed "
+          f"{synth['packed']['graphs_per_s']:.1f} graphs/s modeled; "
+          f"launches {launches}")
+    return launches
+
+
+def onehot_conv_phase(dev, conv: str) -> dict:
+    """Every conv through ``gather_mode="onehot"`` at 32 graphs/batch
+    (fp32): packed MAE against the testbench reference <= 1e-4, only the
+    one-hot kernels (and GAT's softmax) inside the generated programs,
+    and one packed batch launching exactly
+    ``ONEHOT_LAUNCHES_PER_BATCH``."""
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    p = make_project(conv, 32, "onehot", gather_mode="onehot")
+    tb, launches = run_testbench(p, 64)
+    check(tb["packed"]["mae"] <= 1e-4,
+          f"{conv} onehot: packed MAE {tb['packed']['mae']}")
+    check_onehot_only(f"{conv} onehot", launches,
+                      ONEHOT_LAUNCHES_PER_BATCH[conv][4:])
+    batch = G.packed_to_device(P.pack_dataset(
+        p._tb_graphs, p.node_budget, p.edge_budget, p.batch_graphs)[0][0],
+        dev)
+    wrappers = zero_counts()
+    out = p._fn_packed(p.params, batch)
+    torch.cuda.synchronize()
+    one = {k: w.launches for k, w in wrappers.items()}
+    check(tuple(one[k] for k in KERNELS) == ONEHOT_LAUNCHES_PER_BATCH[conv]
+          and bool(torch.isfinite(out).all()),
+          f"{conv} onehot: one batch launched {one}")
+    print(f"[7] {conv} onehot Project, 32 graphs/batch: testbench MAE "
+          f"{tb['mae']:.3e}, packed MAE {tb['packed']['mae']:.3e} at "
+          f"{tb['packed']['graphs_per_s']:.1f} graphs/s; launches {launches}")
+    for k, v in one.items():
+        launches[k] += v
+    return launches
+
+
+def resident_project_phase(dev, conv: str) -> dict:
+    """``fusion_depth=2`` on the pallas backend: the residency plan is
+    legal at 32 graphs/batch, ``residency_engaged`` holds and the packed
+    program launches the resident stack."""
+    p = make_project(conv, 32, "resident", gather_mode="onehot",
+                     fusion_depth=2)
+    tb, launches = run_testbench(p, 64)
+    config = json.loads((PROJECT_DIR / f"{conv}_resident" /
+                         "config.json").read_text())
+    check(p.residency_engaged and config["residency_engaged"]
+          and launches["fused_layer_stack"] > 0
+          and tb["packed"]["mae"] <= 1e-4,
+          f"{conv} resident Project: engaged {p.residency_engaged}, "
+          f"launches {launches}, packed MAE {tb['packed']['mae']}")
+    print(f"[7] {conv} Project fusion_depth 2: residency engaged "
+          f"({p.residency.reason}), packed MAE {tb['packed']['mae']:.3e} at "
+          f"{tb['packed']['graphs_per_s']:.1f} graphs/s; launches {launches}")
+    return launches
+
+
+def throughput_phase(dev) -> tuple:
+    """GCN at 1024 graphs/batch through the packed testbench drain in
+    both gather modes, side by side, with the modeled graphs/s of each
+    synthesis report."""
+    results, total = {}, dict.fromkeys(KERNELS, 0)
+    for mode in ("onehot", "dma"):
+        p = make_project("gcn", 1024, f"{mode}_1024", gather_mode=mode)
+        p.gen_hw_model()
+        p.init_params()
+        p.gen_testbench(3072)
+        wrappers = zero_counts()
+        packed = p._run_packed_testbench(p.params)
+        for k, w in wrappers.items():
+            total[k] += w.launches
+        check(packed["mae"] <= 1e-4 and packed["n_graphs"] == 3072,
+              f"gcn {mode} 1024: {packed}")
+        results[mode] = (packed, p.run_synthesis()["packed"])
+    print("[7] GCN Project at 1024 graphs/batch, 3 measured batches: "
+          + "; ".join(f"{m} {r['graphs_per_s']:.1f} graphs/s "
+                      f"({r['mean_batch_ms']:.4f} ms per batch, MAE "
+                      f"{r['mae']:.3e}; modeled {s['graphs_per_s']:.1f})"
+                      for m, (r, s) in results.items()))
+    return total, results
+
+
+def project_phase(dev) -> dict:
+    launches = dict.fromkeys(KERNELS, 0)
+    parts = [listing1_phase(dev)]
+    parts += [onehot_conv_phase(dev, conv) for conv in LAUNCHES_PER_BATCH]
+    parts += [resident_project_phase(dev, conv) for conv in RESIDENT_CONVS]
+    parts.append(throughput_phase(dev)[0])
+    for part in parts:
+        for k, v in part.items():
+            launches[k] += v
+    return launches
 
 
 def summarize(rows, errs, launches) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
     (gather, segment; the figures of the first slice; the resident
-    stack) and GAT's (softmax). ``launches`` counts every phase-4 drain
-    of every conv, resident drains included."""
+    stack; the one-hot kernels) and GAT's (softmax). ``launches`` counts
+    every phase-4 drain of every conv, resident drains included, and the
+    phase-7 Project programs (where the one-hot kernels run)."""
     meta = {
         "fused_gather_aggregate": dict(
             source="src/repro_torch/csrc/fused_gather_aggregate.cu",
@@ -1087,14 +1319,24 @@ def summarize(rows, errs, launches) -> dict:
             replaces="src/repro/kernels/fused_gather_aggregate/"
                      "residency.py:151",
             conv="gcn"),
+        "fused_gather_onehot": dict(
+            source="src/repro_torch/csrc/fused_gather_onehot.cu",
+            replaces="src/repro/kernels/fused_gather_aggregate/kernel.py:128",
+            conv="gcn"),
+        "segment_aggregate_onehot": dict(
+            source="src/repro_torch/csrc/segment_aggregate_onehot.cu",
+            replaces="src/repro/kernels/segment_aggregate/kernel.py:134",
+            conv="gcn"),
     }
     last = rows[-1]["batch"]
     out = []
     for i, (name, m) in enumerate(meta.items()):
         sel = [r for r in rows if r["kernel"] == name and r["batch"] == last
                and r["conv"] == m["conv"]]
+        table = ONEHOT_LAUNCHES_PER_BATCH if name.endswith("onehot") \
+            else LAUNCHES_PER_BATCH
         per_batch = RESIDENT_LAUNCHES[i] if name == "fused_layer_stack" \
-            else LAUNCHES_PER_BATCH[m["conv"]][i]
+            else table[m["conv"]][i]
         check(len(sel) == per_batch,
               f"{name}: {len(sel)} timed launches for a {m['conv']} batch")
         by = "bytes" if all(r["bound_by"] == "bytes" for r in sel) \
@@ -1103,8 +1345,7 @@ def summarize(rows, errs, launches) -> dict:
         entry = {
             "name": name, "route": "cuda", "source": m["source"],
             "replaces": m["replaces"], "launches": launches[name],
-            "launches_per_batch": {c: t[i] for c, t in
-                                   LAUNCHES_PER_BATCH.items()},
+            "launches_per_batch": {c: t[i] for c, t in table.items()},
             "resident_launches_per_batch": {
                 c: RESIDENT_LAUNCHES[i] for c in RESIDENT_CONVS},
             "max_abs_err": errs[name],
@@ -1120,6 +1361,8 @@ def summarize(rows, errs, launches) -> dict:
             entry["max_abs_err_by_mode"] = {
                 mode: errs[f"{name} {mode}"] for mode in QP_ROWS}
             entry["layerwise_ms"] = sum(r["layerwise_ms"] for r in sel)
+        if "steps" in sel[0]:
+            entry["ms_per_step"] = [r["ms"] / r["steps"] for r in sel]
         if entry["library_ms"] is None:
             entry["library_note"] = NO_LIBRARY[name]
         out.append(entry)
@@ -1191,6 +1434,8 @@ def main() -> int:
             golden_phase(dev, conv, resident=True)
         oracle_phase(dev, conv)
     rows = timing_phase(dev, path_batches, resident_batches)
+    for k, v in project_phase(dev).items():
+        launches[k] += v
     summary = summarize(rows, errs, launches)
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")

@@ -13,22 +13,88 @@ segment sum, PNA tower and GAT softmax share the edge CSR; the three
 poolings share the node CSR). Invalid elements — a segment id out of
 [0, num_segments), ``valid == False``, or for the gather a source id out
 of [0, N) — are left out of the CSR, so they are dropped outright.
+
+``aggregation_scope`` carries the JAX package's gather kernel generation
+and tile knobs (``repro.core.aggregations.backend_scope`` without the
+backend) to ``gather_aggregate`` and ``segment_aggregate``: under
+``gather_mode="onehot"`` they launch the one-hot-schedule kernels on the
+raw id streams at the scope's ``node_block``/``edge_block`` tiles (a
+given CSR is not used); under ``"dma"``, the default, the CSR kernels
+above, for which the tiles mean nothing. ``segment_softmax`` has one
+kernel under every mode.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import torch
 
+from repro_torch.kernels._build import check_tiles
+from repro_torch.kernels._csr_ref import stable_csr
 from repro_torch.kernels.fused_gather_aggregate.ops import (
-    fused_gather_aggregate)
+    fused_gather_aggregate, fused_gather_onehot)
 from repro_torch.kernels.segment_aggregate.ops import (
-    segment_aggregate as _segment_aggregate)
+    segment_aggregate as _segment_aggregate, segment_aggregate_onehot)
 from repro_torch.kernels.segment_softmax.ops import (
     segment_softmax as _segment_softmax)
 
 AGGREGATIONS = ("sum", "mean", "min", "max", "var", "std")
 GATHER_AGGREGATIONS = ("sum", "mean", "min", "max")
+
+# gather/segment kernel generations: "dma" = the CSR kernels, "onehot" =
+# the one-hot-schedule kernels (repro.core.aggregations.GATHER_MODES)
+GATHER_MODES = ("onehot", "dma")
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregationKnobs:
+    """The kernel generation and the one-hot kernels' tiles in force."""
+    gather_mode: str = "dma"
+    edge_block: int = 128
+    node_block: int = 128
+
+
+_KNOBS: contextvars.ContextVar = contextvars.ContextVar(
+    "aggregation_knobs", default=AggregationKnobs())
+
+
+def aggregation_knobs() -> AggregationKnobs:
+    return _KNOBS.get()
+
+
+@contextlib.contextmanager
+def aggregation_scope(gather_mode: str | None = None,
+                      edge_block: int | None = None,
+                      node_block: int | None = None):
+    """Run the block with these knobs (None keeps the one in force). The
+    knobs live in a context variable, so a scope reaches only the calls
+    made inside it, in its own thread or task: two programs with
+    different knobs never see each other's. Everything is checked before
+    anything is set."""
+    cur = _KNOBS.get()
+    knobs = AggregationKnobs(
+        cur.gather_mode if gather_mode is None else gather_mode,
+        cur.edge_block if edge_block is None else edge_block,
+        cur.node_block if node_block is None else node_block)
+    if knobs.gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode must be one of {GATHER_MODES}, got "
+                         f"{knobs.gather_mode!r}")
+    check_tiles(knobs.node_block, knobs.edge_block)
+    token = _KNOBS.set(knobs)
+    try:
+        yield knobs
+    finally:
+        _KNOBS.reset(token)
+
+
+def _ids(ids: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
+    """An int32 id stream with -1 where ``valid`` is False."""
+    ids = ids.to(torch.int32)
+    if valid is not None:
+        ids = torch.where(valid, ids, torch.full_like(ids, -1))
+    return ids.contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,15 +113,7 @@ def build_csr(seg_ids: torch.Tensor, num_segments: int,
     """CSR of a stream of segment ids; ids outside [0, num_segments) or
     with ``valid == False`` are left out. Plain index preparation on the
     ids' device, with no host synchronisation."""
-    seg = seg_ids.long()
-    ok = (seg >= 0) & (seg < num_segments)
-    if valid is not None:
-        ok = ok & valid
-    key = torch.where(ok, seg, torch.full_like(seg, num_segments))
-    sorted_key, order = torch.sort(key, stable=True)
-    bounds = torch.arange(num_segments + 1, device=seg.device)
-    offsets = torch.searchsorted(sorted_key, bounds)
-    return SegmentCSR(order.to(torch.int32), offsets.to(torch.int32))
+    return SegmentCSR(*stable_csr(seg_ids, num_segments, valid))
 
 
 def gather_csr(src: torch.Tensor, dst: torch.Tensor, n_src: int,
@@ -76,9 +134,17 @@ def segment_aggregate(agg: str, messages: torch.Tensor,
                       csr: SegmentCSR | None = None) -> torch.Tensor:
     """messages (E, F) -> (num_segments, F) float32; seg_ids (E,), with
     padding marked by an out-of-range id or ``valid == False``. ``csr``
-    (from ``build_csr`` over the same ids) skips rebuilding the CSR."""
+    (from ``build_csr`` over the same ids) skips rebuilding the CSR; the
+    one-hot kernel (``aggregation_scope(gather_mode="onehot")``) takes
+    the raw ids instead."""
     if agg not in AGGREGATIONS:
         raise ValueError(agg)
+    knobs = _KNOBS.get()
+    if knobs.gather_mode == "onehot":
+        return segment_aggregate_onehot(
+            messages.contiguous(), _ids(seg_ids, valid), num_segments,
+            agg=agg, edge_block=knobs.edge_block,
+            node_block=knobs.node_block)
     if csr is None:
         csr = build_csr(seg_ids, num_segments, valid)
     return _segment_aggregate(messages.contiguous(), csr.perm, csr.offsets,
@@ -93,14 +159,22 @@ def gather_aggregate(agg: str, x: torch.Tensor, src: torch.Tensor,
     """Fused gather -> scale -> aggregate: (num_segments, F) float32 with
     ``out[d] = agg over edges e into d of scale[e] * x[src[e]]``; the
     (E, F) message tensor is never materialized. ``csr`` (from
-    ``gather_csr`` over the same streams) skips rebuilding the CSR."""
+    ``gather_csr`` over the same streams) skips rebuilding the CSR; the
+    one-hot kernel (``aggregation_scope(gather_mode="onehot")``) takes
+    the raw streams instead."""
     if agg not in GATHER_AGGREGATIONS:
         raise ValueError(f"gather_aggregate takes {GATHER_AGGREGATIONS}, "
                          f"got {agg!r}")
-    if csr is None:
-        csr = gather_csr(src, dst, x.shape[0], num_segments, valid)
     if scale is not None:
         scale = scale.to(torch.float32).contiguous()
+    knobs = _KNOBS.get()
+    if knobs.gather_mode == "onehot":
+        return fused_gather_onehot(
+            x.contiguous(), _ids(src, valid), _ids(dst, None), scale,
+            num_segments, agg=agg, edge_block=knobs.edge_block,
+            node_block=knobs.node_block)
+    if csr is None:
+        csr = gather_csr(src, dst, x.shape[0], num_segments, valid)
     return fused_gather_aggregate(x.contiguous(),
                                   src.to(torch.int32).contiguous(), scale,
                                   csr.perm, csr.offsets, agg=agg)

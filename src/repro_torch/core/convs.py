@@ -169,6 +169,16 @@ def dataflow_cost(in_dim: int, out_dim: int, avg_degree: float,
             "transform_first": stream * out_dim + matmul + attn}
 
 
+def halo_comm_bytes(cut_edges: float, feat_dim: int,
+                    bytes_per_value: float, num_layers: int) -> float:
+    """Modeled inter-device traffic of intra-graph partitioned inference:
+    every message-passing boundary except the last exchanges the
+    boundary rows the cut edges read, one feature row per cut edge at
+    the storage width (the reference's formula)."""
+    return float(cut_edges) * feat_dim * bytes_per_value \
+        * max(num_layers - 1, 0)
+
+
 def resolve_dataflow(cfg: ConvConfig) -> str:
     """Planner: the concrete ordering this conv layer executes with
     (fp32 storage, 4 bytes per message value)."""

@@ -11,7 +11,12 @@ resident layer-stack kernel). ``GNNModel`` wraps the tree as an
 (``convs.c0.w.w``).
 
 Only fp32 runs so far: a config asking for another ``gnn_precision``
-raises ``NotImplementedError`` rather than silently running fp32.
+raises ``NotImplementedError`` rather than silently running fp32. The
+legacy fixed-point hook of the reference runs: ``quant`` (a
+``quantization.FPX``) rounds the input, each conv's output, each layer's
+activation, the pooled vector and each head layer onto its grid, the
+testbench semantics of ``core.project.Project(float_or_fixed="fixed")``
+(whose caller quantizes the weights).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import convs as C
+from repro_torch.core import quantization as Q
 from repro_torch.core.aggregations import build_csr, degrees, gather_csr
 from repro_torch.core.pooling import global_pooling, segment_global_pooling
 from repro_torch.device import l2_cache_bytes, resolve_device
@@ -91,11 +97,13 @@ def mlp_head_plan(cfg: MLPConfig) -> dict:
             for i in range(len(dims) - 1)}
 
 
-def mlp_head_apply(params: dict, x: torch.Tensor,
-                   cfg: MLPConfig) -> torch.Tensor:
+def mlp_head_apply(params: dict, x: torch.Tensor, cfg: MLPConfig,
+                   quant: Q.FPX | None = None) -> torch.Tensor:
     n = cfg.hidden_layers + 1
     for i in range(n):
         x = linear(params[f"l{i}"], x)
+        if quant is not None:
+            x = Q.quantize(x, quant)
         if i < n - 1:
             x = act(cfg.activation)(x)
     return x
@@ -177,11 +185,15 @@ def packed_inputs(batch: dict) -> tuple:
 
 
 def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
-              node_mask: torch.Tensor) -> torch.Tensor:
+              node_mask: torch.Tensor,
+              quant: Q.FPX | None = None) -> torch.Tensor:
     """Conv stack + skip + activation; padding rows are zeroed after
-    every layer."""
+    every layer. ``quant`` rounds each conv output and each layer's
+    output onto its grid."""
     for i in range(cfg.gnn_num_layers):
         h = C.conv_apply(params["convs"][f"c{i}"], g, x, cfg.conv_cfg(i))
+        if quant is not None:
+            h = Q.quantize(h, quant)
         if cfg.gnn_skip_connection:
             skip = x
             if f"skip{i}" in params:
@@ -189,6 +201,8 @@ def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
             h = h + skip
         x = act(cfg.gnn_activation)(h)
         x = x * node_mask[:, None]
+        if quant is not None:
+            x = Q.quantize(x, quant)
     return x
 
 
@@ -198,9 +212,11 @@ def _check_fp32(cfg: GNNModelConfig) -> None:
             f"gnn_precision={cfg.gnn_precision!r}: the port runs fp32 only")
 
 
-def _head(params: dict, cfg: GNNModelConfig,
-          pooled: torch.Tensor) -> torch.Tensor:
-    out = mlp_head_apply(params["mlp"], pooled, cfg.mlp_head)
+def _head(params: dict, cfg: GNNModelConfig, pooled: torch.Tensor,
+          quant: Q.FPX | None = None) -> torch.Tensor:
+    if quant is not None:
+        pooled = Q.quantize(pooled, quant)
+    out = mlp_head_apply(params["mlp"], pooled, cfg.mlp_head, quant)
     if cfg.output_activation:
         out = act(cfg.output_activation)(out)
     return out
@@ -208,7 +224,8 @@ def _head(params: dict, cfg: GNNModelConfig,
 
 def _packed_tail(params: dict, cfg: GNNModelConfig, batch: dict,
                  x: torch.Tensor, node_mask: torch.Tensor,
-                 graph_id: torch.Tensor) -> torch.Tensor:
+                 graph_id: torch.Tensor,
+                 quant: Q.FPX | None = None) -> torch.Tensor:
     """After the conv stack of a packed batch: the node table for node
     tasks, else segment pooling (one CSR over the graph ids) and the
     head."""
@@ -218,35 +235,41 @@ def _packed_tail(params: dict, cfg: GNNModelConfig, batch: dict,
     pooled = segment_global_pooling(
         cfg.global_pooling, x, graph_id, num_graphs, node_mask,
         csr=build_csr(graph_id, num_graphs, node_mask))
-    return _head(params, cfg, pooled)
+    return _head(params, cfg, pooled, quant)
 
 
-def apply(params: dict, cfg: GNNModelConfig,
-          batch_el: dict) -> torch.Tensor:
+def apply(params: dict, cfg: GNNModelConfig, batch_el: dict,
+          quant: Q.FPX | None = None) -> torch.Tensor:
     """Forward one padded graph (tensors, ``packed_to_device`` of one
     element of ``data.pipeline.graph_batch``): the per-graph oracle the
     packed paths are held against. Returns (out_dim,) for graph tasks or
-    the (N_max, F) node embeddings for node tasks."""
+    the (N_max, F) node embeddings for node tasks. ``quant``: the
+    fixed-point testbench datapath (module docstring)."""
     _check_fp32(cfg)
     g, x, node_mask = graph_inputs(batch_el)
-    x = _backbone(params, cfg, g, x, node_mask)
+    if quant is not None:
+        x = Q.quantize(x, quant)
+    x = _backbone(params, cfg, g, x, node_mask, quant)
     if cfg.task == "node":
         return x
     return _head(params, cfg, global_pooling(cfg.global_pooling, x,
-                                             node_mask))
+                                             node_mask), quant)
 
 
-def apply_packed(params: dict, cfg: GNNModelConfig,
-                 batch: dict) -> torch.Tensor:
+def apply_packed(params: dict, cfg: GNNModelConfig, batch: dict,
+                 quant: Q.FPX | None = None) -> torch.Tensor:
     """Forward a packed GraphBatch (tensors, ``packed_to_device``).
 
     Returns (num_graphs, out_dim) for graph tasks (rows where
     ``graph_valid`` is False are padding) or the (N_total, F) node
-    embeddings for node tasks."""
+    embeddings for node tasks. ``quant``: the fixed-point testbench
+    datapath (module docstring)."""
     _check_fp32(cfg)
     g, x, node_mask, graph_id = packed_inputs(batch)
-    x = _backbone(params, cfg, g, x, node_mask)
-    return _packed_tail(params, cfg, batch, x, node_mask, graph_id)
+    if quant is not None:
+        x = Q.quantize(x, quant)
+    x = _backbone(params, cfg, g, x, node_mask, quant)
+    return _packed_tail(params, cfg, batch, x, node_mask, graph_id, quant)
 
 
 # the fp32 precision row [mode, s, lo, hi] of the resident kernel
@@ -259,7 +282,8 @@ def _pad2(w: torch.Tensor, fmax: int) -> torch.Tensor:
     return out
 
 
-def _layer_dims(cfg: GNNModelConfig) -> list:
+def layer_dims(cfg: GNNModelConfig) -> list:
+    """[(in_dim, out_dim), ...] of the conv stack."""
     return [(cfg.conv_cfg(i).in_dim, cfg.conv_cfg(i).out_dim)
             for i in range(cfg.gnn_num_layers)]
 
@@ -308,7 +332,7 @@ def resident_stacks(params: dict, cfg: GNNModelConfig,
     if cfg.gnn_conv not in C.RESIDENT_CONVS:
         raise ValueError(f"conv {cfg.gnn_conv!r} has no resident stack")
     nl = cfg.gnn_num_layers
-    plan = C.residency_plan(_layer_dims(cfg), 0, cfg.gnn_conv, fusion_depth)
+    plan = C.residency_plan(layer_dims(cfg), 0, cfg.gnn_conv, fusion_depth)
     c0 = params["convs"]["c0"]
     dev = c0["w" if cfg.gnn_conv == "gcn" else "w_self"]["w"].device
     return [_group_stacks(params, cfg, range(i0, min(i0 + plan.depth, nl)),
@@ -317,8 +341,8 @@ def resident_stacks(params: dict, cfg: GNNModelConfig,
 
 
 def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
-                          *, fusion_depth: int = 2,
-                          l2_bytes: int | None = None,
+                          quant: Q.FPX | None = None, *,
+                          fusion_depth: int = 2,
                           stacks: list | None = None) -> torch.Tensor:
     """``apply_packed`` with the conv stack run by the resident
     layer-stack kernel: consecutive layers fuse into one launch per group
@@ -326,10 +350,12 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
     staying in L2 across the group's layer boundaries.
 
     Falls back to ``apply_packed`` (bit-identically, since that is the
-    call made) exactly when ``convs.residency_plan`` says residency is
-    illegal: a conv outside ``RESIDENT_CONVS``, ``fusion_depth < 2`` or a
-    working set over ``0.75 * l2_bytes`` (default: the L2 of the batch's
-    card, or ``convs.H100_L2_BYTES`` on the CPU). A failed build or
+    call made) exactly when ``quant`` is given (the fixed-point hook runs
+    layer by layer, as in the reference) or ``convs.residency_plan`` says
+    residency is illegal: a conv outside ``RESIDENT_CONVS``,
+    ``fusion_depth < 2`` or a working set over ``convs.L2_FRAC`` of the
+    L2 the batch's card reports (``convs.H100_L2_BYTES`` on the CPU). A
+    failed build or
     launch raises; it is never a reason to fall back. ``stacks`` is
     ``resident_stacks(params, cfg, fusion_depth)``, built here when not
     given. The resident path aggregates first at the padded table width,
@@ -338,13 +364,12 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
     _check_fp32(cfg)
     nl = cfg.gnn_num_layers
     n = batch["node_feat"].shape[0]
-    if l2_bytes is None:
-        l2_bytes = l2_cache_bytes(batch["node_feat"].device)
-    plan = C.residency_plan(_layer_dims(cfg), n, cfg.gnn_conv, fusion_depth,
+    plan = C.residency_plan(layer_dims(cfg), n, cfg.gnn_conv, fusion_depth,
                             edge_budget=batch["edge_index"].shape[0],
-                            l2_bytes=l2_bytes)
-    if not plan.legal:
-        return apply_packed(params, cfg, batch)
+                            l2_bytes=l2_cache_bytes(
+                                batch["node_feat"].device))
+    if quant is not None or not plan.legal:
+        return apply_packed(params, cfg, batch, quant)
     if stacks is None:
         stacks = resident_stacks(params, cfg, fusion_depth)
     fmax = plan.fmax

@@ -216,3 +216,17 @@ def pack_dataset(graphs, node_budget: int, edge_budget: int,
         batches.append(batch)
         i += k
     return batches, dropped
+
+
+def compute_average_nodes_and_edges(dataset, round_val: bool = True):
+    """Paper API: gnnb.compute_average_nodes_and_edges."""
+    n = float(np.mean([g.num_nodes for g in dataset]))
+    e = float(np.mean([g.num_edges for g in dataset]))
+    return (round(n), round(e)) if round_val else (n, e)
+
+
+def compute_average_degree(dataset):
+    """Paper API: gnnb.compute_average_degree, the mean over graphs of
+    edges per node."""
+    return float(np.mean([g.num_edges / max(g.num_nodes, 1)
+                          for g in dataset]))

@@ -185,6 +185,15 @@ def check_vector(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} has {t.numel()} elements, exceeds int32")
 
 
+def check_tiles(node_block: int, edge_block: int) -> None:
+    """The one-hot kernels' tile sizes: ints of at least 1 that fit the
+    C interface."""
+    for name, v in (("node_block", node_block), ("edge_block", edge_block)):
+        if not isinstance(v, int) or isinstance(v, bool) \
+                or not 1 <= v <= _INT_MAX:
+            raise ValueError(f"{name} must be an int >= 1, got {v!r}")
+
+
 def pointer(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 

@@ -1,0 +1,167 @@
+"""What each kernel's function costs, and a hook that prices its calls.
+
+The ``*_work`` functions give the bytes a kernel's function must move
+and the operations it must do on the inputs of one call: each input read
+once, each output written once; padding slots and unreferenced rows are
+never read, and data-dependent work counts what these inputs need.
+``chip_smoke.py`` divides them by the card's rates for each kernel's
+bound, and ``core.project.Project.run_synthesis`` prices the program's
+kernel calls with them.
+
+Every public kernel wrapper (``kernels/*/ops.py``) is ``@priced`` by its
+function's work. Outside a ``pricing(sink)`` block that costs one
+context-variable read per call. Inside one, the call runs inside
+``sink.paused()`` (so a counter of PyTorch operations does not also count
+the plain version's operations or the wrapper's output allocation) and
+then reports ``sink.kernel(bytes, operations, output)``.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import functools
+
+import torch
+
+_SINK: contextvars.ContextVar = contextvars.ContextVar("kernel_cost_sink",
+                                                       default=None)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+@contextlib.contextmanager
+def pricing(sink):
+    """Report every priced kernel call inside the block to ``sink``."""
+    token = _SINK.set(sink)
+    try:
+        yield sink
+    finally:
+        _SINK.reset(token)
+
+
+def priced(work):
+    """Decorate a kernel wrapper whose function costs ``work(*args,
+    **kwargs) -> (bytes, operations)`` on the wrapper's arguments."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            sink = _SINK.get()
+            if sink is None:
+                return fn(*args, **kwargs)
+            with sink.paused():
+                out = fn(*args, **kwargs)
+                moved, ops = work(*args, **kwargs)
+            sink.kernel(moved, ops, out)
+            return out
+        return call
+    return wrap
+
+
+def _gather_bytes(x: torch.Tensor, sources: torch.Tensor, scaled: bool,
+                  num_segments: int) -> int:
+    """The x rows of the distinct ``sources`` (one per valid edge), the
+    ids (and scale) of each valid edge, the (S + 1) offsets and the
+    (S, F) output."""
+    f = x.shape[1]
+    rows = int(torch.unique(sources).numel())
+    return (rows * f * x.element_size()
+            + (12 if scaled else 8) * sources.numel()
+            + 4 * (num_segments + 1) + 4 * num_segments * f)
+
+
+def _valid_count(offsets: torch.Tensor) -> int:
+    return int(offsets[-1]) if offsets.numel() > 1 else 0
+
+
+def gather_work(x, src, scale, perm, offsets, **_) -> tuple:
+    """The fused gather over a destination CSR (``ops.
+    fused_gather_aggregate``): bytes as ``_gather_bytes`` for the CSR's
+    edges, a multiply and a fold per edge and column."""
+    n_valid = _valid_count(offsets)
+    sources = src[perm[:n_valid].long()]
+    return (_gather_bytes(x, sources, scale is not None, offsets.numel() - 1),
+            2.0 * n_valid * x.shape[1])
+
+
+def gather_onehot_work(x, src, dst, scale, num_segments, **_) -> tuple:
+    """The same function on the raw streams (``ops.fused_gather_onehot``):
+    the same edges, so the same work as ``gather_work`` on their CSR."""
+    ok = (src >= 0) & (src < x.shape[0]) & (dst >= 0) & (dst < num_segments)
+    sources = src[ok]
+    return (_gather_bytes(x, sources, scale is not None, num_segments),
+            2.0 * sources.numel() * x.shape[1])
+
+
+def _segment_work(messages, n_valid: int, num_segments: int,
+                  agg: str) -> tuple:
+    """The valid rows with their 4-byte id, the (S + 1) offsets and the
+    (S, F) output; a fold per element (four operations for Welford)."""
+    f = messages.shape[1]
+    moved = (n_valid * (f * messages.element_size() + 4)
+             + 4 * (num_segments + 1) + 4 * num_segments * f)
+    return moved, (4.0 if agg in ("var", "std") else 1.0) * n_valid * f
+
+
+def segment_work(messages, perm, offsets, agg: str = "sum", **_) -> tuple:
+    """A segment aggregation over a CSR (``ops.segment_aggregate``)."""
+    return _segment_work(messages, _valid_count(offsets),
+                         offsets.numel() - 1, agg)
+
+
+def segment_onehot_work(messages, seg_ids, num_segments, agg: str = "sum",
+                        **_) -> tuple:
+    """The same function on the raw id stream
+    (``ops.segment_aggregate_onehot``): the same rows, the same work."""
+    n_valid = int(((seg_ids >= 0) & (seg_ids < num_segments)).sum())
+    return _segment_work(messages, n_valid, num_segments, agg)
+
+
+def softmax_work(logits, perm, offsets, **_) -> tuple:
+    """The segment softmax: per valid edge its logit, its perm entry and
+    its weight (12 B), per other edge its perm entry and its zero weight
+    (8 B), and the offsets; eight operations per valid edge."""
+    n_valid = _valid_count(offsets)
+    return (12 * n_valid + 8 * (logits.numel() - n_valid) + nbytes(offsets),
+            8.0 * n_valid)
+
+
+def stack_work(args, kind: str, has_skip: bool, dims=None) -> tuple:
+    """(bytes, operations) the resident stack's function needs on these
+    inputs at the layer widths ``dims`` [(in, out), ...] (default: the
+    padded table's width for every layer, which is what a call computes
+    when it is given only the padded operands; ``chip_smoke.py`` passes
+    the model's real widths). Bytes: the table in at the first layer's
+    width and out at the last's, per valid edge its perm entry, source id
+    and scale (12 B), the offsets, the mask and (GCN) self-scale columns,
+    and the weights the layers read (GCN: W; SAGE: W_self and W_neigh;
+    the skip projection where the widths change) with the bias and
+    precision rows. Padding edges are never read; the table between the
+    fused layers is neither an input nor an output. Operations per layer
+    over the N rows: the edge fold (a multiply and an add per valid edge
+    and input column), the self term (GCN: a multiply and an add) or the
+    mean (SAGE: a divide), 2 in out per product, the bias, the skip (a
+    product and an add, or the add of the identity), the activation and
+    the mask."""
+    x, _, _, _, offsets, self_vec, mask = args[:7]
+    n, e = x.shape[0], _valid_count(offsets)
+    if dims is None:
+        dims = [(x.shape[1], x.shape[1])] * args[8].shape[0]
+    n_mats = 1 if kind == "gcn" else 2
+    moved = (4 * n * (dims[0][0] + dims[-1][1]) + 12 * e
+             + nbytes(offsets, mask)
+             + (nbytes(self_vec) if kind == "gcn" else 0))
+    ops = 0.0
+    for i, o in dims:
+        proj = has_skip and i != o
+        moved += 4 * i * o * (n_mats + proj) + 4 * o + 16
+        ops += (2.0 * e * i + (2 if kind == "gcn" else 1) * n * i
+                + 2.0 * n * i * o * (n_mats + proj)
+                + n * o * (1 + (kind == "sage") + has_skip + 2))
+    return moved, ops
+
+
+def stack_call_work(*args, kind: str, has_skip: bool = True, **_) -> tuple:
+    """``stack_work`` on the arguments of ``ops.fused_layer_stack``."""
+    return stack_work(args, kind, has_skip)

@@ -14,6 +14,25 @@ _INIT = {"sum": 0.0, "mean": 0.0, "min": float("inf"),
          "max": float("-inf")}
 
 
+def stable_csr(seg_ids: torch.Tensor, num_segments: int,
+               keep: torch.Tensor | None = None) -> tuple:
+    """(perm (E,) int32, offsets (S + 1,) int32) of a stream of segment
+    ids, stably sorted by id: segment s's elements, in stream order, are
+    ``perm[offsets[s]:offsets[s + 1]]``; ids outside [0, num_segments)
+    or with ``keep == False`` sort last and are in no segment. Plain
+    index preparation on the ids' device, with no host
+    synchronisation."""
+    seg = seg_ids.long()
+    ok = (seg >= 0) & (seg < num_segments)
+    if keep is not None:
+        ok = ok & keep
+    key = torch.where(ok, seg, torch.full_like(seg, num_segments))
+    sorted_key, order = torch.sort(key, stable=True)
+    bounds = torch.arange(num_segments + 1, device=seg.device)
+    offsets = torch.searchsorted(sorted_key, bounds)
+    return order.to(torch.int32), offsets.to(torch.int32)
+
+
 def csr_slots(perm: torch.Tensor, offsets: torch.Tensor, num_rows: int):
     """Yield (active (S,) bool, row (S,) int64) for every slot j: the
     j-th element of each segment, ``active`` where the segment has one

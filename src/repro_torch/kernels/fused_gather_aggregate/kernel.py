@@ -1,9 +1,18 @@
-"""Launch of the hand-written CUDA fused gather-aggregate kernel
-(``csrc/fused_gather_aggregate.cu``), the port of the Pallas TPU kernel
-``repro/kernels/fused_gather_aggregate/kernel.py``,
-``fused_gather_aggregate_v2_pallas``. The source carries the design
-note: one warp per destination segment over a stably sorted CSR, lanes
-over feature columns, fp32 fold in edge order, no atomics.
+"""Launches of the hand-written CUDA fused gather-aggregate kernels,
+the ports of the two Pallas TPU kernels of
+``repro/kernels/fused_gather_aggregate/kernel.py``:
+
+* ``fused_gather_aggregate_cuda`` (``csrc/fused_gather_aggregate.cu``)
+  ports ``fused_gather_aggregate_v2_pallas`` (``gather_mode="dma"``):
+  one warp per destination segment over a stably sorted CSR, lanes over
+  feature columns, fp32 fold in edge order, no atomics.
+* ``fused_gather_onehot_cuda`` (``csrc/fused_gather_onehot.cu``) ports
+  ``fused_gather_aggregate_pallas`` (``gather_mode="onehot"``): the same
+  function on the raw src/dst streams, on the one-hot schedule, one
+  block per ``node_block`` destination rows sweeping the edge stream in
+  ``edge_block`` chunks.
+
+The sources carry the design notes.
 """
 from __future__ import annotations
 
@@ -54,4 +63,48 @@ def fused_gather_aggregate_cuda(x: torch.Tensor, src: torch.Tensor,
                     num_segments, _build.AGG_CODES[agg], _build.pointer(out),
                     _build.stream_pointer(dev))
     _build.check(status, "fused_gather_aggregate")
+    return out
+
+
+_ONEHOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p]
+
+
+def fused_gather_onehot_cuda(x: torch.Tensor, src: torch.Tensor,
+                             dst: torch.Tensor, scale: torch.Tensor | None,
+                             num_segments: int, *, agg: str = "sum",
+                             edge_block: int = 128,
+                             node_block: int = 128) -> torch.Tensor:
+    """x: (N, F) fp32/bf16/int8 node table; src/dst: (E,) int32 endpoint
+    ids (an id out of range on either stream drops the edge); scale:
+    optional (E,) fp32 per-edge message scale. Returns (num_segments, F)
+    float32. ``node_block`` and ``edge_block`` are the launch's tiles:
+    min(node_block, S) destination rows per block, the edge stream swept
+    in chunks of min(edge_block, E). Launches on the current stream."""
+    if agg not in AGGS:
+        raise ValueError(f"agg {agg!r} not in {AGGS}")
+    _build.check_tiles(node_block, edge_block)
+    _build.check_table("x", x)
+    dev = x.device
+    n_src, f = x.shape
+    e = src.numel()
+    _build.check_vector("src", src, torch.int32, dev)
+    _build.check_vector("dst", dst, torch.int32, dev, e)
+    if scale is not None:
+        _build.check_vector("scale", scale, torch.float32, dev, e)
+    if num_segments < 1 or e < 1:
+        raise ValueError(f"{num_segments} segments / {e} edges: the "
+                         "kernel needs at least one of each")
+    out = torch.empty((num_segments, f), dtype=torch.float32, device=dev)
+    fn = _build.function("repro_fused_gather_onehot", _ONEHOT_ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(_build.pointer(x), _build.DTYPE_CODES[x.dtype], n_src, f,
+                    _build.pointer(src), _build.pointer(dst),
+                    _build.pointer(scale), e, num_segments, node_block,
+                    edge_block, _build.AGG_CODES[agg], _build.pointer(out),
+                    _build.stream_pointer(dev))
+    _build.check(status, "fused_gather_onehot")
     return out

@@ -1,15 +1,17 @@
-"""Plain PyTorch version of the fused gather-aggregate kernel.
+"""Plain PyTorch versions of the fused gather-aggregate kernels.
 
-Same inputs and result as ``kernel.fused_gather_aggregate_cuda``, and the
-same fold: each destination's edges in stream order, fp32 accumulate of
-``x[src] * scale``. The CPU path of the port runs it, and the kernel is
-held against it on the card.
+Same inputs and results as ``kernel.fused_gather_aggregate_cuda`` (over a
+destination CSR) and ``kernel.fused_gather_onehot_cuda`` (over the raw
+src/dst streams), and the same fold as both: each destination's edges in
+stream order, fp32 accumulate of ``x[src] * scale``. The CPU path of the
+port runs them, and the kernels are held against them on the card.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._csr_ref import csr_slots, finalize, fold, fold_init
+from repro_torch.kernels._csr_ref import (csr_slots, finalize, fold,
+                                          fold_init, stable_csr)
 
 AGGS = ("sum", "mean", "min", "max")
 
@@ -33,3 +35,17 @@ def fused_gather_aggregate_ref(x: torch.Tensor, src: torch.Tensor,
         acc = torch.where(active[:, None], fold(agg, acc, v), acc)
         count = count + active
     return finalize(agg, acc, count)
+
+
+def fused_gather_onehot_ref(x: torch.Tensor, src: torch.Tensor,
+                            dst: torch.Tensor, scale: torch.Tensor | None,
+                            num_segments: int, *,
+                            agg: str = "sum") -> torch.Tensor:
+    """The one-hot kernel's function: an edge with an id out of range on
+    either stream is dropped, every other edge folds into its
+    destination in stream order. The kernel's tile sizes shape its
+    schedule, not its result, so the plain version has none."""
+    s = src.long()
+    perm, offsets = stable_csr(dst, num_segments,
+                               (s >= 0) & (s < x.shape[0]))
+    return fused_gather_aggregate_ref(x, src, scale, perm, offsets, agg=agg)

@@ -8,11 +8,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._cost import priced, stack_call_work
 from repro_torch.kernels.fused_layer_stack.kernel import (
     fused_layer_stack_cuda)
 from repro_torch.kernels.fused_layer_stack.ref import fused_layer_stack_ref
 
 
+@priced(stack_call_work)
 def fused_layer_stack(x: torch.Tensor, src: torch.Tensor,
                       scale: torch.Tensor, perm: torch.Tensor,
                       offsets: torch.Tensor, self_vec: torch.Tensor,

@@ -1,9 +1,18 @@
-"""Launch of the hand-written CUDA segment-aggregate kernel
-(``csrc/segment_aggregate.cu``), the port of the Pallas TPU kernel
-``repro/kernels/segment_aggregate/kernel.py``,
-``segment_aggregate_v2_pallas``. The source carries the design note: one
-warp per segment over a stably sorted CSR, lanes over feature columns,
-fp32 fold (Welford for var/std) in stream order, no atomics.
+"""Launches of the hand-written CUDA segment-aggregate kernels, the
+ports of the two Pallas TPU kernels of
+``repro/kernels/segment_aggregate/kernel.py``:
+
+* ``segment_aggregate_cuda`` (``csrc/segment_aggregate.cu``) ports
+  ``segment_aggregate_v2_pallas`` (``gather_mode="dma"``): one warp per
+  segment over a stably sorted CSR, lanes over feature columns, fp32
+  fold (Welford for var/std) in stream order, no atomics.
+* ``segment_aggregate_onehot_cuda`` (``csrc/segment_aggregate_onehot.cu``)
+  ports ``segment_aggregate_pallas`` (``gather_mode="onehot"``): the
+  same function on the raw segment-id stream, on the one-hot schedule,
+  one block per ``node_block`` segments sweeping the rows in
+  ``edge_block`` chunks.
+
+The sources carry the design notes.
 """
 from __future__ import annotations
 
@@ -46,4 +55,41 @@ def segment_aggregate_cuda(messages: torch.Tensor, perm: torch.Tensor,
                     num_segments, _build.AGG_CODES[agg], _build.pointer(out),
                     _build.stream_pointer(dev))
     _build.check(status, "segment_aggregate")
+    return out
+
+
+_ONEHOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p]
+
+
+def segment_aggregate_onehot_cuda(messages: torch.Tensor,
+                                  seg_ids: torch.Tensor, num_segments: int,
+                                  *, agg: str = "sum", edge_block: int = 128,
+                                  node_block: int = 128) -> torch.Tensor:
+    """messages: (E, F) fp32/bf16/int8 rows; seg_ids: (E,) int32 (an id
+    outside [0, num_segments) drops the row). Returns (num_segments, F)
+    float32. ``node_block`` and ``edge_block`` are the launch's tiles:
+    min(node_block, S) segments per block, the rows swept in chunks of
+    min(edge_block, E). Launches on the current stream."""
+    if agg not in AGGS:
+        raise ValueError(f"agg {agg!r} not in {AGGS}")
+    _build.check_tiles(node_block, edge_block)
+    _build.check_table("messages", messages)
+    dev = messages.device
+    e, f = messages.shape
+    _build.check_vector("seg_ids", seg_ids, torch.int32, dev, e)
+    if num_segments < 1 or e < 1:
+        raise ValueError(f"{num_segments} segments / {e} rows: the kernel "
+                         "needs at least one of each")
+    out = torch.empty((num_segments, f), dtype=torch.float32, device=dev)
+    fn = _build.function("repro_segment_aggregate_onehot", _ONEHOT_ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(_build.pointer(messages),
+                    _build.DTYPE_CODES[messages.dtype], e, f,
+                    _build.pointer(seg_ids), num_segments, node_block,
+                    edge_block, _build.AGG_CODES[agg], _build.pointer(out),
+                    _build.stream_pointer(dev))
+    _build.check(status, "segment_aggregate_onehot")
     return out

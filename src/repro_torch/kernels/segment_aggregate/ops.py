@@ -1,18 +1,26 @@
-"""Public wrapper of the segment-aggregate kernel: dispatch by device.
+"""Public wrappers of the segment-aggregate kernels: dispatch by device.
 
 A CPU tensor takes the plain version (``ref.py``); any other tensor
 launches the CUDA kernel (``kernel.py``), which raises on what it does
-not take. ``segment_aggregate.launches`` counts kernel launches.
+not take. ``segment_aggregate`` walks a segment CSR (the
+``gather_mode="dma"`` kernel), ``segment_aggregate_onehot`` the raw
+segment-id stream on the one-hot schedule (``gather_mode="onehot"``);
+each wrapper's ``launches`` counts its kernel's launches.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+from repro_torch.kernels._cost import (priced, segment_onehot_work,
+                                       segment_work)
 from repro_torch.kernels.segment_aggregate.kernel import (
-    segment_aggregate_cuda)
-from repro_torch.kernels.segment_aggregate.ref import segment_aggregate_ref
+    segment_aggregate_cuda, segment_aggregate_onehot_cuda)
+from repro_torch.kernels.segment_aggregate.ref import (
+    segment_aggregate_onehot_ref, segment_aggregate_ref)
 
 
+@priced(segment_work)
 def segment_aggregate(messages: torch.Tensor, perm: torch.Tensor,
                       offsets: torch.Tensor, *,
                       agg: str = "sum") -> torch.Tensor:
@@ -31,3 +39,30 @@ def segment_aggregate(messages: torch.Tensor, perm: torch.Tensor,
 
 
 segment_aggregate.launches = 0
+
+
+@priced(segment_onehot_work)
+def segment_aggregate_onehot(messages: torch.Tensor, seg_ids: torch.Tensor,
+                             num_segments: int, *, agg: str = "sum",
+                             edge_block: int = 128,
+                             node_block: int = 128) -> torch.Tensor:
+    """out[s] = agg over the rows e with seg_ids[e] = s of messages[e]
+    -> (num_segments, F) float32; a row whose id lies outside [0,
+    num_segments) is dropped. ``edge_block``/``node_block`` are the
+    kernel's tiles (ints >= 1; they set its schedule, never its result).
+    No rows or no segments gives zeros without a launch."""
+    _build.check_tiles(node_block, edge_block)
+    if messages.shape[0] == 0 or num_segments <= 0:
+        return torch.zeros((max(num_segments, 0), messages.shape[1]),
+                           dtype=torch.float32, device=messages.device)
+    if messages.device.type == "cpu":
+        return segment_aggregate_onehot_ref(messages, seg_ids, num_segments,
+                                            agg=agg)
+    out = segment_aggregate_onehot_cuda(messages, seg_ids, num_segments,
+                                        agg=agg, edge_block=edge_block,
+                                        node_block=node_block)
+    segment_aggregate_onehot.launches += 1
+    return out
+
+
+segment_aggregate_onehot.launches = 0

@@ -1,15 +1,18 @@
-"""Plain PyTorch version of the segment-aggregate kernel.
+"""Plain PyTorch versions of the segment-aggregate kernels.
 
-Same inputs and result as ``kernel.segment_aggregate_cuda``, and the same
-fold: each segment's rows in stream order, fp32 accumulate, Welford's
-update for var/std with the reference's finalize. The CPU path of the
-port runs it, and the kernel is held against it on the card.
+Same inputs and results as ``kernel.segment_aggregate_cuda`` (over a
+segment CSR) and ``kernel.segment_aggregate_onehot_cuda`` (over the raw
+segment-id stream), and the same fold as both: each segment's rows in
+stream order, fp32 accumulate, Welford's update for var/std with the
+reference's finalize. The CPU path of the port runs them, and the
+kernels are held against them on the card.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._csr_ref import csr_slots, finalize, fold, fold_init
+from repro_torch.kernels._csr_ref import (csr_slots, finalize, fold,
+                                          fold_init, stable_csr)
 
 AGGS = ("sum", "mean", "min", "max", "var", "std")
 
@@ -42,3 +45,14 @@ def segment_aggregate_ref(messages: torch.Tensor, perm: torch.Tensor,
     var = m2 / count.clamp(min=1).to(torch.float32)[:, None]
     var = torch.clamp(var, min=1e-12)
     return torch.sqrt(var) if agg == "std" else var
+
+
+def segment_aggregate_onehot_ref(messages: torch.Tensor,
+                                 seg_ids: torch.Tensor, num_segments: int, *,
+                                 agg: str = "sum") -> torch.Tensor:
+    """The one-hot kernel's function: a row whose id lies outside [0,
+    num_segments) is dropped, every other row folds into its segment in
+    stream order. The kernel's tile sizes shape its schedule, not its
+    result, so the plain version has none."""
+    perm, offsets = stable_csr(seg_ids, num_segments)
+    return segment_aggregate_ref(messages, perm, offsets, agg=agg)

@@ -8,10 +8,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._cost import priced, softmax_work
 from repro_torch.kernels.segment_softmax.kernel import segment_softmax_cuda
 from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
 
 
+@priced(softmax_work)
 def segment_softmax(logits: torch.Tensor, perm: torch.Tensor,
                     offsets: torch.Tensor) -> torch.Tensor:
     """w[e] = exp(z[e] - m[s]) / max(l[s], 1e-30) for each edge e of the

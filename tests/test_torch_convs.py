@@ -245,10 +245,11 @@ def _chip_smoke():
     return chip_smoke
 
 
-def _count_kernel_calls(conv, monkeypatch, resident):
+def _count_kernel_calls(conv, monkeypatch, resident, gather_mode="dma"):
     """Calls of each kernel wrapper, in ``chip_smoke.KERNELS`` order, for
     one small qm9 batch through the CPU path."""
-    calls = {"gather": 0, "segment": 0, "softmax": 0, "stack": 0}
+    calls = {"gather": 0, "segment": 0, "softmax": 0, "stack": 0,
+             "gather_onehot": 0, "segment_onehot": 0}
 
     def counting(name, fn):
         def wrapper(*a, **k):
@@ -256,18 +257,18 @@ def _count_kernel_calls(conv, monkeypatch, resident):
             return fn(*a, **k)
         return wrapper
 
-    monkeypatch.setattr(TA, "fused_gather_aggregate",
-                        counting("gather", TA.fused_gather_aggregate))
-    monkeypatch.setattr(TA, "_segment_aggregate",
-                        counting("segment", TA._segment_aggregate))
-    monkeypatch.setattr(TA, "_segment_softmax",
-                        counting("softmax", TA._segment_softmax))
-    monkeypatch.setattr(TG, "fused_layer_stack",
-                        counting("stack", TG.fused_layer_stack))
+    for mod, attr, name in (
+            (TA, "fused_gather_aggregate", "gather"),
+            (TA, "_segment_aggregate", "segment"),
+            (TA, "_segment_softmax", "softmax"),
+            (TG, "fused_layer_stack", "stack"),
+            (TA, "fused_gather_onehot", "gather_onehot"),
+            (TA, "segment_aggregate_onehot", "segment_onehot")):
+        monkeypatch.setattr(mod, attr, counting(name, getattr(mod, attr)))
     cfg = port_cfg(JCfg.config(conv, reduced=True))
     params = tprm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = TG.packed_to_device(small_batch_qm9(), "cpu")
-    with torch.inference_mode():
+    with torch.inference_mode(), TA.aggregation_scope(gather_mode):
         if resident:
             TG.apply_packed_resident(params, cfg, batch, fusion_depth=2)
         else:
@@ -293,6 +294,17 @@ def test_resident_kernel_calls_per_batch_match_chip_smoke_table(
     want = cs.RESIDENT_LAUNCHES if conv in cs.RESIDENT_CONVS \
         else cs.LAUNCHES_PER_BATCH[conv]
     assert _count_kernel_calls(conv, monkeypatch, resident=True) == want
+
+
+@pytest.mark.parametrize("conv", TC.CONV_TYPES)
+def test_onehot_kernel_calls_per_batch_match_chip_smoke_table(
+        conv, monkeypatch):
+    """Under ``aggregation_scope(gather_mode="onehot")`` the gathers and
+    segment aggregations go to the one-hot kernels
+    (``chip_smoke.ONEHOT_LAUNCHES_PER_BATCH``); GAT keeps its softmax."""
+    assert _count_kernel_calls(conv, monkeypatch, resident=False,
+                               gather_mode="onehot") \
+        == _chip_smoke().ONEHOT_LAUNCHES_PER_BATCH[conv]
 
 
 def small_batch_qm9():

@@ -268,8 +268,10 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
 def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"fused_gather_aggregate.cu",
+                                      "fused_gather_onehot.cu",
                                       "fused_layer_stack.cu",
                                       "segment_aggregate.cu",
+                                      "segment_aggregate_onehot.cu",
                                       "segment_softmax.cu"}
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 16
@@ -278,7 +280,9 @@ def test_build_is_keyed_by_the_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every pointer and the stream are declared as c_void_p
     for argtypes, pointers in ((GK._ARGTYPES, (0, 4, 5, 7, 8, 11, 12)),
-                               (SK._ARGTYPES, (0, 4, 5, 8, 9))):
+                               (SK._ARGTYPES, (0, 4, 5, 8, 9)),
+                               (GK._ONEHOT_ARGTYPES, (0, 4, 5, 6, 12, 13)),
+                               (SK._ONEHOT_ARGTYPES, (0, 4, 9, 10))):
         assert [i for i, t in enumerate(argtypes)
                 if t is ctypes.c_void_p] == list(pointers)
 

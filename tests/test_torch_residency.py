@@ -316,13 +316,15 @@ def test_resident_falls_back_bit_exactly_for_other_convs(conv):
         port_run(TG.apply_packed, params, tcfg, batch))
 
 
-def test_resident_falls_back_bit_exactly_over_budget():
+def test_resident_falls_back_bit_exactly_over_budget(monkeypatch):
+    """The budget comes from the L2 the device reports (the H100's on the
+    CPU); a 1 KiB L2 makes every working set illegal."""
     cfg = reduced_cfg("gcn")
     _, tcfg, params = both_params(cfg)
     batch = packed_batch()
+    monkeypatch.setattr(TC, "H100_L2_BYTES", 1024)
     np.testing.assert_array_equal(
-        port_run(TG.apply_packed_resident, params, tcfg, batch,
-                 l2_bytes=1024),
+        port_run(TG.apply_packed_resident, params, tcfg, batch),
         port_run(TG.apply_packed, params, tcfg, batch))
 
 
