@@ -79,7 +79,36 @@ Phases, in order; any failure exits non-zero with no result line:
    at ``fusion_depth=2`` (residency engaged, stack launches); GCN at
    1024 graphs/batch in both gather modes, graphs/s side by side. The
    counts are set to 0 just before each generated program's run and read
-   just after; the testbench's fp32 reference runs the default kernels.
+   just after; the testbench's fp32 reference runs the default kernels;
+8. the three kernels reached through their own entry points
+   (``kernels/{gnn_aggregate,tiled_linear,flash_attention}/ops.py``).
+   Each against its plain version on the card: the padded-table
+   aggregation for every agg in fp32 and bf16 at ``block_nodes`` 32 and
+   128, on the edge cases (empty rows, ids >= N and below -1, N = 37,
+   F = 33 and 256) and the packed table (sum/mean/var/std to rtol 1e-5,
+   atol 1e-6, min/max exactly); the matmul at the JAX kernel test's
+   ragged triples and the GCN transforms, fp32 within 1e-5 and bf16
+   within 1e-2 of the output scale, and the tiles of the parallel
+   (16, 8) and base (1, 1) designs give the same bits; attention causal
+   and not, fp32 at rtol = atol = 1e-4 (also at the qwen3-8b tile shape,
+   D = block_q = block_k = 128, causal over 8 KV tiles) and bf16 at rtol
+   8e-3, atol 1e-4 (one bf16 rounding step), with ragged S (1500, 100)
+   non-causal. Then the
+   path once through the entry points at full width, the counts set to 0
+   just before and read just after (one launch per call, each output
+   against its plain version): the 1024-graph qm9 batch as one padded
+   table (F = 64, 128) and ``Project``'s 600-node frame (F = 11, 128,
+   256); the GCN transforms at 1024 graphs/batch and the MLP head with
+   the tiles of the parallel (16, 8) design, and
+   qwen3-8b's MLP up-projection (4096, 4096) @ (4096, 12288) in bf16;
+   qwen3-8b's causal prefill attention (32 heads, K/V expanded from 8,
+   S = 4096, D = 128, bf16) and whisper-base's encoder attention (B = 4,
+   8 heads, S = 1500, D = 64, non-causal, fp32 and bf16). Each call is
+   timed as in phase 6, beside ``torch.matmul`` (TF32 off),
+   ``scaled_dot_product_attention`` or, for a sum/mean/max over the
+   padded table, ``embedding_bag`` (the table as bags with a padding id,
+   held against the plain version too) as its library call, and its bound
+   prices bf16 products at the tensor-core peak (989 TFLOP/s).
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``.
@@ -108,6 +137,7 @@ from repro_torch.kernels._cost import (  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
+TC_BF16_FLOPS_PER_S = 989e12    # H100 SXM, bf16 dense on the tensor cores
 SEGMENT_TOL = dict(rtol=1e-5, atol=1e-6)
 SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -148,6 +178,9 @@ NO_LIBRARY = {
                        "softmax",
     "fused_layer_stack": "no single PyTorch call computes a GCN/SAGE "
                          "layer stack",
+    "gnn_aggregate": "no library call computes Welford var/std over a "
+                     "padded neighbour table (sum, mean and max are "
+                     "timed against F.embedding_bag)",
 }
 # the resident kernel's precision rows [mode, s, lo, hi] and tolerances
 # on the output scale, max|err| <= rtol * max|plain| + atol: fp32 the
@@ -248,9 +281,10 @@ def cuda_ms(fn, reps: int = 25, inner: int = 10,
     return statistics.median(times)
 
 
-def bound_ms(bytes_moved: int, flops: float) -> tuple:
+def bound_ms(bytes_moved: int, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1294,6 +1328,406 @@ def project_phase(dev) -> dict:
     return launches
 
 
+# ----------------------------------------------------------- phase 8 --
+# the kernels each reached through its own entry point (kernels/*/ops.py)
+ENTRY_KERNELS = ("gnn_aggregate", "tiled_matmul", "flash_attention")
+ENTRY_META = {
+    "gnn_aggregate": dict(
+        source="src/repro_torch/csrc/gnn_aggregate.cu",
+        replaces="src/repro/kernels/gnn_aggregate/kernel.py:90"),
+    "tiled_matmul": dict(
+        source="src/repro_torch/csrc/tiled_matmul.cu",
+        replaces="src/repro/kernels/tiled_linear/kernel.py:35"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:57"),
+}
+GNN_AGG_BLOCKS = (32, 128)          # block_nodes held against the plain
+# max|err| <= tol * max|plain| (matmul) or elementwise rtol/atol
+# (attention): the products sum in another order in fp32; kernel and plain
+# both round the fp32 result to bf16 once, so two bf16 outputs can land
+# on neighbouring bf16 values, one step apart (at most 2^-7 of the value)
+MATMUL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+            torch.bfloat16: dict(rtol=8e-3, atol=1e-4)}
+# the ragged triples (M, K, N, bm, bn, bk) of the JAX package's own
+# kernel test (tests/test_kernels.py)
+MATMUL_TRIPLES = ((128, 128, 128, 64, 64, 64), (130, 200, 70, 64, 64, 64),
+                  (32, 512, 96, 32, 32, 128))
+# qwen3-8b (configs/qwen3_8b.py): d_model 4096, d_ff 12288, 32 query
+# heads over 8 KV heads of 128; a 4096-token prefill
+QWEN3 = dict(d_model=4096, d_ff=12288, heads=32, kv_heads=8, head_dim=128,
+             tokens=4096)
+# whisper-base's encoder (configs/whisper_base.py: 8 heads of 64,
+# bidirectional) at its 1500 audio frames (arXiv:2212.04356), 4 clips
+WHISPER = dict(batch=4, heads=8, head_dim=64, frames=1500)
+
+
+def entry_counters() -> dict:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.gnn_aggregate.ops import gnn_aggregate
+    from repro_torch.kernels.tiled_linear.ops import tiled_matmul
+    return dict(zip(ENTRY_KERNELS,
+                    (gnn_aggregate, tiled_matmul, flash_attention)))
+
+
+def product_rate(dtype: torch.dtype) -> float:
+    """The peak that bounds a product kernel's operations: the tensor
+    cores' for bf16 operands (the least time the card could take, not
+    what a SIMT kernel reaches), the fp32 SIMT rate for fp32 (TF32 off)."""
+    return TC_BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+        else FP32_FLOPS_PER_S
+
+
+def padded_tables(batch, frame) -> list:
+    """(label, N, nbr int32 numpy) of the two padded tables of the path:
+    the packed batch as one table, and Project's 600-node frame of one
+    graph; K is each one's max in-degree over its valid edges."""
+    from repro_torch.kernels.gnn_aggregate.ref import neighbor_table
+    out = []
+    for label, ei, n in (("qm9 1024 graphs/batch", batch["edge_index"],
+                          batch["node_feat"].shape[0]),
+                         ("Project 600-node frame", frame.edge_index,
+                          frame.node_feat.shape[0])):
+        ei = np.asarray(ei)
+        ok = (ei[:, 0] >= 0) & (ei[:, 1] >= 0)
+        k = int(np.bincount(ei[ok, 1], minlength=n).max())
+        out.append((label, n, neighbor_table(ei[ok], n, k)))
+    return out
+
+
+def gnn_agg_edge_tables(rng) -> list:
+    """(label, N, F, nbr) edge cases: empty rows, ids >= N and below -1,
+    N = 37 (no block divides it), F = 33 and F = 256."""
+    from repro_torch.kernels.gnn_aggregate.ref import neighbor_table
+    out = []
+    for n, f, k in ((37, 33, 5), (300, 256, 9)):
+        ei = rng.integers(0, n, (3 * n, 2)).astype(np.int32)
+        nbr = neighbor_table(ei, n, k)
+        nbr[0, :] = -1
+        nbr[3, :] = -1
+        nbr[1, 0], nbr[2, 1], nbr[4, k - 1] = n, n + 11, -7
+        nbr[5, :] = 2 ** 31 - 1
+        out.append((f"edge cases N={n} F={f} K={k}", n, f, nbr))
+    return out
+
+
+def close_to(name: str, label: str, got, want, tol: dict, errs: dict,
+             on_scale: bool = False) -> None:
+    """``got`` against ``want`` (both compared in fp32): elementwise
+    rtol/atol, or ``on_scale``: max|err| <= rtol * max|want|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name} {label}: {got.dtype}{tuple(got.shape)} != "
+          f"{want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{name} {label}: non-finite")
+    err = float((g - w).abs().max())
+    errs[name] = max(errs.get(name, 0.0), err)
+    ok = err <= tol["rtol"] * float(w.abs().max()) if on_scale \
+        else torch.allclose(g, w, **tol)
+    check(ok, f"{name} {label}: max |err| {err} outside {tol}")
+
+
+def entry_kernels_vs_plain(dev, tables) -> dict:
+    """Each kernel against its plain version on the card, outside the
+    counted run: the padded-table aggregation (every agg, fp32 and bf16,
+    block_nodes 32 and 128, the edge cases and the packed table), the
+    matmul at the ragged triples in fp32 and bf16 and the GCN transforms,
+    attention causal and not in fp32 and bf16 with ragged S."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gnn_aggregate.kernel import gnn_aggregate_cuda
+    from repro_torch.kernels.gnn_aggregate.ref import AGGS, gnn_aggregate_ref
+    from repro_torch.kernels.tiled_linear.kernel import tiled_matmul_cuda
+    from repro_torch.kernels.tiled_linear.ops import blocks_from_parallelism
+    from repro_torch.kernels.tiled_linear.ref import tiled_matmul_ref
+
+    rng = np.random.default_rng(8)
+    errs: dict = {}
+    n_cmp = 0
+    label, n, nbr = tables[0]
+    cases = gnn_agg_edge_tables(rng) + [(label, n, 64, nbr)]
+    for label, n, f, nbr in cases:
+        nt = torch.from_numpy(nbr).to(dev)
+        x = torch.randn((n, f), device=dev) * 3
+        for dt in (torch.float32, torch.bfloat16):
+            xt = x.to(dt)
+            for agg in AGGS:
+                want = gnn_aggregate_ref(xt, nt, agg=agg)
+                for bn in GNN_AGG_BLOCKS:
+                    got = gnn_aggregate_cuda(xt, nt, agg=agg, block_nodes=bn)
+                    check(got.dtype == dt, f"gnn_aggregate {label}: "
+                                           f"{got.dtype} out of {dt}")
+                    compare("gnn_aggregate", agg, got.float(), want.float(),
+                            errs)
+                    n_cmp += 1
+    for m, k, nn, bm, bn, bk in MATMUL_TRIPLES + (
+            (27656, 11, 128, 128, 128, 128), (1024, 192, 64, 128, 128, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), device=dev).to(dt)
+            w = torch.randn((k, nn), device=dev).to(dt)
+            got = tiled_matmul_cuda(x, w, block_m=bm, block_n=bn, block_k=bk)
+            close_to("tiled_matmul", f"({m}, {k}) @ ({k}, {nn}) {dt}", got,
+                     tiled_matmul_ref(x, w),
+                     dict(rtol=MATMUL_TOL[dt], atol=0.0), errs, on_scale=True)
+            n_cmp += 1
+    # the tiles of the parallel (16, 8) and base (1, 1) designs are no
+    # launch knobs: the same bits at GCN layer 1's transform
+    x = torch.randn((27656, 128), device=dev)
+    w = torch.randn((128, 64), device=dev)
+    outs = [tiled_matmul_cuda(x, w, block_m=128, block_n=bn, block_k=bk)
+            for bk, bn in (blocks_from_parallelism(16, 8),
+                           blocks_from_parallelism(1, 1))]
+    check(torch.equal(*outs), "tiled_matmul: the (16, 8) and (1, 1) "
+                              "designs' tiles give different results")
+    for bh, sq, skv, d, bq, bk, causal_set in (
+            (4, 128, 128, 32, 64, 64, (True, False)),
+            (2, 256, 256, 64, 64, 64, (True, False)),
+            (1, 64, 64, 16, 64, 64, (True, False)),
+            (8, 1500, 1500, 64, 128, 128, (False,)),
+            (8, 100, 100, 64, 128, 128, (False,)),
+            (3, 40, 72, 128, 32, 48, (True, False)),
+            (2, 1024, 1024, 128, 128, 128, (True,))):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((bh, s, d), device=dev).to(dt)
+                       for s in (sq, skv, skv))
+            for causal in causal_set:
+                got = flash_attention_cuda(q, k, v, causal=causal,
+                                           block_q=bq, block_k=bk)
+                close_to("flash_attention", f"bh={bh} Sq={sq} Skv={skv} "
+                         f"D={d} tiles ({bq}, {bk}) causal={causal} {dt}",
+                         got, attention_ref(q, k, v, causal=causal),
+                         ATTN_TOL[dt], errs)
+                n_cmp += 1
+    torch.cuda.synchronize()
+    print(f"[8] {n_cmp} kernel-vs-plain comparisons passed; max |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def entry_calls(dev, tables) -> list:
+    """The full-width calls of phase 8's path, each (kernel, label, ops
+    call, kernel launch, plain, library or None, (bytes, operations),
+    rate): the padded-table aggregation at the packed table (F = 64, 128)
+    and Project's frame (F = 11, 128, 256); the GCN transforms at 1024
+    graphs/batch and the MLP head with the tiles of the parallel (16, 8)
+    design, and qwen3-8b's MLP up-projection in bf16;
+    qwen3-8b's causal prefill attention in bf16 and whisper-base's
+    encoder attention in fp32 and bf16."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.kernels._cost import (attention_work, matmul_work,
+                                           padded_agg_work)
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.gnn_aggregate import ops as GO
+    from repro_torch.kernels.gnn_aggregate.kernel import gnn_aggregate_cuda
+    from repro_torch.kernels.gnn_aggregate.ref import gnn_aggregate_ref
+    from repro_torch.kernels.tiled_linear import ops as TO
+    from repro_torch.kernels.tiled_linear.kernel import tiled_matmul_cuda
+    from repro_torch.kernels.tiled_linear.ref import tiled_matmul_ref
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen)
+                * scale).to(dtype)
+
+    calls = []
+    for (label, n, nbr), widths in zip(tables, ((64, 128), (11, 128, 256))):
+        nt = torch.from_numpy(nbr).to(dev)
+        # the library's inputs, made outside the timing: embedding_bag
+        # takes the (N, K) table as N bags with padding id N, a zero row
+        bags = torch.where((nt >= 0) & (nt < n), nt,
+                           torch.full_like(nt, n)).long()
+        for f in widths:
+            for agg in ("sum", "std") if f == 128 and n > 600 else ("sum",):
+                x = randn(n, f)
+                x_pad = torch.cat([x, x.new_zeros(1, f)])
+                lib = None if agg in ("var", "std") else (
+                    lambda x_pad=x_pad, bags=bags, agg=agg, n=n:
+                    torch.nn.functional.embedding_bag(
+                        bags, x_pad, mode=agg, padding_idx=n))
+                calls.append((
+                    "gnn_aggregate",
+                    f"{label} {agg}: N={n} K={nt.shape[1]} F={f} fp32 "
+                    f"(valid slots {int(((nt >= 0) & (nt < n)).sum())})",
+                    lambda x=x, nt=nt, agg=agg: GO.gnn_aggregate(
+                        x, nt, agg=agg, block_nodes=128),
+                    lambda x=x, nt=nt, agg=agg: gnn_aggregate_cuda(
+                        x, nt, agg=agg, block_nodes=128),
+                    lambda x=x, nt=nt, agg=agg: gnn_aggregate_ref(
+                        x, nt, agg=agg),
+                    lib, padded_agg_work(x, nt, agg=agg),
+                    FP32_FLOPS_PER_S))
+    cfg = benchmark_config("gcn")
+    n = tables[0][1]
+    shapes = [(n, cfg.conv_cfg(i).in_dim, cfg.conv_cfg(i).out_dim,
+               f"GCN layer {i} transform")
+              for i in range(cfg.gnn_num_layers)]
+    shapes.append((1024, 192, 64, "MLP head layer 0"))
+    # the parallel design's tiles; the base design's give the same bits
+    # (entry_kernels_vs_plain), so they are not timed again
+    bk, bn = TO.blocks_from_parallelism(16, 8)
+    for m, k, nn, what in shapes:
+        x, w = randn(m, k), randn(k, nn, scale=k ** -0.5)
+        calls.append((
+            "tiled_matmul",
+            f"{what}: ({m}, {k}) @ ({k}, {nn}) fp32, tiles of design "
+            f"(16, 8) (128, {bn}, {bk})",
+            lambda x=x, w=w: TO.tiled_matmul(
+                x, w, block_m=128, block_n=bn, block_k=bk),
+            lambda x=x, w=w: tiled_matmul_cuda(
+                x, w, block_m=128, block_n=bn, block_k=bk),
+            lambda x=x, w=w: tiled_matmul_ref(x, w),
+            lambda x=x, w=w: torch.matmul(x, w),
+            matmul_work(x, w), product_rate(x.dtype)))
+    t, d, ff = QWEN3["tokens"], QWEN3["d_model"], QWEN3["d_ff"]
+    x = randn(t, d, dtype=torch.bfloat16)
+    w = randn(d, ff, dtype=torch.bfloat16, scale=d ** -0.5)
+    calls.append((
+        "tiled_matmul", f"qwen3-8b MLP up-projection, {t}-token prefill: "
+        f"({t}, {d}) @ ({d}, {ff}) bf16",
+        lambda x=x, w=w: TO.tiled_matmul(x, w),
+        lambda x=x, w=w: tiled_matmul_cuda(x, w),
+        lambda x=x, w=w: tiled_matmul_ref(x, w),
+        lambda x=x, w=w: torch.matmul(x, w),
+        matmul_work(x, w), product_rate(x.dtype)))
+    qh, kvh, hd = QWEN3["heads"], QWEN3["kv_heads"], QWEN3["head_dim"]
+    q = randn(1, qh, t, hd, dtype=torch.bfloat16)
+    # K/V of the 8 KV heads expanded to the 32 query heads, as the
+    # reference's nn/attention._expand_kv repeats each head
+    k, v = (randn(1, kvh, t, hd, dtype=torch.bfloat16)
+            .repeat_interleave(qh // kvh, dim=1).contiguous()
+            for _ in range(2))
+    attn = [(f"qwen3-8b causal prefill: B=1 H={qh} (K/V from {kvh} heads) "
+             f"S={t} D={hd} bf16", q, k, v, True)]
+    b, h, s, hd = (WHISPER["batch"], WHISPER["heads"], WHISPER["frames"],
+                   WHISPER["head_dim"])
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(b, h, s, hd, dtype=dt) for _ in range(3))
+        attn.append((f"whisper-base encoder: B={b} H={h} S={s} D={hd} "
+                     f"non-causal {str(dt).split('.')[-1]}", q, k, v, False))
+    for label, q, k, v, causal in attn:
+        q3, k3, v3 = (a.reshape(-1, *a.shape[2:]) for a in (q, k, v))
+        calls.append((
+            "flash_attention", label,
+            lambda q=q, k=k, v=v, c=causal: FO.flash_attention(
+                q, k, v, causal=c),
+            lambda q3=q3, k3=k3, v3=v3, c=causal: flash_attention_cuda(
+                q3, k3, v3, causal=c),
+            lambda q3=q3, k3=k3, v3=v3, c=causal: attention_ref(
+                q3, k3, v3, causal=c),
+            lambda q=q, k=k, v=v, c=causal:
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=c),
+            attention_work(q, k, v, causal=causal), product_rate(q.dtype)))
+    return calls
+
+
+def entry_path_phase(dev, calls, errs: dict) -> dict:
+    """Drive phase 8's path once through the entry points: the counts are
+    set to 0 just before and read just after; each call launches its
+    kernel once and agrees with the plain version."""
+    wrappers = entry_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    outs = [call() for _, _, call, *_ in calls]
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for name in ENTRY_KERNELS:
+        want = sum(c[0] == name for c in calls)
+        check(launches[name] == want, f"{name}: {launches[name]} launches "
+                                      f"on phase 8's path, expected {want}")
+    for (name, label, _, _, plain, lib, *_), out in zip(calls, outs):
+        ref = plain()
+        if name == "gnn_aggregate" and lib is not None:
+            # the library yardstick computes the same function
+            close_to(name, label + " (library)", lib(), ref,
+                     dict(rtol=1e-5, atol=0.0), {}, on_scale=True)
+        if name == "tiled_matmul":
+            close_to(name, label, out, ref, dict(
+                rtol=MATMUL_TOL[out.dtype], atol=0.0), errs, on_scale=True)
+        elif name == "flash_attention":
+            close_to(name, label, out, ref.reshape(out.shape),
+                     ATTN_TOL[out.dtype], errs)
+        else:
+            close_to(name, label, out, ref, SEGMENT_TOL, errs)
+        del ref
+    print(f"[8] path: {len(calls)} full-width calls through the entry "
+          f"points, launches {launches}; each against its plain version")
+    return launches
+
+
+def entry_timing_phase(calls) -> list:
+    """Each full-width call timed as phase 6 times (a long kernel with
+    fewer runs), beside its plain version, its library call and its
+    bound (the operations of a bf16 product at the tensor-core peak)."""
+    rows = []
+    for name, label, _, kern, plain, lib, (moved, ops), rate in calls:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kern()
+        end.record()
+        end.synchronize()
+        reps = (7, 2) if start.elapsed_time(end) > 2.0 else (25, 10)
+        bound, by = bound_ms(moved, ops, rate)
+        rows.append(dict(
+            kernel=name, shape=label,
+            ms=cuda_ms(kern, *reps),
+            plain_ms=cuda_ms(plain, reps=5, inner=1, device_only=False),
+            library_ms=None if lib is None else cuda_ms(lib, *reps),
+            bound_ms=bound, bound_by=by))
+        r = rows[-1]
+        lib_s = "n/a" if r["library_ms"] is None \
+            else f"{r['library_ms']:.5f} ms"
+        print(f"[8] {name} {label}: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f} ms, library {lib_s}, bound "
+              f"{r['bound_ms']:.6f} ms ({by}), {ops / r['ms'] * 1e-9:.3f} "
+              f"TFLOP/s")
+    return rows
+
+
+def summarize_entries(rows, errs, launches) -> list:
+    """One entry per entry-point kernel: sums over phase 8's full-width
+    calls (one launch each), with each call's numbers under ``calls``."""
+    out = []
+    for name in ENTRY_KERNELS:
+        sel = [r for r in rows if r["kernel"] == name]
+        check(len(sel) == launches[name],
+              f"{name}: {len(sel)} timed calls for {launches[name]} "
+              "launches on phase 8's path")
+        libs = [r for r in sel if r["library_ms"] is not None]
+        entry = {
+            "name": name, "route": "cuda", **ENTRY_META[name],
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": sum(r["ms"] for r in sel),
+            "plain_ms": sum(r["plain_ms"] for r in sel),
+            "bound_ms": sum(r["bound_ms"] for r in sel),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in sel)
+            else "operations",
+            "library_ms": sum(r["library_ms"] for r in libs) if libs
+            else None,
+            "shapes": "phase 8 path, one launch per call: "
+                      + "; ".join(r["shape"] for r in sel),
+            "calls": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by")} for r in sel],
+        }
+        if len(libs) < len(sel):
+            # library_ms sums the calls that have one; the kernel's ms
+            # over the same calls stands beside it
+            entry["library_calls"] = len(libs)
+            entry["ms_on_library_calls"] = sum(r["ms"] for r in libs)
+            entry["library_note"] = NO_LIBRARY[name]
+        out.append(entry)
+    return out
+
+
 def summarize(rows, errs, launches) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
@@ -1436,7 +1870,17 @@ def main() -> int:
     rows = timing_phase(dev, path_batches, resident_batches)
     for k, v in project_phase(dev).items():
         launches[k] += v
+    t8 = time.perf_counter()
+    tables = padded_tables(batches[1024][1], P.make_graph(ds, 0))
+    entry_errs = entry_kernels_vs_plain(dev, tables)
+    calls = entry_calls(dev, tables)
+    entry_launches = entry_path_phase(dev, calls, entry_errs)
+    entry_rows = entry_timing_phase(calls)
+    del calls
+    print(f"[8] phase 8 took {time.perf_counter() - t8:.1f} s")
     summary = summarize(rows, errs, launches)
+    summary["kernels"] += summarize_entries(entry_rows, entry_errs,
+                                            entry_launches)
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "

@@ -165,3 +165,44 @@ def stack_work(args, kind: str, has_skip: bool, dims=None) -> tuple:
 def stack_call_work(*args, kind: str, has_skip: bool = True, **_) -> tuple:
     """``stack_work`` on the arguments of ``ops.fused_layer_stack``."""
     return stack_work(args, kind, has_skip)
+
+
+def padded_agg_work(x, nbr, agg: str = "sum", **_) -> tuple:
+    """The padded-table aggregation (``ops.gnn_aggregate``): the whole
+    (N, K) table (the kernel must read every slot to find the valid
+    ones), the x rows of the distinct valid ids, the (N, F) output in x's
+    dtype; a fold per valid slot and column (four operations for
+    Welford). A slot is valid when its id lies in [0, N)."""
+    n, f = x.shape
+    ids = nbr[(nbr >= 0) & (nbr < n)]
+    rows = int(torch.unique(ids).numel())
+    moved = nbytes(nbr) + (rows + n) * f * x.element_size()
+    return moved, (4.0 if agg in ("var", "std") else 1.0) * ids.numel() * f
+
+
+def matmul_work(x, w, **_) -> tuple:
+    """The tiled matmul (``ops.tiled_matmul``): both operands and the
+    (M, N) result in x's dtype; 2 M N K operations."""
+    (m, k), n = x.shape, w.shape[1]
+    return (nbytes(x, w) + m * n * x.element_size(), 2.0 * m * n * k)
+
+
+def attention_pairs(sq: int, skv: int, causal: bool) -> int:
+    """The (query, key) pairs attention scores: all of them, or under the
+    top-left causal mask those with key position <= query position."""
+    if not causal:
+        return sq * skv
+    full = min(sq, skv)            # rows q < skv see keys 0..q
+    return full * (full + 1) // 2 + (sq - full) * skv
+
+
+def attention_work(q, k, v, causal: bool = True, **_) -> tuple:
+    """Attention forward (``ops.flash_attention``, 3-D or 4-D): q, k, v
+    and the output in q's dtype; per (query, key) pair the mask allows,
+    a score (2 D), a weighted value row (2 Dv) and four softmax
+    operations (max, subtract, exp, sum)."""
+    d, dv = q.shape[-1], v.shape[-1]
+    heads = q.numel() // (q.shape[-2] * d)
+    pairs = attention_pairs(q.shape[-2], k.shape[-2], causal) * heads
+    out = heads * q.shape[-2] * dv * q.element_size()
+    return nbytes(q, k, v) + out, pairs * (2.0 * d + 2.0 * dv + 4.0)

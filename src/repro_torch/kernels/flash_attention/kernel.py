@@ -1,0 +1,89 @@
+"""Launch of the hand-written CUDA flash attention kernel
+(``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
+``repro/kernels/flash_attention/kernel.py``, ``flash_attention_pallas``.
+The source carries the design note: one block per (bh, q tile), the KV
+tiles staged in shared memory in fp32, an fp32 online (m, l, acc), and
+every key past Skv (or after the row under ``causal``) masked inside the
+kernel, so a ragged key length needs no padded keys.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_TILE = 128      # block_q, block_k, D and Dv
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def check_tiles(block_q: int, block_k: int) -> None:
+    for name, val in (("block_q", block_q), ("block_k", block_k)):
+        if not isinstance(val, int) or isinstance(val, bool) or val < 1:
+            raise ValueError(f"{name} must be an int >= 1, got {val!r}")
+
+
+def smem_bytes(block_q: int, block_k: int, d: int, dv: int) -> int:
+    """The shared memory a launch needs (``csrc/flash_attention.cu``)."""
+    return _build.function("repro_flash_attention_smem_bytes",
+                           [ctypes.c_int] * 4)(block_q, block_k, d, dv)
+
+
+def smem_limit() -> int:
+    """The opt-in shared memory of a block on the current device."""
+    limit = _build.function("repro_smem_optin_limit", [])()
+    if limit < 0:
+        _build.check(-limit, "repro_smem_optin_limit")
+    return limit
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, block_q: int = 128,
+                         block_k: int = 128) -> torch.Tensor:
+    """q (BH, Sq, D); k (BH, Skv, D); v (BH, Skv, Dv), contiguous, all fp32
+    or all bf16, D and Dv at most 128 -> (BH, Sq, Dv) in q's dtype.
+    ``block_q``/``block_k`` (at most 128) are the kernel's tiles; raises
+    where they do not fit a block's shared memory. Launches on the
+    current stream."""
+    check_tiles(block_q, block_k)
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k, v must be 3-D (BH, S, D)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA tensor")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise ValueError(f"q, k, v must share a dtype of {DTYPES}, got "
+                             f"{q.dtype}, {k.dtype}, {v.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+    bh, sq, d = q.shape
+    skv, dv = k.shape[1], v.shape[2]
+    if k.shape != (bh, skv, d) or v.shape[:2] != (bh, skv):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not match")
+    if min(bh, sq, skv, d, dv) < 1 or max(d, dv, block_q, block_k) > MAX_TILE:
+        raise ValueError(f"sizes (BH, Sq, Skv, D, Dv) = ({bh}, {sq}, {skv}, "
+                         f"{d}, {dv}) and tiles ({block_q}, {block_k}): all "
+                         f">= 1, D, Dv and the tiles at most {MAX_TILE}")
+    dev = q.device
+    with torch.cuda.device(dev):
+        need, limit = smem_bytes(block_q, block_k, d, dv), smem_limit()
+        if need > limit:
+            raise ValueError(
+                f"tiles (block_q, block_k) = ({block_q}, {block_k}) at D = "
+                f"{d}, Dv = {dv} need {need} B of shared memory; a block "
+                f"may use {limit} B on this device")
+        out = torch.empty((bh, sq, dv), dtype=q.dtype, device=dev)
+        fn = _build.function("repro_flash_attention", _ARGTYPES)
+        status = fn(_build.pointer(q), _build.pointer(k), _build.pointer(v),
+                    _build.DTYPE_CODES[q.dtype], bh, sq, skv, d, dv, block_q,
+                    block_k, int(bool(causal)), ctypes.c_float(d ** -0.5),
+                    _build.pointer(out), _build.stream_pointer(dev))
+    _build.check(status, "flash_attention")
+    return out

@@ -36,12 +36,15 @@ from repro.kernels.segment_aggregate.ops import (
 from repro.kernels.segment_aggregate.ref import segment_aggregate_ref
 from repro_torch.core import aggregations as TA
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+from repro_torch.kernels.gnn_aggregate import kernel as PK
 from repro_torch.kernels.fused_gather_aggregate import ops as GO
 from repro_torch.kernels.fused_gather_aggregate import ref as GR
 from repro_torch.kernels.segment_aggregate import kernel as SK
 from repro_torch.kernels.segment_aggregate import ops as SO
 from repro_torch.kernels.segment_aggregate import ref as SR
+from repro_torch.kernels.tiled_linear import kernel as TK
 
 torch.set_num_threads(1)
 
@@ -267,12 +270,15 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
 
 def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
-    assert {p.name for p in srcs} == {"fused_gather_aggregate.cu",
+    assert {p.name for p in srcs} == {"flash_attention.cu",
+                                      "fused_gather_aggregate.cu",
                                       "fused_gather_onehot.cu",
                                       "fused_layer_stack.cu",
+                                      "gnn_aggregate.cu",
                                       "segment_aggregate.cu",
                                       "segment_aggregate_onehot.cu",
-                                      "segment_softmax.cu"}
+                                      "segment_softmax.cu",
+                                      "tiled_matmul.cu"}
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 16
     lib = _build.library_path()
@@ -282,9 +288,13 @@ def test_build_is_keyed_by_the_sources():
     for argtypes, pointers in ((GK._ARGTYPES, (0, 4, 5, 7, 8, 11, 12)),
                                (SK._ARGTYPES, (0, 4, 5, 8, 9)),
                                (GK._ONEHOT_ARGTYPES, (0, 4, 5, 6, 12, 13)),
-                               (SK._ONEHOT_ARGTYPES, (0, 4, 9, 10))):
+                               (SK._ONEHOT_ARGTYPES, (0, 4, 9, 10)),
+                               (PK._ARGTYPES, (0, 4, 8, 9)),
+                               (TK._ARGTYPES, (0, 1, 6, 7)),
+                               (FK._ARGTYPES, (0, 1, 2, 13, 14))):
         assert [i for i, t in enumerate(argtypes)
                 if t is ctypes.c_void_p] == list(pointers)
+    assert FK._ARGTYPES[12] is ctypes.c_float       # the softmax scale
 
 
 def test_codes_match_the_cuda_enums():
