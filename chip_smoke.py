@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero with no result line:
    kernels on the same cases and storage types at every tile pair of
    ``ONEHOT_TILES`` (node_block {32, 64, 128} x edge_block {64, 128,
    256}), against their plain versions to the same tolerances and, in
-   fp32, bit for bit against the CSR kernels' outputs. The segment-softmax
+   fp32, bit for bit against the CSR kernels' outputs; also on the
+   streams that stress their bucketing (``ADVERSARIAL``: a hub of ~4500
+   edges, every edge into one node tile, a reversed stream, every id
+   dropped, S = 1, S = 301 that no tile divides). The segment-softmax
    kernel: both GAT layers' logits at both serving shapes and the edge
    cases (a prime edge count, -1 and >= S ids, ``valid == False``, an
    empty, a one-edge and a several-thousand-edge segment, +-1e4, -inf
@@ -405,6 +408,39 @@ def compare_softmax(label: str, got: torch.Tensor, want: torch.Tensor,
           f"{name} {label}: max |err| {err} outside {SOFTMAX_TOL}")
 
 
+ADVERSARIAL = ("hub", "one tile", "reversed", "all dropped", "S=1",
+               "S ragged")
+
+
+def adversarial_streams(kind: str, rng) -> tuple:
+    """(n_src, num_segments, src, dst) int32 numpy streams that stress
+    the one-hot kernels' bucketing: a hub destination of ~4500 edges,
+    every edge into one node tile, a reversed (descending) stream, every
+    edge dropped (bad src or bad dst), one segment, and a segment count
+    that no tile divides."""
+    n, s, e = 300, 300, 6000
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, s, e)
+    if kind == "hub":
+        dst[rng.random(e) < 0.75] = 5
+    elif kind == "one tile":
+        dst = rng.integers(0, 20, e)
+    elif kind == "reversed":
+        dst = np.sort(dst)[::-1].copy()
+    elif kind == "all dropped":
+        src[::2] = -1
+        dst[1::2] = s + rng.integers(0, 5, len(dst[1::2]))
+    elif kind == "S=1":
+        s = 1
+        dst = rng.integers(-1, 2, e)
+    elif kind == "S ragged":
+        s, e = 301, 4001
+        src, dst = src[:e], rng.integers(0, s, e)
+        dst[-1] = s - 1
+    src[:3] = [-1, n, n + 9]
+    return n, s, src.astype(np.int32), dst.astype(np.int32)
+
+
 def gather_cases(dev, rng, path_batches):
     """(label, x fp32, src, dst, scale, n_src, num_segments) streams."""
     from repro_torch.core import gnn_model as G
@@ -445,6 +481,15 @@ def gather_cases(dev, rng, path_batches):
     dst_t = torch.as_tensor(dst, dtype=torch.int32, device=dev)
     cases.append(("edge cases", x, src_t, dst_t, scale, n, s))
     cases.append(("edge cases, no scale", x, src_t, dst_t, None, n, s))
+    for kind in ADVERSARIAL:
+        n, s, src, dst = adversarial_streams(kind, rng)
+        x = torch.as_tensor(rng.standard_normal((n, 37)) * 3,
+                            dtype=torch.float32, device=dev)
+        scale = torch.as_tensor(rng.uniform(0.25, 2.0, len(src)),
+                                dtype=torch.float32, device=dev)
+        cases.append((f"adversarial: {kind}", x,
+                      torch.as_tensor(src, device=dev),
+                      torch.as_tensor(dst, device=dev), scale, n, s))
     return cases
 
 
@@ -486,6 +531,14 @@ def segment_cases(dev, rng, path_batches):
     wide = torch.as_tensor(rng.standard_normal((e, 256)) * 3,
                            dtype=torch.float32, device=dev)
     cases.append(("F=256", wide, seg_t, None, s, (torch.float32,)))
+    for kind in ADVERSARIAL:
+        n, s, src, seg = adversarial_streams(kind, rng)
+        # a row whose source id is bad is dropped too
+        seg = np.where((src >= 0) & (src < n), seg, -1).astype(np.int32)
+        x = torch.as_tensor(rng.standard_normal((len(seg), 40)) * 3,
+                            dtype=torch.float32, device=dev)
+        cases.append((f"adversarial: {kind}", x,
+                      torch.as_tensor(seg, device=dev), None, s, STORAGE))
     return cases
 
 

@@ -72,9 +72,12 @@ class H100Target:
     # one-hot launches of a full-width GCN batch at 1024 graphs/batch
     # (two gathers, three poolings, default tiles), their time over their
     # steps, as chip_smoke.py phase 6 prints it (NVIDIA H100 80GB HBM3,
-    # power limit 700.00 W): what makes the tile knobs observable to the
-    # modeled latency
-    kernel_step_overhead: float = 9.404e-9
+    # power limit 700.00 W; 9.404e-9 s for the kernels that swept the
+    # stream once per node tile): what makes the tile knobs observable to
+    # the modeled latency. The kernels now bucket the stream once, so
+    # their time no longer grows with the steps; the reference's step
+    # formula below is kept, priced at this reading
+    kernel_step_overhead: float = 5.6083e-10
 
 
 def fp32_precision_record(num_layers: int) -> dict:

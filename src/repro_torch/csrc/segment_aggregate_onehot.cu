@@ -15,109 +15,86 @@
 // the whole message stream in edge_block chunks and routes the chunk
 // into its (NB, F) accumulator through an (NB, EB) destination one-hot
 // (an MXU product for sum/mean, a masked reduce for min/max, a loop over
-// the chunk for Welford). This kernel keeps the schedule
-// (onehot_tile.cuh: one block per node tile, the id stream re-read once
-// per tile in edge_block chunks, the chunk's rows into the tile compacted
-// in stream order) and folds the kept rows directly, lanes over columns.
-// Each segment folds its rows in stream order with separately rounded
-// operations, as the CSR kernel does, so the two agree bit for bit in
-// fp32. Welford's mean and M2 take two (nb, fc) tables: where they would
-// not fit a block's shared memory (nb 128 at F 256 needs 256 KiB), the
-// columns split over a second grid axis.
+// the chunk for Welford). Carried over as it was, that schedule ran
+// ceil(S / node_block) blocks, 8 of 132 SMs for the pooling at 1024
+// graphs/batch, each walking all ceil(E / edge_block) chunks in series
+// (0.45 ms a launch). Here the tiles set buckets, not sweeps:
+// onehot_tile.cuh sorts the valid rows stably by segment in two counting
+// passes (row in tile, then tile; chunks of edge_block rows), and the
+// fold below runs one warp per segment (S / 8 blocks: 128 at S = 1024)
+// over its rows in stream order, lanes over columns, four rows' loads in
+// flight, the Welford state in registers, with the CSR kernel's
+// separately rounded operations: bit for bit its output in fp32. A row
+// whose id lies outside [0, S) is dropped. No float atomics; the
+// scratch comes from the wrapper.
 //
-// Bound on this card: bytes, and the schedule itself. The function moves
-// what segment_aggregate.cu moves; the schedule adds the re-read of the
-// id stream (4 B per row) once per node tile and two block barriers per
-// chunk of 256 rows.
+// Bound on this card: bytes, the same as segment_aggregate.cu's: each
+// row once at its storage width, the ids once, the (S, F) output once.
+// The bucketing adds ~12 B per row of list traffic in L2 and five small
+// launches; a chain in a block is at most ceil(edge_block / 32) rounds
+// (bucketing) or one segment's row count (fold).
 
 #include "onehot_tile.cuh"
 
 namespace repro {
 namespace {
 
+// columns a lane folds at once: one walk over a segment's rows serves
+// 32 * kFoldCols columns
+constexpr int kFoldCols = 4;
+
 template <typename T, int AGG>
 __global__ void __launch_bounds__(kThreadsPerBlock)
-segment_aggregate_onehot_kernel(const T* __restrict__ msg, int num_rows,
-                                int f, const int32_t* __restrict__ seg,
-                                int num_segments, OnehotTile tile,
-                                float* __restrict__ out) {
+segment_aggregate_onehot_fold(const T* __restrict__ msg, int f,
+                              OnehotLists lists, int num_segments,
+                              float* __restrict__ out) {
   constexpr bool kWelford = AGG == kVar || AGG == kStd;
-  extern __shared__ float smem[];
-  const int nb = tile.nb, fc = tile.fc;
-  const size_t table = static_cast<size_t>(nb) * fc;
-  float* acc = smem;                       // Welford: the running mean
-  float* m2 = acc + table;                 // Welford only
-  int* cnt = reinterpret_cast<int*>(acc + tile.tables * table);
-  int* list_row = cnt + nb;
-  int* list_id = list_row + tile.eb;
-  float* list_scale = reinterpret_cast<float*>(list_id + tile.eb);
-
-  const int row0 = blockIdx.x * nb;
-  const int rows = min(nb, num_segments - row0);
-  const int col0 = blockIdx.y * fc;
-  const int cols = max(0, min(fc, f - col0));
+  const int seg = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  for (size_t i = threadIdx.x; i < table; i += kThreadsPerBlock) {
-    acc[i] = kWelford ? 0.0f : agg_init<AGG>();
-    if constexpr (kWelford) m2[i] = 0.0f;
-  }
-  for (int i = threadIdx.x; i < nb; i += kThreadsPerBlock) cnt[i] = 0;
-  __syncthreads();
-
-  auto probe = [&](int e, int& row, int& id, float&) {
-    const int d = seg[e];
-    if (d < row0 || d >= row0 + rows) return false;
-    row = d - row0;
-    id = e;
-    return true;
-  };
-  for (int e0 = 0; e0 < num_rows; e0 += tile.eb) {
-    const int len = min(tile.eb, num_rows - e0);
-    const int kept =
-        compact_edge_chunk(e0, len, probe, list_row, list_id, list_scale);
-    for (int k = 0; k < kept; ++k) {
-      const int r = list_row[k];
-      if (r % kWarpsPerBlock != warp) continue;  // warp-uniform
-      const T* mr = msg + static_cast<size_t>(list_id[k]) * f + col0;
-      float* a = acc + static_cast<size_t>(r) * fc;
-      const int c_new = cnt[r] + 1;
-      if constexpr (kWelford) {
-        // the count as the CSR kernel keeps it, a float stepped by 1.0
-        // (exact below 2^24)
-        const float count = static_cast<float>(c_new);
-        float* q = m2 + static_cast<size_t>(r) * fc;
-        for (int c = lane; c < cols; c += 32) {
-          const float v = to_float(mr[c]);
-          const float delta = __fsub_rn(v, a[c]);
-          const float mean = __fadd_rn(a[c], __fdiv_rn(delta, fmaxf(count, 1.0f)));
-          q[c] = __fadd_rn(q[c], __fmul_rn(delta, __fsub_rn(v, mean)));
-          a[c] = mean;
-        }
-      } else {
-        for (int c = lane; c < cols; c += 32)
-          a[c] = agg_fold<AGG>(a[c], to_float(mr[c]));
-      }
-      __syncwarp();  // every lane has read cnt[r]
-      if (lane == 0) cnt[r] = c_new;
-      __syncwarp();
+  onehot::wait_for_predecessor();  // the bucketing's lists
+  if (seg >= num_segments) return;
+  const int2 range = onehot_range(lists, seg);
+  for (int c0 = 0; c0 < f; c0 += 32 * kFoldCols) {
+    // Welford: acc is the running mean; count steps by 1.0 as the CSR
+    // kernel's does (exact below 2^24)
+    float acc[kFoldCols], m2[kFoldCols];
+#pragma unroll
+    for (int j = 0; j < kFoldCols; ++j) {
+      acc[j] = kWelford ? 0.0f : agg_init<AGG>();
+      m2[j] = 0.0f;
     }
-    __syncthreads();  // the next chunk rewrites the list
-  }
-  for (int r = warp; r < rows; r += kWarpsPerBlock) {
-    float* o = out + static_cast<size_t>(row0 + r) * f + col0;
-    const float* a = acc + static_cast<size_t>(r) * fc;
-    for (int c = lane; c < cols; c += 32) {
-      if constexpr (kWelford) {
-        const float count = static_cast<float>(cnt[r]);
-        float var = __fdiv_rn(m2[static_cast<size_t>(r) * fc + c],
-                              fmaxf(count, 1.0f));
-        var = var < 1e-12f ? 1e-12f : var;  // clamp; NaN propagates
-        o[c] = AGG == kStd ? __fsqrt_rn(var) : var;
-      } else {
-        o[c] = agg_finalize<AGG>(a[c], cnt[r]);
+    float count = 0.0f;
+#pragma unroll 4  // the loads of four edges in flight
+    for (int k = range.x; k < range.y; ++k) {
+      const T* mr = msg + static_cast<size_t>(lists.id[k]) * f;
+      count = __fadd_rn(count, 1.0f);
+#pragma unroll
+      for (int j = 0; j < kFoldCols; ++j) {
+        const int c = c0 + 32 * j + lane;
+        if (c >= f) continue;
+        const float row = to_float(mr[c]);
+        if constexpr (kWelford) {
+          const float delta = __fsub_rn(row, acc[j]);
+          acc[j] = __fadd_rn(acc[j], __fdiv_rn(delta, fmaxf(count, 1.0f)));
+          m2[j] = __fadd_rn(m2[j], __fmul_rn(delta, __fsub_rn(row, acc[j])));
+        } else {
+          acc[j] = agg_fold<AGG>(acc[j], row);
+        }
       }
+    }
+#pragma unroll
+    for (int j = 0; j < kFoldCols; ++j) {
+      const int c = c0 + 32 * j + lane;
+      if (c >= f) continue;
+      float result;
+      if constexpr (kWelford) {
+        float var = __fdiv_rn(m2[j], fmaxf(count, 1.0f));
+        var = var < 1e-12f ? 1e-12f : var;  // clamp; NaN propagates
+        result = AGG == kStd ? __fsqrt_rn(var) : var;
+      } else {
+        result = agg_finalize<AGG>(acc[j], range.y - range.x);
+      }
+      out[static_cast<size_t>(seg) * f + c] = result;
     }
   }
 }
@@ -125,32 +102,29 @@ segment_aggregate_onehot_kernel(const T* __restrict__ msg, int num_rows,
 template <typename T, int AGG>
 cudaError_t launch_one(const void* msg, int num_rows, int f,
                        const int32_t* seg, int num_segments, int node_block,
-                       int edge_block, float* out, cudaStream_t stream) {
-  constexpr int kTables = (AGG == kVar || AGG == kStd) ? 2 : 1;
-  const size_t limit = onehot_smem_limit();
-  OnehotTile tile;
-  dim3 grid;
-  cudaError_t err = onehot_plan(num_segments, num_rows, f, node_block,
-                                edge_block, kTables, limit, &tile, &grid);
+                       int edge_block, int32_t* scratch, long long scratch_len,
+                       float* out, cudaStream_t stream) {
+  OnehotLists lists;
+  cudaError_t err = onehot_bucket(seg, nullptr, 0, nullptr, num_rows,
+                                  num_segments, node_block, edge_block,
+                                  scratch, scratch_len, stream, &lists);
   if (err != cudaSuccess) return err;
-  auto kernel = segment_aggregate_onehot_kernel<T, AGG>;
-  const size_t smem = onehot_smem_bytes(tile);
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(limit - kOnehotStaticSmem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreadsPerBlock, smem, stream>>>(
-      static_cast<const T*>(msg), num_rows, f, seg, num_segments, tile, out);
-  return cudaGetLastError();
+  // the fold starts while the last bucketing pass drains
+  return onehot::launch(segment_aggregate_onehot_fold<T, AGG>,
+                        segment_grid(num_segments), stream,
+                        static_cast<const T*>(msg), f, lists, num_segments,
+                        out);
 }
 
 template <typename T>
 cudaError_t launch_typed(int agg, const void* msg, int num_rows, int f,
                          const int32_t* seg, int num_segments, int node_block,
-                         int edge_block, float* out, cudaStream_t stream) {
-#define REPRO_LAUNCH(A)                                                  \
+                         int edge_block, int32_t* scratch,
+                         long long scratch_len, float* out,
+                         cudaStream_t stream) {
+#define REPRO_LAUNCH(A)                                                    \
   return launch_one<T, A>(msg, num_rows, f, seg, num_segments, node_block, \
-                          edge_block, out, stream)
+                          edge_block, scratch, scratch_len, out, stream)
   switch (agg) {
     case kSum: REPRO_LAUNCH(kSum);
     case kMean: REPRO_LAUNCH(kMean);
@@ -166,29 +140,32 @@ cudaError_t launch_typed(int agg, const void* msg, int num_rows, int f,
 }  // namespace
 }  // namespace repro
 
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for an unknown dtype or agg code, a tile size
-// below 1, or a tile that does not fit the block's shared memory.
+// Returns cudaGetLastError() after the last launch (0 = launched), the
+// first launch error, or cudaErrorInvalidValue for an unknown dtype or
+// agg code, a tile size below 1, or a scratch buffer of fewer int32
+// entries than the layout needs (kernels/_onehot.py scratch_layout).
 extern "C" int repro_segment_aggregate_onehot(
     const void* msg, int dtype, int num_rows, int f, const int32_t* seg,
-    int num_segments, int node_block, int edge_block, int agg, float* out,
-    void* stream) {
+    int num_segments, int node_block, int edge_block, int agg,
+    int32_t* scratch, long long scratch_len, float* out, void* stream) {
   using namespace repro;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (dtype) {
     case kF32:
       err = launch_typed<float>(agg, msg, num_rows, f, seg, num_segments,
-                                node_block, edge_block, out, st);
+                                node_block, edge_block, scratch, scratch_len,
+                                out, st);
       break;
     case kBF16:
       err = launch_typed<__nv_bfloat16>(agg, msg, num_rows, f, seg,
                                         num_segments, node_block, edge_block,
-                                        out, st);
+                                        scratch, scratch_len, out, st);
       break;
     case kI8:
       err = launch_typed<int8_t>(agg, msg, num_rows, f, seg, num_segments,
-                                 node_block, edge_block, out, st);
+                                 node_block, edge_block, scratch, scratch_len,
+                                 out, st);
       break;
     default:
       break;

@@ -194,6 +194,27 @@ def check_tiles(node_block: int, edge_block: int) -> None:
             raise ValueError(f"{name} must be an int >= 1, got {v!r}")
 
 
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a public wrapper takes its plain version for ``t``: only
+    for a tensor on the CPU. Any other tensor launches the kernel."""
+    return t.device.type == "cpu"
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """The CUDA branch of a public wrapper: the kernels have no backward,
+    so a launch on an input that requires grad in grad mode would hand
+    back an output with no autograd history and silently lose its
+    gradients. Raise instead."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the CUDA kernel has no "
+            "backward yet (ROADMAP item 12, backward kernels): its output "
+            "would carry no gradient. Call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors, whose plain "
+            "version is differentiable")
+
+
 def pointer(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 

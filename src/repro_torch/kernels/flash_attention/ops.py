@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._cost import attention_work, priced
 from repro_torch.kernels.flash_attention.kernel import (check_tiles,
                                                         flash_attention_cuda)
@@ -30,9 +31,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if four_d:
         b, h = q.shape[:2]
         q, k, v = (t.reshape(b * h, *t.shape[2:]) for t in (q, k, v))
-    if q.device.type == "cpu":
+    if _build.runs_plain(q):
         out = attention_ref(q, k, v, causal=causal)
     else:
+        _build.refuse_grad("flash_attention", q, k, v)
         out = flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             block_q=min(block_q, q.shape[1]),

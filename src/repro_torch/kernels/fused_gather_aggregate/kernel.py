@@ -8,9 +8,11 @@ the ports of the two Pallas TPU kernels of
   feature columns, fp32 fold in edge order, no atomics.
 * ``fused_gather_onehot_cuda`` (``csrc/fused_gather_onehot.cu``) ports
   ``fused_gather_aggregate_pallas`` (``gather_mode="onehot"``): the same
-  function on the raw src/dst streams, on the one-hot schedule, one
-  block per ``node_block`` destination rows sweeping the edge stream in
-  ``edge_block`` chunks.
+  function on the raw src/dst streams. Its tiles set the buckets of a
+  stable two-pass counting sort by destination (``node_block`` rows per
+  tile, ``edge_block`` edges per chunk), then one warp per destination
+  folds its edges in stream order; the sort's scratch is sized by
+  ``_onehot.scratch_layout`` and allocated here.
 
 The sources carry the design notes.
 """
@@ -21,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._onehot import scratch_layout
 
 AGGS = ("sum", "mean", "min", "max")
 
@@ -70,7 +73,8 @@ _ONEHOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p]
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                    ctypes.c_void_p]
 
 
 def fused_gather_onehot_cuda(x: torch.Tensor, src: torch.Tensor,
@@ -82,8 +86,8 @@ def fused_gather_onehot_cuda(x: torch.Tensor, src: torch.Tensor,
     ids (an id out of range on either stream drops the edge); scale:
     optional (E,) fp32 per-edge message scale. Returns (num_segments, F)
     float32. ``node_block`` and ``edge_block`` are the launch's tiles:
-    min(node_block, S) destination rows per block, the edge stream swept
-    in chunks of min(edge_block, E). Launches on the current stream."""
+    the bucket width min(node_block, S) and the chunk min(edge_block, E)
+    of the sort by destination. Launches on the current stream."""
     if agg not in AGGS:
         raise ValueError(f"agg {agg!r} not in {AGGS}")
     _build.check_tiles(node_block, edge_block)
@@ -98,13 +102,17 @@ def fused_gather_onehot_cuda(x: torch.Tensor, src: torch.Tensor,
     if num_segments < 1 or e < 1:
         raise ValueError(f"{num_segments} segments / {e} edges: the "
                          "kernel needs at least one of each")
+    layout = scratch_layout(e, num_segments, node_block, edge_block,
+                            scale is not None)
+    scratch = torch.empty((layout.total,), dtype=torch.int32, device=dev)
     out = torch.empty((num_segments, f), dtype=torch.float32, device=dev)
     fn = _build.function("repro_fused_gather_onehot", _ONEHOT_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(_build.pointer(x), _build.DTYPE_CODES[x.dtype], n_src, f,
                     _build.pointer(src), _build.pointer(dst),
                     _build.pointer(scale), e, num_segments, node_block,
-                    edge_block, _build.AGG_CODES[agg], _build.pointer(out),
-                    _build.stream_pointer(dev))
+                    edge_block, _build.AGG_CODES[agg],
+                    _build.pointer(scratch), layout.total,
+                    _build.pointer(out), _build.stream_pointer(dev))
     _build.check(status, "fused_gather_onehot")
     return out

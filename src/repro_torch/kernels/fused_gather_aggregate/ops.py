@@ -32,9 +32,10 @@ def fused_gather_aggregate(x: torch.Tensor, src: torch.Tensor,
     if src.numel() == 0 or num_segments <= 0:
         return torch.zeros((max(num_segments, 0), x.shape[1]),
                            dtype=torch.float32, device=x.device)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return fused_gather_aggregate_ref(x, src, scale, perm, offsets,
                                           agg=agg)
+    _build.refuse_grad("fused_gather_aggregate", x, scale)
     out = fused_gather_aggregate_cuda(x, src, scale, perm, offsets, agg=agg)
     fused_gather_aggregate.launches += 1
     return out
@@ -58,9 +59,10 @@ def fused_gather_onehot(x: torch.Tensor, src: torch.Tensor,
     if src.numel() == 0 or num_segments <= 0:
         return torch.zeros((max(num_segments, 0), x.shape[1]),
                            dtype=torch.float32, device=x.device)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return fused_gather_onehot_ref(x, src, dst, scale, num_segments,
                                        agg=agg)
+    _build.refuse_grad("fused_gather_onehot", x, scale)
     out = fused_gather_onehot_cuda(x, src, dst, scale, num_segments, agg=agg,
                                    edge_block=edge_block,
                                    node_block=node_block)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._cost import priced, stack_call_work
 from repro_torch.kernels.fused_layer_stack.kernel import (
     fused_layer_stack_cuda)
@@ -34,8 +35,9 @@ def fused_layer_stack(x: torch.Tensor, src: torch.Tensor,
     kw = dict(kind=kind, activation=activation, has_skip=has_skip)
     args = (x, src, scale, perm, offsets, self_vec, node_mask, w_a, w_n,
             w_skip, b, qp)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return fused_layer_stack_ref(*args, **kw)
+    _build.refuse_grad("fused_layer_stack", *args)
     out = fused_layer_stack_cuda(*args, **kw)
     fused_layer_stack.launches += 1
     return out

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._cost import padded_agg_work, priced
 from repro_torch.kernels.gnn_aggregate.kernel import (check_inputs,
                                                       gnn_aggregate_cuda)
@@ -25,8 +26,9 @@ def gnn_aggregate(x: torch.Tensor, nbr: torch.Tensor, *, agg: str = "sum",
     check_inputs(x, nbr, agg, block_nodes)
     if x.shape[0] == 0:
         return torch.empty_like(x)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return gnn_aggregate_ref(x, nbr, agg=agg)
+    _build.refuse_grad("gnn_aggregate", x)
     out = gnn_aggregate_cuda(x, nbr, agg=agg, block_nodes=block_nodes)
     gnn_aggregate.launches += 1
     return out

@@ -8,9 +8,11 @@ ports of the two Pallas TPU kernels of
   fold (Welford for var/std) in stream order, no atomics.
 * ``segment_aggregate_onehot_cuda`` (``csrc/segment_aggregate_onehot.cu``)
   ports ``segment_aggregate_pallas`` (``gather_mode="onehot"``): the
-  same function on the raw segment-id stream, on the one-hot schedule,
-  one block per ``node_block`` segments sweeping the rows in
-  ``edge_block`` chunks.
+  same function on the raw segment-id stream. Its tiles set the buckets
+  of a stable two-pass counting sort by segment (``node_block`` segments
+  per tile, ``edge_block`` rows per chunk), then one warp per segment
+  folds its rows in stream order; the sort's scratch is sized by
+  ``_onehot.scratch_layout`` and allocated here.
 
 The sources carry the design notes.
 """
@@ -21,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._onehot import scratch_layout
 
 AGGS = ("sum", "mean", "min", "max", "var", "std")
 
@@ -61,7 +64,8 @@ def segment_aggregate_cuda(messages: torch.Tensor, perm: torch.Tensor,
 _ONEHOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p]
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                    ctypes.c_void_p]
 
 
 def segment_aggregate_onehot_cuda(messages: torch.Tensor,
@@ -71,8 +75,8 @@ def segment_aggregate_onehot_cuda(messages: torch.Tensor,
     """messages: (E, F) fp32/bf16/int8 rows; seg_ids: (E,) int32 (an id
     outside [0, num_segments) drops the row). Returns (num_segments, F)
     float32. ``node_block`` and ``edge_block`` are the launch's tiles:
-    min(node_block, S) segments per block, the rows swept in chunks of
-    min(edge_block, E). Launches on the current stream."""
+    the bucket width min(node_block, S) and the chunk min(edge_block, E)
+    of the sort by segment. Launches on the current stream."""
     if agg not in AGGS:
         raise ValueError(f"agg {agg!r} not in {AGGS}")
     _build.check_tiles(node_block, edge_block)
@@ -83,13 +87,16 @@ def segment_aggregate_onehot_cuda(messages: torch.Tensor,
     if num_segments < 1 or e < 1:
         raise ValueError(f"{num_segments} segments / {e} rows: the kernel "
                          "needs at least one of each")
+    layout = scratch_layout(e, num_segments, node_block, edge_block, False)
+    scratch = torch.empty((layout.total,), dtype=torch.int32, device=dev)
     out = torch.empty((num_segments, f), dtype=torch.float32, device=dev)
     fn = _build.function("repro_segment_aggregate_onehot", _ONEHOT_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(_build.pointer(messages),
                     _build.DTYPE_CODES[messages.dtype], e, f,
                     _build.pointer(seg_ids), num_segments, node_block,
-                    edge_block, _build.AGG_CODES[agg], _build.pointer(out),
-                    _build.stream_pointer(dev))
+                    edge_block, _build.AGG_CODES[agg],
+                    _build.pointer(scratch), layout.total,
+                    _build.pointer(out), _build.stream_pointer(dev))
     _build.check(status, "segment_aggregate_onehot")
     return out

@@ -31,8 +31,9 @@ def segment_aggregate(messages: torch.Tensor, perm: torch.Tensor,
     if messages.shape[0] == 0 or num_segments <= 0:
         return torch.zeros((max(num_segments, 0), messages.shape[1]),
                            dtype=torch.float32, device=messages.device)
-    if messages.device.type == "cpu":
+    if _build.runs_plain(messages):
         return segment_aggregate_ref(messages, perm, offsets, agg=agg)
+    _build.refuse_grad("segment_aggregate", messages)
     out = segment_aggregate_cuda(messages, perm, offsets, agg=agg)
     segment_aggregate.launches += 1
     return out
@@ -55,9 +56,10 @@ def segment_aggregate_onehot(messages: torch.Tensor, seg_ids: torch.Tensor,
     if messages.shape[0] == 0 or num_segments <= 0:
         return torch.zeros((max(num_segments, 0), messages.shape[1]),
                            dtype=torch.float32, device=messages.device)
-    if messages.device.type == "cpu":
+    if _build.runs_plain(messages):
         return segment_aggregate_onehot_ref(messages, seg_ids, num_segments,
                                             agg=agg)
+    _build.refuse_grad("segment_aggregate_onehot", messages)
     out = segment_aggregate_onehot_cuda(messages, seg_ids, num_segments,
                                         agg=agg, edge_block=edge_block,
                                         node_block=node_block)

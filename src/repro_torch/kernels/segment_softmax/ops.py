@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._cost import priced, softmax_work
 from repro_torch.kernels.segment_softmax.kernel import segment_softmax_cuda
 from repro_torch.kernels.segment_softmax.ref import segment_softmax_ref
@@ -23,8 +24,9 @@ def segment_softmax(logits: torch.Tensor, perm: torch.Tensor,
     if logits.numel() == 0 or num_segments <= 0:
         return torch.zeros((logits.numel(),), dtype=torch.float32,
                            device=logits.device)
-    if logits.device.type == "cpu":
+    if _build.runs_plain(logits):
         return segment_softmax_ref(logits, perm, offsets)
+    _build.refuse_grad("segment_softmax", logits)
     out = segment_softmax_cuda(logits, perm, offsets)
     segment_softmax.launches += 1
     return out

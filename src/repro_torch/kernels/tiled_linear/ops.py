@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels._cost import matmul_work, priced
 from repro_torch.kernels.tiled_linear.kernel import (check_inputs,
                                                      tiled_matmul_cuda)
@@ -38,8 +39,9 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
     if x.shape[0] == 0 or w.shape[1] == 0:
         return torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype,
                            device=x.device)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return tiled_matmul_ref(x, w)
+    _build.refuse_grad("tiled_matmul", x, w)
     out = tiled_matmul_cuda(x, w, block_m=block_m, block_n=block_n,
                             block_k=block_k)
     tiled_matmul.launches += 1

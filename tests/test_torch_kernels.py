@@ -287,14 +287,18 @@ def test_build_is_keyed_by_the_sources():
     # every pointer and the stream are declared as c_void_p
     for argtypes, pointers in ((GK._ARGTYPES, (0, 4, 5, 7, 8, 11, 12)),
                                (SK._ARGTYPES, (0, 4, 5, 8, 9)),
-                               (GK._ONEHOT_ARGTYPES, (0, 4, 5, 6, 12, 13)),
-                               (SK._ONEHOT_ARGTYPES, (0, 4, 9, 10)),
+                               (GK._ONEHOT_ARGTYPES,
+                                (0, 4, 5, 6, 12, 14, 15)),
+                               (SK._ONEHOT_ARGTYPES, (0, 4, 9, 11, 12)),
                                (PK._ARGTYPES, (0, 4, 8, 9)),
                                (TK._ARGTYPES, (0, 1, 6, 7)),
                                (FK._ARGTYPES, (0, 1, 2, 13, 14))):
         assert [i for i, t in enumerate(argtypes)
                 if t is ctypes.c_void_p] == list(pointers)
     assert FK._ARGTYPES[12] is ctypes.c_float       # the softmax scale
+    # the one-hot kernels' scratch length is a 64-bit count
+    assert GK._ONEHOT_ARGTYPES[13] is ctypes.c_longlong
+    assert SK._ONEHOT_ARGTYPES[10] is ctypes.c_longlong
 
 
 def test_codes_match_the_cuda_enums():

@@ -33,6 +33,8 @@ from repro.kernels.fused_gather_aggregate.kernel import (
 from repro.kernels.segment_aggregate.kernel import segment_aggregate_pallas
 from repro_torch.core import aggregations as TA
 from repro_torch.kernels import _build
+from repro_torch.kernels._csr_ref import stable_csr
+from repro_torch.kernels._onehot import SCAN_TILE, scratch_layout
 from repro_torch.kernels.fused_gather_aggregate import kernel as GK
 from repro_torch.kernels.fused_gather_aggregate import ops as GO
 from repro_torch.kernels.fused_gather_aggregate import ref as GR
@@ -349,3 +351,246 @@ def test_cuda_onehot_wrappers_count_launches(cuda_device):
     torch.cuda.synchronize()
     assert GO.fused_gather_onehot.launches == g0 + 1
     assert SO.segment_aggregate_onehot.launches == s0 + 1
+
+
+# ------------------------------------- the bucketing and its scratch --
+# the tile pairs chip_smoke.py phase 3 launches (its ONEHOT_TILES), and
+# two odd ones
+ONEHOT_TILES = tuple((nb, eb) for nb in (32, 64, 128)
+                     for eb in (64, 128, 256))
+BUCKET_TILES = ONEHOT_TILES + ((1, 1), (7, 33))
+
+
+def test_scratch_layout_of_a_small_call():
+    lay = scratch_layout(10, 5, 2, 4, scaled=True)
+    # nb 2, eb 4: 3 chunks, 3 tiles; scan 1 = 2 * 3 row cells + a total
+    # cell, scan 2 = 3 * 3 tile cells + 6 degree cells, one scan tile each
+    assert (lay.nb, lay.eb, lay.chunks, lay.tiles) == (2, 4, 3, 3)
+    assert (lay.n1, lay.n2) == (7, 15)
+    assert (lay.cnt1, lay.cnt2, lay.part1, lay.part2, lay.rank) == \
+        (2, 9, 24, 25, 26)
+    assert lay.total == 26 + 10 * 6 and lay.nbytes == 4 * lay.total
+    assert scratch_layout(10, 5, 2, 4, scaled=False).total == 26 + 10 * 4
+
+
+def test_scratch_layout_clamps_tiles_and_refuses_what_it_cannot_index():
+    big = scratch_layout(7, 3, 1000, 1000, scaled=False)
+    assert (big.nb, big.eb, big.chunks, big.tiles) == (3, 7, 1, 1)
+    for bad in ((0, 3, 1, 1), (7, 0, 1, 1), (7, 3, 0, 1), (7, 3, 1, 0)):
+        with pytest.raises(ValueError, match="at least 1"):
+            scratch_layout(*bad, scaled=False)
+    with pytest.raises(ValueError, match="int32"):
+        scratch_layout(2 ** 20, 2 ** 20, 1, 1, scaled=False)
+
+
+def test_scratch_over_the_dse_tile_space_at_1024_graphs():
+    """The largest scratch over dse.py's tiles (node_block {32, 64, 128},
+    edge_block {64, 128, 256}) on the qm9 path at 1024 graphs/batch
+    (N = S = 27656 nodes, E = 55304 edges; pooling: 27656 rows into 1024
+    graphs) is the scaled gather's at (32, 64), under 5 MB."""
+    sizes = {(nb, eb, kind): scratch_layout(e, s, nb, eb, kind == "gather")
+             .nbytes
+             for nb, eb in ONEHOT_TILES
+             for kind, e, s in (("gather", 55304, 27656),
+                                ("pooling", 27656, 1024))}
+    top = max(sizes, key=sizes.get)
+    assert top == (32, 64, "gather")
+    assert 4.0e6 < sizes[top] < 5.0e6
+    assert sizes[(128, 128, "pooling")] < 0.6e6
+
+
+def test_scan_tile_matches_the_header():
+    text = (_build.CSRC / "onehot_tile.cuh").read_text()
+    assert f"constexpr int kScanTile = {SCAN_TILE};" in text
+
+
+def _tiled_exclusive_scan(cnt):
+    """The header's scan: each SCAN_TILE tile scanned locally, plus the
+    scanned tile sums."""
+    tiles = torch.split(cnt, SCAN_TILE)
+    local = torch.cat([torch.cumsum(t, 0) - t for t in tiles])
+    sums = torch.stack([t.sum() for t in tiles])
+    part = torch.cumsum(sums, 0) - sums
+    idx = torch.arange(cnt.numel())
+    return local + part[idx // SCAN_TILE]
+
+
+def _stable_rank(cell):
+    """Rank of each entry among the entries of its cell before it."""
+    sorted_cell, order = torch.sort(cell, stable=True)
+    first = torch.searchsorted(sorted_cell, sorted_cell)
+    rank = torch.empty_like(cell)
+    rank[order] = torch.arange(cell.numel()) - first
+    return rank
+
+
+def bucket_mirror(key, keep, num_segments, node_block, edge_block):
+    """Plain-torch mirror of onehot_tile.cuh's passes on a key stream:
+    (list B as stream ids, per-destination offsets into B). Pass 1 sorts
+    the kept entries by row in tile over chunks of eb, pass 2 list A by
+    tile over chunks of eb; each through (bucket, chunk) counts scanned
+    bucket-major, the degrees after pass 2's cells."""
+    lay = scratch_layout(key.numel(), num_segments, node_block, edge_block,
+                         scaled=False)
+    nb, eb, c, t = lay.nb, lay.eb, lay.chunks, lay.tiles
+    d = key.long()
+    ok = (d >= 0) & (d < num_segments) & keep
+    e = torch.nonzero(ok).flatten()
+    d = d[e]
+    cnt1 = torch.zeros(lay.n1, dtype=torch.long)
+    cell = (d % nb) * c + e // eb
+    cnt1.index_add_(0, cell, torch.ones_like(cell))
+    scan1 = _tiled_exclusive_scan(cnt1)
+    at = scan1[cell] + _stable_rank(cell)
+    valid = int(scan1[-1])
+    a_key = torch.empty(valid, dtype=torch.long)
+    a_id = torch.empty(valid, dtype=torch.long)
+    a_key[at], a_id[at] = d, e
+    cnt2 = torch.zeros(lay.n2, dtype=torch.long)
+    cell2 = (a_key // nb) * c + torch.arange(valid) // eb
+    cnt2.index_add_(0, cell2, torch.ones_like(cell2))
+    cnt2.index_add_(0, t * c + a_key, torch.ones_like(a_key))
+    scan2 = _tiled_exclusive_scan(cnt2)
+    at2 = scan2[cell2] + _stable_rank(cell2)
+    b_id = torch.empty(valid, dtype=torch.long)
+    b_id[at2] = a_id
+    return b_id, scan2[t * c:] - valid
+
+
+def adversarial_streams(kind, seed=0):
+    """(n_src, num_segments, src, dst) int32 numpy streams that stress
+    the bucketing: a hub of 4500 edges, every edge into one node tile, a
+    reversed (descending) stream, every edge dropped, one segment, and a
+    segment count that no tile divides."""
+    rng = np.random.default_rng(seed)
+    n, s, e = 300, 300, 6000
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, s, e)
+    if kind == "hub":
+        dst[rng.random(e) < 0.75] = 5
+    elif kind == "one tile":
+        dst = rng.integers(0, 20, e)
+    elif kind == "reversed":
+        dst = np.sort(dst)[::-1].copy()
+    elif kind == "all dropped":
+        src[::2] = -1
+        dst[1::2] = s + rng.integers(0, 5, len(dst[1::2]))
+    elif kind == "S=1":
+        s = 1
+        dst = rng.integers(-1, 2, e)
+    elif kind == "S ragged":
+        s, e = 301, 4001
+        src, dst = src[:e], rng.integers(0, s, e)
+        dst[-1] = s - 1
+    src[:3] = [-1, n, n + 9]
+    return n, s, src.astype(np.int32), dst.astype(np.int32)
+
+
+ADVERSARIAL = ("hub", "one tile", "reversed", "all dropped", "S=1",
+               "S ragged")
+
+
+@pytest.mark.parametrize("kind", ("shuffled",) + ADVERSARIAL)
+@pytest.mark.parametrize("tiles", BUCKET_TILES,
+                         ids=lambda t: f"nb{t[0]}-eb{t[1]}")
+def test_bucketing_mirror_reproduces_the_stable_csr(tiles, kind):
+    """Stable by tile, then stream order within each destination: the
+    mirror's list B and offsets are stable_csr's perm and offsets."""
+    if kind == "shuffled":
+        n, s, src, dst = adversarial_streams("reversed", seed=1)
+        dst = np.random.default_rng(2).permutation(dst)
+    else:
+        n, s, src, dst = adversarial_streams(kind)
+    src_t, dst_t = torch.from_numpy(src), torch.from_numpy(dst)
+    keep = (src_t >= 0) & (src_t < n)
+    b_id, offsets = bucket_mirror(dst_t, keep, s, *tiles)
+    perm, want_off = stable_csr(dst_t, s, keep)
+    assert torch.equal(offsets, want_off.long())
+    assert torch.equal(b_id, perm[:int(want_off[-1])].long())
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+def test_cuda_gather_onehot_adversarial_streams(cuda_device, kind):
+    """Every tile pair of ONEHOT_TILES on the bucketing's hard streams:
+    bit for bit the CSR kernel in fp32, and its plain version."""
+    n, s, src, dst = adversarial_streams(kind)
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(rng.standard_normal((n, 37)) * 3,
+                        dtype=torch.float32, device=cuda_device)
+    sc = torch.as_tensor(rng.uniform(0.25, 2.0, len(src)),
+                         dtype=torch.float32, device=cuda_device)
+    st, dt = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    csr = TA.gather_csr(st, dt, n, s)
+    for agg in GR.AGGS:
+        v2 = GK.fused_gather_aggregate_cuda(x, st, sc, csr.perm,
+                                            csr.offsets, agg=agg)
+        want = GR.fused_gather_onehot_ref(x, st, dt, sc, s, agg=agg)
+        for nb, eb in ONEHOT_TILES:
+            got = GK.fused_gather_onehot_cuda(x, st, dt, sc, s, agg=agg,
+                                              edge_block=eb, node_block=nb)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), v2.view(torch.int32)), \
+                (kind, agg, nb, eb)
+            np.testing.assert_allclose(got.cpu().numpy(),
+                                       want.cpu().numpy(), rtol=RTOL,
+                                       atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+def test_cuda_segment_onehot_adversarial_streams(cuda_device, kind):
+    n, s, src, seg = adversarial_streams(kind)
+    # a row whose source id is bad is dropped too
+    seg = np.where((src >= 0) & (src < n), seg, -1).astype(np.int32)
+    rng = np.random.default_rng(11)
+    m = torch.as_tensor(rng.standard_normal((len(seg), 40)) * 3,
+                        dtype=torch.float32, device=cuda_device)
+    sg = torch.from_numpy(seg).to(cuda_device)
+    csr = TA.build_csr(sg, s)
+    for agg in SR.AGGS:
+        v2 = SK.segment_aggregate_cuda(m, csr.perm, csr.offsets, agg=agg)
+        want = SR.segment_aggregate_onehot_ref(m, sg, s, agg=agg)
+        for nb, eb in ONEHOT_TILES:
+            got = SK.segment_aggregate_onehot_cuda(m, sg, s, agg=agg,
+                                                   edge_block=eb,
+                                                   node_block=nb)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), v2.view(torch.int32)), \
+                (kind, agg, nb, eb)
+            err = float((got - want).abs().max())
+            assert err <= RTOL * float(want.abs().max()) + ATOL, (agg, err)
+
+
+@pytest.mark.parametrize("node_block", [1, 2048])
+def test_cuda_onehot_global_cursor_paths(cuda_device, node_block):
+    """Past 1024 buckets a warp keeps its cursors in global memory: tiles
+    of 1 row give 3000 tile buckets (and a scan of more than 256 tiles,
+    whose tile sums the last block scans), tiles of 2048 rows 2048 row
+    buckets. Bit for bit the CSR kernels in fp32."""
+    rng = np.random.default_rng(12)
+    n, s, e = 500, 3000, 20000
+    src = rng.integers(-2, n + 2, e).astype(np.int32)
+    dst = rng.integers(-2, s + 2, e).astype(np.int32)
+    dst[: e // 4] = 17                                   # a hub
+    x = torch.as_tensor(rng.standard_normal((n, 24)), dtype=torch.float32,
+                        device=cuda_device)
+    m = torch.as_tensor(rng.standard_normal((e, 24)), dtype=torch.float32,
+                        device=cuda_device)
+    sc = torch.as_tensor(rng.uniform(0.25, 2.0, e), dtype=torch.float32,
+                         device=cuda_device)
+    st, dt = (torch.from_numpy(a).to(cuda_device) for a in (src, dst))
+    gcsr = TA.gather_csr(st, dt, n, s)
+    scsr = TA.build_csr(dt, s)
+    for agg in ("mean", "max"):
+        got = GK.fused_gather_onehot_cuda(x, st, dt, sc, s, agg=agg,
+                                          edge_block=64,
+                                          node_block=node_block)
+        v2 = GK.fused_gather_aggregate_cuda(x, st, sc, gcsr.perm,
+                                            gcsr.offsets, agg=agg)
+        assert torch.equal(got.view(torch.int32), v2.view(torch.int32)), agg
+    for agg in ("sum", "std"):
+        got = SK.segment_aggregate_onehot_cuda(m, dt, s, agg=agg,
+                                               edge_block=64,
+                                               node_block=node_block)
+        v2 = SK.segment_aggregate_cuda(m, scsr.perm, scsr.offsets, agg=agg)
+        assert torch.equal(got.view(torch.int32), v2.view(torch.int32)), agg
+    torch.cuda.synchronize()
