@@ -96,7 +96,16 @@ Phases, in order; any failure exits non-zero with no result line:
    and not, fp32 at rtol = atol = 1e-4 (also at the qwen3-8b tile shape,
    D = block_q = block_k = 128, causal over 8 KV tiles) and bf16 at rtol
    8e-3, atol 1e-4 (one bf16 rounding step), with ragged S (1500, 100)
-   non-causal. Then the
+   non-causal. The bf16 calls of both kernels that ``body_for`` sends to
+   the tensor-core (wgmma) body also at its edges: the matmul at
+   (192, 448) @ (448, 320), at ragged M and K (130, 200) @ (200, 72) and
+   at qwen3-8b's up-projection; attention with Sq != Skv under the causal
+   mask at D = 128 (300 queries over 700 keys and 700 over 300) and
+   whisper's ragged 1500 at D = 64, causal too. The bf16 shapes the
+   wgmma body does not take run the SIMT body and are held too: the
+   matmul at N = 70 and K = 11, attention at D = 40 and at Dv = 24.
+   Each kernel-vs-plain call's body is the one its launch records, and
+   must be wgmma for bf16 at the shapes it takes and simt otherwise. Then the
    path once through the entry points at full width, the counts set to 0
    just before and read just after (one launch per call, each output
    against its plain version): the 1024-graph qm9 batch as one padded
@@ -106,8 +115,10 @@ Phases, in order; any failure exits non-zero with no result line:
    qwen3-8b's MLP up-projection (4096, 4096) @ (4096, 12288) in bf16;
    qwen3-8b's causal prefill attention (32 heads, K/V expanded from 8,
    S = 4096, D = 128, bf16) and whisper-base's encoder attention (B = 4,
-   8 heads, S = 1500, D = 64, non-causal, fp32 and bf16). Each call is
-   timed as in phase 6, beside ``torch.matmul`` (TF32 off),
+   8 heads, S = 1500, D = 64, non-causal, fp32 and bf16). Each call's
+   body is read from its wrapper's ``launches_by_body``: every bf16 call
+   must have run "wgmma" and every fp32 call "simt". Each call is
+   timed as in phase 6, with its body, beside ``torch.matmul`` (TF32 off),
    ``scaled_dot_product_attention`` or, for a sum/mean/max over the
    padded table, ``embedding_bag`` (the table as bags with a padding id,
    held against the plain version too) as its library call, and its bound
@@ -1407,6 +1418,22 @@ ATTN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 # kernel test (tests/test_kernels.py)
 MATMUL_TRIPLES = ((128, 128, 128, 64, 64, 64), (130, 200, 70, 64, 64, 64),
                   (32, 512, 96, 32, 32, 128))
+# the wgmma bodies' edges (bf16): several K stages and a partial N tile;
+# ragged M and K (TMA's zero fill); and qwen3-8b's up-projection
+WGMMA_MATMUL_EDGES = ((192, 448, 320), (130, 200, 72))
+# (bh, Sq, Skv, D, tiles, causal set): Sq != Skv under the top-left causal
+# mask at D = 128, whisper's ragged 1500 at D = 64 causal too
+WGMMA_ATTN_EDGES = ((2, 300, 700, 128, 128, 128, (True, False)),
+                    (2, 700, 300, 128, 128, 128, (True, False)),
+                    (8, 1500, 1500, 64, 128, 128, (True,)))
+BODIES = ("wgmma", "simt")
+# the bf16 calls held against their plain versions that must run the
+# SIMT body: the matmul's (M, K, N) where K or N is no multiple of 8
+# (TMA's 16-byte row pitch), and attention where D or Dv is no multiple
+# of 16 (a k16 step), each (bh, Sq, Skv, D, Dv, tiles, causal set)
+SIMT_BF16_MATMUL = ((130, 200, 70), (27656, 11, 128))
+SIMT_BF16_ATTN = ((3, 40, 72, 40, 40, 32, 48, (True, False)),
+                  (2, 130, 130, 64, 24, 64, 64, (True, False)))
 # qwen3-8b (configs/qwen3_8b.py): d_model 4096, d_ff 12288, 32 query
 # heads over 8 KV heads of 128; a 4096-token prefill
 QWEN3 = dict(d_model=4096, d_ff=12288, heads=32, kv_heads=8, head_dim=128,
@@ -1481,6 +1508,16 @@ def close_to(name: str, label: str, got, want, tol: dict, errs: dict,
     check(ok, f"{name} {label}: max |err| {err} outside {tol}")
 
 
+def launched_body(label: str, launch, *args, want: str, **kwargs) -> tuple:
+    """(output, body) of one call of a ``*_cuda`` launch, the body as the
+    launch itself records it in ``by_body``; fails unless it is ``want``."""
+    counts = dict.fromkeys(BODIES, 0)
+    out = launch(*args, by_body=counts, **kwargs)
+    check(counts == {**dict.fromkeys(BODIES, 0), want: 1},
+          f"{label}: ran {counts}, expected one {want} launch")
+    return out, want
+
+
 def entry_kernels_vs_plain(dev, tables) -> dict:
     """Each kernel against its plain version on the card, outside the
     counted run: the padded-table aggregation (every agg, fp32 and bf16,
@@ -1499,6 +1536,7 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
     rng = np.random.default_rng(8)
     errs: dict = {}
     n_cmp = 0
+    by_body = dict.fromkeys(BODIES, 0)
     label, n, nbr = tables[0]
     cases = gnn_agg_edge_tables(rng) + [(label, n, 64, nbr)]
     for label, n, f, nbr in cases:
@@ -1515,16 +1553,26 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
                     compare("gnn_aggregate", agg, got.float(), want.float(),
                             errs)
                     n_cmp += 1
-    for m, k, nn, bm, bn, bk in MATMUL_TRIPLES + (
-            (27656, 11, 128, 128, 128, 128), (1024, 192, 64, 128, 128, 128)):
-        for dt in (torch.float32, torch.bfloat16):
+    both, bf16 = (torch.float32, torch.bfloat16), (torch.bfloat16,)
+    qwen3 = (QWEN3["tokens"], QWEN3["d_model"], QWEN3["d_ff"])
+    matmul_cases = [(t, both) for t in MATMUL_TRIPLES + (
+        (27656, 11, 128, 128, 128, 128), (1024, 192, 64, 128, 128, 128))]
+    matmul_cases += [((m, k, n, 128, 128, 128), bf16)
+                     for m, k, n in WGMMA_MATMUL_EDGES + (qwen3,)]
+    for (m, k, nn, bm, bn, bk), dts in matmul_cases:
+        for dt in dts:
             x = torch.randn((m, k), device=dev).to(dt)
             w = torch.randn((k, nn), device=dev).to(dt)
-            got = tiled_matmul_cuda(x, w, block_m=bm, block_n=bn, block_k=bk)
-            close_to("tiled_matmul", f"({m}, {k}) @ ({k}, {nn}) {dt}", got,
+            label = f"({m}, {k}) @ ({k}, {nn}) {dt}"
+            got, body = launched_body(
+                label, tiled_matmul_cuda, x, w, block_m=bm, block_n=bn,
+                block_k=bk, want="wgmma" if dt == torch.bfloat16 and (
+                    m, k, nn) not in SIMT_BF16_MATMUL else "simt")
+            close_to("tiled_matmul", f"{label} {body}", got,
                      tiled_matmul_ref(x, w),
                      dict(rtol=MATMUL_TOL[dt], atol=0.0), errs, on_scale=True)
-            n_cmp += 1
+            by_body[body] += 1
+            del x, w, got
     # the tiles of the parallel (16, 8) and base (1, 1) designs are no
     # launch knobs: the same bits at GCN layer 1's transform
     x = torch.randn((27656, 128), device=dev)
@@ -1534,27 +1582,38 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
                            blocks_from_parallelism(1, 1))]
     check(torch.equal(*outs), "tiled_matmul: the (16, 8) and (1, 1) "
                               "designs' tiles give different results")
-    for bh, sq, skv, d, bq, bk, causal_set in (
-            (4, 128, 128, 32, 64, 64, (True, False)),
-            (2, 256, 256, 64, 64, 64, (True, False)),
-            (1, 64, 64, 16, 64, 64, (True, False)),
-            (8, 1500, 1500, 64, 128, 128, (False,)),
-            (8, 100, 100, 64, 128, 128, (False,)),
-            (3, 40, 72, 128, 32, 48, (True, False)),
-            (2, 1024, 1024, 128, 128, 128, (True,))):
+    attn_cases = [(bh, sq, skv, d, d, bq, bk, cs)
+                  for bh, sq, skv, d, bq, bk, cs in (
+                      (4, 128, 128, 32, 64, 64, (True, False)),
+                      (2, 256, 256, 64, 64, 64, (True, False)),
+                      (1, 64, 64, 16, 64, 64, (True, False)),
+                      (8, 1500, 1500, 64, 128, 128, (False,)),
+                      (8, 100, 100, 64, 128, 128, (False,)),
+                      (3, 40, 72, 128, 32, 48, (True, False)),
+                      (2, 1024, 1024, 128, 128, 128, (True,)),
+                      *WGMMA_ATTN_EDGES)]
+    for case in attn_cases + list(SIMT_BF16_ATTN):
+        bh, sq, skv, d, dv, bq, bk, causal_set = case
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn((bh, s, d), device=dev).to(dt)
-                       for s in (sq, skv, skv))
+            q, k = (torch.randn((bh, s, d), device=dev).to(dt)
+                    for s in (sq, skv))
+            v = torch.randn((bh, skv, dv), device=dev).to(dt)
             for causal in causal_set:
-                got = flash_attention_cuda(q, k, v, causal=causal,
-                                           block_q=bq, block_k=bk)
-                close_to("flash_attention", f"bh={bh} Sq={sq} Skv={skv} "
-                         f"D={d} tiles ({bq}, {bk}) causal={causal} {dt}",
-                         got, attention_ref(q, k, v, causal=causal),
+                label = (f"bh={bh} Sq={sq} Skv={skv} D={d} Dv={dv} tiles "
+                         f"({bq}, {bk}) causal={causal} {dt}")
+                got, body = launched_body(
+                    label, flash_attention_cuda, q, k, v, causal=causal,
+                    block_q=bq, block_k=bk,
+                    want="wgmma" if dt == torch.bfloat16
+                    and case not in SIMT_BF16_ATTN else "simt")
+                close_to("flash_attention", f"{label} {body}", got,
+                         attention_ref(q, k, v, causal=causal),
                          ATTN_TOL[dt], errs)
-                n_cmp += 1
+                by_body[body] += 1
     torch.cuda.synchronize()
-    print(f"[8] {n_cmp} kernel-vs-plain comparisons passed; max |err| "
+    n_cmp += sum(by_body.values())
+    print(f"[8] {n_cmp} kernel-vs-plain comparisons passed (matmul and "
+          f"attention by body: {by_body}); max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     return errs
 
@@ -1680,20 +1739,44 @@ def entry_calls(dev, tables) -> list:
     return calls
 
 
-def entry_path_phase(dev, calls, errs: dict) -> dict:
+def entry_path_phase(dev, calls, errs: dict) -> tuple:
     """Drive phase 8's path once through the entry points: the counts are
     set to 0 just before and read just after; each call launches its
-    kernel once and agrees with the plain version."""
+    kernel once and agrees with the plain version. The matmul's and
+    attention's ``launches_by_body`` say which body each call ran: every
+    bf16 call "wgmma", every fp32 call "simt". Returns the launches and
+    each call's body (None for ``gnn_aggregate``, which has one)."""
     wrappers = entry_counters()
     for w in wrappers.values():
         w.launches = 0
-    outs = [call() for _, _, call, *_ in calls]
+        if hasattr(w, "launches_by_body"):
+            w.launches_by_body = dict.fromkeys(BODIES, 0)
+    outs, bodies = [], []
+    for name, _, call, *_ in calls:
+        w = wrappers[name]
+        before = dict(getattr(w, "launches_by_body", {}))
+        outs.append(call())
+        ran = [b for b, n in getattr(w, "launches_by_body", {}).items()
+               if n != before[b]]
+        bodies.append(ran[0] if len(ran) == 1 else None)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     for name in ENTRY_KERNELS:
         want = sum(c[0] == name for c in calls)
         check(launches[name] == want, f"{name}: {launches[name]} launches "
                                       f"on phase 8's path, expected {want}")
+    for (name, label, *_), out, body in zip(calls, outs, bodies):
+        if name == "gnn_aggregate":
+            continue
+        want = "wgmma" if out.dtype == torch.bfloat16 else "simt"
+        check(body == want, f"{name} {label}: ran the {body} body, "
+                            f"expected {want} for {out.dtype}")
+    by_body = {k: w.launches_by_body for k, w in wrappers.items()
+               if hasattr(w, "launches_by_body")}
+    for name, counts in by_body.items():
+        check(sum(counts.values()) == launches[name],
+              f"{name}: launches by body {counts} do not add up to "
+              f"{launches[name]}")
     for (name, label, _, _, plain, lib, *_), out in zip(calls, outs):
         ref = plain()
         if name == "gnn_aggregate" and lib is not None:
@@ -1710,16 +1793,20 @@ def entry_path_phase(dev, calls, errs: dict) -> dict:
             close_to(name, label, out, ref, SEGMENT_TOL, errs)
         del ref
     print(f"[8] path: {len(calls)} full-width calls through the entry "
-          f"points, launches {launches}; each against its plain version")
-    return launches
+          f"points, launches {launches}, by body {by_body}; each against "
+          f"its plain version, every bf16 call on wgmma, every fp32 one on "
+          f"simt")
+    return launches, bodies
 
 
-def entry_timing_phase(calls) -> list:
+def entry_timing_phase(calls, bodies) -> list:
     """Each full-width call timed as phase 6 times (a long kernel with
     fewer runs), beside its plain version, its library call and its
-    bound (the operations of a bf16 product at the tensor-core peak)."""
+    bound (the operations of a bf16 product at the tensor-core peak),
+    with the body it ran."""
     rows = []
-    for name, label, _, kern, plain, lib, (moved, ops), rate in calls:
+    for (name, label, _, kern, plain, lib, (moved, ops), rate), body in zip(
+            calls, bodies):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1733,11 +1820,12 @@ def entry_timing_phase(calls) -> list:
             ms=cuda_ms(kern, *reps),
             plain_ms=cuda_ms(plain, reps=5, inner=1, device_only=False),
             library_ms=None if lib is None else cuda_ms(lib, *reps),
-            bound_ms=bound, bound_by=by))
+            bound_ms=bound, bound_by=by, body=body))
         r = rows[-1]
         lib_s = "n/a" if r["library_ms"] is None \
             else f"{r['library_ms']:.5f} ms"
-        print(f"[8] {name} {label}: kernel {r['ms']:.5f} ms, plain "
+        body_s = "" if body is None else f" [{body} body]"
+        print(f"[8] {name}{body_s} {label}: kernel {r['ms']:.5f} ms, plain "
               f"{r['plain_ms']:.5f} ms, library {lib_s}, bound "
               f"{r['bound_ms']:.6f} ms ({by}), {ops / r['ms'] * 1e-9:.3f} "
               f"TFLOP/s")
@@ -1767,10 +1855,19 @@ def summarize_entries(rows, errs, launches) -> list:
             else None,
             "shapes": "phase 8 path, one launch per call: "
                       + "; ".join(r["shape"] for r in sel),
-            "calls": [{k: r[k] for k in ("shape", "ms", "plain_ms",
+            "calls": [{k: r[k] for k in ("shape", "body", "ms", "plain_ms",
                                          "library_ms", "bound_ms",
                                          "bound_by")} for r in sel],
         }
+        if any(r["body"] for r in sel):
+            # the same sums for the calls of each body
+            entry["by_body"] = {b: {
+                "launches": sum(r["body"] == b for r in sel),
+                **{k: sum(r[k] for r in sel if r["body"] == b)
+                   for k in ("ms", "plain_ms", "bound_ms")},
+                "library_ms": sum(r["library_ms"] for r in sel
+                                  if r["body"] == b)}
+                for b in BODIES}
         if len(libs) < len(sel):
             # library_ms sums the calls that have one; the kernel's ms
             # over the same calls stands beside it
@@ -1927,8 +2024,8 @@ def main() -> int:
     tables = padded_tables(batches[1024][1], P.make_graph(ds, 0))
     entry_errs = entry_kernels_vs_plain(dev, tables)
     calls = entry_calls(dev, tables)
-    entry_launches = entry_path_phase(dev, calls, entry_errs)
-    entry_rows = entry_timing_phase(calls)
+    entry_launches, bodies = entry_path_phase(dev, calls, entry_errs)
+    entry_rows = entry_timing_phase(calls, bodies)
     del calls
     print(f"[8] phase 8 took {time.perf_counter() - t8:.1f} s")
     summary = summarize(rows, errs, launches)

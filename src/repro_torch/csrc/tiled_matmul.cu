@@ -2,10 +2,8 @@
 //
 //   out (M, N) = x (M, K) @ w (K, N)
 //
-// with x and w both fp32 or both bf16 (converted to fp32 as they are
-// loaded), an fp32 accumulator and the result written in x's dtype.
-// Every product is a plain fp32 FMA on the SIMT cores: fp32 never runs
-// as TF32 here.
+// with x and w both fp32 or both bf16, an fp32 accumulator and the
+// result written in x's dtype, rounded once.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/tiled_linear/kernel.py,
@@ -13,25 +11,52 @@
 // That kernel runs an (M/bm, N/bn, K/bk) grid with K innermost and
 // sequential, feeding (bm, bk) x (bk, bn) tiles to the MXU and keeping
 // an fp32 (bm, bn) accumulator in VMEM across the K steps; the caller
-// pads every dimension to a tile multiple. Here one 256-thread block
-// owns a 64 x 64 output tile and walks K itself in chunks of 16: the
-// chunk of x (64 x 16, stored k-major) and of w (16 x 64) is staged in
-// shared memory, and each thread keeps a 4 x 4 register tile of the
-// output (rows ty + 16 i, columns tx + 16 j, so a warp's reads of either
-// staged tile are broadcasts or consecutive words). The ragged M, N and
-// K edges are guarded where the tiles are loaded (zeros) and stored, so
-// nothing is padded by copies. The tile is the kernel's own: the TPU's
-// (block_m, block_n, block_k) would not fit a block's shared memory at
-// the paper's parallel design, and the wrapper does not pass them.
+// pads every dimension to a tile multiple. Here each block owns one
+// output tile and walks K itself; the ragged M, N and K edges need no
+// padded copies. The tiles are the kernel's own: the TPU's (block_m,
+// block_n, block_k) would not fit a block's shared memory at the
+// paper's parallel design, and the wrapper does not pass them.
+//
+// Two bodies; the wrapper picks one by dtype and shape alone
+// (kernels/tiled_linear/kernel.py, body_for):
+//
+// "simt" (every fp32 call, and bf16 shapes TMA cannot describe): one
+// 256-thread block per 64 x 64 output tile, K staged in chunks of 16
+// (x k-major, w as is, both converted to fp32) in shared memory, a
+// 4 x 4 register tile per thread (rows ty + 16 i, columns tx + 16 j, so
+// a warp's reads of either staged tile are broadcasts or consecutive
+// words), every product a plain fp32 FMA: fp32 never runs as TF32, so
+// the port's full-fp32 numerics hold. The edges are guarded where the
+// tiles are loaded (zeros) and stored.
+//
+// "wgmma" (bf16 with K and N multiples of 8, 16-byte aligned operands:
+// TMA needs 16-byte row pitches): one block per 128 x 256 output tile,
+// two consumer warpgroups of 64 rows each and a producer warpgroup
+// (hopper.cuh). One producer thread keeps a ring of 4 stages full by
+// TMA: a (128 x 64) tile of x and four (64 x 64) boxes of w per stage,
+// all 128-byte swizzled; out-of-bounds rows and columns arrive as
+// zeros, so a ragged M, N or K adds nothing and only the stores are
+// guarded. Each consumer issues, per stage, four wgmma m64n256k16 with
+// bf16 operands from shared memory into 128 fp32 accumulators a thread:
+// x is the K-major A operand; w is N-contiguous, so it is the MN-major
+// B operand (transpose flag set, LBO = one box of 8 KB). A stage is
+// handed back when the next stage's products are issued and its own
+// have completed. The epilogue rounds each sum once with
+// __float2bfloat16_rn, as the SIMT body does. No split-K and no
+// atomics: a call gives the same bits on every run. The blocks walk M
+// fastest, so one wave of 132 blocks shares all of x and a few column
+// strips of w in L2. 128 x 128 tiles (4 or 6 stages) and 3 stages
+// measured slower at qwen3-8b's up-projection (PERF.md, the design
+// steps of the wgmma bodies).
 //
 // Bound on this card: operations for the shapes of interest (a large
-// product), bytes for thin ones (the GCN transforms, K = 11). Each
-// thread does 16 FMAs per 8 shared-memory reads, which caps the SIMT
-// rate well under the card's 67 TFLOP/s fp32; a bf16 product is far
-// under the tensor-core rate (989 TFLOP/s) that bounds it, since no
-// mma/wgmma is used. Tensor-core tiles are later work.
+// product), bytes for thin ones (the GCN transforms, K = 11). bf16 is
+// bounded by the tensor cores' 989 TFLOP/s, which only wgmma reaches;
+// fp32 by the SIMT cores' 67 TFLOP/s, which the SIMT body stays well
+// under (16 FMAs per 8 shared-memory reads a thread).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace repro {
 namespace {
@@ -123,6 +148,136 @@ cudaError_t launch_typed(const void* x, const void* w, int m, int n, int k,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------ the wgmma body --
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kBM = 128;                  // rows of a block's tile
+constexpr int kBN = 256;                  // columns of a block's tile
+constexpr int kBK = 64;                   // K of a stage: one swizzled row
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;             // warpgroups of 64 rows
+constexpr int kThreads = (kConsumers + 1) * kWarpgroup;
+constexpr int kABytes = kBM * kBK * 2;    // 16 KB
+constexpr int kBoxBytes = kBK * kBoxCols * 2;   // one (64 x 64) w box
+constexpr int kBBytes = kBN / kBoxCols * kBoxBytes;   // 32 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr size_t kSmem = kAtomBytes +
+                         static_cast<size_t>(kStages) * kStageBytes +
+                         sizeof(Ring<kStages>);
+
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap, int m, int n,
+                    int k, __nv_bfloat16* __restrict__ out) {
+  extern __shared__ uint8_t raw[];
+  uint8_t* tiles = align_atom(raw);
+  auto* ring = reinterpret_cast<Ring<kStages>*>(tiles + kStages *
+                                                kStageBytes);
+  const int m_tiles = (m + kBM - 1) / kBM;
+  const int m0 = static_cast<int>(blockIdx.x % m_tiles) * kBM;
+  const int n0 = static_cast<int>(blockIdx.x / m_tiles) * kBN;
+  const int k_tiles = (k + kBK - 1) / kBK;
+  const int group = threadIdx.x / kWarpgroup;
+  if (threadIdx.x == 0) {
+    prefetch_map(&xmap);
+    prefetch_map(&wmap);
+    ring->init(kConsumers * 4);
+  }
+  __syncthreads();
+
+  if (group == kConsumers) {
+    // the producer: one thread keeps the ring full
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kConsumers * kWarpgroup) {
+      RingPos pos;
+      for (int t = 0; t < k_tiles; ++t, pos.advance<kStages>()) {
+        mbar_wait(&ring->empty[pos.stage], pos.phase ^ 1);
+        uint8_t* a = tiles + pos.stage * kStageBytes;
+        uint64_t* full = &ring->full[pos.stage];
+        mbar_expect_tx(full, kStageBytes);
+        tma_load_2d(a, &xmap, full, t * kBK, m0);
+#pragma unroll
+        for (int j = 0; j < kBN / kBoxCols; ++j)
+          tma_load_2d(a + kABytes + j * kBoxBytes, &wmap, full,
+                      n0 + j * kBoxCols, t * kBK);
+      }
+    }
+  } else {
+    // a consumer: rows m0 + 64 group .. + 63 of the tile
+    setmaxnreg_inc<232>();
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    float acc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.0f;
+    RingPos pos;
+    for (int t = 0; t < k_tiles; ++t, pos.advance<kStages>()) {
+      mbar_wait(&ring->full[pos.stage], pos.phase);
+      const uint8_t* a = tiles + pos.stage * kStageBytes;
+      const uint64_t da = desc_sw128(a + group * 64 * kSwizzleBytes, 16,
+                                     kAtomBytes);
+      const uint64_t db = desc_sw128(a + kABytes, kBoxBytes, kAtomBytes);
+      wgmma_fence();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // A: 32 bytes along the swizzled row; B: 16 rows of 128 bytes
+        wgmma_m64n256k16_ss<1>(acc, da + 2 * kk, db + 128 * kk);
+      }
+      wgmma_commit();
+      fence_regs(acc);
+      // the stage before this one is read: hand it back
+      wgmma_wait<1>();
+      if (t > 0 && lane == 0)
+        mbar_arrive(&ring->empty[(pos.stage + kStages - 1) % kStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    const int row0 = m0 + group * 64;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int row = row0 + acc_row(i, lane, warp);
+      const int col = n0 + acc_col(i, lane);
+      // n is even, so a pair is wholly inside or wholly outside
+      if (row < m && col < n)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + static_cast<size_t>(row) * n + col) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+cudaError_t launch(const void* x, const void* w, int m, int n, int k,
+                   void* out, cudaStream_t stream) {
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(k),
+                             static_cast<uint64_t>(m)};
+  const uint64_t xpitch[1] = {static_cast<uint64_t>(k) * 2};
+  const uint32_t xbox[2] = {kBK, kBM};
+  const uint64_t wdims[2] = {static_cast<uint64_t>(n),
+                             static_cast<uint64_t>(k)};
+  const uint64_t wpitch[1] = {static_cast<uint64_t>(n) * 2};
+  const uint32_t wbox[2] = {kBoxCols, kBK};
+  cudaError_t err = bf16_map(&xmap, x, 2, xdims, xpitch, xbox);
+  if (err == cudaSuccess) err = bf16_map(&wmap, w, 2, wdims, wpitch, wbox);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(matmul_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = ((static_cast<long long>(m) + kBM - 1) / kBM) *
+                           ((static_cast<long long>(n) + kBN - 1) / kBN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  matmul_wgmma_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmem,
+                        stream>>>(
+      xmap, wmap, m, n, k, static_cast<__nv_bfloat16*>(out));
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 }  // namespace repro
 
@@ -146,4 +301,19 @@ extern "C" int repro_tiled_matmul(const void* x, const void* w, int m, int n,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The tensor-core body: x (m, k), w (k, n) and out (m, n), row-major
+// bf16, k and n multiples of 8 (k >= 8), x and w 16-byte aligned.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape or alignment it does not take.
+extern "C" int repro_tiled_matmul_wgmma(const void* x, const void* w, int m,
+                                        int n, int k, void* out,
+                                        void* stream) {
+  if (m < 1 || n < 1 || k < 8 || n % 8 != 0 || k % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(repro::wg::launch(
+      x, w, m, n, k, out, static_cast<cudaStream_t>(stream)));
 }

@@ -1,10 +1,19 @@
 """Launch of the hand-written CUDA flash attention kernel
 (``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
 ``repro/kernels/flash_attention/kernel.py``, ``flash_attention_pallas``.
-The source carries the design note: one block per (bh, q tile), the KV
-tiles staged in shared memory in fp32, an fp32 online (m, l, acc), and
-every key past Skv (or after the row under ``causal``) masked inside the
-kernel, so a ragged key length needs no padded keys.
+The source carries the design note: one block per (bh, q tile), an fp32
+online (m, l, acc), and every key past Skv (or after the row under
+``causal``) masked inside the kernel, so a ragged key length needs no
+padded keys. It has two bodies, chosen by ``body_for`` from dtype and
+head sizes alone (never by a failed launch):
+
+- ``"wgmma"`` (bf16, D and Dv multiples of 16 up to 128): TMA-fed wgmma
+  tiles of 128 q rows by 128 keys, the softmax weights fed to P V as two
+  bf16 terms. ``block_q``/``block_k`` are checked (ints from 1 to 128)
+  but do not change its launch.
+- ``"simt"`` (fp32, and the other bf16 head sizes): the KV tiles staged
+  in shared memory in fp32, fp32 FMAs; ``block_q``/``block_k`` are its
+  tiles.
 """
 from __future__ import annotations
 
@@ -15,12 +24,29 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
+BODIES = ("wgmma", "simt")
 MAX_TILE = 128      # block_q, block_k, D and Dv
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+_WGMMA_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p, ctypes.c_void_p]
+
+
+def body_for(dtype: torch.dtype, d: int, dv: int, *pointers: int) -> str:
+    """The body a call with head sizes ``d`` (q, k) and ``dv`` (v) runs:
+    ``"wgmma"`` for bf16 when D and Dv are multiples of 16 (a k16 step of
+    the tensor cores) up to 128 and every base pointer given is 16-byte
+    aligned (TMA), else ``"simt"``."""
+    if (dtype == torch.bfloat16 and all(
+            v % 16 == 0 and 16 <= v <= MAX_TILE for v in (d, dv))
+            and all(p % 16 == 0 for p in pointers)):
+        return "wgmma"
+    return "simt"
 
 
 def check_tiles(block_q: int, block_k: int) -> None:
@@ -30,7 +56,9 @@ def check_tiles(block_q: int, block_k: int) -> None:
 
 
 def smem_bytes(block_q: int, block_k: int, d: int, dv: int) -> int:
-    """The shared memory a launch needs (``csrc/flash_attention.cu``)."""
+    """The shared memory a launch of the SIMT body needs
+    (``csrc/flash_attention.cu``). The wgmma body's tile is fixed; its
+    entry point checks it against the device's limit itself."""
     return _build.function("repro_flash_attention_smem_bytes",
                            [ctypes.c_int] * 4)(block_q, block_k, d, dv)
 
@@ -45,12 +73,14 @@ def smem_limit() -> int:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, block_q: int = 128,
-                         block_k: int = 128) -> torch.Tensor:
+                         block_k: int = 128,
+                         by_body: dict | None = None) -> torch.Tensor:
     """q (BH, Sq, D); k (BH, Skv, D); v (BH, Skv, Dv), contiguous, all fp32
     or all bf16, D and Dv at most 128 -> (BH, Sq, Dv) in q's dtype.
-    ``block_q``/``block_k`` (at most 128) are the kernel's tiles; raises
-    where they do not fit a block's shared memory. Launches on the
-    current stream."""
+    ``block_q``/``block_k`` (at most 128) are the SIMT body's tiles;
+    raises where a launch does not fit a block's shared memory. Launches
+    the body ``body_for`` names on the current stream and, given a
+    ``by_body`` dict, adds one to its entry for that body."""
     check_tiles(block_q, block_k)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be 3-D (BH, S, D)")
@@ -72,18 +102,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{d}, {dv}) and tiles ({block_q}, {block_k}): all "
                          f">= 1, D, Dv and the tiles at most {MAX_TILE}")
     dev = q.device
+    body = body_for(q.dtype, d, dv, q.data_ptr(), k.data_ptr(), v.data_ptr())
     with torch.cuda.device(dev):
-        need, limit = smem_bytes(block_q, block_k, d, dv), smem_limit()
-        if need > limit:
-            raise ValueError(
-                f"tiles (block_q, block_k) = ({block_q}, {block_k}) at D = "
-                f"{d}, Dv = {dv} need {need} B of shared memory; a block "
-                f"may use {limit} B on this device")
         out = torch.empty((bh, sq, dv), dtype=q.dtype, device=dev)
-        fn = _build.function("repro_flash_attention", _ARGTYPES)
-        status = fn(_build.pointer(q), _build.pointer(k), _build.pointer(v),
-                    _build.DTYPE_CODES[q.dtype], bh, sq, skv, d, dv, block_q,
-                    block_k, int(bool(causal)), ctypes.c_float(d ** -0.5),
-                    _build.pointer(out), _build.stream_pointer(dev))
-    _build.check(status, "flash_attention")
+        args = (_build.pointer(q), _build.pointer(k), _build.pointer(v))
+        tail = (int(bool(causal)), ctypes.c_float(d ** -0.5),
+                _build.pointer(out), _build.stream_pointer(dev))
+        if body == "wgmma":
+            status = _build.function("repro_flash_attention_wgmma",
+                                     _WGMMA_ARGTYPES)(
+                *args, bh, sq, skv, d, dv, *tail)
+        else:
+            need, limit = smem_bytes(block_q, block_k, d, dv), smem_limit()
+            if need > limit:
+                raise ValueError(
+                    f"tiles (block_q, block_k) = ({block_q}, {block_k}) at "
+                    f"D = {d}, Dv = {dv} need {need} B of shared memory; a "
+                    f"block may use {limit} B on this device")
+            status = _build.function("repro_flash_attention", _ARGTYPES)(
+                *args, _build.DTYPE_CODES[q.dtype], bh, sq, skv, d, dv,
+                block_q, block_k, *tail)
+    _build.check(status, f"flash_attention ({body})")
+    if by_body is not None:
+        by_body[body] += 1
     return out

@@ -2,7 +2,10 @@
 
 A CPU tensor takes the plain version (``ref.py``); any other tensor
 launches the CUDA kernel (``kernel.py``), which raises on what it does
-not take. ``flash_attention.launches`` counts kernel launches.
+not take. ``flash_attention.launches`` counts kernel launches and
+``flash_attention.launches_by_body`` splits them by the body that ran
+(``"wgmma"`` or ``"simt"``, as the launch records the body
+``kernel.body_for`` chose).
 """
 from __future__ import annotations
 
@@ -10,7 +13,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._cost import attention_work, priced
-from repro_torch.kernels.flash_attention.kernel import (check_tiles,
+from repro_torch.kernels.flash_attention.kernel import (BODIES, check_tiles,
                                                         flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -35,12 +38,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = attention_ref(q, k, v, causal=causal)
     else:
         _build.refuse_grad("flash_attention", q, k, v)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = flash_attention_cuda(
-            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-            block_q=min(block_q, q.shape[1]),
-            block_k=min(block_k, k.shape[1]))
+            q, k, v, causal=causal, block_q=min(block_q, q.shape[1]),
+            block_k=min(block_k, k.shape[1]),
+            by_body=flash_attention.launches_by_body)
         flash_attention.launches += 1
     return out.reshape(b, h, *out.shape[1:]) if four_d else out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -1,9 +1,12 @@
 """Launch of the hand-written CUDA tiled matmul (``csrc/tiled_matmul.cu``),
 the port of the Pallas TPU kernel ``repro/kernels/tiled_linear/kernel.py``,
-``tiled_matmul_pallas``: a shared-memory tiled SIMT product, one 64 x 64
-output tile per 256-thread block, a 4 x 4 register tile per thread, K
-staged in chunks of 16, the ragged edges guarded in the kernel, an fp32
-accumulator (never TF32) and the result in x's dtype.
+``tiled_matmul_pallas``: an fp32 accumulator and the result in x's dtype,
+the ragged edges handled in the kernel. It has two bodies, chosen by
+``body_for`` from dtype, shape and alignment alone (never by a failed
+launch): ``"wgmma"``, the tensor-core body for bf16 (TMA-fed wgmma, one
+128 x 256 output tile per block), and ``"simt"``, a shared-memory tiled
+SIMT product (one 64 x 64 tile per 256-thread block, fp32 FMAs, never
+TF32) for fp32 and the bf16 shapes TMA cannot describe.
 
 The kernel's tile is its own. The paper's parallelism factors map to the
 TPU's tiles (``ops.blocks_from_parallelism``): the parallel design (16, 8)
@@ -23,9 +26,25 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
+BODIES = ("wgmma", "simt")
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_WGMMA_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+
+
+def body_for(dtype: torch.dtype, k: int, n: int, x_ptr: int = 0,
+             w_ptr: int = 0) -> str:
+    """The body a call of x (M, k) @ w (k, n) runs: ``"wgmma"`` for bf16
+    when TMA can describe both operands (k >= 8, k and n multiples of 8,
+    so every row pitch is a multiple of 16 bytes, and both base pointers
+    16-byte aligned), else ``"simt"``."""
+    if (dtype == torch.bfloat16 and k >= 8 and k % 8 == 0 and n % 8 == 0
+            and x_ptr % 16 == 0 and w_ptr % 16 == 0):
+        return "wgmma"
+    return "simt"
 
 
 def check_inputs(x: torch.Tensor, w: torch.Tensor, block_m: int,
@@ -47,10 +66,12 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor, block_m: int,
 
 def tiled_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
                       block_m: int = 128, block_n: int = 128,
-                      block_k: int = 128) -> torch.Tensor:
+                      block_k: int = 128,
+                      by_body: dict | None = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N) in x's dtype, M and N >= 1, both
-    operands contiguous fp32 or both bf16. Launches on the current
-    stream."""
+    operands contiguous fp32 or both bf16. Launches the body ``body_for``
+    names on the current stream and, given a ``by_body`` dict, adds one
+    to its entry for that body."""
     check_inputs(x, w, block_m, block_n, block_k)
     _build.check_table("x", x)
     _build.check_table("w", w)
@@ -61,10 +82,19 @@ def tiled_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
     if m < 1 or n < 1:
         raise ValueError(f"(M, N) = ({m}, {n}): the kernel needs both >= 1")
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
-    fn = _build.function("repro_tiled_matmul", _ARGTYPES)
+    body = body_for(x.dtype, k, n, x.data_ptr(), w.data_ptr())
     with torch.cuda.device(dev):
-        status = fn(_build.pointer(x), _build.pointer(w), m, n, k,
-                    _build.DTYPE_CODES[x.dtype], _build.pointer(out),
-                    _build.stream_pointer(dev))
-    _build.check(status, "tiled_matmul")
+        if body == "wgmma":
+            status = _build.function("repro_tiled_matmul_wgmma",
+                                     _WGMMA_ARGTYPES)(
+                _build.pointer(x), _build.pointer(w), m, n, k,
+                _build.pointer(out), _build.stream_pointer(dev))
+        else:
+            status = _build.function("repro_tiled_matmul", _ARGTYPES)(
+                _build.pointer(x), _build.pointer(w), m, n, k,
+                _build.DTYPE_CODES[x.dtype], _build.pointer(out),
+                _build.stream_pointer(dev))
+    _build.check(status, f"tiled_matmul ({body})")
+    if by_body is not None:
+        by_body[body] += 1
     return out

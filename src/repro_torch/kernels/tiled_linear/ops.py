@@ -3,7 +3,10 @@ paper's parallelism-factor -> tile mapping.
 
 A CPU tensor takes the plain version (``ref.py``); any other tensor
 launches the CUDA kernel (``kernel.py``), which raises on what it does
-not take. ``tiled_matmul.launches`` counts kernel launches.
+not take. ``tiled_matmul.launches`` counts kernel launches and
+``tiled_matmul.launches_by_body`` splits them by the body that ran
+(``"wgmma"`` or ``"simt"``, as the launch records the body
+``kernel.body_for`` chose).
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._cost import matmul_work, priced
-from repro_torch.kernels.tiled_linear.kernel import (check_inputs,
+from repro_torch.kernels.tiled_linear.kernel import (BODIES, check_inputs,
                                                      tiled_matmul_cuda)
 from repro_torch.kernels.tiled_linear.ref import tiled_matmul_ref
 
@@ -43,9 +46,11 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
         return tiled_matmul_ref(x, w)
     _build.refuse_grad("tiled_matmul", x, w)
     out = tiled_matmul_cuda(x, w, block_m=block_m, block_n=block_n,
-                            block_k=block_k)
+                            block_k=block_k,
+                            by_body=tiled_matmul.launches_by_body)
     tiled_matmul.launches += 1
     return out
 
 
 tiled_matmul.launches = 0
+tiled_matmul.launches_by_body = dict.fromkeys(BODIES, 0)

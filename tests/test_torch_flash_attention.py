@@ -12,9 +12,21 @@ zero rows the non-causal kernel does not mask, so each padded key adds
 logit 0 to the softmax (0.1 away from the reference at S = 100). The
 port masks every key past Skv inside the kernel.
 
+The bf16 calls with D and Dv multiples of 16 up to 128 take the
+kernel's tensor-core body (``kernel.body_for``). A plain mirror of that
+body's arithmetic (128-key tiles, the scale on the fp32 scores, masked
+keys at weight exactly 0, the softmax weights P fed to P V as two bf16
+terms, l summed from the fp32 weights) is held here against the fp32
+softmax at ``chip_smoke.ATTN_TOL``'s bf16 tolerance, the tolerance phase
+8 holds the kernel to on the card; the same mirror with one bf16 term
+for P misses it, which is why the kernel splits P.
+
 The CUDA launch tests need a card and skip without one; on the card they
 hold the kernel against its plain version.
 """
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,14 +35,70 @@ import torch
 from repro.kernels.flash_attention.ops import (
     flash_attention as jax_flash_attention)
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
-from repro_torch.kernels import _cost
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops as O
 from repro_torch.kernels.flash_attention import ref as R
 
 torch.set_num_threads(1)
 
+ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-4
+LOG2E = 1.4426950408889634
+
+
+def chip_smoke():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke as module
+    finally:
+        sys.path.remove(str(ROOT))
+    return module
+
+
+def bf16_tol():
+    return chip_smoke().ATTN_TOL[torch.bfloat16]
+
+
+def wgmma_mirror(q, k, v, *, causal, p_terms=2, block_k=128):
+    """The wgmma body's arithmetic in plain PyTorch, on (BH, S, D)
+    tensors: per 128-key tile, S = (q k^T) * (D^-0.5 log2 e) in fp32,
+    keys past Skv or (under ``causal``) after the row excluded from the
+    max and weighted 0, p = exp2(S - m), l += sum of the fp32 p, and
+    O = O * exp2(m_old - m_new) + P V with P as ``p_terms`` bf16 terms
+    (P_hi = bf16(p), P_lo = bf16(p - P_hi)); O / max(l, 1e-30) in q's
+    dtype. The kernel's q tiling changes nothing here: a tile it skips
+    under ``causal`` would add exactly 0."""
+    sq, d = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = float(np.float32(np.float32(d ** -0.5) * np.float32(LOG2E)))
+    m = torch.full((q.shape[0], sq), -1e30)
+    l = torch.zeros((q.shape[0], sq))
+    o = torch.zeros((q.shape[0], sq, v.shape[2]))
+    rows = torch.arange(sq)
+    for k0 in range(0, skv, block_k):
+        keys = torch.arange(k0, min(k0 + block_k, skv))
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, keys]) * scale
+        if causal:
+            s = torch.where(keys[None, :] <= rows[:, None], s,
+                            torch.tensor(-torch.inf))
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        terms = [hi, (p - hi).bfloat16().float()][:p_terms]
+        o = o * corr[..., None]
+        for t in terms:
+            o = o + torch.einsum("bqk,bkd->bqd", t, vf[:, keys])
+        m = m_new
+    return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def bf16_qkv(shape, seed, kv_len=None):
+    return tuple(torch.from_numpy(a).bfloat16()
+                 for a in qkv(shape, seed, kv_len=kv_len))
 
 
 def qkv(shape, seed, kv_len=None, dv=None):
@@ -119,6 +187,98 @@ def test_attention_work_counts_the_causal_pairs():
                                 causal=False)[0] == full_bytes // 2
 
 
+QWEN3_SHAPE = (32, 4096, 128)        # (BH, S, D) of phase 8's prefill
+WHISPER_SHAPE = (32, 1500, 64)       # 4 clips x 8 heads
+
+
+def test_body_for_phase8_shapes():
+    bf16, f32 = torch.bfloat16, torch.float32
+    for _, _, d in (QWEN3_SHAPE, WHISPER_SHAPE):
+        assert K.body_for(bf16, d, d) == "wgmma"
+        assert K.body_for(f32, d, d) == "simt"
+        assert K.body_for(bf16, d, d, 0, 256, 4096) == "wgmma"
+    for d, dv in ((8, 8), (16, 24), (40, 40), (144, 64), (64, 8)):
+        assert K.body_for(bf16, d, dv) == "simt"
+    assert K.body_for(bf16, 16, 128) == "wgmma"
+    assert K.body_for(bf16, 64, 64, 0, 8, 0) == "simt"     # unaligned k
+    for shape in ((4, 128, 32), (2, 33, 128), (1, 5, 8)):
+        assert K.body_for(f32, shape[2], shape[2]) == "simt"
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 1500, 64), False),        # whisper-base's encoder, 2 of 32 heads
+    ((2, 1024, 128), True)])       # a causal D = 128 prefill
+def test_wgmma_mirror_meets_the_bf16_tolerance(shape, causal):
+    q, k, v = bf16_qkv(shape, seed=shape[1] + shape[2])
+    got = wgmma_mirror(q, k, v, causal=causal)
+    want = R.attention_ref(q, k, v, causal=causal)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.allclose(got.float(), want.float(), **bf16_tol())
+
+
+def test_wgmma_mirror_ragged_and_other_lengths():
+    for causal in (True, False):
+        q, k, v = bf16_qkv((2, 300, 64), seed=3, kv_len=700)
+        got = wgmma_mirror(q, k, v, causal=causal)
+        want = R.attention_ref(q, k, v, causal=causal)
+        assert torch.allclose(got.float(), want.float(), **bf16_tol())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_mirror_matches_pallas(causal):
+    q, k, v = qkv((2, 256, 64), seed=21)
+    got = wgmma_mirror(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                       causal=causal)
+    want = jax_flash_attention(*(jnp.asarray(a).astype(jnp.bfloat16)
+                                 for a in (q, k, v)), causal=causal,
+                               block_q=128, block_k=128)
+    assert torch.allclose(got.float(),
+                          torch.from_numpy(np.array(
+                              want.astype(jnp.float32))), **bf16_tol())
+
+
+def test_one_bf16_term_for_p_misses_the_tolerance():
+    """Why the kernel splits P: with P = bf16(p) alone, the weights carry
+    2^-9 of a relative error into P V, and some outputs break the bf16
+    tolerance against the fp32 softmax at whisper's shape."""
+    q, k, v = bf16_qkv((2, 1500, 64), seed=1500 + 64)
+    want = R.attention_ref(q, k, v, causal=False).float()
+    one = wgmma_mirror(q, k, v, causal=False, p_terms=1).float()
+    tol = bf16_tol()
+    bad = ((one - want).abs() > tol["atol"] + tol["rtol"] * want.abs())
+    assert int(bad.sum()) > 100
+    two = wgmma_mirror(q, k, v, causal=False).float()
+    assert torch.allclose(two, want, **tol)
+
+
+def test_wgmma_entry_declares_every_pointer():
+    """q, k, v, out and the stream are c_void_p, the scale a c_float."""
+    import ctypes
+    assert [i for i, t in enumerate(K._WGMMA_ARGTYPES)
+            if t is ctypes.c_void_p] == [0, 1, 2, 10, 11]
+    assert K._WGMMA_ARGTYPES[9] is ctypes.c_float
+
+
+@pytest.mark.parametrize("body", ["wgmma", "simt"])
+def test_wrapper_counts_the_body_the_launch_records(monkeypatch, body):
+    """``launches_by_body`` takes the body the launch records in the dict
+    it is handed, not a guess of the wrapper's own: the CUDA branch
+    reached on the CPU, the launch replaced by one recording ``body``."""
+    def launch(q, k, v, *, by_body, **kwargs):
+        by_body[body] += 1
+        return torch.zeros_like(v)
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(O, "flash_attention_cuda", launch)
+    monkeypatch.setattr(O.flash_attention, "launches", 0)
+    monkeypatch.setattr(O.flash_attention, "launches_by_body",
+                        dict.fromkeys(K.BODIES, 0))
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    assert O.flash_attention(q, q, q).shape == q.shape
+    assert O.flash_attention.launches == 1
+    assert O.flash_attention.launches_by_body == {
+        **dict.fromkeys(K.BODIES, 0), body: 1}
+
+
 # ------------------------------------------------- CUDA launch tests --
 @pytest.fixture
 def cuda_device():
@@ -152,6 +312,28 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(),
                                        rtol=tol, atol=tol)
+
+
+def test_cuda_bf16_call_runs_the_wgmma_body(cuda_device):
+    tol = bf16_tol()
+    for shape, kv_len, causal in (((2, 300, 128), 700, True),
+                                  ((2, 700, 128), 300, True),
+                                  ((4, 1500, 64), None, False)):
+        q, k, v = (t.to(cuda_device)
+                   for t in bf16_qkv(shape, seed=shape[1], kv_len=kv_len))
+        before = dict(O.flash_attention.launches_by_body)
+        got = O.flash_attention(q, k, v, causal=causal)
+        assert O.flash_attention.launches_by_body == {
+            **before, "wgmma": before["wgmma"] + 1}
+        want = R.attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.allclose(got.float(), want.float(), **tol), shape
+    # head sizes the tensor cores do not take stay on the SIMT body
+    q = torch.ones((1, 40, 8), dtype=torch.bfloat16, device=cuda_device)
+    before = dict(O.flash_attention.launches_by_body)
+    O.flash_attention(q, q, q)
+    assert O.flash_attention.launches_by_body == {
+        **before, "simt": before["simt"] + 1}
 
 
 def test_cuda_tiles_over_the_register_tile_raise(cuda_device):

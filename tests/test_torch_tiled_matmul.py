@@ -11,8 +11,10 @@ package's.
 
 The CUDA launch tests need a card and skip without one; on the card they
 hold the kernel against its plain version, and show that the tile
-arguments do not change the result.
+arguments do not change the result and that bf16 calls TMA can describe
+take the tensor-core body (``kernel.body_for``).
 """
+import contextlib
 import sys
 from pathlib import Path
 
@@ -24,7 +26,7 @@ import torch
 from repro.kernels.tiled_linear.ops import (
     blocks_from_parallelism as jax_blocks)
 from repro.kernels.tiled_linear.ops import tiled_matmul as jax_tiled_matmul
-from repro_torch.kernels import _cost
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels.tiled_linear import kernel as K
 from repro_torch.kernels.tiled_linear import ops as O
 
@@ -124,6 +126,58 @@ def test_matmul_work_and_the_bf16_bound():
     assert by == "operations" and abs(t - ops / 989e12 * 1e3) < 1e-12
 
 
+def test_body_for_phase8_shapes():
+    bf16, f32 = torch.bfloat16, torch.float32
+    # qwen3-8b's up-projection and phase 8's other bf16 edge cases
+    for k, n in ((4096, 12288), (448, 320), (200, 72), (128, 128),
+                 (512, 96), (8, 8)):
+        assert K.body_for(bf16, k, n) == "wgmma"
+        assert K.body_for(bf16, k, n, 4096, 512) == "wgmma"
+        assert K.body_for(f32, k, n) == "simt"
+    # ragged N, thin K, no K, an unaligned operand
+    for k, n, ptrs in ((200, 70, ()), (11, 128, ()), (0, 64, ()),
+                       (4, 64, ()), (64, 64, (8, 0)), (64, 64, (0, 2))):
+        assert K.body_for(bf16, k, n, *ptrs) == "simt"
+    # the GCN transforms and the MLP head of phase 8, fp32
+    for k, n in ((11, 128), (128, 64), (192, 64)):
+        assert K.body_for(f32, k, n) == "simt"
+
+
+def test_wgmma_entry_declares_every_pointer():
+    """x, w, out and the stream are c_void_p (an undeclared argument is
+    passed as a 32-bit int and a pointer would be cut)."""
+    import ctypes
+    assert [i for i, t in enumerate(K._WGMMA_ARGTYPES)
+            if t is ctypes.c_void_p] == [0, 1, 5, 6]
+
+
+@pytest.mark.parametrize("shape,body,entry", [
+    ((192, 448, 320), "wgmma", "repro_tiled_matmul_wgmma"),
+    ((130, 200, 70), "simt", "repro_tiled_matmul")])
+def test_launch_records_the_body_it_launched(monkeypatch, shape, body,
+                                             entry):
+    """The body ``launches_by_body`` counts is the entry point the launch
+    called: the wrapper's CUDA branch reached on the CPU, the C call
+    replaced by a recorder."""
+    called = []
+    monkeypatch.setattr(_build, "function", lambda name, argtypes: (
+        lambda *args: called.append(name) or 0))
+    monkeypatch.setattr(_build, "check_table", lambda name, t: None)
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(_build, "stream_pointer", lambda dev: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(O.tiled_matmul, "launches", 0)
+    monkeypatch.setattr(O.tiled_matmul, "launches_by_body",
+                        dict.fromkeys(K.BODIES, 0))
+    m, k, n = shape
+    O.tiled_matmul(torch.zeros((m, k), dtype=torch.bfloat16),
+                   torch.zeros((k, n), dtype=torch.bfloat16))
+    assert called == [entry] and O.tiled_matmul.launches == 1
+    assert O.tiled_matmul.launches_by_body == {
+        **dict.fromkeys(K.BODIES, 0), body: 1}
+
+
 # ------------------------------------------------- CUDA launch tests --
 @pytest.fixture
 def cuda_device():
@@ -156,3 +210,24 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
             (m, k, n, err)
         assert torch.equal(got, O.tiled_matmul(x, w, block_m=512,
                                                block_n=512, block_k=512))
+
+
+def test_cuda_bodies_by_shape(cuda_device):
+    """A bf16 call TMA can describe raises launches_by_body["wgmma"] by
+    one and matches the plain version; a ragged N stays on "simt"."""
+    from repro_torch.kernels.tiled_linear.ref import tiled_matmul_ref
+    for (m, k, n), body in (((192, 448, 320), "wgmma"),
+                            ((130, 200, 72), "wgmma"),
+                            ((300, 1000, 520), "wgmma"),
+                            ((130, 200, 70), "simt")):
+        a, b = operands(m, k, n, seed=m + k + n)
+        x = torch.from_numpy(a).bfloat16().to(cuda_device)
+        w = torch.from_numpy(b).bfloat16().to(cuda_device)
+        before = dict(O.tiled_matmul.launches_by_body)
+        got = O.tiled_matmul(x, w)
+        assert O.tiled_matmul.launches_by_body == {
+            **before, body: before[body] + 1}
+        want = tiled_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 1e-2 * float(want.float().abs().max()), (m, k, n, err)
