@@ -96,8 +96,13 @@ Phases, in order; any failure exits non-zero with no result line:
    and not, fp32 at rtol = atol = 1e-4 (also at the qwen3-8b tile shape,
    D = block_q = block_k = 128, causal over 8 KV tiles) and bf16 at rtol
    8e-3, atol 1e-4 (one bf16 rounding step), with ragged S (1500, 100)
-   non-causal. The bf16 calls of both kernels that ``body_for`` sends to
-   the tensor-core (wgmma) body also at its edges: the matmul at
+   non-causal. The fp32 (SIMT) bodies also at their edges: the matmul
+   at every tile ``simt_tile_for`` picks, with ragged M, N and K (K =
+   11), and attention at D = 40 / Dv = 24, D = 128 causal over 8 KV
+   tiles, Sq != Skv causal and D = 30 (4-byte copies); each fp32 call is
+   launched twice and must give the same bits. The bf16 calls of both
+   kernels that ``body_for`` sends to the tensor-core (wgmma) body also
+   at its edges: the matmul at
    (192, 448) @ (448, 320), at ragged M and K (130, 200) @ (200, 72) and
    at qwen3-8b's up-projection; attention with Sq != Skv under the causal
    mask at D = 128 (300 queries over 700 keys and 700 over 300) and
@@ -1432,6 +1437,17 @@ BODIES = ("wgmma", "simt")
 # (TMA's 16-byte row pitch), and attention where D or Dv is no multiple
 # of 16 (a k16 step), each (bh, Sq, Skv, D, Dv, tiles, causal set)
 SIMT_BF16_MATMUL = ((130, 200, 70), (27656, 11, 128))
+# the fp32 SIMT bodies' edges: (M, K, N) reaching every tile of
+# tiled_linear.kernel.SIMT_TILES with ragged M, N and K (4-byte copies
+# where K or N is no multiple of 4), and attention (bh, Sq, Skv, D, Dv,
+# tiles, causal set) at D = 128 causal over 8 KV tiles, Sq != Skv at
+# D = 40 / Dv = 24, and D = 30 / Dv = 18 (4-byte copies)
+SIMT_MATMUL_EDGES = ((12801, 11, 130), (12801, 35, 61), (12801, 128, 60),
+                     (1000, 11, 70), (1000, 52, 68))
+SIMT_ATTN_EDGES = ((2, 512, 512, 128, 128, 128, 128, (True,)),
+                   (3, 100, 1500, 40, 24, 64, 64, (True, False)),
+                   (3, 700, 300, 40, 24, 64, 64, (True, False)),
+                   (2, 77, 33, 30, 18, 64, 64, (True, False)))
 SIMT_BF16_ATTN = ((3, 40, 72, 40, 40, 32, 48, (True, False)),
                   (2, 130, 130, 64, 24, 64, 64, (True, False)))
 # qwen3-8b (configs/qwen3_8b.py): d_model 4096, d_ff 12288, 32 query
@@ -1510,11 +1526,16 @@ def close_to(name: str, label: str, got, want, tol: dict, errs: dict,
 
 def launched_body(label: str, launch, *args, want: str, **kwargs) -> tuple:
     """(output, body) of one call of a ``*_cuda`` launch, the body as the
-    launch itself records it in ``by_body``; fails unless it is ``want``."""
+    launch itself records it in ``by_body``; fails unless it is ``want``.
+    An fp32 output is launched a second time and must give the same
+    bits (the SIMT bodies sum in a fixed order, with no atomics)."""
     counts = dict.fromkeys(BODIES, 0)
     out = launch(*args, by_body=counts, **kwargs)
     check(counts == {**dict.fromkeys(BODIES, 0), want: 1},
           f"{label}: ran {counts}, expected one {want} launch")
+    if out.dtype == torch.float32:
+        check(torch.equal(out, launch(*args, **kwargs)),
+              f"{label}: a second launch gave other bits")
     return out, want
 
 
@@ -1529,7 +1550,9 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.gnn_aggregate.kernel import gnn_aggregate_cuda
     from repro_torch.kernels.gnn_aggregate.ref import AGGS, gnn_aggregate_ref
-    from repro_torch.kernels.tiled_linear.kernel import tiled_matmul_cuda
+    from repro_torch.kernels.tiled_linear.kernel import (SIMT_TILES,
+                                                         simt_tile_for,
+                                                         tiled_matmul_cuda)
     from repro_torch.kernels.tiled_linear.ops import blocks_from_parallelism
     from repro_torch.kernels.tiled_linear.ref import tiled_matmul_ref
 
@@ -1559,6 +1582,12 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
         (27656, 11, 128, 128, 128, 128), (1024, 192, 64, 128, 128, 128))]
     matmul_cases += [((m, k, n, 128, 128, 128), bf16)
                      for m, k, n in WGMMA_MATMUL_EDGES + (qwen3,)]
+    matmul_cases += [((m, k, n, 128, 128, 128), (torch.float32,))
+                     for m, k, n in SIMT_MATMUL_EDGES]
+    tiles = {simt_tile_for(m, n) for m, _, n in SIMT_MATMUL_EDGES}
+    check(tiles == set(range(len(SIMT_TILES))),
+          f"SIMT_MATMUL_EDGES reach the tiles {sorted(tiles)} of "
+          f"{len(SIMT_TILES)}")
     for (m, k, nn, bm, bn, bk), dts in matmul_cases:
         for dt in dts:
             x = torch.randn((m, k), device=dev).to(dt)
@@ -1592,9 +1621,11 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
                       (3, 40, 72, 128, 32, 48, (True, False)),
                       (2, 1024, 1024, 128, 128, 128, (True,)),
                       *WGMMA_ATTN_EDGES)]
-    for case in attn_cases + list(SIMT_BF16_ATTN):
+    for case in attn_cases + list(SIMT_BF16_ATTN) + list(SIMT_ATTN_EDGES):
         bh, sq, skv, d, dv, bq, bk, causal_set = case
-        for dt in (torch.float32, torch.bfloat16):
+        dts = (torch.float32,) if case in SIMT_ATTN_EDGES \
+            else (torch.float32, torch.bfloat16)
+        for dt in dts:
             q, k = (torch.randn((bh, s, d), device=dev).to(dt)
                     for s in (sq, skv))
             v = torch.randn((bh, skv, dv), device=dev).to(dt)

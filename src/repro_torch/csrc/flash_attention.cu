@@ -24,21 +24,37 @@
 // (kernels/flash_attention/kernel.py, body_for):
 //
 // "simt" (every fp32 call, and bf16 head sizes the tensor cores do not
-// take): one 256-thread block per (bh, block_q rows), tiles of the
-// caller's block_q x block_k. Per KV tile:
-//   1. the K tile is staged in shared memory (fp32, rows padded by one
-//      word so that a warp reads 16 different rows without a bank clash)
-//      and each thread computes up to an 8 x 8 register tile of the
-//      (bq, bk) scores (rows ty + 16 i, keys tx + 16 j) against the q
-//      tile, scaled as the reference scales it (q * scale), staged once;
-//   2. one warp per row folds the tile into the row's (m, l) online; the
-//      weights overwrite the scores and the row's correction
-//      exp(m_old - m_new) is kept; meanwhile the V tile replaces K;
-//   3. each thread rescales its up-to 8 x 8 register tile of the (bq, Dv)
-//      accumulator by its rows' corrections and adds weights @ V.
-// Its products are fp32 FMAs on the SIMT cores (fp32 never runs as
-// TF32), one block per SM (~195 KB of shared memory at 128-wide tiles);
-// expf, not __expf.
+// take): one 128-thread block per (bh, 64 q rows), KV tiles of 64 keys;
+// block_q and block_k are not used. D and Dv are padded to one
+// compile-time width E (32, 64 or 128; the padded columns staged as
+// zeros), so every register-tile loop unrolls. q, K and V are staged
+// row-major in fp32 (rows padded by 4 words: the 8 rows a quarter-warp
+// reads sit in 8 different bank groups) by cp.async (simt.cuh), 16
+// bytes a copy where D and Dv are multiples of 4 and the pointers
+// 16-byte aligned, through two stages: K and V of the next tile arrive
+// while this tile computes. Thread tid = 8 ty + tx owns rows
+// 4 ty .. 4 ty + 3 and keys tx + 8 j (j < 8) of the (64, 64) scores, and
+// the same rows and columns 4 tx + 32 c .. + 3 of the (64, E) output.
+// Per KV tile (one __syncthreads, for the stages):
+//   1. S = q K^T: each thread reads its rows 4 columns at a time
+//      (16-byte shared loads along D), then one key's 4 columns at a
+//      time, into a 4 x 8 register tile;
+//   2. the online softmax in registers, in the log2 domain: the scores
+//      times D^-0.5 log2(e) (one fp32 rounding more than the reference's
+//      scale, then exp2f), masked keys -inf; a row's 8 threads are
+//      neighbouring lanes, so its max is three xor shuffles (max_nan: a
+//      NaN score propagates). m lives in registers, each thread keeps
+//      its share of l (summed over the row's lanes at the end), and the
+//      output tile is rescaled by exp2(m_old - m_new);
+//   3. P goes to shared memory once, transposed (key-major, one 16-byte
+//      store per key), and O += P V reads it and V 16 bytes at a time.
+//      A warp's 16 rows of P are written and read by that warp alone,
+//      so a __syncwarp orders them.
+// Every product is a plain fp32 FMA on the SIMT cores (fp32 never runs
+// as TF32). At E = 64 a block takes 104 KB of shared memory and up to
+// 255 registers a thread, two blocks an SM, no spills; three blocks
+// under 168 registers spilled 160 bytes and read 1.23x slower
+// (PERF.md, the design steps). E = 128 takes 186 KB, one block.
 //
 // "wgmma" (bf16 with D and Dv multiples of 16, at most 128): one block
 // per (bh, 128 q rows): two consumer warpgroups of 64 rows and a
@@ -82,217 +98,262 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "simt.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kSide = 16;                 // 16 x 16 threads
-constexpr int kThreads = kSide * kSide;
-constexpr int kMaxTile = 128;             // block_q, block_k, D, Dv
-constexpr int kMicro = kMaxTile / kSide;  // register tile edge, 8
 constexpr float kNegInf = -1e30f;         // the empty max (NEG_INF)
 constexpr float kTiny = 1e-30f;           // the denominator floor
-
-struct Shape {
-  int bh, sq, skv, d, dv, bq, bk, causal;
-  float scale;
-};
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float max_nan(float a, float b) {
   return (b > a || is_nan(b)) ? b : a;
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+// ------------------------------------------------- the SIMT body --
+namespace sm {
 
-__host__ __device__ inline int round16(int v) {
-  return (v + kSide - 1) / kSide * kSide;
-}
+using namespace simt;
 
-// floats of shared memory a launch needs (tiles rounded up to 16 rows)
-__host__ __device__ inline size_t smem_floats(int bq, int bk, int d, int dv) {
-  const size_t q = round16(bq), k = round16(bk);
-  return q * (d + 1) + k * ((d > dv ? d : dv) + 1) + q * (k + 1) + 3 * q;
-}
+constexpr int kBQ = 64;             // q rows of a block
+constexpr int kBK = 64;             // keys of a KV tile
+constexpr int kTX = 8;              // threads sharing a row
+constexpr int kTY = 16;
+constexpr int kThreads = kTX * kTY;
+constexpr int kRows = kBQ / kTY;    // 4 consecutive rows a thread
+constexpr int kKeys = kBK / kTX;    // 8 keys a thread, tx + 8 j
+constexpr int kPPitch = kBQ + 4;    // P^T, (key, row)
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       Shape s) {
-  extern __shared__ float smem[];
-  const int bq = round16(s.bq), bk = round16(s.bk);
-  const int ldq = s.d + 1, ldkv = max(s.d, s.dv) + 1, lds = bk + 1;
-  float* qs = smem;                      // (bq, d) scaled q tile
-  float* kvs = qs + bq * ldq;            // (bk, d) K tile, then (bk, dv) V
-  float* ss = kvs + bk * ldkv;           // (bq, bk) scores, then weights
-  float* m_s = ss + bq * lds;            // running max per row
-  float* l_s = m_s + bq;                 // running denominator per row
-  float* c_s = l_s + bq;                 // this tile's correction per row
+template <int E>                    // D and Dv padded to E
+struct Tile {
+  static constexpr int kPitch = E + 4;     // q (row, d), K (key, d), V
+  static constexpr int kQ = kBQ * kPitch;
+  static constexpr int kKV = kBK * kPitch;
+  static constexpr size_t kSmem =
+      sizeof(float) * (kQ + 4 * kKV + kBK * kPPitch);
+  static constexpr int kBlocksPerSm = E <= 64 ? 2 : 1;
+};
 
-  const int q_tiles = (s.sq + s.bq - 1) / s.bq;
-  const int bh = blockIdx.x / q_tiles;
-  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x % q_tiles);
-  const int q0 = qt * s.bq;
-  const int rows = min(s.bq, s.sq - q0);
-  const T* qb = q + (static_cast<size_t>(bh) * s.sq + q0) * s.d;
+struct Shape {
+  int bh, sq, skv, d, dv, causal, vec;
+  float scale_log2;    // D^-0.5 log2(e)
+};
+
+template <typename T, int E>
+__global__ void __launch_bounds__(kThreads, Tile<E>::kBlocksPerSm)
+attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      Shape s) {
+  using L = Tile<E>;
+  constexpr int kCols = E / kTX;   // output columns a thread
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* kv = qs + L::kQ;      // K then V of stage 0, of stage 1
+  float* ps = kv + 4 * L::kKV;
+
+  // the heaviest q tiles of every head first
+  const int q_tiles = (s.sq + kBQ - 1) / kBQ;
+  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x / s.bh);
+  const int bh = static_cast<int>(blockIdx.x % s.bh);
+  const int q0 = qt * kBQ;
+  const int rows = min(kBQ, s.sq - q0);
+  const int kv_end = s.causal ? min(s.skv, q0 + rows) : s.skv;
+  const int tiles = (kv_end + kBK - 1) / kBK;
   const T* kb = k + static_cast<size_t>(bh) * s.skv * s.d;
   const T* vb = v + static_cast<size_t>(bh) * s.skv * s.dv;
-  T* ob = out + (static_cast<size_t>(bh) * s.sq + q0) * s.dv;
+  const int tid = threadIdx.x, tx = tid % kTX;
+  const int r0 = tid / kTX * kRows;     // this thread's first row
+  const bool vec = s.vec != 0;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % kSide, ty = tid / kSide;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int mi = bq / kSide, nj = bk / kSide, dj = (s.dv + kSide - 1) / kSide;
+  stage_tile<kBQ, E, kThreads>(
+      qs, L::kPitch, q + (static_cast<size_t>(bh) * s.sq + q0) * s.d, s.d,
+      rows, s.d, vec, tid);
+  stage_tile<kBK, E, kThreads>(kv, L::kPitch, kb, s.d, s.skv, s.d, vec,
+                               tid);
+  stage_tile<kBK, E, kThreads>(kv + L::kKV, L::kPitch, vb, s.dv, s.skv,
+                               s.dv, vec, tid);
+  cp_async_commit();
 
-  for (int e = tid; e < bq * s.d; e += kThreads) {
-    const int r = e / s.d, c = e % s.d;
-    qs[r * ldq + c] =
-        r < rows ? __fmul_rn(to_float(qb[static_cast<size_t>(r) * s.d + c]),
-                             s.scale)
-                 : 0.0f;
-  }
-  for (int r = tid; r < bq; r += kThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.0f;
-  }
-  float o[kMicro][kMicro];
+  float o[kRows][kCols], m[kRows], l[kRows];
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i)
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) o[i][j] = 0.0f;
+    for (int c = 0; c < kCols; ++c) o[i][c] = 0.0f;
+  }
 
-  const int kv_end = s.causal ? min(s.skv, q0 + rows) : s.skv;
-  for (int k0 = 0; k0 < kv_end; k0 += s.bk) {
-    const int cols = min(s.bk, s.skv - k0);
-    for (int e = tid; e < bk * s.d; e += kThreads) {
-      const int r = e / s.d, c = e % s.d;
-      kvs[r * ldkv + c] =
-          r < cols ? to_float(kb[static_cast<size_t>(k0 + r) * s.d + c]) : 0.0f;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kBK;
+    const float* ks = kv + (t % 2) * 2 * L::kKV;
+    const float* vs = ks + L::kKV;
+    cp_async_wait<0>();   // K and V of this tile (and q) have landed
+    __syncthreads();      // ... for every thread; the other stage is free
+    if (t + 1 < tiles) {
+      float* next = kv + (t + 1) % 2 * 2 * L::kKV;
+      const size_t row = static_cast<size_t>(k0 + kBK);
+      stage_tile<kBK, E, kThreads>(next, L::kPitch, kb + row * s.d, s.d,
+                                   s.skv - k0 - kBK, s.d, vec, tid);
+      stage_tile<kBK, E, kThreads>(next + L::kKV, L::kPitch,
+                                   vb + row * s.dv, s.dv, s.skv - k0 - kBK,
+                                   s.dv, vec, tid);
+      cp_async_commit();
     }
-    __syncthreads();
-    {  // 1. scores
-      float acc[kMicro][kMicro];
+
+    // 1. S = q K^T
+    float sc[kRows][kKeys];
 #pragma unroll
-      for (int i = 0; i < kMicro; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-      for (int c = 0; c < s.d; ++c) {
-        float a[kMicro], b[kMicro];
+      for (int j = 0; j < kKeys; ++j) sc[i][j] = 0.0f;
 #pragma unroll
-        for (int i = 0; i < kMicro; ++i)
-          a[i] = i < mi ? qs[(ty + kSide * i) * ldq + c] : 0.0f;
+    for (int c = 0; c < E; c += 4) {
+      float4 a[kRows];
 #pragma unroll
-        for (int j = 0; j < kMicro; ++j)
-          b[j] = j < nj ? kvs[(tx + kSide * j) * ldkv + c] : 0.0f;
+      for (int i = 0; i < kRows; ++i)
+        a[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * L::kPitch +
+                                                c);
 #pragma unroll
-        for (int i = 0; i < kMicro; ++i)
+      for (int j = 0; j < kKeys; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            ks + (tx + kTX * j) * L::kPitch + c);
 #pragma unroll
-          for (int j = 0; j < kMicro; ++j)
-            acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int i = 0; i < kRows; ++i) {
+          sc[i][j] = fmaf(a[i].x, b.x, sc[i][j]);
+          sc[i][j] = fmaf(a[i].y, b.y, sc[i][j]);
+          sc[i][j] = fmaf(a[i].z, b.z, sc[i][j]);
+          sc[i][j] = fmaf(a[i].w, b.w, sc[i][j]);
+        }
+      }
+    }
+
+    // 2. the online softmax step, in the log2 domain
+    const bool edge =
+        k0 + kBK > s.skv || (s.causal && k0 + kBK - 1 > q0 + r0);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        float x = sc[i][j] * s.scale_log2;
+        if (edge) {
+          const int key = k0 + tx + kTX * j;
+          if (key >= s.skv || (s.causal && key > q0 + r0 + i))
+            x = -pos_inf();
+        }
+        sc[i][j] = x;
+        mx = max_nan(mx, x);
       }
 #pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j)
-          if (i < mi && j < nj)
-            ss[(ty + kSide * i) * lds + tx + kSide * j] = acc[i][j];
-    }
-    __syncthreads();
-    // 2. the online softmax step, one warp per row
-    for (int r = warp; r < rows; r += kThreads / 32) {
-      // keys k0 + c with c < lim are unmasked
-      const int lim = s.causal ? min(cols, q0 + r - k0 + 1) : cols;
-      float* row = ss + r * lds;
-      float mx = kNegInf;
-      for (int c = lane; c < lim; c += 32) mx = max_nan(mx, row[c]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
+      for (int off = 1; off < kTX; off <<= 1)
         mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = max_nan(m_old, mx);
+      const float corr = exp2f(m[i] - mx);
+      m[i] = mx;
       float sum = 0.0f;
-      for (int c = lane; c < bk; c += 32) {
-        const float p = c < lim ? expf(__fsub_rn(row[c], m_new)) : 0.0f;
-        row[c] = p;
-        sum = __fadd_rn(sum, p);
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        sc[i][j] = exp2f(sc[i][j] - mx);
+        sum += sc[i][j];
       }
+      l[i] = fmaf(l[i], corr, sum);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      if (lane == 0) {
-        const float corr = expf(__fsub_rn(m_old, m_new));
-        m_s[r] = m_new;
-        l_s[r] = __fadd_rn(__fmul_rn(l_s[r], corr), sum);
-        c_s[r] = corr;
+      for (int c = 0; c < kCols; ++c) o[i][c] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j)
+      *reinterpret_cast<float4*>(ps + (tx + kTX * j) * kPPitch + r0) =
+          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+    __syncwarp();         // a warp's P^T rows are its own
+
+    // 3. O += P V
+#pragma unroll
+    for (int key = 0; key < kBK; ++key) {
+      const float4 p =
+          *reinterpret_cast<const float4*>(ps + key * kPPitch + r0);
+      const float pr[kRows] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int c = 0; c < kCols; c += 4) {
+        const float4 w = *reinterpret_cast<const float4*>(
+            vs + key * L::kPitch + tx * 4 + kTX * c);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          o[i][c] = fmaf(pr[i], w.x, o[i][c]);
+          o[i][c + 1] = fmaf(pr[i], w.y, o[i][c + 1]);
+          o[i][c + 2] = fmaf(pr[i], w.z, o[i][c + 2]);
+          o[i][c + 3] = fmaf(pr[i], w.w, o[i][c + 3]);
+        }
       }
-    }
-    for (int e = tid; e < bk * s.dv; e += kThreads) {
-      const int r = e / s.dv, c = e % s.dv;
-      kvs[r * ldkv + c] =
-          r < cols ? to_float(vb[static_cast<size_t>(k0 + r) * s.dv + c])
-                   : 0.0f;
-    }
-    __syncthreads();
-    // 3. acc = acc * corr + weights @ V (rows past `rows` stay unused)
-#pragma unroll
-    for (int i = 0; i < kMicro; ++i) {
-      const int r = ty + kSide * i;
-      const float corr = (i < mi && r < rows) ? c_s[r] : 1.0f;
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) o[i][j] = __fmul_rn(o[i][j], corr);
-    }
-    for (int c = 0; c < cols; ++c) {
-      float a[kMicro], b[kMicro];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-        a[i] = i < mi ? ss[(ty + kSide * i) * lds + c] : 0.0f;
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) {
-        const int col = tx + kSide * j;
-        b[j] = (j < dj && col < s.dv) ? kvs[c * ldkv + col] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) o[i][j] = fmaf(a[i], b[j], o[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int r = ty + kSide * i;
-    if (i >= mi || r >= rows) continue;
-    const float l = l_s[r];
-    const float denom = (l > kTiny || is_nan(l)) ? l : kTiny;
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int col = tx + kSide * j;
-      if (j < dj && col < s.dv)
-        store(ob + static_cast<size_t>(r) * s.dv + col,
-              __fdiv_rn(o[i][j], denom));
     }
   }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int off = 1; off < kTX; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  }
+  T* ob = out + (static_cast<size_t>(bh) * s.sq + q0) * s.dv;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    if (r0 + i >= rows) continue;
+    const float denom = (l[i] > kTiny || is_nan(l[i])) ? l[i] : kTiny;
+#pragma unroll
+    for (int c = 0; c < kCols; c += 4) {
+      const int col = tx * 4 + kTX * c;
+      if (col >= s.dv) continue;
+      const float r[4] = {
+          __fdiv_rn(o[i][c], denom), __fdiv_rn(o[i][c + 1], denom),
+          __fdiv_rn(o[i][c + 2], denom), __fdiv_rn(o[i][c + 3], denom)};
+      store4(ob + static_cast<size_t>(r0 + i) * s.dv + col, r,
+             s.dv - col, vec);
+    }
+  }
+}
+
+template <typename T, int E>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   const Shape& s, cudaStream_t stream) {
+  auto kernel = attention_simt_kernel<T, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Tile<E>::kSmem));
+  if (err != cudaSuccess) return err;
+  const long long blocks =
+      static_cast<long long>(s.bh) * ((s.sq + kBQ - 1) / kBQ);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<E>::kSmem,
+           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), static_cast<T*>(out), s);
+  return cudaGetLastError();
+}
+
+// the width E that D and Dv are padded to
+inline int padded_width(int d, int dv) {
+  const int w = d > dv ? d : dv;
+  return w <= 32 ? 32 : w <= 64 ? 64 : 128;
+}
+
+size_t smem_bytes(int d, int dv) {
+  const int e = padded_width(d, dv);
+  return e == 32 ? Tile<32>::kSmem
+                 : e == 64 ? Tile<64>::kSmem : Tile<128>::kSmem;
 }
 
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* out, const Shape& s, size_t smem,
-                         cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const long long blocks =
-      static_cast<long long>(s.bh) * ((s.sq + s.bq - 1) / s.bq);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s);
-  return cudaGetLastError();
+                         void* out, const Shape& s, cudaStream_t stream) {
+  switch (padded_width(s.d, s.dv)) {
+    case 32:
+      return launch<T, 32>(q, k, v, out, s, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, out, s, stream);
+    default:
+      return launch<T, 128>(q, k, v, out, s, stream);
+  }
 }
+
+}  // namespace sm
 
 
 // ------------------------------------------------ the wgmma body --
@@ -305,7 +366,6 @@ constexpr int kBKV = 128;                  // keys of a KV tile
 constexpr int kStages = 2;
 constexpr int kConsumers = 2;              // warpgroups of 64 q rows
 constexpr int kThreads = (kConsumers + 1) * kWarpgroup;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // a (rows x 64) swizzled box of one 64-column block
 __host__ __device__ constexpr int box_bytes(int rows) {
@@ -562,20 +622,9 @@ size_t smem_bytes(int d, int dv) {
 
 }  // namespace wg
 
-}  // namespace
-}  // namespace repro
-
-// The bytes of shared memory a launch with these tiles and head sizes
-// needs (under 2^31 for the sizes the launch takes, all at most 128).
-extern "C" int repro_flash_attention_smem_bytes(int block_q, int block_k,
-                                                int d, int dv) {
-  return static_cast<int>(repro::smem_floats(block_q, block_k, d, dv) *
-                          sizeof(float));
-}
-
 // The opt-in shared memory a block may use on the current device, or a
 // negative CUDA error code.
-extern "C" int repro_smem_optin_limit(void) {
+int smem_optin_limit() {
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -584,38 +633,45 @@ extern "C" int repro_smem_optin_limit(void) {
   return err == cudaSuccess ? limit : -static_cast<int>(err);
 }
 
-// q (bh, sq, d), k (bh, skv, d), v (bh, skv, dv), out (bh, sq, dv), all
-// contiguous in the storage type `dtype` (fp32 or bf16); block_q/block_k
-// are the tiles (at most 128, as are d and dv). Returns
-// cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for another dtype, a size out of range, more
-// blocks than a grid holds, or tiles whose shared memory exceeds the
-// device's opt-in limit.
+}  // namespace
+}  // namespace repro
+
+// The SIMT body: q (bh, sq, d), k (bh, skv, d), v (bh, skv, dv), out
+// (bh, sq, dv), all contiguous in the storage type `dtype` (fp32 or
+// bf16), d and dv at most 128; block_q/block_k (1 to 128) are checked
+// and do not change the launch. Returns cudaGetLastError() after the
+// launch (0 = launched), or cudaErrorInvalidValue for another dtype, a
+// size out of range, more blocks than a grid holds, or more shared
+// memory than the device's opt-in limit.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, int dtype, int bh, int sq,
                                      int skv, int d, int dv, int block_q,
                                      int block_k, int causal, float scale,
                                      void* out, void* stream) {
   using namespace repro;
-  if (bh < 1 || sq < 1 || skv < 1 || d < 1 || dv < 1 || d > kMaxTile ||
-      dv > kMaxTile || block_q < 1 || block_k < 1 || block_q > kMaxTile ||
-      block_k > kMaxTile ||
-      static_cast<long long>(bh) * ((sq + block_q - 1) / block_q) >
-          0x7fffffffLL)
+  if (bh < 1 || sq < 1 || skv < 1 || d < 1 || dv < 1 || d > 128 ||
+      dv > 128 || block_q < 1 || block_k < 1 || block_q > 128 ||
+      block_k > 128)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int limit = repro_smem_optin_limit();
-  const size_t smem = smem_floats(block_q, block_k, d, dv) * sizeof(float);
+  const int limit = smem_optin_limit();
   if (limit < 0) return -limit;
-  if (smem > static_cast<size_t>(limit))
+  if (sm::smem_bytes(d, dv) > static_cast<size_t>(limit))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Shape s{bh, sq, skv, d, dv, block_q, block_k, causal ? 1 : 0, scale};
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = d % 4 == 0 && dv % 4 == 0 && aligned(q) && aligned(k) &&
+                  aligned(v) && aligned(out);
+  const sm::Shape s{bh, sq, skv, d, dv, causal ? 1 : 0, vec,
+                    scale * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return static_cast<int>(launch_typed<float>(q, k, v, out, s, smem, st));
+      return static_cast<int>(
+          sm::launch_typed<float>(q, k, v, out, s, st));
     case kBF16:
       return static_cast<int>(
-          launch_typed<__nv_bfloat16>(q, k, v, out, s, smem, st));
+          sm::launch_typed<__nv_bfloat16>(q, k, v, out, s, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -639,7 +695,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
       reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int limit = repro_smem_optin_limit();
+  const int limit = repro::smem_optin_limit();
   if (limit < 0) return -limit;
   if (smem_bytes(d, dv) > static_cast<size_t>(limit))
     return static_cast<int>(cudaErrorInvalidValue);

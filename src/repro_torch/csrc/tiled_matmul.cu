@@ -20,14 +20,27 @@
 // Two bodies; the wrapper picks one by dtype and shape alone
 // (kernels/tiled_linear/kernel.py, body_for):
 //
-// "simt" (every fp32 call, and bf16 shapes TMA cannot describe): one
-// 256-thread block per 64 x 64 output tile, K staged in chunks of 16
-// (x k-major, w as is, both converted to fp32) in shared memory, a
-// 4 x 4 register tile per thread (rows ty + 16 i, columns tx + 16 j, so
-// a warp's reads of either staged tile are broadcasts or consecutive
-// words), every product a plain fp32 FMA: fp32 never runs as TF32, so
-// the port's full-fp32 numerics hold. The edges are guarded where the
-// tiles are loaded (zeros) and stored.
+// "simt" (every fp32 call, and bf16 shapes TMA cannot describe): a
+// register-tiled SIMT product with a tile chosen by shape on the host
+// (kernel.py, simt_tile_for), so that a call fills the card: 112 x 64
+// blocks of 256 threads with 7 x 4 register tiles for tall products
+// (112 rows: the GCN transforms' 27656 rows make 247 blocks, at most two
+// an SM, where 128 rows left 85 of 132 SMs two of 217), and 16 x 32
+// blocks of 64 threads with 2 x 4 tiles where the tall tile would give
+// fewer than ~100 blocks (the MLP head's 1024 rows: 128 blocks). 128 x
+// 128 tiles at 8 x 8 read slower at both GCN transforms (PERF.md, the
+// design steps). K is staged in chunks of 16 (32 for the small tile)
+// through a ring of 4 shared-memory buffers by cp.async (simt.cuh):
+// 16-byte copies where K (for x) or N (for w) is a multiple of 4 and
+// the operand 16-byte aligned, 4-byte copies otherwise (K = 11); bf16
+// operands are converted on the way.
+// Both operands stay row-major: a thread reads each of its x rows 4 k
+// at a time and its w columns 4 at a time, 16-byte shared loads (TM +
+// TN of them per 4 TM TN FMAs). Every output is one fp32 FMA chain over
+// k in ascending order, whatever the tile, so every tile gives the same
+// bits; no split-K and no atomics. fp32 never runs as TF32, so the
+// port's full-fp32 numerics hold. The ragged edges are zeros in the
+// staged chunks and guarded at the stores (16 bytes where N % 4 == 0).
 //
 // "wgmma" (bf16 with K and N multiples of 8, 16-byte aligned operands:
 // TMA needs 16-byte row pitches): one block per 128 x 256 output tile,
@@ -52,101 +65,175 @@
 // Bound on this card: operations for the shapes of interest (a large
 // product), bytes for thin ones (the GCN transforms, K = 11). bf16 is
 // bounded by the tensor cores' 989 TFLOP/s, which only wgmma reaches;
-// fp32 by the SIMT cores' 67 TFLOP/s, which the SIMT body stays well
-// under (16 FMAs per 8 shared-memory reads a thread).
+// fp32 by the SIMT cores' 67 TFLOP/s (the SIMT body issues 11 16-byte
+// shared loads per 112 FMAs at its 7 x 4 tile).
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "simt.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kTileM = 64;
-constexpr int kTileN = 64;
-constexpr int kTileK = 16;
-constexpr int kMicro = 4;           // 4 x 4 outputs per thread
-constexpr int kSide = 16;           // 16 x 16 threads
-constexpr int kThreads = kSide * kSide;
-constexpr int kPad = 1;             // x tile row padding (bank spread)
+// ------------------------------------------------- the SIMT body --
+namespace sm {
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+using namespace simt;
+
+// A block's (BM x BN) output tile, a thread's (TM x TN) register tile,
+// K chunks of BK in a ring of `Stages` buffers. Thread tid = kTX ty + tx
+// owns rows ty + kTY i (i < TM) and columns 4 tx + 4 kTX c .. + 3 (c <
+// TN / 4): a warp reads 32 / kTX neighbouring x rows, which the row
+// pitch BK + 4 puts in different bank groups, and consecutive 16-byte
+// pieces of a w row.
+template <int BM, int BN, int TM, int TN, int BK, int Stages, int MinBlocks>
+struct Tile {
+  static constexpr int kTX = BN / TN;
+  static constexpr int kTY = BM / TM;
+  static constexpr int kThreads = kTX * kTY;
+  static constexpr int kXPitch = BK + 4;   // x chunk (row, k)
+  static constexpr int kX = BM * kXPitch;
+  static constexpr int kStage = kX + BK * BN;
+  static constexpr size_t kSmem = sizeof(float) * Stages * kStage;
+  static constexpr int kBM = BM, kBN = BN, kTM = TM, kTN = TN, kBK = BK,
+                       kStages = Stages, kMinBlocks = MinBlocks;
+};
+
+// by the code of the C interface (kernels/tiled_linear/kernel.py,
+// SIMT_TILES and simt_tile_for): 0 tall, 1 small (enough blocks for the
+// card at ~1000 rows)
+using Tall = Tile<112, 64, 7, 4, 16, 4, 2>;
+using Small = Tile<16, 32, 2, 4, 32, 4, 8>;
+
+struct Shape {
+  int m, n, k, vec_x, vec_w, vec_out;
+};
+
+template <typename T, typename L>
+__global__ void __launch_bounds__(L::kThreads, L::kMinBlocks)
+matmul_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   T* __restrict__ out, Shape s) {
+  constexpr int TM = L::kTM, TN = L::kTN, BK = L::kBK, BN = L::kBN;
+  constexpr int kTX = L::kTX, kTY = L::kTY, kStages = L::kStages;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * L::kBM, n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const int k_tiles = (s.k + BK - 1) / BK;
+  const T* xb = x + static_cast<size_t>(m0) * s.k;
+
+  const auto stage = [&](int t) {
+    float* xs = smem + (t % kStages) * L::kStage;
+    const int k0 = t * BK;
+    stage_tile<L::kBM, BK, L::kThreads>(xs, L::kXPitch, xb + k0, s.k,
+                                        s.m - m0, s.k - k0, s.vec_x, tid);
+    stage_tile<BK, BN, L::kThreads>(
+        xs + L::kX, BN, w + static_cast<size_t>(k0) * s.n + n0, s.n,
+        s.k - k0, s.n - n0, s.vec_w, tid);
+  };
+  // one commit per step, empty or not, so that wait<kStages - 2> always
+  // means "chunk t has landed"
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < k_tiles) stage(t);
+    cp_async_commit();
+  }
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+  for (int t = 0; t < k_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // chunk t is whole; chunk t - 1's buffer is free
+    if (t + kStages - 1 < k_tiles) stage(t + kStages - 1);
+    cp_async_commit();
+    const float* xs = smem + (t % kStages) * L::kStage;
+    const float* ws = xs + L::kX;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 a[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            xs + (ty + kTY * i) * L::kXPitch + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float4 b[TN / 4];
+#pragma unroll
+        for (int c = 0; c < TN / 4; ++c)
+          b[c] = *reinterpret_cast<const float4*>(
+              ws + (kk + q) * BN + 4 * tx + 4 * kTX * c);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float av = q == 0 ? a[i].x : q == 1 ? a[i].y
+                         : q == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int c = 0; c < TN / 4; ++c) {
+            acc[i][4 * c] = fmaf(av, b[c].x, acc[i][4 * c]);
+            acc[i][4 * c + 1] = fmaf(av, b[c].y, acc[i][4 * c + 1]);
+            acc[i][4 * c + 2] = fmaf(av, b[c].z, acc[i][4 * c + 2]);
+            acc[i][4 * c + 3] = fmaf(av, b[c].w, acc[i][4 * c + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long row = static_cast<long long>(m0) + ty + kTY * i;
+    if (row >= s.m) continue;
+#pragma unroll
+    for (int c = 0; c < TN / 4; ++c) {
+      const int col = n0 + 4 * tx + 4 * kTX * c;
+      if (col < s.n)
+        store4(out + static_cast<size_t>(row) * s.n + col, acc[i] + 4 * c,
+               s.n - col, s.vec_out);
+    }
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tiled_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w, int m,
-                    int n, int k, T* __restrict__ out) {
-  __shared__ float xs[kTileK][kTileM + kPad];   // x chunk, k-major
-  __shared__ float ws[kTileK][kTileN];          // w chunk
-  const int tid = threadIdx.x;
-  const int tx = tid % kSide, ty = tid / kSide;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kTileM;
-  const int n0 = blockIdx.y * kTileN;
-  float acc[kMicro][kMicro];
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += kTileK) {
-#pragma unroll
-    for (int l = 0; l < kTileM * kTileK / kThreads; ++l) {
-      const int e = tid + l * kThreads;
-      // x: 64 rows x 16 columns, 16 consecutive columns per row
-      const int xr = e / kTileK, xc = e % kTileK;
-      const long long gr = m0 + xr;
-      const int gc = k0 + xc;
-      xs[xc][xr] = (gr < m && gc < k)
-                       ? to_float(x[static_cast<size_t>(gr) * k + gc])
-                       : 0.0f;
-      // w: 16 rows x 64 columns, 64 consecutive columns per row
-      const int wr = e / kTileN, wc = e % kTileN;
-      const int gk = k0 + wr, gn = n0 + wc;
-      ws[wr][wc] = (gk < k && gn < n)
-                       ? to_float(w[static_cast<size_t>(gk) * n + gn])
-                       : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[kMicro], b[kMicro];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i) a[i] = xs[kk][ty + kSide * i];
-#pragma unroll
-      for (int j = 0; j < kMicro; ++j) b[j] = ws[kk][tx + kSide * j];
-#pragma unroll
-      for (int i = 0; i < kMicro; ++i)
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j)
-          acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+template <typename T, typename L>
+cudaError_t launch(const void* x, const void* w, void* out, const Shape& s,
+                   cudaStream_t stream) {
+  const long long m_tiles = (static_cast<long long>(s.m) + L::kBM - 1) /
+                            L::kBM;
+  const long long n_tiles = (static_cast<long long>(s.n) + L::kBN - 1) /
+                            L::kBN;
+  if (m_tiles > 0x7fffffffLL || n_tiles > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = matmul_simt_kernel<T, L>;
+  if (L::kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kSmem));
+    if (err != cudaSuccess) return err;
   }
-#pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const long long row = m0 + ty + kSide * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < kMicro; ++j) {
-      const int col = n0 + tx + kSide * j;
-      if (col < n) store(out + static_cast<size_t>(row) * n + col, acc[i][j]);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch_typed(const void* x, const void* w, int m, int n, int k,
-                         void* out, cudaStream_t stream) {
-  const dim3 grid(
-      static_cast<unsigned>((static_cast<long long>(m) + kTileM - 1) / kTileM),
-      static_cast<unsigned>((static_cast<long long>(n) + kTileN - 1) / kTileN));
-  tiled_matmul_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), m, n, k,
-      static_cast<T*>(out));
+  kernel<<<dim3(static_cast<unsigned>(m_tiles),
+                static_cast<unsigned>(n_tiles)),
+           L::kThreads, L::kSmem, stream>>>(static_cast<const T*>(x),
+                                           static_cast<const T*>(w),
+                                           static_cast<T*>(out), s);
   return cudaGetLastError();
 }
+
+template <typename T>
+cudaError_t launch_typed(const void* x, const void* w, void* out,
+                         const Shape& s, int tile, cudaStream_t stream) {
+  switch (tile) {
+    case 0:
+      return launch<T, Tall>(x, w, out, s, stream);
+    case 1:
+      return launch<T, Small>(x, w, out, s, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace sm
 
 
 // ------------------------------------------------ the wgmma body --
@@ -282,22 +369,29 @@ cudaError_t launch(const void* x, const void* w, int m, int n, int k,
 }  // namespace repro
 
 // x (m, k), w (k, n) and out (m, n), row-major, all in the storage type
-// `dtype` (fp32 or bf16). Returns cudaGetLastError() after the launch (0
-// = launched), or cudaErrorInvalidValue for another dtype, m or n < 1,
-// k < 0, or more than 65535 column tiles (n > 4194240).
+// `dtype` (fp32 or bf16); `tile` is the SIMT tile's code (0 112 x 64,
+// 1 16 x 32). Returns cudaGetLastError() after the launch
+// (0 = launched), or cudaErrorInvalidValue for another dtype or tile, m
+// or n < 1, k < 0, or more than 65535 column tiles.
 extern "C" int repro_tiled_matmul(const void* x, const void* w, int m, int n,
-                                  int k, int dtype, void* out, void* stream) {
+                                  int k, int dtype, void* out, void* stream,
+                                  int tile) {
   using namespace repro;
-  if (m < 1 || n < 1 || k < 0 ||
-      (static_cast<long long>(n) + kTileN - 1) / kTileN > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (m < 1 || n < 1 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool f32 = dtype == kF32;
+  const sm::Shape s{m, n, k, f32 && k % 4 == 0 && aligned(x),
+                    f32 && n % 4 == 0 && aligned(w),
+                    f32 && n % 4 == 0 && aligned(out)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return static_cast<int>(launch_typed<float>(x, w, m, n, k, out, st));
+      return static_cast<int>(sm::launch_typed<float>(x, w, out, s, tile, st));
     case kBF16:
       return static_cast<int>(
-          launch_typed<__nv_bfloat16>(x, w, m, n, k, out, st));
+          sm::launch_typed<__nv_bfloat16>(x, w, out, s, tile, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

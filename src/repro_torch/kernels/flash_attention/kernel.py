@@ -9,11 +9,13 @@ head sizes alone (never by a failed launch):
 
 - ``"wgmma"`` (bf16, D and Dv multiples of 16 up to 128): TMA-fed wgmma
   tiles of 128 q rows by 128 keys, the softmax weights fed to P V as two
-  bf16 terms. ``block_q``/``block_k`` are checked (ints from 1 to 128)
-  but do not change its launch.
-- ``"simt"`` (fp32, and the other bf16 head sizes): the KV tiles staged
-  in shared memory in fp32, fp32 FMAs; ``block_q``/``block_k`` are its
-  tiles.
+  bf16 terms.
+- ``"simt"`` (fp32, and the other bf16 head sizes): tiles of 64 q rows
+  by 64 keys staged in shared memory in fp32 by ``cp.async``, the online
+  softmax in registers, fp32 FMAs.
+
+Both bodies' tiles are their own: ``block_q``/``block_k`` are checked
+(ints from 1 to 128) and do not change either launch.
 """
 from __future__ import annotations
 
@@ -55,32 +57,16 @@ def check_tiles(block_q: int, block_k: int) -> None:
             raise ValueError(f"{name} must be an int >= 1, got {val!r}")
 
 
-def smem_bytes(block_q: int, block_k: int, d: int, dv: int) -> int:
-    """The shared memory a launch of the SIMT body needs
-    (``csrc/flash_attention.cu``). The wgmma body's tile is fixed; its
-    entry point checks it against the device's limit itself."""
-    return _build.function("repro_flash_attention_smem_bytes",
-                           [ctypes.c_int] * 4)(block_q, block_k, d, dv)
-
-
-def smem_limit() -> int:
-    """The opt-in shared memory of a block on the current device."""
-    limit = _build.function("repro_smem_optin_limit", [])()
-    if limit < 0:
-        _build.check(-limit, "repro_smem_optin_limit")
-    return limit
-
-
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, block_q: int = 128,
                          block_k: int = 128,
                          by_body: dict | None = None) -> torch.Tensor:
     """q (BH, Sq, D); k (BH, Skv, D); v (BH, Skv, Dv), contiguous, all fp32
     or all bf16, D and Dv at most 128 -> (BH, Sq, Dv) in q's dtype.
-    ``block_q``/``block_k`` (at most 128) are the SIMT body's tiles;
-    raises where a launch does not fit a block's shared memory. Launches
-    the body ``body_for`` names on the current stream and, given a
-    ``by_body`` dict, adds one to its entry for that body."""
+    ``block_q``/``block_k`` (at most 128) are checked and do not change
+    the launch. Launches the body ``body_for`` names on the current
+    stream and, given a ``by_body`` dict, adds one to its entry for that
+    body."""
     check_tiles(block_q, block_k)
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be 3-D (BH, S, D)")
@@ -113,12 +99,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      _WGMMA_ARGTYPES)(
                 *args, bh, sq, skv, d, dv, *tail)
         else:
-            need, limit = smem_bytes(block_q, block_k, d, dv), smem_limit()
-            if need > limit:
-                raise ValueError(
-                    f"tiles (block_q, block_k) = ({block_q}, {block_k}) at "
-                    f"D = {d}, Dv = {dv} need {need} B of shared memory; a "
-                    f"block may use {limit} B on this device")
             status = _build.function("repro_flash_attention", _ARGTYPES)(
                 *args, _build.DTYPE_CODES[q.dtype], bh, sq, skv, d, dv,
                 block_q, block_k, *tail)

@@ -23,9 +23,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """q/k/v: (B, H, S, D) or (BH, S, D), one dtype; the key length may
-    differ from the query length. The tiles are min(block_q, Sq) and
-    min(block_k, Skv); a ragged length is masked inside the kernel, not
-    padded with zero keys."""
+    differ from the query length. The kernel's tiles are its own
+    (``block_q``/``block_k`` are checked, then passed as min(block_q,
+    Sq) and min(block_k, Skv)); a ragged length is masked inside the
+    kernel, not padded with zero keys."""
     check_tiles(block_q, block_k)
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v must share a dtype, got {q.dtype}, "

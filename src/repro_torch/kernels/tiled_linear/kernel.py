@@ -4,9 +4,10 @@ the port of the Pallas TPU kernel ``repro/kernels/tiled_linear/kernel.py``,
 the ragged edges handled in the kernel. It has two bodies, chosen by
 ``body_for`` from dtype, shape and alignment alone (never by a failed
 launch): ``"wgmma"``, the tensor-core body for bf16 (TMA-fed wgmma, one
-128 x 256 output tile per block), and ``"simt"``, a shared-memory tiled
-SIMT product (one 64 x 64 tile per 256-thread block, fp32 FMAs, never
-TF32) for fp32 and the bf16 shapes TMA cannot describe.
+128 x 256 output tile per block), and ``"simt"``, a register-tiled SIMT
+product (``cp.async``-staged K chunks, fp32 FMAs, never TF32) for fp32
+and the bf16 shapes TMA cannot describe, whose tile ``simt_tile_for``
+picks from the shape.
 
 The kernel's tile is its own. The paper's parallelism factors map to the
 TPU's tiles (``ops.blocks_from_parallelism``): the parallel design (16, 8)
@@ -28,8 +29,15 @@ from repro_torch.kernels import _build
 DTYPES = (torch.float32, torch.bfloat16)
 BODIES = ("wgmma", "simt")
 
+# the SIMT body's (rows, columns) output tiles, by the code of the C
+# interface (csrc/tiled_matmul.cu, sm::Tall and sm::Small)
+SIMT_TILES = ((112, 64), (16, 32))
+# the fewest blocks a tall tile may give: below, the small tile's
+MIN_BLOCKS = 100
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int]
 _WGMMA_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]
@@ -45,6 +53,15 @@ def body_for(dtype: torch.dtype, k: int, n: int, x_ptr: int = 0,
             and x_ptr % 16 == 0 and w_ptr % 16 == 0):
         return "wgmma"
     return "simt"
+
+
+def simt_tile_for(m: int, n: int) -> int:
+    """The SIMT body's tile for an (m, n) output, as its index in
+    ``SIMT_TILES``: the tall tile where it gives at least ``MIN_BLOCKS``
+    blocks (the card has 132 SMs), else the small one. Every tile gives
+    the same bits."""
+    bm, bn = SIMT_TILES[0]
+    return 0 if -(-m // bm) * -(-n // bn) >= MIN_BLOCKS else 1
 
 
 def check_inputs(x: torch.Tensor, w: torch.Tensor, block_m: int,
@@ -93,7 +110,7 @@ def tiled_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
             status = _build.function("repro_tiled_matmul", _ARGTYPES)(
                 _build.pointer(x), _build.pointer(w), m, n, k,
                 _build.DTYPE_CODES[x.dtype], _build.pointer(out),
-                _build.stream_pointer(dev))
+                _build.stream_pointer(dev), simt_tile_for(m, n))
     _build.check(status, f"tiled_matmul ({body})")
     if by_body is not None:
         by_body[body] += 1

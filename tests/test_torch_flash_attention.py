@@ -21,6 +21,14 @@ softmax at ``chip_smoke.ATTN_TOL``'s bf16 tolerance, the tolerance phase
 8 holds the kernel to on the card; the same mirror with one bf16 term
 for P misses it, which is why the kernel splits P.
 
+fp32 calls, and bf16 head sizes the tensor cores do not take, run the
+SIMT body. A plain mirror of its arithmetic (64-key tiles, the online
+softmax in the log2 domain with exp2 on scores scaled by
+fp32(D^-0.5 log2 e), masked keys at -inf, the per-row correction
+exp2(m_old - m_new) on l and O) is held here against the JAX package's
+flash attention and ``attention_ref`` at ``chip_smoke.ATTN_TOL``'s fp32
+tolerance, the tolerance phase 8 holds the kernel to on the card.
+
 The CUDA launch tests need a card and skip without one; on the card they
 hold the kernel against its plain version.
 """
@@ -94,6 +102,45 @@ def wgmma_mirror(q, k, v, *, causal, p_terms=2, block_k=128):
             o = o + torch.einsum("bqk,bkd->bqd", t, vf[:, keys])
         m = m_new
     return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def simt_mirror(q, k, v, *, causal, block_k=64):
+    """The SIMT body's arithmetic in plain fp32 PyTorch, on (BH, S, D)
+    tensors: per 64-key tile, S = (q k^T) * fp32(D^-0.5 log2 e), keys
+    past Skv or (under ``causal``) after the row at -inf, m_new =
+    max(m, rowmax S) from m = -1e30 (a NaN score propagates), p =
+    exp2(S - m_new), l = l * exp2(m - m_new) + sum p and O = O * exp2(m -
+    m_new) + p V; O / max(l, 1e-30) in q's dtype. The kernel keeps each
+    lane's share of l and sums the shares at the end: the same sum in
+    another order."""
+    sq, d = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = float(np.float32(np.float32(d ** -0.5) * np.float32(LOG2E)))
+    m = torch.full((q.shape[0], sq), -1e30)
+    l = torch.zeros((q.shape[0], sq))
+    o = torch.zeros((q.shape[0], sq, v.shape[2]))
+    rows = torch.arange(sq)
+    for k0 in range(0, skv, block_k):
+        keys = torch.arange(k0, min(k0 + block_k, skv))
+        s = torch.einsum("bqd,bkd->bqk", qf, kf[:, keys]) * scale
+        if causal:
+            s = torch.where(keys[None, :] <= rows[:, None], s,
+                            torch.tensor(-torch.inf))
+        tile_max = s.amax(-1)
+        m_new = torch.where(torch.isnan(tile_max), tile_max,
+                            torch.maximum(m, tile_max))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum("bqk,bkd->bqd", p,
+                                               vf[:, keys])
+        m = m_new
+    return (o / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+def fp32_tol():
+    return chip_smoke().ATTN_TOL[torch.float32]
 
 
 def bf16_qkv(shape, seed, kv_len=None):
@@ -235,6 +282,46 @@ def test_wgmma_mirror_matches_pallas(causal):
     assert torch.allclose(got.float(),
                           torch.from_numpy(np.array(
                               want.astype(jnp.float32))), **bf16_tol())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,d", [(4, 128, 32), (2, 256, 64),
+                                    (1, 192, 128)])
+def test_simt_mirror_matches_pallas(causal, bh, s, d):
+    q, k, v = qkv((bh, s, d), seed=bh * s + d + 1)
+    got = simt_mirror(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    want = jax_flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                               block_q=64, block_k=64)
+    assert torch.allclose(got, torch.from_numpy(np.array(want)),
+                          **fp32_tol())
+    ref = R.attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert torch.allclose(got, ref, **fp32_tol())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv,d,dv", [
+    (100, 100, 64, 64), (1500, 1500, 64, 64),    # ragged keys
+    (300, 700, 64, 64), (700, 300, 64, 64),      # Sq != Skv
+    (40, 72, 40, 24), (130, 130, 64, 24)])       # D = 40, Dv = 24
+def test_simt_mirror_matches_attention_ref(causal, sq, skv, d, dv):
+    """Against the JAX package's ``attention_ref``: its wrapper pads a
+    ragged key length with keys the kernel does not mask."""
+    q, k, v = qkv((2, sq, d), seed=sq + skv + d, kv_len=skv, dv=dv)
+    got = simt_mirror(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    want = np.array(jax_ref(*map(jnp.asarray, (q, k, v)), causal=causal))
+    assert got.shape == (2, sq, dv)
+    assert torch.allclose(got, torch.from_numpy(want), **fp32_tol())
+
+
+def test_simt_mirror_propagates_a_nan_score():
+    q, k, v = (torch.from_numpy(a) for a in qkv((2, 100, 32), seed=5))
+    q[1, 7, 3] = float("nan")
+    for causal in (True, False):
+        got = simt_mirror(q, k, v, causal=causal)
+        want = R.attention_ref(q, k, v, causal=causal)
+        assert torch.isnan(got[1, 7]).all() and torch.isnan(want[1, 7]).all()
+        got[1, 7], want[1, 7] = 0.0, 0.0
+        assert torch.allclose(got, want, **fp32_tol())
 
 
 def test_one_bf16_term_for_p_misses_the_tolerance():

@@ -143,6 +143,68 @@ def test_body_for_phase8_shapes():
         assert K.body_for(f32, k, n) == "simt"
 
 
+def chip_smoke_module():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return chip_smoke
+
+
+@pytest.mark.parametrize("m,n,tile", [
+    (27656, 128, (112, 64)),       # GCN layer 0 transform, 494 blocks
+    (27656, 64, (112, 64)),        # GCN layer 1 transform, 247 blocks
+    (1024, 64, (16, 32)),          # the MLP head: 128 blocks, not 10
+    (128, 128, (16, 32)), (130, 70, (16, 32)), (32, 96, (16, 32)),
+    (4096, 4096, (112, 64)), (1024, 1024, (112, 64)), (1, 1, (16, 32))])
+def test_simt_tile_for_phase8_and_ragged_shapes(m, n, tile):
+    """The SIMT tile of phase 8's fp32 transforms and the JAX kernel
+    test's ragged triples: the tall tile only where it gives at least
+    MIN_BLOCKS blocks."""
+    code = K.simt_tile_for(m, n)
+    assert K.SIMT_TILES[code] == tile
+    bm, bn = K.SIMT_TILES[0]
+    assert (code == 0) == (-(-m // bm) * -(-n // bn) >= K.MIN_BLOCKS)
+    if (m, n) == (1024, 64):
+        bm, bn = tile
+        assert -(-m // bm) * -(-n // bn) >= K.MIN_BLOCKS
+
+
+def test_chip_smoke_simt_edges_reach_every_tile():
+    """Phase 8 holds every SIMT tile against the plain version at ragged
+    M, N and K, with K = 11 and 4-byte copies (K or N % 4 != 0)."""
+    edges = chip_smoke_module().SIMT_MATMUL_EDGES
+    assert {K.simt_tile_for(m, n) for m, _, n in edges} \
+        == set(range(len(K.SIMT_TILES)))
+    for code in range(len(K.SIMT_TILES)):
+        bm, bn = K.SIMT_TILES[code]
+        reach = [(m, k, n) for m, k, n in edges
+                 if K.simt_tile_for(m, n) == code]
+        assert any(m % bm and n % bn for m, _, n in reach)
+        assert any(k % 4 for _, k, _ in reach)
+    assert (12801, 11, 130) in edges
+
+
+def test_simt_launch_passes_the_tile_code(monkeypatch):
+    """The SIMT entry point gets the tile ``simt_tile_for`` picks (the
+    wrapper's CUDA branch on the CPU, the C call replaced by a recorder)."""
+    calls = []
+    monkeypatch.setattr(_build, "function", lambda name, argtypes: (
+        lambda *args: calls.append((name, args)) or 0))
+    monkeypatch.setattr(_build, "check_table", lambda name, t: None)
+    monkeypatch.setattr(_build, "stream_pointer", lambda dev: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    for (m, k, n), code in (((1024, 192, 64), 1), ((27656, 11, 128), 0),
+                            ((27656, 128, 64), 0)):
+        K.tiled_matmul_cuda(torch.zeros((m, k)), torch.zeros((k, n)))
+        name, args = calls.pop()
+        assert name == "repro_tiled_matmul"
+        assert args[2:6] == (m, n, k, 0) and args[8] == code
+    assert len(K._ARGTYPES) == 9
+
+
 def test_wgmma_entry_declares_every_pointer():
     """x, w, out and the stream are c_void_p (an undeclared argument is
     passed as a 32-bit int and a pointer would be cut)."""
