@@ -30,11 +30,14 @@ Phases, in order; any failure exits non-zero with no result line:
    and all -inf logits), to rtol 1e-5, atol 1e-7, with exact 0 wherever
    the plain version gives 0 and every weight finite. The resident
    layer-stack kernel: GCN and SAGE x fp32/bf16/int8 precision rows x
-   skip on/off, at the path's shapes (both full-width layers, K = 2, at
-   32, 256 and 1024 graphs/batch) and on the edge cases (a 3000-edge hub
-   row, bad ids on each stream, N = 1001, F = 96 and 160, K = 1 and 4,
-   no edges), then every activation; to ``STACK_TOL`` on the output
-   scale, each bf16 and int8 output differing from the fp32 one;
+   skip on/off, each without and with real layer widths (``widths=``),
+   at the path's shapes (both full-width layers, K = 2, at 32, 256 and
+   1024 graphs/batch, at the model's widths 11 -> 128 -> 64, there also
+   against the kernel without widths) and on the edge cases (a
+   3000-edge hub row, bad ids on each stream, N = 1001, F = 96 and 160,
+   K = 1 and 4, no edges; ragged ``EDGE_WIDTHS``), then every
+   activation; to ``STACK_TOL`` on the output scale, each bf16 and int8
+   output differing from the fp32 one;
 4. serving of every registered conv (``core.convs.CONV_TYPES``: gcn,
    sage, gin, pna, gat) at the paper's full width
    (``configs.gnn.benchmark_config``) on qm9 graphs through
@@ -63,10 +66,12 @@ Phases, in order; any failure exits non-zero with no result line:
    (which synchronises with the host; its time includes that), one
    PyTorch library call computing the same function where there is one,
    and the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32;
-   the H100 SXM data sheet); the resident stack's bound counts the work
-   at the model's real layer widths (``stack_work``), and its time stands
-   beside the same two layers run layer by layer
-   (``gnn_model._backbone``); the one-hot kernels at GCN's shapes with
+   the H100 SXM data sheet); the resident stack runs as the model calls
+   it, at the real layer widths (held first against its plain version
+   and against the kernel without widths), its bound counts the work at
+   those widths (``stack_work``), and its time stands beside the same
+   two layers run layer by layer (``gnn_model._backbone``) and beside the
+   kernel without widths; the one-hot kernels at GCN's shapes with
    ``Project``'s default tiles (128, 128), beside the same library call
    and bound as the CSR kernels (one function), and their time per (node
    tile x edge tile) step, the source of ``H100Target.
@@ -86,10 +91,12 @@ Phases, in order; any failure exits non-zero with no result line:
 8. the three kernels reached through their own entry points
    (``kernels/{gnn_aggregate,tiled_linear,flash_attention}/ops.py``).
    Each against its plain version on the card: the padded-table
-   aggregation for every agg in fp32 and bf16 at ``block_nodes`` 32 and
-   128, on the edge cases (empty rows, ids >= N and below -1, N = 37,
-   F = 33 and 256) and the packed table (sum/mean/var/std to rtol 1e-5,
-   atol 1e-6, min/max exactly); the matmul at the JAX kernel test's
+   aggregation bit for bit, for every agg in fp32 and bf16 at every
+   geometry ``launch_geometry`` chooses for the shape on this card's SMs,
+   on 8 and on 1, and through ``block_nodes`` 32 and 128, on the edge
+   cases (empty rows, ids >= N and below -1, N = 37, F = 33 and 256,
+   N = 1, K = 0, K = 40 at F = 257), the packed table and ``Project``'s
+   frame (F = 11, 128, 256); the matmul at the JAX kernel test's
    ragged triples and the GCN transforms, fp32 within 1e-5 and bf16
    within 1e-2 of the output scale, and the tiles of the parallel
    (16, 8) and base (1, 1) designs give the same bits; attention causal
@@ -643,12 +650,23 @@ def stack_edge_cases(dev, rng):
     return cases
 
 
+# real layer widths of stack_edge_cases, by (F, K): ragged ones (90, 61,
+# 150, 37, 5: no multiple of 4) and ones as wide as the table
+EDGE_WIDTHS = {(96, 1): [(90, 61)],
+               (160, 4): [(150, 160), (160, 37), (37, 100), (100, 5)],
+               (128, 2): [(11, 128), (128, 64)]}
+
+
 def stack_vs_plain(dev, resident_batches, errs: dict) -> int:
     """The resident stack kernel against its plain version: both kinds x
-    the three precision rows x skip on/off, at the serving path's
-    shapes (both layers of the full-width model, K = 2, at 32, 256 and
-    1024 graphs/batch) and on the edge cases; then every activation
-    (fp32) on the first edge case."""
+    the three precision rows x skip on/off, each without and with real
+    layer widths (``widths=``), at the serving path's shapes (both layers
+    of the full-width model, K = 2, at 32, 256 and 1024 graphs/batch, at
+    the model's widths 11 -> 128 -> 64 as ``apply_packed_resident`` calls
+    it, and there also the kernel with widths against the kernel without,
+    the weights being zero outside them) and on the edge cases (at
+    ``EDGE_WIDTHS``); then every activation (fp32) on the first edge
+    case, without and with its widths."""
     from repro_torch.kernels.fused_layer_stack.kernel import (
         ACT_CODES, fused_layer_stack_cuda)
     from repro_torch.kernels.fused_layer_stack.ref import (
@@ -658,42 +676,56 @@ def stack_vs_plain(dev, resident_batches, errs: dict) -> int:
     cases = []
     for label, batch in resident_batches:
         for conv in RESIDENT_CONVS:
-            args, _ = resident_stack_inputs(dev, conv, batch)
-            cases.append((f"{conv} {label}", conv, args))
+            args, kw = resident_stack_inputs(dev, conv, batch)
+            cases.append((f"{conv} {label}", conv, args, kw["widths"],
+                          True))
     edge_cases = stack_edge_cases(dev, rng)
-    for label, args, _ in edge_cases:
+    for label, args, k in edge_cases:
         for conv in RESIDENT_CONVS:
-            cases.append((f"{conv} {label}", conv, args))
+            cases.append((f"{conv} {label}", conv, args,
+                          EDGE_WIDTHS[args[0].shape[1], k], False))
     n_cmp = 0
     label, args, k = edge_cases[0]
     full = args[:11] + (torch.tensor([QP_ROWS["fp32"]] * k, device=dev),)
     for act in ACT_CODES:
         for kind in RESIDENT_CONVS:
-            got = fused_layer_stack_cuda(*full, kind=kind, activation=act)
-            want = fused_layer_stack_ref(*full, kind=kind, activation=act)
-            compare_stack(f"{kind} {label} {act}", "fp32", got, want, errs)
-            n_cmp += 1
-    for label, kind, args in cases:
+            for widths in (None, EDGE_WIDTHS[args[0].shape[1], k]):
+                got = fused_layer_stack_cuda(*full, kind=kind,
+                                             activation=act, widths=widths)
+                want = fused_layer_stack_ref(*full, kind=kind,
+                                             activation=act, widths=widths)
+                compare_stack(f"{kind} {label} {act} widths {widths}",
+                              "fp32", got, want, errs)
+                n_cmp += 1
+    for label, kind, args, widths, zero_padded in cases:
         k = args[8].shape[0]
         for skip in (True, False):
-            fp32_out = None
+            fp32_out = {}
             for mode, row in QP_ROWS.items():     # fp32 first
                 qp = torch.tensor([row] * k, dtype=torch.float32,
                                   device=dev)
                 full = args[:11] + (qp,)
-                got = fused_layer_stack_cuda(*full, kind=kind,
-                                             has_skip=skip)
-                want = fused_layer_stack_ref(*full, kind=kind,
-                                             has_skip=skip)
-                tag = f"{label} {mode} skip={skip}"
-                compare_stack(tag, mode, got, want, errs)
-                if fp32_out is None:
-                    fp32_out = got
-                else:
-                    check(not torch.equal(got, fp32_out),
-                          f"fused_layer_stack {tag}: equals the fp32 "
-                          "output, the precision row was ignored")
-                n_cmp += 1
+                outs = []
+                for wi, wd in enumerate((None, widths)):
+                    got = fused_layer_stack_cuda(*full, kind=kind,
+                                                 has_skip=skip, widths=wd)
+                    want = fused_layer_stack_ref(*full, kind=kind,
+                                                 has_skip=skip, widths=wd)
+                    tag = f"{label} {mode} skip={skip} widths {wd}"
+                    compare_stack(tag, mode, got, want, errs)
+                    if wi not in fp32_out:
+                        fp32_out[wi] = got
+                    else:
+                        check(not torch.equal(got, fp32_out[wi]),
+                              f"fused_layer_stack {tag}: equals the fp32 "
+                              "output, the precision row was ignored")
+                    outs.append(got)
+                    n_cmp += 1
+                if zero_padded:
+                    compare_stack(f"{label} {mode} skip={skip}: widths "
+                                  "against none", mode, outs[1], outs[0],
+                                  errs)
+                    n_cmp += 1
     return n_cmp
 
 
@@ -1177,8 +1209,12 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
                             f"F={f}", msg, csr, n, agg, idx,
                             lib_reduce[agg])
     # the resident stack: both layers of the full-width model in one
-    # launch; beside it, the same two layers through the layer-by-layer
-    # path (gather kernel + matmuls, _backbone) on the same batch
+    # launch at the model's real widths, as apply_packed_resident calls
+    # it (held against the plain version and against the kernel without
+    # widths first); beside it, the same two layers through the
+    # layer-by-layer path (gather kernel + matmuls, _backbone) on the
+    # same batch, and the kernel without widths (every layer at the
+    # padded table width)
     for label, batch in resident_batches:
         b = G.packed_to_device(batch, dev)
         g, x, node_mask, _ = G.packed_inputs(b)
@@ -1192,6 +1228,15 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
             check(k == cfg.gnn_num_layers, f"{conv}: K={k}")
             dims = [(cfg.conv_cfg(i).in_dim, cfg.conv_cfg(i).out_dim)
                     for i in range(k)]
+            check(kw["widths"] == dims, f"{conv}: the model's stack call "
+                                        f"has widths {kw['widths']}")
+            padded = {**kw, "widths": None}
+            got = fused_layer_stack_cuda(*args, **kw)
+            held: dict = {}
+            compare_stack(f"{conv} {label} widths", "fp32", got,
+                          fused_layer_stack_ref(*args, **kw), held)
+            compare_stack(f"{conv} {label} widths against none", "fp32",
+                          got, fused_layer_stack_cuda(*args, **padded), held)
             widths = " -> ".join(str(w) for w in
                                  [dims[0][0]] + [o for _, o in dims])
             row("fused_layer_stack", conv, label,
@@ -1201,11 +1246,13 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
                 lambda: fused_layer_stack_ref(*args, **kw), None,
                 *stack_work(args, conv, kw["has_skip"], dims),
                 layerwise_ms=lambda: cuda_ms(
-                    lambda: G._backbone(params, cfg, g, x, node_mask)))
+                    lambda: G._backbone(params, cfg, g, x, node_mask)),
+                padded_ms=lambda: cuda_ms(
+                    lambda: fused_layer_stack_cuda(*args, **padded)))
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms"
-        lw = f", layer-by-layer {r['layerwise_ms']:.5f} ms" \
-            if "layerwise_ms" in r else ""
+        lw = f", layer-by-layer {r['layerwise_ms']:.5f} ms, without " \
+             f"widths {r['padded_ms']:.5f} ms" if "layerwise_ms" in r else ""
         st = f", {r['ms'] / r['steps'] * 1e6:.2f} ns per step" \
             if "steps" in r else ""
         print(f"[6] {r['kernel']} {r['batch']} {r['shape']}: kernel "
@@ -1494,18 +1541,32 @@ def padded_tables(batch, frame) -> list:
 
 def gnn_agg_edge_tables(rng) -> list:
     """(label, N, F, nbr) edge cases: empty rows, ids >= N and below -1,
-    N = 37 (no block divides it), F = 33 and F = 256."""
+    N = 37 (no block divides it), F = 33 and F = 256; one row (N = 1); no
+    slots (K = 0); more slots than a warp has lanes (K = 40) at a ragged
+    F = 257."""
     from repro_torch.kernels.gnn_aggregate.ref import neighbor_table
     out = []
-    for n, f, k in ((37, 33, 5), (300, 256, 9)):
-        ei = rng.integers(0, n, (3 * n, 2)).astype(np.int32)
+    for n, f, k in ((37, 33, 5), (300, 256, 9), (1, 3, 3), (500, 24, 0),
+                    (300, 257, 40)):
+        ei = rng.integers(0, n, (3 * n if k < 32 else 60 * n,
+                                 2)).astype(np.int32)
         nbr = neighbor_table(ei, n, k)
-        nbr[0, :] = -1
-        nbr[3, :] = -1
-        nbr[1, 0], nbr[2, 1], nbr[4, k - 1] = n, n + 11, -7
-        nbr[5, :] = 2 ** 31 - 1
+        if n > 5 and k > 1:
+            nbr[0, :] = -1
+            nbr[3, :] = -1
+            nbr[1, 0], nbr[2, 1], nbr[4, k - 1] = n, n + 11, -7
+            nbr[5, :] = 2 ** 31 - 1
         out.append((f"edge cases N={n} F={f} K={k}", n, f, nbr))
     return out
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bits, NaN at the same places (a bf16 value widens to fp32
+    exactly)."""
+    g, w = got.float(), want.float()
+    nan = torch.isnan(w)
+    return torch.equal(torch.isnan(g), nan) and torch.equal(
+        g[~nan].view(torch.int32), w[~nan].view(torch.int32))
 
 
 def close_to(name: str, label: str, got, want, tol: dict, errs: dict,
@@ -1541,14 +1602,17 @@ def launched_body(label: str, launch, *args, want: str, **kwargs) -> tuple:
 
 def entry_kernels_vs_plain(dev, tables) -> dict:
     """Each kernel against its plain version on the card, outside the
-    counted run: the padded-table aggregation (every agg, fp32 and bf16,
-    block_nodes 32 and 128, the edge cases and the packed table), the
+    counted run: the padded-table aggregation bit for bit (every agg,
+    fp32 and bf16, at every geometry ``launch_geometry`` chooses for the
+    shape on this card's SMs, on 8 and on 1, and through block_nodes 32
+    and 128; the edge cases, the packed table and Project's frame), the
     matmul at the ragged triples in fp32 and bf16 and the GCN transforms,
     attention causal and not in fp32 and bf16 with ragged S."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.gnn_aggregate.kernel import gnn_aggregate_cuda
+    from repro_torch.kernels.gnn_aggregate.kernel import (gnn_aggregate_cuda,
+                                                          launch_geometry)
     from repro_torch.kernels.gnn_aggregate.ref import AGGS, gnn_aggregate_ref
     from repro_torch.kernels.tiled_linear.kernel import (SIMT_TILES,
                                                          simt_tile_for,
@@ -1561,21 +1625,37 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
     n_cmp = 0
     by_body = dict.fromkeys(BODIES, 0)
     label, n, nbr = tables[0]
-    cases = gnn_agg_edge_tables(rng) + [(label, n, 64, nbr)]
+    frame_label, frame_n, frame_nbr = tables[1]
+    cases = gnn_agg_edge_tables(rng) + [(label, n, 64, nbr)] + [
+        (frame_label, frame_n, f, frame_nbr) for f in (11, 128, 256)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geometries = set()
     for label, n, f, nbr in cases:
         nt = torch.from_numpy(nbr).to(dev)
         x = torch.randn((n, f), device=dev) * 3
         for dt in (torch.float32, torch.bfloat16):
             xt = x.to(dt)
+            shapes = {launch_geometry(n, f, nbr.shape[1], s,
+                                      xt.element_size())
+                      for s in (sms, 8, 1)}
+            geometries |= shapes
             for agg in AGGS:
                 want = gnn_aggregate_ref(xt, nt, agg=agg)
-                for bn in GNN_AGG_BLOCKS:
-                    got = gnn_aggregate_cuda(xt, nt, agg=agg, block_nodes=bn)
+                launches = [dict(geometry=g) for g in shapes] + [
+                    dict(block_nodes=bn) for bn in GNN_AGG_BLOCKS]
+                for kw in launches:
+                    got = gnn_aggregate_cuda(xt, nt, agg=agg, **kw)
                     check(got.dtype == dt, f"gnn_aggregate {label}: "
                                            f"{got.dtype} out of {dt}")
                     compare("gnn_aggregate", agg, got.float(), want.float(),
                             errs)
+                    check(same_bits(got, want),
+                          f"gnn_aggregate {label} {agg} {dt} {kw}: not bit "
+                          "for bit the plain version")
                     n_cmp += 1
+    print(f"[8] gnn_aggregate bit for bit at {len(geometries)} geometries "
+          f"(lanes a row {sorted({g.lanes_per_row for g in geometries})}, "
+          f"columns a lane {sorted({g.cols_per_lane for g in geometries})})")
     both, bf16 = (torch.float32, torch.bfloat16), (torch.bfloat16,)
     qwen3 = (QWEN3["tokens"], QWEN3["d_model"], QWEN3["d_ff"])
     matmul_cases = [(t, both) for t in MATMUL_TRIPLES + (

@@ -358,9 +358,10 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
     failed build or
     launch raises; it is never a reason to fall back. ``stacks`` is
     ``resident_stacks(params, cfg, fusion_depth)``, built here when not
-    given. The resident path aggregates first at the padded table width,
-    which is exact for fp32 up to rounding. Pooling and the MLP head run
-    as in ``apply_packed``."""
+    given. Each fused group runs at its layers' real widths
+    (``layer_dims(cfg)``, passed as the kernel's ``widths``) inside the
+    padded table, aggregating first, which is exact for fp32 up to
+    rounding. Pooling and the MLP head run as in ``apply_packed``."""
     _check_fp32(cfg)
     nl = cfg.gnn_num_layers
     n = batch["node_feat"].shape[0]
@@ -390,11 +391,13 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
     xpad = torch.zeros((n, fmax), dtype=torch.float32, device=x.device)
     xpad[:, :x.shape[1]] = x
     mask = node_mask.to(torch.float32)
-    for group in stacks:
+    dims = layer_dims(cfg)
+    for i0, group in zip(range(0, nl, plan.depth), stacks):
         xpad = fused_layer_stack(
             xpad, src, scale, csr.perm, csr.offsets, self_vec, mask,
             *group, kind=cfg.gnn_conv, activation=cfg.gnn_activation,
-            has_skip=cfg.gnn_skip_connection)
+            has_skip=cfg.gnn_skip_connection,
+            widths=dims[i0:i0 + plan.depth])
     return _packed_tail(params, cfg, batch,
                         xpad[:, :cfg.conv_cfg(nl - 1).out_dim], node_mask,
                         graph_id)

@@ -131,8 +131,7 @@ def stack_work(args, kind: str, has_skip: bool, dims=None) -> tuple:
     """(bytes, operations) the resident stack's function needs on these
     inputs at the layer widths ``dims`` [(in, out), ...] (default: the
     padded table's width for every layer, which is what a call computes
-    when it is given only the padded operands; ``chip_smoke.py`` passes
-    the model's real widths). Bytes: the table in at the first layer's
+    when it is given no widths). Bytes: the table in at the first layer's
     width and out at the last's, per valid edge its perm entry, source id
     and scale (12 B), the offsets, the mask and (GCN) self-scale columns,
     and the weights the layers read (GCN: W; SAGE: W_self and W_neigh;
@@ -162,9 +161,11 @@ def stack_work(args, kind: str, has_skip: bool, dims=None) -> tuple:
     return moved, ops
 
 
-def stack_call_work(*args, kind: str, has_skip: bool = True, **_) -> tuple:
-    """``stack_work`` on the arguments of ``ops.fused_layer_stack``."""
-    return stack_work(args, kind, has_skip)
+def stack_call_work(*args, kind: str, has_skip: bool = True, widths=None,
+                    **_) -> tuple:
+    """``stack_work`` on the arguments of ``ops.fused_layer_stack``, at
+    the widths the call was given."""
+    return stack_work(args, kind, has_skip, widths)
 
 
 def padded_agg_work(x, nbr, agg: str = "sum", **_) -> tuple:

@@ -22,17 +22,22 @@ def fused_layer_stack(x: torch.Tensor, src: torch.Tensor,
                       node_mask: torch.Tensor, w_a: torch.Tensor,
                       w_n: torch.Tensor, w_skip: torch.Tensor,
                       b: torch.Tensor, qp: torch.Tensor, *, kind: str,
-                      activation: str = "relu",
-                      has_skip: bool = True) -> torch.Tensor:
+                      activation: str = "relu", has_skip: bool = True,
+                      widths=None) -> torch.Tensor:
     """Run ``K = w_n.shape[0]`` consecutive GCN or SAGE layers on the
     zero-padded (N, F) float32 table ``x`` -> the (N, F) float32 table
     after the last layer (callers slice the final width). The edges are
     the destination CSR (perm, offsets) over the source stream ``src``
     with per-edge ``scale``; an edgeless batch still runs every layer's
-    products. No rows gives an empty table without a launch."""
+    products. ``widths``: the layers' real (in, out) widths, each in
+    [1, F], each layer's input the previous one's output (default (F, F)
+    for every layer); the weights and bias must be zero outside them, so
+    that the result is the function without them, computed at the real
+    widths. No rows gives an empty table without a launch."""
     if x.shape[0] == 0:
         return torch.zeros_like(x, dtype=torch.float32)
-    kw = dict(kind=kind, activation=activation, has_skip=has_skip)
+    kw = dict(kind=kind, activation=activation, has_skip=has_skip,
+              widths=widths)
     args = (x, src, scale, perm, offsets, self_vec, node_mask, w_a, w_n,
             w_skip, b, qp)
     if _build.runs_plain(x):

@@ -1,15 +1,23 @@
 """Launch of the hand-written CUDA padded-table aggregation kernel
 (``csrc/gnn_aggregate.cu``), the port of the Pallas TPU kernel
 ``repro/kernels/gnn_aggregate/kernel.py``, ``gnn_aggregate_pallas``. The
-source carries the design note: one block per ``block_nodes`` rows, warp
-w owning the rows r = w (mod 8) of its tile, lanes over columns, each
-row's slots folded in table order in fp32 registers, the result written
-in x's dtype.
+source carries the design note: lanes over columns (one 16-byte load a
+lane where the row allows it), several rows packed into a warp where the
+table is narrow, column groups as warps of their own where it is wide,
+each row's slot ids loaded once and shared by shuffle, each row's slots
+folded in table order in fp32 registers, the result written in x's
+dtype.
+
+``launch_geometry`` chooses the launch from the shape and the card;
+``coverage`` replays the kernel's index arithmetic for a geometry, so
+that the CPU tests can hold every geometry to covering each output once.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -19,9 +27,115 @@ AGGS = ("sum", "mean", "min", "max", "var", "std")
 # truncating cast of the fp32 fold: int8 tables are refused
 DTYPES = (torch.float32, torch.bfloat16)
 
+WARP = 32
+WARPS_PER_BLOCK = 8          # kWarpsPerBlock in csrc/common.cuh
+# below this many warps a SM, a lane takes fewer columns (more warps)
+MIN_WARPS_PER_SM = 4
+# above this many warps a SM (four waves of 64 resident warps), a warp
+# walks several row groups in series
+MAX_WARPS_PER_SM = 256
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch of the kernel: a lane owns ``cols_per_lane``
+    consecutive columns, a row takes ``lanes_per_row`` lanes (so a warp
+    folds ``32 // lanes_per_row`` rows at once), a row splits into
+    ``col_groups`` column groups of ``lanes_per_row * cols_per_lane``
+    columns, and a warp folds ``rows_per_warp`` rows of one column group
+    (``passes`` row groups in series). ``warps`` warps have work, in
+    ``blocks`` blocks of 8 warps."""
+    cols_per_lane: int
+    lanes_per_row: int
+    col_groups: int
+    rows_per_warp: int
+    warps: int
+    blocks: int
+
+    @property
+    def rows_at_once(self) -> int:
+        return WARP // self.lanes_per_row
+
+    @property
+    def passes(self) -> int:
+        return self.rows_per_warp // self.rows_at_once
+
+
+def _pow2_at_least(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def launch_geometry(n: int, f: int, k: int, sms: int,
+                    elem_bytes: int = 4) -> Geometry:
+    """The launch for an (N, F) table of ``elem_bytes`` elements with K
+    slots a row on a card of ``sms`` SMs.
+
+    Columns a lane: as many as one 16-byte load holds (4 fp32, 8 bf16)
+    where F is a multiple of them, else the largest power of two dividing
+    F; halved while the launch would give fewer than ``MIN_WARPS_PER_SM``
+    warps a SM (the 600-node frame). Lanes a row: the power of two that
+    covers the row's column vectors, at most 32, so a narrow row (F = 11)
+    shares its warp with other rows. A row wider than 32 lanes splits into
+    column groups, one warp each. A warp walks several row groups only
+    where the launch would pass ``MAX_WARPS_PER_SM`` warps a SM. K does
+    not change the geometry: a row's slots are folded inside its lanes,
+    whatever their number."""
+    if n < 1 or f < 0 or k < 0 or sms < 1 or elem_bytes not in (2, 4):
+        raise ValueError(f"no geometry for N={n}, F={f}, K={k}, "
+                         f"{sms} SMs, {elem_bytes}-byte elements")
+    width = max(f, 1)
+
+    def shape(cpl: int) -> tuple:
+        vecs = -(-width // cpl)
+        lanes = min(WARP, _pow2_at_least(vecs))
+        groups = -(-vecs // lanes)
+        row_groups = -(-n // (WARP // lanes))
+        return lanes, groups, row_groups, row_groups * groups
+
+    cpl = 16 // elem_bytes
+    while width % cpl:
+        cpl //= 2
+    while cpl > 1 and shape(cpl)[3] < MIN_WARPS_PER_SM * sms:
+        cpl //= 2
+    lanes, groups, row_groups, units = shape(cpl)
+    passes = max(1, -(-units // (MAX_WARPS_PER_SM * sms)))
+    warps = -(-row_groups // passes) * groups
+    return Geometry(cols_per_lane=cpl, lanes_per_row=lanes,
+                    col_groups=groups,
+                    rows_per_warp=passes * (WARP // lanes), warps=warps,
+                    blocks=-(-warps // WARPS_PER_BLOCK))
+
+
+def coverage(g: Geometry, n: int, f: int) -> np.ndarray:
+    """(N, F) count of the lanes that fold and store each output under
+    ``g``: the kernel's index arithmetic (warp -> column group and row
+    block, lane -> row and columns, passes) replayed in numpy. Every
+    entry is 1 for a geometry that covers the table."""
+    lane = np.arange(WARP, dtype=np.int64)[None, :, None, None]
+    p = np.arange(g.passes, dtype=np.int64)[None, None, :, None]
+    q = np.arange(g.cols_per_lane, dtype=np.int64)[None, None, None, :]
+    sub = lane % g.lanes_per_row
+    counts = np.zeros(n * f, np.int64)
+    step = 16384                                  # warps at a time
+    for w0 in range(0, g.warps, step):
+        warp = np.arange(w0, min(w0 + step, g.warps),
+                         dtype=np.int64)[:, None, None, None]
+        group, row_block = warp % g.col_groups, warp // g.col_groups
+        row = (row_block * g.passes + p) * g.rows_at_once \
+            + lane // g.lanes_per_row
+        col = (group * g.lanes_per_row + sub) * g.cols_per_lane + q
+        row, col = np.broadcast_arrays(row, col)
+        ok = (row < n) & (col < f)
+        counts += np.bincount(row[ok] * f + col[ok], minlength=n * f)
+    return counts.reshape(n, f)
 
 
 def check_inputs(x: torch.Tensor, nbr: torch.Tensor, agg: str,
@@ -33,7 +147,7 @@ def check_inputs(x: torch.Tensor, nbr: torch.Tensor, agg: str,
         raise ValueError(f"agg {agg!r} not in {AGGS}")
     if x.dtype not in DTYPES:
         raise ValueError(f"x dtype {x.dtype} not in {DTYPES}: the kernel "
-                         "has no dequant scale for an int8 table")
+                         f"has no dequant scale for an int8 table")
     if x.dim() != 2 or nbr.dim() != 2 or nbr.shape[0] != x.shape[0]:
         raise ValueError(f"x (N, F) and nbr (N, K) expected, got "
                          f"{tuple(x.shape)} and {tuple(nbr.shape)}")
@@ -46,12 +160,15 @@ def check_inputs(x: torch.Tensor, nbr: torch.Tensor, agg: str,
 
 
 def gnn_aggregate_cuda(x: torch.Tensor, nbr: torch.Tensor, *,
-                       agg: str = "sum",
-                       block_nodes: int = 128) -> torch.Tensor:
+                       agg: str = "sum", block_nodes: int = 128,
+                       geometry: Geometry | None = None) -> torch.Tensor:
     """x: (N, F) fp32/bf16 node table (N >= 1); nbr: (N, K) int32
     neighbour table, -1 padded (any id outside [0, N) drops its slot).
-    Returns (N, F) in x's dtype. ``block_nodes`` rows per block, grid
-    ceil(N / block_nodes). Launches on the current stream."""
+    Returns (N, F) in x's dtype. ``block_nodes`` is validated (the JAX
+    package's rows per tile) but no longer sets the grid on this card:
+    ``geometry`` does, by default ``launch_geometry`` for this shape and
+    the device's SM count. Every geometry gives the same bits. Launches
+    on the current stream."""
     check_inputs(x, nbr, agg, block_nodes)
     _build.check_table("x", x)
     dev = x.device
@@ -64,12 +181,19 @@ def gnn_aggregate_cuda(x: torch.Tensor, nbr: torch.Tensor, *,
     if n < 1 or n * max(k_max, 1) > 2 ** 31 - 1:
         raise ValueError(f"nbr of shape {tuple(nbr.shape)}: the kernel "
                          "needs 1 <= N and N * K within int32")
+    g = geometry or launch_geometry(
+        n, f, k_max, torch.cuda.get_device_properties(dev)
+        .multi_processor_count, x.element_size())
+    cpl = g.cols_per_lane
+    vec = cpl > 1 and f % cpl == 0 \
+        and x.data_ptr() % (cpl * x.element_size()) == 0
     out = torch.empty((n, f), dtype=x.dtype, device=dev)
     fn = _build.function("repro_gnn_aggregate", _ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(_build.pointer(x), _build.DTYPE_CODES[x.dtype], n, f,
-                    _build.pointer(nbr), k_max, block_nodes,
-                    _build.AGG_CODES[agg], _build.pointer(out),
+                    _build.pointer(nbr), k_max, _build.AGG_CODES[agg], cpl,
+                    g.lanes_per_row, g.col_groups, g.passes, g.warps,
+                    int(vec), _build.pointer(out),
                     _build.stream_pointer(dev))
     _build.check(status, "gnn_aggregate")
     return out

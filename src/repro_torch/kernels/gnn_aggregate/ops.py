@@ -21,8 +21,11 @@ def gnn_aggregate(x: torch.Tensor, nbr: torch.Tensor, *, agg: str = "sum",
                   block_nodes: int = 128) -> torch.Tensor:
     """Aggregate neighbour rows. x (N, F) fp32/bf16; nbr (N, K) int32,
     -1 padded (an id outside [0, N) drops its slot) -> (N, F) in x's
-    dtype. ``block_nodes`` is the kernel's rows per block. No rows gives
-    an empty result without a launch."""
+    dtype. ``block_nodes`` keeps the JAX package's meaning (rows per
+    tile) and is validated, but on this card it no longer sets the grid:
+    the kernel's geometry comes from the shape and the card
+    (``kernel.launch_geometry``), and results never depended on it. No
+    rows gives an empty result without a launch."""
     check_inputs(x, nbr, agg, block_nodes)
     if x.shape[0] == 0:
         return torch.empty_like(x)

@@ -186,6 +186,54 @@ def test_padded_agg_work_counts_valid_slots():
     assert bf == 6 * 3 * 4 + (rows + 6) * 5 * 2
 
 
+# ------------------------------------------------ the launch geometry --
+@pytest.mark.parametrize("k", (0, 5, 10, 40))
+@pytest.mark.parametrize("f", (1, 11, 64, 128, 256, 257))
+@pytest.mark.parametrize("n", (1, 37, 600, 27656))
+def test_launch_geometry_covers_every_output_once(n, f, k):
+    """Every (row, column) is folded and stored by exactly one lane, for
+    fp32 and bf16 tables on the H100's 132 SMs, and on one SM (where a
+    warp walks many row groups in series)."""
+    for elem_bytes, sms in ((4, 132), (2, 132), (4, 1)):
+        g = K.launch_geometry(n, f, k, sms, elem_bytes)
+        cov = K.coverage(g, n, f)
+        assert cov.shape == (n, f) and (cov == 1).all(), g
+        assert g.lanes_per_row & (g.lanes_per_row - 1) == 0
+        assert 1 <= g.lanes_per_row <= 32
+        assert g.cols_per_lane * elem_bytes <= 16
+        assert max(f, 1) % g.cols_per_lane == 0
+        assert g.rows_per_warp % g.rows_at_once == 0
+        assert g.blocks == -(-g.warps // K.WARPS_PER_BLOCK)
+
+
+def test_frame_geometry_gives_the_card_work():
+    """Project's 600-node frame (K = 5) on 132 SMs: at least a warp a SM
+    at every width of the path, where one block of 128 rows per tile gave
+    5 blocks; at F = 256 a warp per (row, column group); at F = 11 several
+    rows share a warp instead of idling 21 lanes."""
+    sms = 132
+    for f in (11, 128, 256):
+        assert K.launch_geometry(600, f, 5, sms).warps >= sms, f
+    wide = K.launch_geometry(600, 256, 5, sms)
+    assert wide.col_groups >= 2 and wide.rows_per_warp == 1
+    assert wide.warps >= 2 * sms
+    narrow = K.launch_geometry(600, 11, 5, sms)
+    assert narrow.rows_at_once >= 2 and narrow.lanes_per_row < 32
+    # the packed table: one 16-byte load a lane, one row group a warp
+    packed = K.launch_geometry(27656, 128, 10, sms)
+    assert packed.cols_per_lane == 4 and packed.passes == 1
+    assert K.launch_geometry(27656, 128, 10, sms, 2).cols_per_lane == 8
+
+
+def test_launch_geometry_refuses_bad_shapes():
+    for args in ((0, 4, 2, 132), (4, -1, 2, 132), (4, 4, -1, 132),
+                 (4, 4, 2, 0)):
+        with pytest.raises(ValueError):
+            K.launch_geometry(*args)
+    with pytest.raises(ValueError):
+        K.launch_geometry(4, 4, 2, 132, elem_bytes=1)
+
+
 # ------------------------------------------------- CUDA launch tests --
 @pytest.fixture
 def cuda_device():
@@ -217,3 +265,53 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, block_nodes):
                 np.testing.assert_allclose(got.float().cpu().numpy(),
                                            want.float().cpu().numpy(),
                                            rtol=1e-5, atol=1e-6)
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bits, NaN at the same places (in fp32: a bf16 value widens
+    exactly)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    nan = torch.isnan(w)
+    return torch.equal(torch.isnan(g), nan) and torch.equal(
+        g[~nan].view(torch.int32), w[~nan].view(torch.int32))
+
+
+# (N, F, K) reaching every lanes-per-row 1..32, every column width of a
+# lane, column groups, ragged F, K = 0 and K > 32
+GEOMETRY_SHAPES = ((5000, 4, 3), (5000, 8, 3), (5000, 16, 3), (5000, 32, 3),
+                   (5000, 64, 6), (5000, 128, 6), (600, 11, 5),
+                   (600, 256, 5), (300, 257, 40), (1, 3, 2), (500, 24, 0),
+                   (37, 33, 5), (600, 64, 5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_bit_for_bit_at_every_geometry(cuda_device, dtype):
+    """Every output is one fold chain in table order whatever the
+    geometry: the kernel gives the plain version's bits at every geometry
+    ``launch_geometry`` chooses for these shapes on 132, 8 and 1 SMs (one
+    SM: a warp walks many row groups), with ids outside [0, N), empty
+    rows and rows of +-3e38 (inf and NaN sums)."""
+    torch_dt = getattr(torch, dtype)
+    seen = set()
+    for n, f, k in GEOMETRY_SHAPES:
+        x, nbr = table(n, f, k, seed=n + f + k)
+        if k and n > 6:
+            nbr[0, :] = -1
+            nbr[1, 0], nbr[2, k - 1] = n + 3, -7
+            x[3], x[4] = 3e38, -3e38
+        xt = torch.from_numpy(x).to(torch_dt).to(cuda_device)
+        nt = torch.from_numpy(nbr).to(cuda_device)
+        for sms in (132, 8, 1):
+            g = K.launch_geometry(n, f, k, sms, xt.element_size())
+            seen.add((g.cols_per_lane, g.lanes_per_row, g.col_groups > 1,
+                      g.passes > 1))
+            for agg in R.AGGS:
+                got = K.gnn_aggregate_cuda(xt, nt, agg=agg, geometry=g)
+                want = R.gnn_aggregate_ref(xt, nt, agg=agg)
+                torch.cuda.synchronize()
+                assert got.dtype == xt.dtype
+                assert same_bits(got, want), (n, f, k, sms, agg, g)
+    assert {s[1] for s in seen} == {1, 2, 4, 8, 16, 32}
+    assert {s[0] for s in seen} >= ({1, 2, 4} if dtype == "float32"
+                                    else {1, 2, 4, 8})
+    assert any(s[2] for s in seen) and any(s[3] for s in seen)

@@ -290,7 +290,7 @@ def test_build_is_keyed_by_the_sources():
                                (GK._ONEHOT_ARGTYPES,
                                 (0, 4, 5, 6, 12, 14, 15)),
                                (SK._ONEHOT_ARGTYPES, (0, 4, 9, 11, 12)),
-                               (PK._ARGTYPES, (0, 4, 8, 9)),
+                               (PK._ARGTYPES, (0, 4, 13, 14)),
                                (TK._ARGTYPES, (0, 1, 6, 7)),
                                (FK._ARGTYPES, (0, 1, 2, 13, 14))):
         assert [i for i, t in enumerate(argtypes)
@@ -299,6 +299,8 @@ def test_build_is_keyed_by_the_sources():
     # the one-hot kernels' scratch length is a 64-bit count
     assert GK._ONEHOT_ARGTYPES[13] is ctypes.c_longlong
     assert SK._ONEHOT_ARGTYPES[10] is ctypes.c_longlong
+    # and the padded-table kernel's warp count
+    assert PK._ARGTYPES[11] is ctypes.c_longlong
 
 
 def test_codes_match_the_cuda_enums():

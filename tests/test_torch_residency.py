@@ -41,7 +41,7 @@ from repro.nn import param as jprm
 from repro_torch.core import aggregations as TA
 from repro_torch.core import convs as TC
 from repro_torch.core import gnn_model as TG
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels.fused_layer_stack import kernel as LK
 from repro_torch.kernels.fused_layer_stack import ops as LO
 from repro_torch.kernels.fused_layer_stack import ref as LR
@@ -198,7 +198,103 @@ def test_stack_wrapper_checks_and_counts():
     pointers = [i for i, t in enumerate(LK._ARGTYPES)
                 if t is __import__("ctypes").c_void_p]
     assert pointers == [0, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 19, 20,
-                        21]
+                        21, 22]
+    assert f"kMaxLayers = {LK.MAX_LAYERS}" in text
+
+
+def widths_inputs(seed: int, mode: str, dims, f: int = 32, n: int = 40,
+                  e: int = 150) -> dict:
+    """``stack_inputs`` of len(dims) layers whose weights and bias are
+    zero outside each layer's real (in, out) block, and whose table is
+    zero past the first layer's input width: the layout the model's
+    padded stacks have (``gnn_model._group_stacks``)."""
+    inp = stack_inputs(seed, len(dims), mode, n=n, f=f, e=e)
+    inp["x"][:, dims[0][0]:] = 0.0
+    for k, (w_in, w_out) in enumerate(dims):
+        for name in ("w_a", "w_n", "w_skip"):
+            inp[name][k, w_in:, :] = 0.0
+            inp[name][k, :, w_out:] = 0.0
+        inp["b"][k, w_out:] = 0.0
+    return inp
+
+
+# three layers inside a table of 32, the real widths no multiple of 4
+MODEL_DIMS = [(11, 30), (30, 7), (7, 17)]
+
+
+@pytest.mark.parametrize("kind", RESIDENT_KINDS)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("skip", [True, False])
+def test_stack_ref_widths_match_default_and_pallas(kind, mode, skip):
+    """With weights zero outside the real blocks, the plain stack at the
+    layers' real widths gives the result of the default (every layer at
+    the table width) and still matches the Pallas kernel at the unchanged
+    ``check_tol``; its padding columns are act(0) * mask."""
+    inp = widths_inputs(20 + len(mode), mode, MODEL_DIMS)
+    want = jax_stack(inp, kind, "relu", skip, mode)
+    args = port_args(inp)
+    got = LO.fused_layer_stack(*args, kind=kind, has_skip=skip,
+                               widths=MODEL_DIMS).numpy()
+    default = LO.fused_layer_stack(*args, kind=kind, has_skip=skip).numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    check_tol(got, default, mode)
+    check_tol(got, want, mode)
+    assert not got[:, MODEL_DIMS[-1][1]:].any()
+
+
+def test_stack_ref_sigmoid_padding_columns():
+    """Under sigmoid the padding columns are 0.5 * mask, not zero: the
+    plain stack with widths writes what the zero-padded weights give the
+    default path, and what the Pallas kernel writes."""
+    dims = [(11, 20), (20, 9)]
+    inp = widths_inputs(4, "fp32", dims)
+    args = port_args(inp)
+    for kind in RESIDENT_KINDS:
+        got = LO.fused_layer_stack(*args, kind=kind, activation="sigmoid",
+                                   widths=dims).numpy()
+        default = LO.fused_layer_stack(*args, kind=kind,
+                                       activation="sigmoid").numpy()
+        want = jax_stack(inp, kind, "sigmoid", True, "fp32")
+        pad = 0.5 * inp["node_mask"][:, None]
+        np.testing.assert_array_equal(got[:, 9:], np.broadcast_to(
+            pad, got[:, 9:].shape))
+        np.testing.assert_array_equal(got[:, 9:], default[:, 9:])
+        np.testing.assert_allclose(got[:, 9:], want[:, 9:], rtol=0,
+                                   atol=1e-7)
+        check_tol(got, want, "fp32")
+
+
+@pytest.mark.parametrize("widths", [
+    [(11, 30)],                      # one pair for two layers
+    [(11, 30), (30, 7), (7, 17)],    # three pairs for two layers
+    [(11, 30), (29, 7)],             # layer 1 does not take layer 0's out
+    [(0, 30), (30, 7)],              # a width below 1
+    [(11, 33), (33, 7)],             # a width above F = 32
+    [(11, 30, 2), (30, 7)],          # not a pair
+    [(11.0, 30), (30, 7)],           # not ints
+    [(11, 30), (30, -7)],            # a negative width
+])
+def test_stack_widths_are_checked(widths):
+    args = port_args(widths_inputs(2, "fp32", [(11, 30), (30, 7)]))
+    with pytest.raises(ValueError):
+        LO.fused_layer_stack(*args, kind="gcn", widths=widths)
+    with pytest.raises(ValueError):
+        LR.fused_layer_stack_ref(*args, kind="sage", widths=widths)
+    assert LR.resolve_widths(None, 32, 2) == [(32, 32), (32, 32)]
+    assert LR.resolve_widths([(11, 30), (30, 7)], 32, 2) == [(11, 30),
+                                                              (30, 7)]
+
+
+def test_stack_call_work_prices_the_widths():
+    args = port_args(widths_inputs(3, "fp32", [(11, 30), (30, 7)]))
+    dims = [(11, 30), (30, 7)]
+    for kind in RESIDENT_KINDS:
+        assert _cost.stack_call_work(*args, kind=kind, widths=dims) \
+            == _cost.stack_work(args, kind, True, dims)
+        assert _cost.stack_call_work(*args, kind=kind) \
+            == _cost.stack_work(args, kind, True, [(32, 32)] * 2)
+        assert _cost.stack_call_work(*args, kind=kind, widths=dims)[1] \
+            < _cost.stack_call_work(*args, kind=kind)[1]
 
 
 # -------------------------------------------------------- model level --
@@ -298,6 +394,29 @@ def test_resident_prebuilt_stacks_match_per_batch_build(conv):
     with pytest.raises(ValueError, match="fusion_depth"):
         port_run(TG.apply_packed_resident, params, tcfg, batch,
                  fusion_depth=2, stacks=TG.resident_stacks(params, tcfg, 3))
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_resident_passes_layer_dims(monkeypatch, depth):
+    """``apply_packed_resident`` runs each fused group at its layers'
+    real widths: the kernel is called with ``widths`` =
+    ``layer_dims(cfg)`` of the group's layers."""
+    cfg = reduced_cfg("sage")
+    _, tcfg, params = both_params(cfg)
+    calls = []
+    real = TG.fused_layer_stack
+
+    def capture(*args, **kw):
+        calls.append((args[8].shape[0], kw.get("widths")))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TG, "fused_layer_stack", capture)
+    port_run(TG.apply_packed_resident, params, tcfg, packed_batch(),
+             fusion_depth=depth)
+    dims = TG.layer_dims(tcfg)
+    want = [dims[:2], dims[2:]] if depth == 2 else [dims]
+    assert [k for k, _ in calls] == [len(w) for w in want]
+    assert [w for _, w in calls] == want
 
 
 def test_resident_stacks_reject_other_convs():
@@ -418,3 +537,37 @@ def test_cuda_resident_model_matches_layerwise(cuda_device):
             got = TG.apply_packed_resident(params, cfg, batch)
             want = TG.apply_packed(params, cfg, batch)
         output_scale_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("kind", RESIDENT_KINDS)
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_stack_widths_match_plain_and_default(cuda_device, kind, mode):
+    """The kernel at the layers' real widths against the plain version
+    with the same widths and against the kernel without them, with a
+    sigmoid stack's padding columns as the plain version writes them: at
+    row counts that give the blocks chunks of 16 to 128 rows, and on a
+    table too wide for resident weights
+    (F = 160, the weight ring) and one (F = 128, SAGE without widths)
+    where the ring takes taller chunks."""
+    paper = [(11, 128), (128, 64)]
+    # on 132 SMs: 16, 32, 64 and 128 rows a block (GCN: 1, 2, 4 and 8 rows
+    # a thread)
+    for f, dims, n in ((32, MODEL_DIMS, 300), (128, paper, 300),
+                       (128, paper, 4000), (128, paper, 6600),
+                       (128, paper, 16896),
+                       (160, [(150, 160), (160, 37)], 300)):
+        inp = widths_inputs(f + len(mode), mode, dims, f=f, n=n, e=3 * n)
+        args = port_args(inp, cuda_device)
+        for act in ("relu", "sigmoid"):
+            want = LR.fused_layer_stack_ref(*args, kind=kind, widths=dims,
+                                            activation=act)
+            got = LK.fused_layer_stack_cuda(*args, kind=kind,
+                                            activation=act, widths=dims)
+            default = LK.fused_layer_stack_cuda(*args, kind=kind,
+                                                activation=act)
+            torch.cuda.synchronize()
+            check_tol(got.cpu().numpy(), want.cpu().numpy(), mode)
+            check_tol(got.cpu().numpy(), default.cpu().numpy(), mode)
+            np.testing.assert_array_equal(
+                got[:, dims[-1][1]:].cpu().numpy(),
+                want[:, dims[-1][1]:].cpu().numpy())
