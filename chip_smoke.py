@@ -20,15 +20,20 @@ Phases, in order; any failure exits non-zero with no result line:
    kernels on the same cases and storage types at every tile pair of
    ``ONEHOT_TILES`` (node_block {32, 64, 128} x edge_block {64, 128,
    256}), against their plain versions to the same tolerances and, in
-   fp32, bit for bit against the CSR kernels' outputs; also on the
+   fp32, bit for bit against the CSR kernels' outputs. The CSR segment
+   kernel also launched once for each agg set of ``MULTI_AGGS`` (the
+   pooling set, PNA's four towers, all six) at every storage type: each
+   slice bit for bit the single-agg launch's output and within the same
+   tolerances of the plain version. The one-hot kernels also on the
    streams that stress their bucketing (``ADVERSARIAL``: a hub of ~4500
    edges, every edge into one node tile, a reversed stream, every id
    dropped, S = 1, S = 301 that no tile divides). The segment-softmax
    kernel: both GAT layers' logits at both serving shapes and the edge
    cases (a prime edge count, -1 and >= S ids, ``valid == False``, an
-   empty, a one-edge and a several-thousand-edge segment, +-1e4, -inf
-   and all -inf logits), to rtol 1e-5, atol 1e-7, with exact 0 wherever
-   the plain version gives 0 and every weight finite. The resident
+   empty, a one-edge and a several-thousand-edge segment, which the
+   kernel and its plain version both fold in 32 parts, +-1e4, -inf and
+   all -inf logits), to rtol 1e-5, atol 1e-7, with exact 0 wherever the
+   plain version gives 0 and every weight finite. The resident
    layer-stack kernel: GCN and SAGE x fp32/bf16/int8 precision rows x
    skip on/off, each without and with real layer widths (``widths=``),
    at the path's shapes (both full-width layers, K = 2, at 32, 256 and
@@ -44,7 +49,8 @@ Phases, in order; any failure exits non-zero with no result line:
    ``repro_torch.launch.serve --conv``: 256 requests at 32 graphs per
    batch and 20480 at 1024 (20 measured batches), and for GCN also 2048
    at 1024. Every request is served with finite outputs; each batch
-   launches each kernel exactly as ``LAUNCHES_PER_BATCH`` says (the
+   launches each kernel exactly as ``LAUNCHES_PER_BATCH`` says (one
+   segment launch for the pooling set, one for PNA's four towers; the
    counts are zeroed just before each drain and read just after); the
    first batch matches the port's CPU plain path with the same weights
    (atol 1e-4, rtol 1e-4). Then GCN and SAGE through
@@ -66,7 +72,12 @@ Phases, in order; any failure exits non-zero with no result line:
    (which synchronises with the host; its time includes that), one
    PyTorch library call computing the same function where there is one,
    and the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32;
-   the H100 SXM data sheet); the resident stack runs as the model calls
+   the H100 SXM data sheet); the segment kernel's pooling set and PNA's
+   towers run as one launch each, as the model calls them (their library
+   call: one ``scatter_reduce_`` per agg, none with std), and beside it
+   each agg alone (rows off the batch's path, not in the summary's
+   per-batch sums); the softmax also on phase 3's 3000-edge hub (off the
+   path); the resident stack runs as the model calls
    it, at the real layer widths (held first against its plain version
    and against the kernel without widths), its bound counts the work at
    those widths (``stack_work``), and its time stands beside the same
@@ -157,6 +168,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.core.convs import PNA_AGGS  # noqa: E402
 from repro_torch.kernels._cost import (  # noqa: E402
     gather_onehot_work, gather_work, nbytes, segment_onehot_work,
     segment_work, softmax_work, stack_work)
@@ -174,21 +186,33 @@ KERNELS = ("fused_gather_aggregate", "segment_aggregate", "segment_softmax",
            "segment_aggregate_onehot")
 # kernel launches per served batch of apply_packed, in KERNELS order
 LAUNCHES_PER_BATCH = {
-    "gcn": (2, 3, 0, 0, 0, 0),   # a scaled gather per layer; pooling
-    "sage": (2, 3, 0, 0, 0, 0),  # a mean gather per layer; pooling
-    "gin": (0, 5, 0, 0, 0, 0),   # an edge-message sum per layer; pooling
-    "pna": (0, 11, 0, 0, 0, 0),  # mean/min/max/std towers per layer; pooling
-    "gat": (2, 3, 2, 0, 0, 0),   # a softmax and a weighted gather per layer
+    "gcn": (2, 1, 0, 0, 0, 0),   # a scaled gather per layer; pooling
+    "sage": (2, 1, 0, 0, 0, 0),  # a mean gather per layer; pooling
+    "gin": (0, 3, 0, 0, 0, 0),   # an edge-message sum per layer; pooling
+    "pna": (0, 3, 0, 0, 0, 0),   # the four towers per layer; pooling
+    "gat": (2, 1, 2, 0, 0, 0),   # a softmax and a weighted gather per layer
 }
+# the agg sets one segment_aggregate launch folds on the serving path
+# (the pooling set add/mean/max; PNA's four towers), and all six, which
+# phase 3 launches beside the single-agg calls
+POOLING_AGGS = ("sum", "mean", "max")
+MULTI_AGGS = (POOLING_AGGS, PNA_AGGS,
+              ("sum", "mean", "min", "max", "var", "std"))
 # the same batch under aggregation_scope(gather_mode="onehot")
 # (Project(agg_backend="pallas", gather_mode="onehot")): the gathers and
-# segment aggregations move to the one-hot kernels, GAT keeps its softmax
+# segment aggregations move to the one-hot kernels, one launch per agg
+# (a pooling set is three, PNA's towers four a layer); GAT keeps its
+# softmax
 ONEHOT_LAUNCHES_PER_BATCH = {
-    conv: (0, 0, t[2], t[3], t[0], t[1])
-    for conv, t in LAUNCHES_PER_BATCH.items()}
+    "gcn": (0, 0, 0, 0, 2, 3),
+    "sage": (0, 0, 0, 0, 2, 3),
+    "gin": (0, 0, 0, 0, 0, 5),
+    "pna": (0, 0, 0, 0, 0, 11),
+    "gat": (0, 0, 2, 0, 2, 3),
+}
 # per batch of apply_packed_resident(fusion_depth=2) when the plan is
 # legal: both layers in one stack launch, then the pooling
-RESIDENT_LAUNCHES = (0, 3, 0, 1, 0, 0)
+RESIDENT_LAUNCHES = (0, 1, 0, 1, 0, 0)
 RESIDENT_CONVS = ("gcn", "sage")
 RESIDENT_BATCHES = (32, 256, 1024)
 # the one-hot kernels' tiles (node_block, edge_block) phase 3 launches
@@ -199,6 +223,10 @@ ONEHOT_DEFAULT_TILES = (128, 128)     # Project's node_block, edge_block
 # BLAS) can land a value on the neighbouring grid point, and a later
 # layer's rounding of a value so moved can move it one step more
 FIXED_GRID_STEPS = 2
+# the scatter_reduce_ reduction of each agg, the library yardstick of the
+# segment kernels (var/std have none)
+LIB_REDUCE = {"sum": "sum", "mean": "mean", "min": "amin", "max": "amax",
+              "var": None, "std": None}
 NO_LIBRARY = {
     "segment_softmax": "no single PyTorch call computes a per-segment "
                        "softmax",
@@ -796,12 +824,14 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
         seg32 = seg32.contiguous()
         for dt in dtypes:
             xt = storage(x, dt, rng)
+            single, plain = {}, {}
             for agg in SEGMENT_AGGS:
                 got = segment_aggregate_cuda(xt, csr.perm, csr.offsets,
                                              agg=agg)
                 want = segment_aggregate_ref(xt, csr.perm, csr.offsets,
                                              agg=agg)
                 compare("segment_aggregate", agg, got, want, errs)
+                single[agg], plain[agg] = got, want
                 n_cmp += 1 + onehot_vs(
                     "segment_aggregate_onehot", agg,
                     lambda eb, nb: segment_aggregate_onehot_cuda(
@@ -809,6 +839,22 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
                         node_block=nb),
                     segment_aggregate_onehot_ref(xt, seg32, s, agg=agg),
                     got, dt == torch.float32, label)
+            # one launch for a set of aggs: each slice bit for bit the
+            # single-agg launch's output, and within the tolerances of
+            # the plain version
+            for aggs in MULTI_AGGS:
+                multi = segment_aggregate_cuda(xt, csr.perm, csr.offsets,
+                                               agg=aggs)
+                f = x.shape[1]
+                for i, agg in enumerate(aggs):
+                    part = multi[:, i * f:(i + 1) * f].contiguous()
+                    check(torch.equal(part.view(torch.int32),
+                                      single[agg].view(torch.int32)),
+                          f"segment_aggregate {label} {dt} {aggs}: {agg} "
+                          "not bit for bit the single-agg launch")
+                    compare("segment_aggregate", agg, part, plain[agg],
+                            errs)
+                n_cmp += 1
     for label, z, perm, off in softmax_cases(dev, rng, path_batches):
         got = segment_softmax_cuda(z, perm, off)
         want = segment_softmax_ref(z, perm, off)
@@ -1054,7 +1100,6 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
     from repro_torch.configs.gnn import benchmark_config
     from repro_torch.core import aggregations as A
     from repro_torch.core import gnn_model as G
-    from repro_torch.core.convs import PNA_AGGS
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
         fused_gather_aggregate_cuda, fused_gather_onehot_cuda)
     from repro_torch.kernels.fused_gather_aggregate.ref import (
@@ -1076,10 +1121,12 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
     rows = []
 
     def row(kernel, conv, label, shape, kern, plain, lib, bytes_moved,
-            flops, **extra):
+            flops, path=True, **extra):
+        """``path``: the call is one the served batch makes (the per-batch
+        sums of the summary add up these rows only)."""
         bound, by = bound_ms(bytes_moved, flops)
         rows.append(dict(
-            kernel=kernel, conv=conv, batch=label, shape=shape,
+            kernel=kernel, conv=conv, batch=label, shape=shape, path=path,
             ms=cuda_ms(kern),
             plain_ms=cuda_ms(plain, reps=21, inner=2, device_only=False),
             library_ms=None if lib is None else cuda_ms(lib),
@@ -1107,19 +1154,23 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
                 lambda: torch.sparse.mm(adj, x),
                 *gather_work(x, src, scale, csr.perm, csr.offsets))
 
-    def segment_row(conv, label, shape, x, csr, s, agg, idx, lib_reduce):
-        lib = None if lib_reduce is None else (
-            lambda: torch.empty((s + 1, x.shape[1]), device=dev)
-            .scatter_reduce_(0, idx, x, lib_reduce, include_self=False))
+    def segment_row(conv, label, shape, x, csr, s, agg, idx, path):
+        """One launch of one agg or (a tuple) of a set of aggs; the
+        library yardstick is one ``scatter_reduce_`` per agg (none where
+        an agg has none)."""
+        aggs = (agg,) if isinstance(agg, str) else agg
+        reduces = [LIB_REDUCE[a] for a in aggs]
+        lib = None if None in reduces else (
+            lambda: [torch.empty((s + 1, x.shape[1]), device=dev)
+                     .scatter_reduce_(0, idx, x, r, include_self=False)
+                     for r in reduces])
         row("segment_aggregate", conv, label, shape,
             lambda: segment_aggregate_cuda(x, csr.perm, csr.offsets,
                                            agg=agg),
             lambda: segment_aggregate_ref(x, csr.perm, csr.offsets,
                                           agg=agg),
-            lib, *segment_work(x, csr.perm, csr.offsets, agg))
+            lib, *segment_work(x, csr.perm, csr.offsets, agg), path=path)
 
-    lib_reduce = {"sum": "sum", "mean": "mean", "min": "amin",
-                  "max": "amax", "std": None}
     for label, batch in path_batches:
         b = G.packed_to_device(batch, dev)
         g, _, node_mask, gid = G.packed_inputs(b)
@@ -1141,9 +1192,14 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
         idx = torch.where(node_mask, gid.long(),
                           torch.full_like(gid.long(), ng))[:, None].expand(
                               n, f).contiguous()
-        for agg in ("sum", "mean", "max"):
+        # the pooling set in one launch (the path's), beside each method
+        # alone
+        segment_row("gcn", label, f"{'+'.join(POOLING_AGGS)} pooling, one "
+                    f"launch: rows={n} S={ng} F={f}", x, pcsr, ng,
+                    POOLING_AGGS, idx, True)
+        for agg in POOLING_AGGS:
             segment_row("gcn", label, f"{agg} pooling: rows={n} S={ng} "
-                        f"F={f}", x, pcsr, ng, agg, idx, lib_reduce[agg])
+                        f"F={f}", x, pcsr, ng, agg, idx, False)
         # the same GCN batch on the one-hot schedule, at the default tiles
         # of Project(gather_mode="onehot"): the same function, so the same
         # bound and library call as the CSR kernels' rows
@@ -1164,8 +1220,8 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
                 steps=lambda: steps)
         pseg = torch.where(node_mask, gid, torch.full_like(gid, -1))
         psteps = -(-ng // nb_) * -(-n // eb_)
-        for agg in ("sum", "mean", "max"):
-            lib = lib_reduce[agg]
+        for agg in POOLING_AGGS:
+            lib = LIB_REDUCE[agg]
             row("segment_aggregate_onehot", "gcn", label,
                 f"{agg} pooling: rows={n} S={ng} F={f}, tiles ({nb_}, "
                 f"{eb_}): {psteps} steps",
@@ -1203,11 +1259,23 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
             idx = torch.where(ok, ei[:, 1].long(),
                               torch.full_like(ei[:, 1].long(), n))[
                                   :, None].expand(-1, f).contiguous()
+            shape = f"layer {layer}: rows={ei.shape[0]} (valid " \
+                    f"{n_valid}) S={n} F={f}"
+            segment_row("pna", label, f"PNA towers "
+                        f"{'+'.join(PNA_AGGS)}, one launch, {shape}", msg,
+                        csr, n, PNA_AGGS, idx, True)
             for agg in PNA_AGGS:
-                segment_row("pna", label, f"PNA {agg} tower, layer {layer}:"
-                            f" rows={ei.shape[0]} (valid {n_valid}) S={n} "
-                            f"F={f}", msg, csr, n, agg, idx,
-                            lib_reduce[agg])
+                segment_row("pna", label, f"PNA {agg} tower, {shape}", msg,
+                            csr, n, agg, idx, False)
+    # the softmax on a hub: a segment of 3000 edges among 256 others
+    # (phase 3's edge case), off the served path
+    _, z, perm, off = softmax_cases(dev, np.random.default_rng(3), [])[0]
+    row("segment_softmax", "gat", "hub",
+        f"hub: E={z.numel()} S={off.numel() - 1}, one segment of "
+        f"{int((off[1:] - off[:-1]).max())} edges",
+        lambda: segment_softmax_cuda(z, perm, off),
+        lambda: segment_softmax_ref(z, perm, off), None,
+        *softmax_work(z, perm, off), path=False)
     # the resident stack: both layers of the full-width model in one
     # launch at the model's real widths, as apply_packed_resident calls
     # it (held against the plain version and against the kernel without
@@ -1255,7 +1323,8 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
              f"widths {r['padded_ms']:.5f} ms" if "layerwise_ms" in r else ""
         st = f", {r['ms'] / r['steps'] * 1e6:.2f} ns per step" \
             if "steps" in r else ""
-        print(f"[6] {r['kernel']} {r['batch']} {r['shape']}: kernel "
+        off = "" if r["path"] else " (off the batch's path)"
+        print(f"[6] {r['kernel']} {r['batch']} {r['shape']}{off}: kernel "
               f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
               f"{lib}, bound {r['bound_ms']:.6f} ms ({r['bound_by']}){lw}"
               f"{st}")
@@ -2027,7 +2096,7 @@ def summarize(rows, errs, launches) -> dict:
     out = []
     for i, (name, m) in enumerate(meta.items()):
         sel = [r for r in rows if r["kernel"] == name and r["batch"] == last
-               and r["conv"] == m["conv"]]
+               and r["conv"] == m["conv"] and r["path"]]
         table = ONEHOT_LAUNCHES_PER_BATCH if name.endswith("onehot") \
             else LAUNCHES_PER_BATCH
         per_batch = RESIDENT_LAUNCHES[i] if name == "fused_layer_stack" \

@@ -10,7 +10,9 @@ kernels' sequential edge loop does, and reach them through a CSR:
 ``build_csr`` stable-sorts the stream by segment id once, and the same
 CSR serves every aggregation over that stream (every layer's gather,
 segment sum, PNA tower and GAT softmax share the edge CSR; the three
-poolings share the node CSR). Invalid elements — a segment id out of
+poolings share the node CSR). ``segment_aggregates`` folds several aggs
+of one stream in one launch that reads each row once (the pooling set,
+PNA's four towers). Invalid elements — a segment id out of
 [0, num_segments), ``valid == False``, or for the gather a source id out
 of [0, N) — are left out of the CSR, so they are dropped outright.
 
@@ -149,6 +151,35 @@ def segment_aggregate(agg: str, messages: torch.Tensor,
         csr = build_csr(seg_ids, num_segments, valid)
     return _segment_aggregate(messages.contiguous(), csr.perm, csr.offsets,
                               agg=agg)
+
+
+def segment_aggregates(aggs, messages: torch.Tensor, seg_ids: torch.Tensor,
+                       num_segments: int,
+                       valid: torch.Tensor | None = None, *,
+                       csr: SegmentCSR | None = None) -> torch.Tensor:
+    """Several aggs of one stream -> (num_segments, len(aggs) * F)
+    float32: ``segment_aggregate(aggs[i], ...)`` in columns i * F ...
+    (i + 1) * F. Under ``"dma"`` one launch reads each row once for all
+    of them (an agg named twice is folded once and its columns copied);
+    the one-hot schedule keeps one launch per agg."""
+    aggs = tuple(aggs)
+    for agg in aggs:
+        if agg not in AGGREGATIONS:
+            raise ValueError(agg)
+    if _KNOBS.get().gather_mode == "onehot":
+        return torch.cat([segment_aggregate(a, messages, seg_ids,
+                                            num_segments, valid)
+                          for a in aggs], dim=-1)
+    if csr is None:
+        csr = build_csr(seg_ids, num_segments, valid)
+    once = tuple(dict.fromkeys(aggs))
+    out = _segment_aggregate(messages.contiguous(), csr.perm, csr.offsets,
+                             agg=once)
+    if once == aggs:
+        return out
+    f = messages.shape[1]
+    return torch.cat([out[:, once.index(a) * f:(once.index(a) + 1) * f]
+                      for a in aggs], dim=-1)
 
 
 def gather_aggregate(agg: str, x: torch.Tensor, src: torch.Tensor,

@@ -389,8 +389,8 @@ def pna_apply(params: dict, g: dict, x: torch.Tensor,
     """Principal Neighbourhood Aggregation: message MLP phi([x_v, x_u,
     e]), four aggregators (mean/min/max/std) x three degree scalers, then
     gamma on [x_v, towers]. The concatenation orders fix the meaning of
-    the weights carried over from the reference. The four towers walk
-    one CSR."""
+    the weights carried over from the reference. The four towers are one
+    aggregation over one CSR (one launch reads each message once)."""
     src, dst = edge_endpoints(g)
     n = x.shape[0]
     feats = [_gather(x, dst), _gather(x, src)]
@@ -400,9 +400,9 @@ def pna_apply(params: dict, g: dict, x: torch.Tensor,
     csr = g.get("edge_csr")
     if csr is None:
         csr = agg_mod.build_csr(dst, n, g["valid_e"])
-    towers = [agg_mod.segment_aggregate(a, msg, dst, n, g["valid_e"],
-                                        csr=csr)
-              for a in PNA_AGGS]
+    towers = agg_mod.segment_aggregates(
+        PNA_AGGS, msg, dst, n, g["valid_e"], csr=csr).split(msg.shape[1],
+                                                             dim=-1)
     deg = torch.clamp(g["in_deg"], min=1.0)
     logd = torch.log(deg + 1.0)[:, None]
     scaled = []

@@ -4,8 +4,10 @@ formats:
 
 * ``global_pool(ing)``: one padded graph, a masked dense reduction ->
   (F,) (the padded per-graph oracle, ``gnn_model.apply``);
-* ``segment_global_pool(ing)``: a packed batch, one segment aggregation
-  keyed by the per-node graph id -> (num_graphs, F).
+* ``segment_global_pool(ing)``: a packed batch, segment aggregation
+  keyed by the per-node graph id -> (num_graphs, F); the methods of a
+  ``segment_global_pooling`` are one aggregation that reads the nodes
+  once.
 
 Empty or fully padded graphs give zeros in both.
 """
@@ -13,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.aggregations import SegmentCSR, segment_aggregate
+from repro_torch.core.aggregations import (SegmentCSR, segment_aggregate,
+                                           segment_aggregates)
 
 _SEGMENT_AGG = {"add": "sum", "sum": "sum", "mean": "mean", "max": "max"}
 
@@ -56,9 +59,12 @@ def segment_global_pooling(kinds, x: torch.Tensor, graph_id: torch.Tensor,
                            num_graphs: int,
                            node_valid: torch.Tensor | None = None, *,
                            csr: SegmentCSR | None = None) -> torch.Tensor:
-    """Concatenated pooling -> (num_graphs, len(kinds) * F). ``csr``
+    """Concatenated pooling -> (num_graphs, len(kinds) * F), one
+    ``aggregations.segment_aggregates`` call over the methods. ``csr``
     (``aggregations.build_csr`` over graph_id) is shared by every
     method."""
-    return torch.cat([segment_global_pool(k, x, graph_id, num_graphs,
-                                          node_valid, csr=csr)
-                      for k in kinds], dim=-1)
+    for k in kinds:
+        if k not in _SEGMENT_AGG:
+            raise ValueError(k)
+    return segment_aggregates([_SEGMENT_AGG[k] for k in kinds], x, graph_id,
+                              num_graphs, node_valid, csr=csr)

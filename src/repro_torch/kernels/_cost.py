@@ -95,19 +95,36 @@ def gather_onehot_work(x, src, dst, scale, num_segments, **_) -> tuple:
 
 
 def _segment_work(messages, n_valid: int, num_segments: int,
-                  agg: str) -> tuple:
-    """The valid rows with their 4-byte id, the (S + 1) offsets and the
-    (S, F) output; a fold per element (four operations for Welford)."""
+                  aggs: tuple) -> tuple:
+    """The valid rows with their 4-byte id, read once, the (S + 1)
+    offsets and an (S, F) output per agg; per element a fold for each of
+    sum (mean shares it), min and max, and four operations for Welford
+    (var and std share it)."""
     f = messages.shape[1]
     moved = (n_valid * (f * messages.element_size() + 4)
-             + 4 * (num_segments + 1) + 4 * num_segments * f)
-    return moved, (4.0 if agg in ("var", "std") else 1.0) * n_valid * f
+             + 4 * (num_segments + 1) + 4 * num_segments * f * len(aggs))
+    have = set(aggs)
+    folds = (bool(have & {"sum", "mean"}) + ("min" in have)
+             + ("max" in have) + 4 * bool(have & {"var", "std"}))
+    return moved, float(folds) * n_valid * f
 
 
-def segment_work(messages, perm, offsets, agg: str = "sum", **_) -> tuple:
-    """A segment aggregation over a CSR (``ops.segment_aggregate``)."""
+def segment_multi_work(messages, perm, offsets, aggs: tuple,
+                       **_) -> tuple:
+    """One launch of several aggs over the same CSR
+    (``ops.segment_aggregate`` with a tuple): the rows read once, A
+    outputs written."""
     return _segment_work(messages, _valid_count(offsets),
-                         offsets.numel() - 1, agg)
+                         offsets.numel() - 1, tuple(aggs))
+
+
+def segment_work(messages, perm, offsets, agg="sum", **_) -> tuple:
+    """A segment aggregation over a CSR (``ops.segment_aggregate``): one
+    agg, or a tuple of them (``segment_multi_work``)."""
+    if not isinstance(agg, str):
+        return segment_multi_work(messages, perm, offsets, agg)
+    return _segment_work(messages, _valid_count(offsets),
+                         offsets.numel() - 1, (agg,))
 
 
 def segment_onehot_work(messages, seg_ids, num_segments, agg: str = "sum",
@@ -115,7 +132,7 @@ def segment_onehot_work(messages, seg_ids, num_segments, agg: str = "sum",
     """The same function on the raw id stream
     (``ops.segment_aggregate_onehot``): the same rows, the same work."""
     n_valid = int(((seg_ids >= 0) & (seg_ids < num_segments)).sum())
-    return _segment_work(messages, n_valid, num_segments, agg)
+    return _segment_work(messages, n_valid, num_segments, (agg,))
 
 
 def softmax_work(logits, perm, offsets, **_) -> tuple:

@@ -15,62 +15,23 @@ that the CPU tests can hold every geometry to covering each output once.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._geometry import (  # noqa: F401 (re-exported)
+    MAX_WARPS_PER_SM, MIN_WARPS_PER_SM, WARP, WARPS_PER_BLOCK, Geometry,
+    coverage, lane_geometry)
 
 AGGS = ("sum", "mean", "min", "max", "var", "std")
 # no dequant scale rides with the table, so an int8 result would be a
 # truncating cast of the fp32 fold: int8 tables are refused
 DTYPES = (torch.float32, torch.bfloat16)
 
-WARP = 32
-WARPS_PER_BLOCK = 8          # kWarpsPerBlock in csrc/common.cuh
-# below this many warps a SM, a lane takes fewer columns (more warps)
-MIN_WARPS_PER_SM = 4
-# above this many warps a SM (four waves of 64 resident warps), a warp
-# walks several row groups in series
-MAX_WARPS_PER_SM = 256
-
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
              ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-
-
-@dataclasses.dataclass(frozen=True)
-class Geometry:
-    """One launch of the kernel: a lane owns ``cols_per_lane``
-    consecutive columns, a row takes ``lanes_per_row`` lanes (so a warp
-    folds ``32 // lanes_per_row`` rows at once), a row splits into
-    ``col_groups`` column groups of ``lanes_per_row * cols_per_lane``
-    columns, and a warp folds ``rows_per_warp`` rows of one column group
-    (``passes`` row groups in series). ``warps`` warps have work, in
-    ``blocks`` blocks of 8 warps."""
-    cols_per_lane: int
-    lanes_per_row: int
-    col_groups: int
-    rows_per_warp: int
-    warps: int
-    blocks: int
-
-    @property
-    def rows_at_once(self) -> int:
-        return WARP // self.lanes_per_row
-
-    @property
-    def passes(self) -> int:
-        return self.rows_per_warp // self.rows_at_once
-
-
-def _pow2_at_least(v: int) -> int:
-    p = 1
-    while p < v:
-        p *= 2
-    return p
 
 
 def launch_geometry(n: int, f: int, k: int, sms: int,
@@ -91,51 +52,9 @@ def launch_geometry(n: int, f: int, k: int, sms: int,
     if n < 1 or f < 0 or k < 0 or sms < 1 or elem_bytes not in (2, 4):
         raise ValueError(f"no geometry for N={n}, F={f}, K={k}, "
                          f"{sms} SMs, {elem_bytes}-byte elements")
-    width = max(f, 1)
-
-    def shape(cpl: int) -> tuple:
-        vecs = -(-width // cpl)
-        lanes = min(WARP, _pow2_at_least(vecs))
-        groups = -(-vecs // lanes)
-        row_groups = -(-n // (WARP // lanes))
-        return lanes, groups, row_groups, row_groups * groups
-
-    cpl = 16 // elem_bytes
-    while width % cpl:
-        cpl //= 2
-    while cpl > 1 and shape(cpl)[3] < MIN_WARPS_PER_SM * sms:
-        cpl //= 2
-    lanes, groups, row_groups, units = shape(cpl)
-    passes = max(1, -(-units // (MAX_WARPS_PER_SM * sms)))
-    warps = -(-row_groups // passes) * groups
-    return Geometry(cols_per_lane=cpl, lanes_per_row=lanes,
-                    col_groups=groups,
-                    rows_per_warp=passes * (WARP // lanes), warps=warps,
-                    blocks=-(-warps // WARPS_PER_BLOCK))
-
-
-def coverage(g: Geometry, n: int, f: int) -> np.ndarray:
-    """(N, F) count of the lanes that fold and store each output under
-    ``g``: the kernel's index arithmetic (warp -> column group and row
-    block, lane -> row and columns, passes) replayed in numpy. Every
-    entry is 1 for a geometry that covers the table."""
-    lane = np.arange(WARP, dtype=np.int64)[None, :, None, None]
-    p = np.arange(g.passes, dtype=np.int64)[None, None, :, None]
-    q = np.arange(g.cols_per_lane, dtype=np.int64)[None, None, None, :]
-    sub = lane % g.lanes_per_row
-    counts = np.zeros(n * f, np.int64)
-    step = 16384                                  # warps at a time
-    for w0 in range(0, g.warps, step):
-        warp = np.arange(w0, min(w0 + step, g.warps),
-                         dtype=np.int64)[:, None, None, None]
-        group, row_block = warp % g.col_groups, warp // g.col_groups
-        row = (row_block * g.passes + p) * g.rows_at_once \
-            + lane // g.lanes_per_row
-        col = (group * g.lanes_per_row + sub) * g.cols_per_lane + q
-        row, col = np.broadcast_arrays(row, col)
-        ok = (row < n) & (col < f)
-        counts += np.bincount(row[ok] * f + col[ok], minlength=n * f)
-    return counts.reshape(n, f)
+    return lane_geometry(
+        n, f, sms, 16 // elem_bytes,
+        lambda cpl, warps: warps < MIN_WARPS_PER_SM * sms)
 
 
 def check_inputs(x: torch.Tensor, nbr: torch.Tensor, agg: str,

@@ -3,9 +3,10 @@
 A CPU tensor takes the plain version (``ref.py``); any other tensor
 launches the CUDA kernel (``kernel.py``), which raises on what it does
 not take. ``segment_aggregate`` walks a segment CSR (the
-``gather_mode="dma"`` kernel), ``segment_aggregate_onehot`` the raw
-segment-id stream on the one-hot schedule (``gather_mode="onehot"``);
-each wrapper's ``launches`` counts its kernel's launches.
+``gather_mode="dma"`` kernel; one agg, or a tuple of aggs over the same
+rows in one launch), ``segment_aggregate_onehot`` the raw segment-id
+stream on the one-hot schedule (``gather_mode="onehot"``); each
+wrapper's ``launches`` counts its kernel's launches.
 """
 from __future__ import annotations
 
@@ -17,19 +18,21 @@ from repro_torch.kernels._cost import (priced, segment_onehot_work,
 from repro_torch.kernels.segment_aggregate.kernel import (
     segment_aggregate_cuda, segment_aggregate_onehot_cuda)
 from repro_torch.kernels.segment_aggregate.ref import (
-    segment_aggregate_onehot_ref, segment_aggregate_ref)
+    agg_set, segment_aggregate_onehot_ref, segment_aggregate_ref)
 
 
 @priced(segment_work)
 def segment_aggregate(messages: torch.Tensor, perm: torch.Tensor,
-                      offsets: torch.Tensor, *,
-                      agg: str = "sum") -> torch.Tensor:
+                      offsets: torch.Tensor, *, agg="sum") -> torch.Tensor:
     """out[s] = agg over the CSR's rows in s of messages[row] -> (S, F)
-    float32, S = len(offsets) - 1. No rows or no segments gives zeros
-    without a launch."""
+    float32, S = len(offsets) - 1. ``agg`` a tuple of distinct aggs:
+    one launch reads each row once for all of them -> (S, len(agg) * F),
+    agg i's result in columns i * F ... (i + 1) * F. No rows or no
+    segments gives zeros without a launch."""
+    width = messages.shape[1] * len(agg_set(agg))
     num_segments = offsets.numel() - 1
     if messages.shape[0] == 0 or num_segments <= 0:
-        return torch.zeros((max(num_segments, 0), messages.shape[1]),
+        return torch.zeros((max(num_segments, 0), width),
                            dtype=torch.float32, device=messages.device)
     if _build.runs_plain(messages):
         return segment_aggregate_ref(messages, perm, offsets, agg=agg)

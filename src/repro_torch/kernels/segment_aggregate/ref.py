@@ -4,8 +4,10 @@ Same inputs and results as ``kernel.segment_aggregate_cuda`` (over a
 segment CSR) and ``kernel.segment_aggregate_onehot_cuda`` (over the raw
 segment-id stream), and the same fold as both: each segment's rows in
 stream order, fp32 accumulate, Welford's update for var/std with the
-reference's finalize. The CPU path of the port runs them, and the
-kernels are held against them on the card.
+reference's finalize. ``segment_aggregate_ref`` also takes a tuple of
+aggs, the CUDA kernel's one launch for several aggs over the same rows:
+its result is the single-agg results side by side. The CPU path of the
+port runs them, and the kernels are held against them on the card.
 """
 from __future__ import annotations
 
@@ -17,11 +19,27 @@ from repro_torch.kernels._csr_ref import (csr_slots, finalize, fold,
 AGGS = ("sum", "mean", "min", "max", "var", "std")
 
 
+def agg_set(agg) -> tuple:
+    """The aggs of a call: one of ``AGGS``, or a non-empty tuple of
+    distinct ones."""
+    aggs = (agg,) if isinstance(agg, str) else tuple(agg)
+    if not aggs or len(set(aggs)) != len(aggs) \
+            or any(a not in AGGS for a in aggs):
+        raise ValueError(f"agg {agg!r}: one of {AGGS} or a tuple of "
+                         "distinct ones expected")
+    return aggs
+
+
 def segment_aggregate_ref(messages: torch.Tensor, perm: torch.Tensor,
                           offsets: torch.Tensor, *,
-                          agg: str = "sum") -> torch.Tensor:
-    if agg not in AGGS:
-        raise ValueError(f"agg {agg!r} not in {AGGS}")
+                          agg="sum") -> torch.Tensor:
+    """(S, F) float32 for one agg; for a tuple of aggs (S, len(agg) * F),
+    the single-agg results concatenated in the tuple's order."""
+    aggs = agg_set(agg)
+    if not isinstance(agg, str):
+        return torch.cat([segment_aggregate_ref(messages, perm, offsets,
+                                                agg=a) for a in aggs],
+                         dim=1)
     e, f = messages.shape
     num_segments = offsets.numel() - 1
     dev = messages.device

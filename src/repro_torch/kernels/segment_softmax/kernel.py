@@ -2,10 +2,14 @@
 (``csrc/segment_softmax.cu``), the port of the Pallas TPU kernels
 ``repro/kernels/segment_softmax/kernel.py``,
 ``segment_softmax_stats_pallas`` and the per-edge normalization of
-``segment_softmax_pallas``. The source carries the design note: one
-thread per segment over the stably sorted CSR, an online (max, exp-sum)
-fold in stream order in registers, then a second walk that writes the
-weights; the CSR's tail gets zeros.
+``segment_softmax_pallas``. The source carries the design note: a warp
+per run of 32 consecutive segments of the stably sorted CSR, the run's
+perm slice and logits staged in shared memory with every load in
+flight, each lane folding its segment's online (max, exp-sum) in stream
+order from the staged logits and writing its weights from them; a
+segment of more than ``ref.LONG`` edges (a hub) folded by the whole warp
+in 32 parts that merge in order (``ref.py`` folds it in the same parts);
+the CSR's tail gets zeros.
 """
 from __future__ import annotations
 

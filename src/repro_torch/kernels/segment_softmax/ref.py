@@ -4,8 +4,14 @@ Same inputs and result as ``kernel.segment_softmax_cuda``, and the same
 fold: each segment's logits in stream order through the online update of
 the Pallas kernel (``m' = max(m, z)``, ``l' = l·exp(m − m') + exp(z − m')``
 from ``m = NEG_INF``, ``l = 0``), then ``exp(z − m[seg]) / max(l[seg],
-TINY)`` for every edge in the CSR and 0 for every other edge. The CPU
-path of the port runs it, and the kernel is held against it on the card.
+TINY)`` for every edge in the CSR and 0 for every other edge. A segment
+of more than ``LONG`` edges (a hub) is folded as the kernel's whole warp
+folds it: its i-th edge goes to part ``(i // 4) % 32``, each part folds
+its edges in stream order with the same update, and the 32 parts' (m, l)
+merge in part order (``m' = max(m, m_j)``, ``l' = l·exp(m − m') +
+l_j·exp(m_j − m')``). The split depends on the segment's own edge list
+alone. The CPU path of the port runs it, and the kernel is held against
+it on the card.
 """
 from __future__ import annotations
 
@@ -15,6 +21,16 @@ from repro_torch.kernels._csr_ref import csr_slots
 
 NEG_INF = -1e30     # finite empty max: a -inf logit never meets -inf - -inf
 TINY = 1e-30        # denominator floor: empty segments divide by this
+# a segment of more edges is folded by the whole warp in PARTS parts of
+# RUN-consecutive edges each (kLong, kParts, kRun in the kernel)
+LONG = 128
+PARTS = 32
+RUN = 4
+
+
+def _fold(m, l, z):
+    m_new = torch.maximum(m, z)
+    return m_new, l * torch.exp(m - m_new) + torch.exp(z - m_new)
 
 
 def segment_softmax_stats_ref(logits: torch.Tensor, perm: torch.Tensor,
@@ -25,15 +41,30 @@ def segment_softmax_stats_ref(logits: torch.Tensor, perm: torch.Tensor,
     dev = logits.device
     m = torch.full((num_segments,), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((num_segments,), dtype=torch.float32, device=dev)
+    # the parts of the long segments (every segment has an entry; only
+    # the long ones use it), no in-place update: the plain version stays
+    # differentiable
+    pm, pl = [m] * PARTS, [l] * PARTS
+    long = (offsets[1:] - offsets[:-1]) > LONG
     z_all = logits.to(torch.float32)
-    for active, e in csr_slots(perm, offsets, logits.numel()):
+    for j, (active, e) in enumerate(csr_slots(perm, offsets,
+                                              logits.numel())):
         z = z_all[e]
-        m_new = torch.maximum(m, z)
-        corr = torch.exp(m - m_new)
-        p = torch.exp(z - m_new)
-        l = torch.where(active, l * corr + p, l)
-        m = torch.where(active, m_new, m)
-    return m, l
+        m_new, l_new = _fold(m, l, z)
+        short = active & ~long
+        l = torch.where(short, l_new, l)
+        m = torch.where(short, m_new, m)
+        part = (j // RUN) % PARTS
+        pm_new, pl_new = _fold(pm[part], pl[part], z)
+        hub = active & long
+        pl[part] = torch.where(hub, pl_new, pl[part])
+        pm[part] = torch.where(hub, pm_new, pm[part])
+    hm, hl = pm[0], pl[0]
+    for mj, lj in zip(pm[1:], pl[1:]):
+        m_new = torch.maximum(hm, mj)
+        hl = hl * torch.exp(hm - m_new) + lj * torch.exp(mj - m_new)
+        hm = m_new
+    return torch.where(long, hm, m), torch.where(long, hl, l)
 
 
 def segment_softmax_ref(logits: torch.Tensor, perm: torch.Tensor,

@@ -286,7 +286,7 @@ def test_build_is_keyed_by_the_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every pointer and the stream are declared as c_void_p
     for argtypes, pointers in ((GK._ARGTYPES, (0, 4, 5, 7, 8, 11, 12)),
-                               (SK._ARGTYPES, (0, 4, 5, 8, 9)),
+                               (SK._ARGTYPES, (0, 4, 5, 14, 15)),
                                (GK._ONEHOT_ARGTYPES,
                                 (0, 4, 5, 6, 12, 14, 15)),
                                (SK._ONEHOT_ARGTYPES, (0, 4, 9, 11, 12)),
@@ -299,8 +299,9 @@ def test_build_is_keyed_by_the_sources():
     # the one-hot kernels' scratch length is a 64-bit count
     assert GK._ONEHOT_ARGTYPES[13] is ctypes.c_longlong
     assert SK._ONEHOT_ARGTYPES[10] is ctypes.c_longlong
-    # and the padded-table kernel's warp count
+    # and the padded-table and segment kernels' warp counts
     assert PK._ARGTYPES[11] is ctypes.c_longlong
+    assert SK._ARGTYPES[12] is ctypes.c_longlong
 
 
 def test_codes_match_the_cuda_enums():
