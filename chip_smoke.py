@@ -20,7 +20,14 @@ Phases, in order; any failure exits non-zero with no result line:
    kernels on the same cases and storage types at every tile pair of
    ``ONEHOT_TILES`` (node_block {32, 64, 128} x edge_block {64, 128,
    256}), against their plain versions to the same tolerances and, in
-   fp32, bit for bit against the CSR kernels' outputs. The CSR segment
+   fp32, bit for bit against the CSR kernels' outputs. The CSR gather
+   also at every columns-a-lane cap of ``gather_geometry``
+   (``GATHER_CAPS``), at its default geometry on one SM and on a
+   row-offset view of x one element into its buffer (the wrapper caps
+   the columns a lane by the view's alignment), and with the edges in
+   flight forced to either batch (four loaded by each lane; the deep
+   batch, ids shared by shuffle), each bit for bit its default launch; its max |err| against the plain version is printed by
+   storage type. The CSR segment
    kernel also launched once for each agg set of ``MULTI_AGGS`` (the
    pooling set, PNA's four towers, all six) at every storage type: each
    slice bit for bit the single-agg launch's output and within the same
@@ -215,6 +222,9 @@ ONEHOT_LAUNCHES_PER_BATCH = {
 RESIDENT_LAUNCHES = (0, 1, 0, 1, 0, 0)
 RESIDENT_CONVS = ("gcn", "sage")
 RESIDENT_BATCHES = (32, 256, 1024)
+# the columns-a-lane caps (gather_geometry(..., max_cols=)) phase 3
+# launches the CSR gather at, beside its default geometry
+GATHER_CAPS = (1, 2, 4, 8)
 # the one-hot kernels' tiles (node_block, edge_block) phase 3 launches
 ONEHOT_TILES = tuple((nb, eb) for nb in (32, 64, 128) for eb in (64, 128, 256))
 ONEHOT_DEFAULT_TILES = (128, 128)     # Project's node_block, edge_block
@@ -428,7 +438,7 @@ def storage(x: torch.Tensor, dtype: torch.dtype,
 
 
 def compare(name: str, agg: str, got: torch.Tensor, want: torch.Tensor,
-            errs: dict) -> None:
+            errs: dict) -> float:
     check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} != "
                                    f"{tuple(want.shape)}")
     both = torch.isfinite(got) & torch.isfinite(want)
@@ -441,6 +451,7 @@ def compare(name: str, agg: str, got: torch.Tensor, want: torch.Tensor,
         # +-inf/NaN (sums of the +-3e38 rows) must sit at the same places
         check(torch.allclose(got, want, equal_nan=True, **SEGMENT_TOL),
               f"{name} {agg}: max |err| {err} outside {SEGMENT_TOL}")
+    return err
 
 
 def compare_softmax(label: str, got: torch.Tensor, want: torch.Tensor,
@@ -761,7 +772,7 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
     from repro_torch.core import aggregations as A
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
         AGGS as GATHER_AGGS, fused_gather_aggregate_cuda,
-        fused_gather_onehot_cuda)
+        fused_gather_onehot_cuda, gather_geometry)
     from repro_torch.kernels.fused_gather_aggregate.ref import (
         fused_gather_aggregate_ref, fused_gather_onehot_ref)
     from repro_torch.kernels.segment_aggregate.kernel import (
@@ -791,6 +802,39 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
                       "for bit the CSR kernel's output")
         return len(ONEHOT_TILES)
 
+    def gather_layouts(xt, src32, sc, csr, agg, base, label):
+        """The CSR gather at every columns-a-lane cap (``GATHER_CAPS``)
+        and at the default geometry on one SM (a warp walks its
+        destinations in series), and on a row-offset view of x one
+        element into its buffer (the wrapper caps the columns a lane by
+        its alignment), and with either batch of edges in flight forced:
+        each bit for bit the default launch ``base``, NaN payloads
+        included."""
+        s = csr.offsets.numel() - 1
+        n, f = xt.shape
+        shape = (s, f, xt.element_size())
+        geometries = [gather_geometry(*shape, sms, max_cols=c)
+                      for c in GATHER_CAPS] + [gather_geometry(*shape, 1)]
+        view = torch.empty(n * f + 1, dtype=xt.dtype, device=xt.device)[
+            1:].view(n, f)
+        view.copy_(xt)
+        outs = [(g, fused_gather_aggregate_cuda(
+            xt, src32, sc, csr.perm, csr.offsets, agg=agg, geometry=g))
+            for g in geometries]
+        outs.append(("a row-offset view", fused_gather_aggregate_cuda(
+            view, src32, sc, csr.perm, csr.offsets, agg=agg)))
+        outs += [(f"deep={deep}", fused_gather_aggregate_cuda(
+            xt, src32, sc, csr.perm, csr.offsets, agg=agg, deep=deep))
+            for deep in (False, True)]
+        for how, got in outs:
+            check(torch.equal(got.view(torch.int32),
+                              base.view(torch.int32)),
+                  f"fused_gather_aggregate {label} {xt.dtype} {agg} at "
+                  f"{how}: not bit for bit the default launch")
+        return len(outs)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gather_errs: dict = {}
     for label, x, src, dst, scale, n, s in gather_cases(dev, rng,
                                                         path_batches):
         csr = A.gather_csr(src, dst, n, s)
@@ -806,7 +850,9 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
                                                   csr.offsets, agg=agg)
                 want = fused_gather_aggregate_ref(xt, src32, sc, csr.perm,
                                                   csr.offsets, agg=agg)
-                compare("fused_gather_aggregate", agg, got, want, errs)
+                err = compare("fused_gather_aggregate", agg, got, want, errs)
+                gather_errs[dt] = max(gather_errs.get(dt, 0.0), err)
+                n_cmp += gather_layouts(xt, src32, sc, csr, agg, got, label)
                 n_cmp += 1 + onehot_vs(
                     "fused_gather_onehot", agg,
                     lambda eb, nb: fused_gather_onehot_cuda(
@@ -815,6 +861,11 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
                     fused_gather_onehot_ref(xt, src32, dst32, sc, s,
                                             agg=agg),
                     got, dt == torch.float32, label)
+    print("[3] fused_gather_aggregate against its plain version, max |err| "
+          "by storage: " + ", ".join(f"{str(dt).split('.')[-1]} {v:.3e}"
+                                     for dt, v in gather_errs.items())
+          + f"; bit for bit at every cap {GATHER_CAPS}, on one SM, on a "
+          "row-offset view and in either batch of edges in flight")
     for label, x, seg, valid, s, dtypes in segment_cases(dev, rng,
                                                          path_batches):
         csr = A.build_csr(seg, s, valid)
@@ -1096,6 +1147,15 @@ def gather_widths(conv: str) -> list:
     return widths
 
 
+def sparse_adj(ei, ok, w, n):
+    """The (n, n) CSR adjacency of a batch's valid edges with weights
+    ``w`` (row = destination): ``torch.sparse.mm(adj, x)`` is the library
+    yardstick of the gather kernels, the same function as a sum gather."""
+    return torch.sparse_coo_tensor(
+        torch.stack([ei[ok, 1], ei[ok, 0]]).long(), w[ok], (n, n),
+        check_invariants=True).coalesce().to_sparse_csr()
+
+
 def timing_phase(dev, path_batches, resident_batches) -> list:
     from repro_torch.configs.gnn import benchmark_config
     from repro_torch.core import aggregations as A
@@ -1132,11 +1192,6 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
             library_ms=None if lib is None else cuda_ms(lib),
             bound_ms=bound, bound_by=by,
             **{k: fn() for k, fn in extra.items()}))
-
-    def sparse_adj(ei, ok, w, n):
-        return torch.sparse_coo_tensor(
-            torch.stack([ei[ok, 1], ei[ok, 0]]).long(), w[ok], (n, n),
-            check_invariants=True).coalesce().to_sparse_csr()
 
     def gather_rows(conv, label, layers, src, scale, csr, n, adj, agg,
                     tag):

@@ -59,6 +59,7 @@
 // version's separate elementwise operations do.
 
 #include "common.cuh"
+#include "rows.cuh"
 
 namespace repro {
 namespace {
@@ -75,82 +76,12 @@ enum Need : int {
   kNeedAll = 15,
 };
 
-struct Geometry {
-  int lanes;       // lanes per segment, a power of two <= 32
-  int groups;      // column groups per segment (lanes * CPL columns each)
-  int passes;      // segment groups a warp walks in series
-  int warps;       // warps with work
-};
-
 // the output slot of each agg code (-1: not asked for): agg a's (S, F)
 // result lands in columns at[a] * F ... of the (S, count * F) output
 struct Slots {
   int at[6];
   int count;
 };
-
-// CPL elements of T (at most 16 bytes), kept raw while the load is in
-// flight: 4 registers at most, whatever the storage type
-template <typename T, int CPL>
-struct Raw {
-  static constexpr int kBytes = CPL * static_cast<int>(sizeof(T));
-  static constexpr int kWords = kBytes < 4 ? 1 : kBytes / 4;
-  uint32_t w[kWords];
-
-  // p is aligned to kBytes: F is a multiple of CPL (segment_geometry)
-  __device__ __forceinline__ void load(const T* p) {
-    if constexpr (kBytes == 16) {
-      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
-    } else if constexpr (kBytes == 8) {
-      const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-      w[0] = q.x; w[1] = q.y;
-    } else if constexpr (kBytes == 4) {
-      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
-    } else if constexpr (kBytes == 2) {
-      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
-    } else {
-      w[0] = __ldg(reinterpret_cast<const unsigned char*>(p));
-    }
-  }
-
-  // element q as fp32, exactly as to_float (common.cuh)
-  __device__ __forceinline__ float at(int q) const {
-    if constexpr (sizeof(T) == 4) {
-      return __uint_as_float(w[q]);
-    } else if constexpr (sizeof(T) == 2) {        // bf16: the high half
-      return __uint_as_float(((w[q / 2] >> (16 * (q % 2))) & 0xffffu) << 16);
-    } else {                                      // int8
-      return static_cast<float>(
-          static_cast<int8_t>((w[q / 4] >> (8 * (q % 4))) & 0xffu));
-    }
-  }
-};
-
-// CPL fp32 results at p, aligned to CPL floats
-template <int CPL>
-__device__ __forceinline__ void store(float* p, const float (&v)[CPL]) {
-  if constexpr (CPL % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < CPL / 4; ++i)
-      reinterpret_cast<float4*>(p)[i] =
-          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  } else if constexpr (CPL == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
-// rows loaded before the first of them is folded: kShallowBatch where
-// segments are short (edge messages, ~1.3 rows a node: fewer registers,
-// more warps resident), else 32 registers of raw rows a lane (pooling:
-// a graph's ~27 nodes at once); kernel.py, rows_in_flight
-constexpr int kShallowBatch = 4;
-template <typename T, int CPL>
-constexpr int deep_batch() {
-  return 32 / Raw<T, CPL>::kWords;
-}
 
 template <typename T, int CPL, int NEED, int BATCH>
 __global__ void __launch_bounds__(kThreadsPerBlock)
@@ -374,7 +305,7 @@ cudaError_t launch_typed(int cpl, int need, const Args& a) {
 // aligned to them), lanes_per_row lanes a segment (a power of two <=
 // 32), col_groups column groups a segment, passes segment groups a warp
 // and `warps` warps with work; deep = 1 keeps 32 registers of rows in
-// flight a lane, 0 four rows (kernel.py, rows_in_flight). Returns
+// flight a lane, 0 four rows (kernels/_geometry.py, rows_in_flight). Returns
 // cudaGetLastError() after the
 // launch (0 = launched), or cudaErrorInvalidValue for an unknown dtype,
 // an agg set or a geometry the kernel does not take.

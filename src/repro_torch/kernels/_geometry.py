@@ -1,7 +1,8 @@
 """Launch geometry of the kernels that fold rows of an output table in
 lanes: the padded-table aggregation (``gnn_aggregate``, an output row
-per node) and the CSR segment aggregation (``segment_aggregate``, an
-output row per segment).
+per node), the CSR segment aggregation (``segment_aggregate``, an
+output row per segment) and the CSR gather (``fused_gather_aggregate``,
+an output row per destination).
 
 Both kernels map a warp and a lane to output rows and columns with the
 same index arithmetic: a lane owns ``cols_per_lane`` consecutive
@@ -25,6 +26,42 @@ MIN_WARPS_PER_SM = 4
 # above this many warps a SM (four waves of 64 resident warps), a warp
 # walks several row groups in series
 MAX_WARPS_PER_SM = 256
+
+
+# rows a lane keeps in flight where segments are short (kShallowBatch in
+# csrc/rows.cuh)
+SHALLOW_BATCH = 4
+
+
+def rows_in_flight(cols_per_lane: int, elem_bytes: int,
+                   depth: int | None = None) -> int:
+    """Rows a lane of the CSR kernels (``segment_aggregate``,
+    ``fused_gather_aggregate``) loads before it folds the first of them:
+    ``SHALLOW_BATCH`` where the segments' mean length ``depth`` is at
+    most that (edge streams: fewer registers, more warps resident, each
+    lane loading its own ids), else 32 registers of raw rows
+    (``deep_batch``, ids shared by shuffle)."""
+    if depth is not None and depth <= SHALLOW_BATCH:
+        return SHALLOW_BATCH
+    return 32 // max(1, cols_per_lane * elem_bytes // 4)
+
+
+def aligned_cols(ptr: int, elem_bytes: int, max_cols: int) -> int:
+    """``max_cols`` capped by the alignment, in elements, of a table whose
+    data starts at ``ptr``: a row-offset view never takes a misaligned
+    vector load."""
+    return min(max_cols, (ptr & -ptr) // elem_bytes) if ptr else max_cols
+
+
+def check_cols(cols: int, f: int, elem_bytes: int, ptr: int,
+               max_cols: int) -> None:
+    """Raise unless a lane's ``cols`` columns can be one load from every
+    F-wide row of the table at ``ptr``: a divisor of F, at most 16 bytes
+    and ``max_cols``, aligned."""
+    if max(f, 1) % cols or cols * elem_bytes > 16 or cols > max_cols \
+            or ptr % (cols * elem_bytes):
+        raise ValueError(f"{cols} columns a lane do not fit F={f} rows of "
+                         f"{elem_bytes}-byte elements at {ptr:#x}")
 
 
 @dataclasses.dataclass(frozen=True)

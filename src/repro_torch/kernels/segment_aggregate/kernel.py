@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._geometry import (  # noqa: F401 (re-exported)
-    MIN_WARPS_PER_SM, Geometry, coverage, lane_geometry, pow2_at_most)
+    MIN_WARPS_PER_SM, SHALLOW_BATCH, Geometry, aligned_cols, check_cols,
+    coverage, lane_geometry, pow2_at_most, rows_in_flight)
 from repro_torch.kernels._onehot import scratch_layout
 from repro_torch.kernels.segment_aggregate.ref import AGGS, agg_set
 
@@ -44,22 +45,6 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
              ctypes.c_void_p]
-
-
-# rows a lane keeps in flight where segments are short (kShallowBatch)
-SHALLOW_BATCH = 4
-
-
-def rows_in_flight(cols_per_lane: int, elem_bytes: int,
-                   depth: int | None = None) -> int:
-    """Rows a lane loads before it folds the first of them
-    (``csrc/segment_aggregate.cu``): 32 registers of raw rows
-    (``deep_batch``), or ``SHALLOW_BATCH`` where the segments' mean
-    length ``depth`` is at most that (edge messages: fewer registers,
-    more warps resident)."""
-    if depth is not None and depth <= SHALLOW_BATCH:
-        return SHALLOW_BATCH
-    return 32 // max(1, cols_per_lane * elem_bytes // 4)
 
 
 def segment_geometry(num_segments: int, f: int, rows: int, elem_bytes: int,
@@ -130,16 +115,12 @@ def segment_aggregate_cuda(messages: torch.Tensor, perm: torch.Tensor,
                          "segment")
     es = messages.element_size()
     ptr = messages.data_ptr()
-    aligned = (ptr & -ptr) // es if ptr else MAX_COLS_PER_LANE
     g = geometry or segment_geometry(
         num_segments, f, perm.numel(), es,
         torch.cuda.get_device_properties(dev).multi_processor_count,
-        max_cols=min(aligned, MAX_COLS_PER_LANE))
+        max_cols=aligned_cols(ptr, es, MAX_COLS_PER_LANE))
     cpl = g.cols_per_lane
-    if max(f, 1) % cpl or cpl * es > 16 or cpl > MAX_COLS_PER_LANE \
-            or ptr % (cpl * es):
-        raise ValueError(f"{cpl} columns a lane do not fit F={f} rows of "
-                         f"{es}-byte elements at {ptr:#x}")
+    check_cols(cpl, f, es, ptr, MAX_COLS_PER_LANE)
     depth = -(-perm.numel() // num_segments)
     deep = rows_in_flight(cpl, es, depth) > SHALLOW_BATCH
     out = torch.empty((num_segments, len(aggs) * f), dtype=torch.float32,

@@ -21,7 +21,9 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# roots no port module may import (the kernels are CUDA C++, never
+# Triton)
+FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
 
 
 def _imported_roots(path: Path) -> set:
@@ -57,20 +59,101 @@ def test_every_port_module_imports_without_a_gpu():
         importlib.import_module(name)
 
 
+# A fresh interpreter imports torch, then every port module, then runs
+# ``after``. A module of a forbidden root that came in after ``import
+# torch`` is the port's fault, with one exception: torch 2.11+cu128 loads
+# ``triton`` lazily from its own submodules, so ``triton`` is excused
+# (printed as EXCUSED) when torch's code asked for it. jax, jaxlib and
+# repro are never excused, whoever imports them. The importer of a root
+# is the innermost frame outside importlib at its last import attempt; a
+# root already loaded by torch cannot be seen imported again.
+_PROBE = """
+import importlib, os, pkgutil, sys, traceback
+import torch
+base = set(sys.modules)
+TORCH = os.path.dirname(torch.__file__) + os.sep
+FORBIDDEN = {forbidden!r}
+TORCH_MAY_IMPORT = {{"triton"}}
+importer = dict()
+
+class Watch:
+    def find_spec(self, name, path=None, target=None):
+        if name in FORBIDDEN:
+            frames = [f.filename for f in traceback.extract_stack()[:-1]
+                      if "importlib" not in f.filename]
+            importer[name] = frames[-1] if frames else "?"
+        return None
+
+sys.meta_path.insert(0, Watch())
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+{after}
+roots = sorted(set(m.split(".")[0] for m in set(sys.modules) - base)
+               & set(FORBIDDEN))
+bad = [r for r in roots if r not in TORCH_MAY_IMPORT
+       or not importer.get(r, "?").startswith(TORCH)]
+for r in roots:
+    print("EXCUSED" if r not in bad else "FORBIDDEN", r, "imported from",
+          importer.get(r, "?"))
+print("CLEAN" if not bad else "FORBIDDEN " + " ".join(bad))
+"""
+
+
+def _import_probe(env_extra: dict | None = None,
+                  after: str = "") -> subprocess.CompletedProcess:
+    """Run ``_PROBE``; ``env_extra`` entries are prepended to the
+    environment's (``PYTHONPATH``) or added."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    for k, v in (env_extra or {}).items():
+        env[k] = f"{v}:{env[k]}" if k in env else v
+    code = _PROBE.format(forbidden=FORBIDDEN, after=after)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
 def test_port_import_pulls_in_no_jax():
-    code = ("import sys, importlib, pkgutil, repro_torch\n"
-            "for m in pkgutil.walk_packages(repro_torch.__path__, "
-            "'repro_torch.'):\n"
-            "    importlib.import_module(m.name)\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro', 'triton')]\n"
-            "assert not bad, bad\n"
-            "print('CLEAN')\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         env={"PYTHONPATH": str(ROOT / "src"),
-                              "PATH": "/usr/bin:/bin"},
-                         capture_output=True, text=True, timeout=120)
-    assert "CLEAN" in out.stdout, out.stderr[-2000:]
+    out = _import_probe()
+    assert "CLEAN" in out.stdout, (out.stdout, out.stderr[-2000:])
+
+
+def test_port_import_check_reports_a_forbidden_import(tmp_path):
+    """The probe still bites: a stub package named ``triton`` on
+    PYTHONPATH, imported once the port's modules are in and not by torch,
+    is reported, as a port module's import would be. The stub refuses any
+    earlier import (torch's own attempt, where a build makes one), so
+    that it is new after ``import torch`` on every build."""
+    stub = tmp_path / "triton"
+    stub.mkdir()
+    (stub / "__init__.py").write_text(
+        "import os\n"
+        "if os.environ.get('IMPORT_PROBE_LATE') != '1':\n"
+        "    raise ImportError('stub triton: only the late import')\n")
+    late = "import os; os.environ['IMPORT_PROBE_LATE'] = '1'; import triton"
+    out = _import_probe({"PYTHONPATH": str(tmp_path)}, after=late)
+    assert "CLEAN" not in out.stdout
+    assert "FORBIDDEN triton imported from <string>" in out.stdout, (
+        out.stdout, out.stderr[-2000:])
+
+
+def test_port_import_check_excuses_only_triton_from_torch(tmp_path):
+    """Code in torch's own directory (a compiled string named as a file
+    there) imports stub packages ``triton`` and ``jaxlib``: ``triton`` is
+    excused, ``jaxlib`` is reported all the same."""
+    for name in ("triton", "jaxlib"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            "import os\n"
+            "if os.environ.get('IMPORT_PROBE_LATE') != '1':\n"
+            f"    raise ImportError('stub {name}: only the late import')\n")
+    late = ("os.environ['IMPORT_PROBE_LATE'] = '1'\n"
+            "exec(compile('import triton, jaxlib', TORCH + 'probe_stub.py', "
+            "'exec'))")
+    out = _import_probe({"PYTHONPATH": str(tmp_path)}, after=late)
+    assert "EXCUSED triton imported from " in out.stdout, (
+        out.stdout, out.stderr[-2000:])
+    assert "FORBIDDEN jaxlib imported from " in out.stdout
+    assert out.stdout.strip().splitlines()[-1] == "FORBIDDEN jaxlib"
 
 
 def _no_card():

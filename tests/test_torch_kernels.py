@@ -285,7 +285,7 @@ def test_build_is_keyed_by_the_sources():
     assert lib.parent == _build.BUILD_DIR and h in lib.name
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     # every pointer and the stream are declared as c_void_p
-    for argtypes, pointers in ((GK._ARGTYPES, (0, 4, 5, 7, 8, 11, 12)),
+    for argtypes, pointers in ((GK._ARGTYPES, (0, 4, 5, 7, 8, 17, 18)),
                                (SK._ARGTYPES, (0, 4, 5, 14, 15)),
                                (GK._ONEHOT_ARGTYPES,
                                 (0, 4, 5, 6, 12, 14, 15)),
@@ -299,8 +299,9 @@ def test_build_is_keyed_by_the_sources():
     # the one-hot kernels' scratch length is a 64-bit count
     assert GK._ONEHOT_ARGTYPES[13] is ctypes.c_longlong
     assert SK._ONEHOT_ARGTYPES[10] is ctypes.c_longlong
-    # and the padded-table and segment kernels' warp counts
+    # and the padded-table, segment and gather kernels' warp counts
     assert PK._ARGTYPES[11] is ctypes.c_longlong
+    assert GK._ARGTYPES[15] is ctypes.c_longlong
     assert SK._ARGTYPES[12] is ctypes.c_longlong
 
 

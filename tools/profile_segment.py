@@ -57,14 +57,14 @@ KERNELS = ("segment_aggregate_kernel", "segment_softmax_kernel")
 STORAGE = ("float32", "bfloat16", "int8")
 
 
-def build_report(build) -> None:
-    """ptxas' registers and spills of every instance of the two kernels."""
+def build_report(build, kernels=KERNELS) -> None:
+    """ptxas' registers and spills of every instance of the ``kernels``."""
     entry = name = None
     for line in build.log_path().read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            entry = next((k for k in KERNELS if k in name), None)
+            entry = next((k for k in kernels if k in name), None)
         elif entry and "Used" in line:
             regs = int(re.search(r"Used (\d+) registers", line).group(1))
             print(f"ptxas {name}: {regs} registers", flush=True)
