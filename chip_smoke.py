@@ -66,13 +66,33 @@ Phases, in order; any failure exits non-zero with no result line:
    residency plan's verdict, ``RESIDENT_LAUNCHES`` per batch when it is
    legal, the first batch against ``apply_packed`` on the card (1e-5 of
    the output scale) and the CPU plain path (1e-4), and graphs/s and p50
-   beside ``apply_packed``'s on the same queue in the same run;
+   beside ``apply_packed``'s on the same queue in the same run. Then
+   every conv again at the bf16 and int8 policies (``serve
+   --precision``; int8 grids calibrated on the warm-up batch), 256
+   requests at 32 graphs/batch and 4096 at 1024 (``LOW_DRAINS``): the
+   same launch table (counting the warm-up batch's calibration and
+   comparison forwards), graphs/s, p50/max latency, and the warm-up
+   batch's max error and SQNR against the fp32 program of the same call,
+   at least 30 dB (bf16) and 10 dB (int8; where the JAX package's own
+   SQNR on the same weights and batch is below that, as for GIN, that
+   less 1 dB: ``INT8_REF_SQNR_DB``); at 32 graphs/batch the first batch
+   against the CPU plain path at the same policy (``low_bound``) and the
+   grids calibrated on the card beside the CPU's. GCN and SAGE resident at both
+   precisions (the weight stacks cast for the policy, 4 measured batches
+   at 32, 256 and 1024), the first batch against ``apply_packed`` at the
+   same policy within ``resident_tols`` (the JAX package's
+   ``_resident_tols``);
 5. for each conv, the full-width output on the first 32 qm9 graphs,
    weights from the golden file's numpy seed, against the JAX package's
    output stored in ``src/repro_torch/testdata/{conv}_qm9_full.json``
    (atol 1e-4, rtol 1e-4), for GCN and SAGE also through the resident
-   path; and the padded per-graph oracle (``gnn_model.apply``) on 8
-   graphs against the rows of ``apply_packed``;
+   path; the same at bf16 and int8 against
+   ``testdata/{conv}_qm9_full_{bf16,int8}.json`` (JAX at the file's
+   policy, its bf16 casts rounding each: ``low_bound``, the resident
+   path within ``resident_tols`` more), with the int8 grids calibrated on
+   the card printed beside the file's; and the padded per-graph oracle
+   (``gnn_model.apply``) on 8 graphs against the rows of
+   ``apply_packed``;
 6. kernel timings at the serving path's shapes: CUDA events, median of
    25 runs of 10 launches queued behind a spin kernel (device time, not
    the host's launch rate) after a warm-up, beside the plain version
@@ -93,7 +113,12 @@ Phases, in order; any failure exits non-zero with no result line:
    ``Project``'s default tiles (128, 128), beside the same library call
    and bound as the CSR kernels (one function), and their time per (node
    tile x edge tile) step, the source of ``H100Target.
-   kernel_step_overhead``;
+   kernel_step_overhead``. Then the calls a bf16 or int8 policy makes at
+   1024 graphs/batch, at that storage (``storage_timing_phase``): GCN's
+   CSR and one-hot gathers (int8 with the grid's step in the scale),
+   PNA's towers (one CSR launch a layer, one one-hot launch an agg) and
+   the resident stack at the bf16 and int8 precision rows, each bound
+   from its own bytes (no library call computes them);
 7. ``core.project.Project`` at full width on qm9 graphs
    (``agg_backend="pallas"``): the paper's Listing 1 for GCN (fixed
    ``FPX(16, 10)``, ``gather_mode="onehot"``: testbench MAE < 1.0, the
@@ -103,7 +128,13 @@ Phases, in order; any failure exits non-zero with no result line:
    no CSR gather or segment launch inside the generated programs, one
    batch launching exactly ``ONEHOT_LAUNCHES_PER_BATCH``); GCN and SAGE
    at ``fusion_depth=2`` (residency engaged, stack launches); GCN at
-   1024 graphs/batch in both gather modes, graphs/s side by side. The
+   1024 graphs/batch in both gather modes, graphs/s side by side; then
+   the same two at ``precision="bf16"`` and ``"int8"``: ``calibrate()``
+   (config.json carrying the policy), the testbench's SQNR against its
+   fp32 references at least the phase-4 floor, its quantization-error
+   report (int8: the weights' too), packed graphs/s and the synthesis
+   report's counted bytes beside fp32's (a ratio; bf16's below 1, int8's
+   printed: its activation casts outweigh the narrower tables). The
    counts are set to 0 just before each generated program's run and read
    just after; the testbench's fp32 reference runs the default kernels;
 8. the three kernels reached through their own entry points
@@ -155,7 +186,10 @@ Phases, in order; any failure exits non-zero with no result line:
    prices bf16 products at the tensor-core peak (989 TFLOP/s).
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
+entries also carries ``launches_by_precision`` (the launches of the
+fp32, bf16 and int8 programs) and ``by_storage`` (phase 6's bf16 and
+int8 rows, summed; the softmax is fp32 at every policy).
 """
 from __future__ import annotations
 
@@ -261,6 +295,68 @@ STACK_TOL = {"fp32": (1e-5, 1e-6), "bf16": (1e-2, 1e-3),
 # the resident path against apply_packed on the card: 1e-5 of the output
 # scale (the same fp32 math, aggregated first at the padded width)
 RESIDENT_RTOL = 1e-5
+# the precision policies phases 4, 5 and 7 serve, and phase 6's storage
+# widths of the gather and segment tables beside fp32
+PRECISIONS = ("fp32", "bf16", "int8")
+LOW_PRECISIONS = ("bf16", "int8")
+# SQNR floors of a full-width low-precision output against the fp32
+# program of the same call (docs/KERNELS.md's precision table)
+SQNR_FLOOR_DB = {"bf16": 30.0, "int8": 10.0}
+# (conv, graphs/batch) of phase 4's int8 drains where the JAX package's
+# own int8 output, on the serving weights and the warm-up batch with the
+# grids calibrated there, is below the int8 floor against its fp32
+# output: its SQNR in dB (tests/test_torch_precision_reference.py
+# recomputes it). There the card must come within SQNR_MARGIN_DB of it
+INT8_REF_SQNR_DB = {("gin", 32): 7.9798, ("gin", 1024): 7.1548}
+SQNR_MARGIN_DB = 1.0
+# a low-precision model output against another implementation of the
+# same policy (the CPU plain path, the JAX golden output), on the output
+# scale: bf16 2^-7 of it (a product or sum rounded to bf16 on the other
+# side of a boundary, carried on by the later layers) + 1e-4; int8 1e-4
+# of it + 1.05 steps of the head's grid (a value on the other side of a
+# grid boundary moves one step)
+BF16_RTOL = 2.0 ** -7
+LOW_ATOL = 1e-4
+INT8_RTOL = 1e-4
+# requests of the low-precision drains at 32 and 1024 graphs/batch (8 and
+# 4 measured batches) and of the low-precision resident drains (4
+# measured batches at each size)
+LOW_DRAINS = ((256, 32), (4096, 1024))
+LOW_RESIDENT_BATCHES = 4
+
+
+def low_bound(precision: str, want: torch.Tensor, policy) -> float:
+    """``BF16_RTOL``/``INT8_RTOL`` bound of a low-precision output."""
+    scale = float(want.abs().max())
+    if precision == "bf16":
+        return BF16_RTOL * scale + LOW_ATOL
+    return INT8_RTOL * scale + 1.05 * policy.head.act_fpx.resolution
+
+
+def resident_tols(precision: str, policy) -> tuple:
+    """(rtol on the output scale, atol) of the resident path against
+    ``apply_packed`` at the same policy: fp32 ``RESIDENT_RTOL``; bf16 and
+    int8 the JAX package's ``_resident_tols`` (tests/test_gather_v2.py):
+    the resident stack aggregates first at the padded width, so a bf16
+    rounding lands elsewhere (5e-2, 1e-2), and an int8 grid boundary can
+    move one step of the head's input grid."""
+    if precision == "fp32":
+        return RESIDENT_RTOL, 0.0
+    if precision == "bf16":
+        return 5e-2, 1e-2
+    fpx = policy.head.in_fpx or policy.head.act_fpx
+    return 5e-2, 1.05 * fpx.resolution
+
+
+def grids(policy) -> str:
+    """The int8 grids of a policy, layer by layer, then the head's."""
+    if policy.name != "int8":
+        return "no grids"
+    layers = ", ".join(str(lp.act_fpx) for lp in policy.layers)
+    h = policy.head
+    return (f"acts [{layers}], weights "
+            f"[{', '.join(str(lp.weight_fpx) for lp in policy.layers)}], "
+            f"head in {h.in_fpx} hidden {h.act_fpx} weights {h.weight_fpx}")
 
 
 class PhaseError(RuntimeError):
@@ -924,62 +1020,129 @@ def p50_ms(stats: dict) -> float:
     return lat[len(lat) // 2] * 1e3
 
 
-def serve_phase(conv: str, requests: int, batch_graphs: int) -> dict:
+def cpu_forward(conv: str, batch: dict, policy=None) -> torch.Tensor:
+    """The full-width ``conv`` model with the serving weights on the
+    port's CPU plain path."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.core import gnn_model as G
+    cfg = benchmark_config(conv)
+    with torch.inference_mode():
+        return G.apply_packed(serve_params(cfg, "cpu"), cfg,
+                              G.packed_to_device(batch, "cpu"), None, policy)
+
+
+def serve_phase(conv: str, requests: int, batch_graphs: int,
+                precision: str = "fp32") -> dict:
+    """``repro_torch.launch.serve --conv conv --precision precision``:
+    every request served packed with finite outputs, each batch's
+    launches as ``LAUNCHES_PER_BATCH`` says. fp32: the first batch against
+    the CPU plain path (``MODEL_TOL``). bf16/int8: the warm-up batch's
+    SQNR against the fp32 program of the same call at least
+    ``SQNR_FLOOR_DB`` (or the JAX package's own SQNR less
+    ``SQNR_MARGIN_DB`` where ``INT8_REF_SQNR_DB`` has it); at 32
+    graphs/batch the first batch against the CPU plain path at the same
+    policy (``low_bound``) and the int8 grids calibrated on the card
+    beside the CPU's."""
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
     from repro_torch.launch import serve
-    from repro_torch.nn.param import init_params
     from repro_torch.runtime import scheduler as S
 
     wrappers = zero_counts()
     outs, stats = serve.main(["--conv", conv, "--requests", str(requests),
-                              "--batch-graphs", str(batch_graphs)])
+                              "--batch-graphs", str(batch_graphs),
+                              "--precision", precision])
     launches = {k: w.launches for k, w in wrappers.items()}
-    n_batches = stats["n_batches"] + stats["warmup_batches"]
+    # the drains' batches and the forwards of the warm-up batch outside
+    # them (int8 calibration, the comparison with the fp32 program)
+    n_batches = stats["n_batches"] + stats["warmup_batches"] \
+        + stats["probe_batches"]
+    label = f"{conv} {precision}"
     check(stats["served"] == requests,
-          f"{conv}: served {stats['served']} of {requests}")
+          f"{label}: served {stats['served']} of {requests}")
     check(all(o["status"] == S.SERVED_PACKED for o in stats["outcomes"]),
-          f"{conv}: a request was not served packed")
+          f"{label}: a request was not served packed")
     check(all(bool(torch.isfinite(o).all()) for o in outs),
-          f"{conv}: non-finite serving output")
+          f"{label}: non-finite serving output")
+    check(stats["precision"] == precision,
+          f"{label}: served at {stats['precision']}")
     for name, per_batch in zip(KERNELS, LAUNCHES_PER_BATCH[conv]):
         check(launches[name] == per_batch * n_batches,
-              f"{conv}: {launches[name]} {name} launches for {n_batches} "
+              f"{label}: {launches[name]} {name} launches for {n_batches} "
               f"batches, expected {per_batch} per batch")
-    # the first batch against the CPU plain path with the same weights
+    # packing is greedy in queue order: a batch needs only a prefix
     ds = DATASETS["qm9"]
-    cfg = benchmark_config(conv)
-    params = init_params(
-        cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), "cpu")
-    # packing is greedy in queue order: the first batch needs only a prefix
     queue = [P.make_graph(ds, i)
              for i in range(min(requests, 2 * batch_graphs))]
     nb, eb = serve.budgets(batch_graphs, ds)
     first = P.pack_dataset(queue, nb, eb, batch_graphs)[0][0]
-    with torch.inference_mode():
-        ref = G.apply_packed(params, cfg, G.packed_to_device(first, "cpu"))
-    err = float((outs[0].cpu() - ref).abs().max())
-    check(torch.allclose(outs[0].cpu(), ref, **MODEL_TOL),
-          f"{conv}: first batch vs CPU plain path: max |err| {err}")
-    print(f"[4] {conv}: served {requests} requests at {batch_graphs} "
+    policy = stats["policy"]
+    extra = ""
+    if precision == "fp32":
+        ref = cpu_forward(conv, first)
+        err = float((outs[0].cpu() - ref).abs().max())
+        check(torch.allclose(outs[0].cpu(), ref, **MODEL_TOL),
+              f"{label}: first batch vs CPU plain path: max |err| {err}")
+        extra = f"; first batch vs CPU max |err| {err:.3e}"
+    else:
+        sq = stats["output_error_vs_fp32"]
+        floor = SQNR_FLOOR_DB[precision]
+        ref_sq = INT8_REF_SQNR_DB.get((conv, batch_graphs)) \
+            if precision == "int8" else None
+        if ref_sq is not None:
+            floor = ref_sq - SQNR_MARGIN_DB
+            extra += (f"; the JAX package's own SQNR {ref_sq:.4f} dB on the "
+                      f"same weights and batch, floor {floor:.4f} dB")
+        check(sq["sqnr_db"] >= floor,
+              f"{label}: SQNR {sq['sqnr_db']:.2f} dB against fp32 < "
+              f"{floor:.2f} dB")
+        if batch_graphs == 32:
+            ref = cpu_forward(conv, first, policy)
+            err = float((outs[0].cpu() - ref).abs().max())
+            bound = low_bound(precision, ref, policy)
+            check(err <= bound, f"{label}: first batch vs CPU plain path at "
+                                f"the same policy: max |err| {err} > {bound}")
+            extra += f"; first batch vs CPU {err:.3e} (bound {bound:.3e})"
+            if precision == "int8":
+                cfg = benchmark_config(conv)
+                cpu_params = serve_params(cfg, "cpu")
+                cpu_pol = G.calibrated_policy(
+                    cpu_params, cfg, G.packed_to_device(first, "cpu"),
+                    precision)
+                extra += (f"; grids on the card {grids(policy)}, on the CPU "
+                          + ("the same" if cpu_pol == policy
+                             else grids(cpu_pol)))
+        extra = (f"; warm-up batch vs fp32 max |err| {sq['max_abs']:.4e}, "
+                 f"SQNR {sq['sqnr_db']:.4f} dB") + extra
+    print(f"[4] {label}: served {requests} requests at {batch_graphs} "
           f"graphs/batch ({stats['n_batches']} measured batches, "
           f"{stats['total_s'] * 1e3:.4f} ms): {stats['graphs_per_s']:.1f} "
           f"graphs/s, batch latency p50 {p50_ms(stats):.4f} ms "
-          f"max {max(stats['batch_latency_s']) * 1e3:.4f} ms, launches over {n_batches} batches "
-          f"(warm-up included): "
-          + ", ".join(f"{k} {v}" for k, v in launches.items())
-          + f"; first batch vs CPU max |err| {err:.3e}")
+          f"max {max(stats['batch_latency_s']) * 1e3:.4f} ms, launches over "
+          f"{n_batches} batches (warm-up included): "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()) + extra)
     return launches
 
 
-def resident_phase(dev, conv: str, batch_graphs: int, requests: int) -> dict:
+def serve_params(cfg, device) -> dict:
+    """The weights ``launch.serve`` draws, on ``device``."""
+    from repro_torch.launch import serve
+    from repro_torch.nn.param import init_params
+    return init_params(cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED),
+                       device)
+
+
+def resident_phase(dev, conv: str, batch_graphs: int, requests: int,
+                   precision: str = "fp32") -> dict:
     """Serve ``conv`` through ``apply_packed_resident(fusion_depth=2)``
-    with ``serve.drain_gnn_queue`` (warm-up drain, then the measured
-    one; the counts cover both), then the same queue through
-    ``apply_packed`` in the same run. Checks the plan's launches per
+    at ``precision`` (int8 grids calibrated on the first batch, the
+    weight stacks built once for the policy) with
+    ``serve.drain_gnn_queue`` (warm-up drain, then the measured one; the
+    counts cover both), then the same queue through ``apply_packed`` at
+    the same policy in the same run. Checks the plan's launches per
     batch, finite outputs, and the first batch against ``apply_packed``
-    on the card (1e-5 of the output scale) and against the CPU plain
+    on the card (``resident_tols``) and, at fp32, against the CPU plain
     path (atol/rtol 1e-4)."""
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
@@ -1000,20 +1163,27 @@ def resident_phase(dev, conv: str, batch_graphs: int, requests: int) -> dict:
     params = init_params(
         cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), dev)
     queue = [P.make_graph(ds, i) for i in range(requests)]
-    # the padded weight stacks depend on the weights only: built once
-    stacks = G.resident_stacks(params, cfg, 2)
+    policy = G.resolve_policy(cfg, precision)
+    if policy.needs_calibration:
+        warm, _ = P.pack_graphs(queue[:batch_graphs], nb, eb, batch_graphs)
+        policy = G.calibrated_policy(params, cfg,
+                                     G.packed_to_device(warm, dev), policy)
+    # the weights cast for the policy and the padded weight stacks depend
+    # on the weights and the policy only: built once, as a server does
+    served = G.cast_for_policy(params, cfg, policy)
+    stacks = G.resident_stacks(served, cfg, 2, policy)
 
     def resident(p, b):
-        return G.apply_packed_resident(p, cfg, b, fusion_depth=2,
-                                       stacks=stacks)
+        return G.apply_packed_resident(p, cfg, b, None, policy,
+                                       fusion_depth=2, stacks=stacks)
 
     def packed(p, b):
-        return G.apply_packed(p, cfg, b)
+        return G.apply_packed(p, cfg, b, None, policy)
 
     def drain(fn):
-        _, warm = serve.drain_gnn_queue(fn, params, queue[:batch_graphs],
+        _, warm = serve.drain_gnn_queue(fn, served, queue[:batch_graphs],
                                         nb, eb, batch_graphs, device=dev)
-        outs, stats = serve.drain_gnn_queue(fn, params, queue, nb, eb,
+        outs, stats = serve.drain_gnn_queue(fn, served, queue, nb, eb,
                                             batch_graphs, device=dev)
         check(stats["served"] == requests
               and all(o["status"] == S.SERVED_PACKED
@@ -1033,9 +1203,23 @@ def resident_phase(dev, conv: str, batch_graphs: int, requests: int) -> dict:
               f"{n_batches} batches, expected {per_batch} per batch")
     pouts, pstats, _ = drain(packed)
     err_card = float((outs[0] - pouts[0]).abs().max())
-    bound = RESIDENT_RTOL * float(pouts[0].abs().max())
-    check(err_card <= bound, f"{conv} resident vs apply_packed on the card: "
-                             f"max |err| {err_card} > {bound}")
+    rtol, atol = resident_tols(precision, policy)
+    bound = rtol * float(pouts[0].abs().max()) + atol
+    check(err_card <= bound, f"{conv} {precision} resident vs apply_packed "
+                             f"on the card: max |err| {err_card} > {bound}")
+    label = f"{conv} resident" if precision == "fp32" \
+        else f"{conv} {precision} resident"
+    if precision != "fp32":
+        print(f"[4] {label}, fusion_depth 2, {batch_graphs} graphs/batch "
+              f"({nb} nodes): plan legal={plan.legal}; {requests} requests: "
+              f"{stats['graphs_per_s']:.1f} graphs/s, p50 "
+              f"{p50_ms(stats):.4f} ms; apply_packed at {precision} in the "
+              f"same run: {pstats['graphs_per_s']:.1f} graphs/s, p50 "
+              f"{p50_ms(pstats):.4f} ms; launches over {n_batches} batches: "
+              + ", ".join(f"{k} {v}" for k, v in launches.items())
+              + f"; first batch vs apply_packed max |err| {err_card:.3e} "
+              f"(bound {bound:.3e}); {grids(policy)}")
+        return launches
     cpu_params = init_params(
         cfg, torch.Generator().manual_seed(serve.WEIGHT_SEED), "cpu")
     first = P.pack_dataset(queue[:2 * batch_graphs], nb, eb,
@@ -1097,14 +1281,24 @@ def oracle_phase(dev, conv: str, n_graphs: int = 8) -> float:
     return err
 
 
-def golden_phase(dev, conv: str, resident: bool = False) -> float:
+def golden_phase(dev, conv: str, resident: bool = False,
+                 precision: str = "fp32") -> float:
+    """The full-width output on the golden file's batch and weights
+    against the JAX package's output stored in
+    ``testdata/{conv}_qm9_full[_{precision}].json``: fp32 to
+    ``MODEL_TOL``; bf16 and int8 at the file's policy (the JAX grids)
+    to ``low_bound``, the resident path also within ``resident_tols``.
+    At int8 the grids calibrated on the card are printed beside the
+    file's."""
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
+    from repro_torch.core import quantization as Q
     from repro_torch.data import pipeline as P
     from repro_torch.nn.param import materialize_numpy, params_from_jax
 
+    suffix = "" if precision == "fp32" else f"_{precision}"
     gold = json.loads((ROOT / "src/repro_torch/testdata/"
-                       f"{conv}_qm9_full.json").read_text())
+                       f"{conv}_qm9_full{suffix}.json").read_text())
     ds = DATASETS[gold["dataset"]]
     cfg = benchmark_config(conv, gold["dataset"])
     graphs = [P.make_graph(ds, i) for i in range(gold["graphs"])]
@@ -1113,20 +1307,40 @@ def golden_phase(dev, conv: str, resident: bool = False) -> float:
     check(k == gold["graphs"], f"packed {k} of {gold['graphs']} graphs")
     params = params_from_jax(
         cfg, materialize_numpy(G.model_plan(cfg), gold["seed"]), dev)
+    b = G.packed_to_device(batch, dev)
+    policy, note = None, ""
+    if precision != "fp32":
+        policy = Q.policy_from_description(gold["policy"])
+        on_card = G.calibrated_policy(params, cfg, b, precision)
+        if precision == "int8":
+            note = (f"; grids of the file (JAX, CPU) {grids(policy)}, "
+                    "calibrated on the card "
+                    + ("the same" if on_card == policy else grids(on_card)))
     fn = G.apply_packed_resident if resident else G.apply_packed
     stack = counters()["fused_layer_stack"]
     before = stack.launches
     with torch.inference_mode():
-        out = fn(params, cfg, G.packed_to_device(batch, dev))
+        out = fn(params, cfg, b, None, policy).cpu()
     check(stack.launches == before + int(resident),
           f"{conv}: {stack.launches - before} stack launches")
     want = torch.tensor(gold["out"], dtype=torch.float32)
-    err = float((out.cpu() - want).abs().max())
+    err = float((out - want).abs().max())
     path = "resident" if resident else "packed"
-    check(torch.allclose(out.cpu(), want, **MODEL_TOL),
-          f"{conv} {path}: full-width output vs JAX golden: max |err| {err}")
-    print(f"[5] full-width {conv} ({path}) on {k} qm9 graphs vs the JAX "
-          f"golden output: max |err| {err:.3e}")
+    label = f"{conv} {path} {precision}"
+    if precision == "fp32":
+        check(torch.allclose(out, want, **MODEL_TOL),
+              f"{label}: full-width output vs JAX golden: max |err| {err}")
+        bound_txt = ""
+    else:
+        bound = low_bound(precision, want, policy)
+        if resident:
+            rtol, atol = resident_tols(precision, policy)
+            bound += rtol * float(want.abs().max()) + atol
+        check(err <= bound, f"{label}: full-width output vs JAX golden: max "
+                            f"|err| {err} > {bound}")
+        bound_txt = f" (bound {bound:.3e})"
+    print(f"[5] full-width {conv} ({path}, {precision}) on {k} qm9 graphs vs "
+          f"the JAX golden output: max |err| {err:.3e}{bound_txt}{note}")
     return err
 
 
@@ -1392,6 +1606,122 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
     return rows
 
 
+def storage_timing_phase(dev, label: str, batch) -> list:
+    """Phase 6 at the bf16 and int8 storage of a low-precision policy, on
+    the served batch ``batch`` (1024 graphs): the calls the model makes
+    at those widths, timed as the fp32 rows, each bound from its own
+    bytes (``gather_work``/``segment_work`` read the element size): the
+    CSR and one-hot gathers of GCN's layers (an int8 table with the
+    grid's step folded into the scale), PNA's towers (one CSR launch a
+    layer, one one-hot launch an agg) and the resident stack at the
+    bf16 and int8 precision rows (its table stays fp32; the rows cast on
+    the fly). The softmax is fp32 at every policy, and the pooling too,
+    so their fp32 rows stand. No library call computes these functions
+    on bf16 or int8 tables, so there is none."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels.fused_gather_aggregate.kernel import (
+        fused_gather_aggregate_cuda, fused_gather_onehot_cuda)
+    from repro_torch.kernels.fused_gather_aggregate.ref import (
+        fused_gather_aggregate_ref, fused_gather_onehot_ref)
+    from repro_torch.kernels.segment_aggregate.kernel import (
+        segment_aggregate_cuda, segment_aggregate_onehot_cuda)
+    from repro_torch.kernels.segment_aggregate.ref import (
+        segment_aggregate_onehot_ref, segment_aggregate_ref)
+    from repro_torch.kernels.fused_layer_stack.kernel import (
+        fused_layer_stack_cuda)
+    from repro_torch.kernels.fused_layer_stack.ref import (
+        fused_layer_stack_ref)
+
+    rows = []
+    grid = Q.FPX(8, 3)
+
+    def row(kernel, conv, stored, shape, kern, plain, work):
+        bound, by = bound_ms(*work)
+        rows.append(dict(
+            kernel=kernel, conv=conv, batch=label, shape=shape, path=False,
+            storage=stored, ms=cuda_ms(kern),
+            plain_ms=cuda_ms(plain, reps=21, inner=2, device_only=False),
+            library_ms=None, bound_ms=bound, bound_by=by))
+
+    def table(x, stored):
+        if stored == "bf16":
+            return x.to(torch.bfloat16)
+        return Q.quantize_int8(x, grid)
+
+    b = G.packed_to_device(batch, dev)
+    g, _, _, _ = G.packed_inputs(b)
+    n = b["node_feat"].shape[0]
+    ei = b["edge_index"]
+    src, dst = ei[:, 0].contiguous(), ei[:, 1].contiguous()
+    csr = g["edge_csr"]
+    n_valid = int(csr.offsets[-1])
+    nb_, eb_ = ONEHOT_DEFAULT_TILES
+    pna = benchmark_config("pna")
+    resident = {conv: resident_stack_inputs(dev, conv, batch)
+                for conv in RESIDENT_CONVS}
+    for stored in LOW_PRECISIONS:
+        scale = g["gcn_edge_scale"].to(torch.float32)
+        if stored == "int8":
+            scale = (scale * grid.resolution).contiguous()
+        for layer, f in enumerate(gather_widths("gcn")):
+            x = table(torch.randn((n, f), device=dev), stored)
+            shape = (f"GCN layer {layer}: N=S={n} E={src.numel()} (valid "
+                     f"{n_valid}) F={f} {stored}")
+            row("fused_gather_aggregate", "gcn", stored, shape,
+                lambda: fused_gather_aggregate_cuda(
+                    x, src, scale, csr.perm, csr.offsets),
+                lambda: fused_gather_aggregate_ref(
+                    x, src, scale, csr.perm, csr.offsets),
+                gather_work(x, src, scale, csr.perm, csr.offsets))
+            row("fused_gather_onehot", "gcn", stored,
+                f"{shape}, tiles ({nb_}, {eb_})",
+                lambda: fused_gather_onehot_cuda(
+                    x, src, dst, scale, n, edge_block=eb_, node_block=nb_),
+                lambda: fused_gather_onehot_ref(x, src, dst, scale, n),
+                gather_onehot_work(x, src, dst, scale, n))
+        seg = torch.where(g["valid_e"], dst, torch.full_like(dst, -1))
+        for layer in range(pna.gnn_num_layers):
+            f = pna.conv_cfg(layer).in_dim
+            msg = table(torch.randn((ei.shape[0], f), device=dev), stored)
+            shape = (f"PNA layer {layer}: rows={ei.shape[0]} (valid "
+                     f"{n_valid}) S={n} F={f} {stored}")
+            row("segment_aggregate", "pna", stored,
+                f"towers {'+'.join(PNA_AGGS)}, one launch, {shape}",
+                lambda: segment_aggregate_cuda(msg, csr.perm, csr.offsets,
+                                               agg=PNA_AGGS),
+                lambda: segment_aggregate_ref(msg, csr.perm, csr.offsets,
+                                              agg=PNA_AGGS),
+                segment_work(msg, csr.perm, csr.offsets, PNA_AGGS))
+            for agg in PNA_AGGS:
+                row("segment_aggregate_onehot", "pna", stored,
+                    f"{agg} tower, {shape}, tiles ({nb_}, {eb_})",
+                    lambda: segment_aggregate_onehot_cuda(
+                        msg, seg, n, agg=agg, edge_block=eb_,
+                        node_block=nb_),
+                    lambda: segment_aggregate_onehot_ref(msg, seg, n,
+                                                         agg=agg),
+                    segment_onehot_work(msg, seg, n, agg))
+        for conv, (args, kw) in resident.items():
+            k = args[8].shape[0]
+            qp = torch.tensor([QP_ROWS[stored]] * k, dtype=torch.float32,
+                              device=dev)
+            a = (*args[:11], qp)
+            dims = kw["widths"]
+            row("fused_layer_stack", conv, stored,
+                f"{conv.upper()} K={k}: N={n} widths {dims}, {stored} "
+                f"precision rows",
+                lambda: fused_layer_stack_cuda(*a, **kw),
+                lambda: fused_layer_stack_ref(*a, **kw),
+                stack_work(a, conv, kw["has_skip"], dims))
+    for r in rows:
+        print(f"[6] {r['kernel']} {r['batch']} {r['shape']}: kernel "
+              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
+              f"n/a, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    return rows
+
+
 # ----------------------------------------------------------- phase 7 --
 PROJECT_DIR = ROOT / "build" / "chip_smoke_project"
 V2_KERNELS = ("fused_gather_aggregate", "segment_aggregate")
@@ -1556,15 +1886,79 @@ def throughput_phase(dev) -> tuple:
     return total, results
 
 
-def project_phase(dev) -> dict:
+def precision_project_phase(dev, precision: str, fp32: dict,
+                            batch_graphs: int = 1024) -> dict:
+    """``Project(precision=...)`` for GCN at 1024 graphs/batch in both
+    gather modes: ``calibrate()`` (int8 grids fitted, config.json
+    carrying the policy), the testbench at the policy (output and, at
+    int8, weight quantization error; SQNR of the testbench outputs
+    against the fp32 references at least ``SQNR_FLOOR_DB``), the packed
+    drain's graphs/s beside fp32's (``fp32``: ``throughput_phase``'s
+    results) and the synthesis report's counted bytes beside fp32's: a
+    ratio, below 1 at bf16; at int8 printed and not held, since the
+    activations' casts add more bytes than the int8 tables save (PERF.md
+    §6)."""
+    launches = dict.fromkeys(KERNELS, 0)
+    parts = []
+    for mode in ("dma", "onehot"):
+        tag = f"{mode}_{batch_graphs}_{precision}"
+        p = make_project("gcn", batch_graphs, tag, gather_mode=mode,
+                         precision=precision)
+        p.gen_hw_model()
+        p.init_params()
+        p.gen_testbench(batch_graphs)
+        policy = p.calibrate()
+        config = json.loads((PROJECT_DIR / f"gcn_{tag}" /
+                             "config.json").read_text())
+        check(policy.calibrated == (precision == "int8")
+              and config["precision"] == policy.describe(),
+              f"gcn {mode} {precision}: calibrate() gave {policy}, "
+              f"config.json {config['precision']}")
+        wrappers = zero_counts()
+        tb = p.build_and_run_testbench()
+        for k, w in wrappers.items():
+            launches[k] += w.launches
+        q = tb["quant_error"]
+        check(tb["precision"] == precision
+              and q["output"]["sqnr_db"] >= SQNR_FLOOR_DB[precision]
+              and ("weights" in q) == (precision == "int8")
+              and tb["packed"]["n_graphs"] == batch_graphs,
+              f"gcn {mode} {precision}: testbench {tb}")
+        rep = p.run_synthesis()["packed"]
+        ratio = rep["bytes_accessed"] / fp32[mode][1]["bytes_accessed"]
+        check(precision == "int8" or ratio < 1.0,
+              f"gcn {mode} {precision}: counted bytes {ratio:.4f} of fp32's")
+        parts.append(
+            f"{mode}: MAE {tb['mae']:.4e} (packed {tb['packed']['mae']:.4e})"
+            f", quant error output {q['output']}"
+            + (f", weights {q['weights']}" if "weights" in q else "")
+            + f"; packed {tb['packed']['graphs_per_s']:.1f} graphs/s "
+            f"(fp32 {fp32[mode][0]['graphs_per_s']:.1f}); counted bytes "
+            f"{rep['bytes_accessed']:.0f} = {ratio:.4f} of fp32's "
+            f"{fp32[mode][1]['bytes_accessed']:.0f}, modeled "
+            f"{rep['graphs_per_s']:.1f} graphs/s; {grids(policy)}")
+    print(f"[7] GCN Project at {precision}, {batch_graphs} graphs/batch: "
+          + "; ".join(parts) + f"; launches {launches}")
+    return launches
+
+
+def project_phase(dev, by_precision: dict) -> dict:
+    """Phase 7; ``by_precision`` gains the launches of each precision's
+    programs (the Listing 1 fixed-point programs run the fp32 policy)."""
     launches = dict.fromkeys(KERNELS, 0)
     parts = [listing1_phase(dev)]
     parts += [onehot_conv_phase(dev, conv) for conv in LAUNCHES_PER_BATCH]
     parts += [resident_project_phase(dev, conv) for conv in RESIDENT_CONVS]
-    parts.append(throughput_phase(dev)[0])
+    total, fp32 = throughput_phase(dev)
+    parts.append(total)
     for part in parts:
         for k, v in part.items():
             launches[k] += v
+            by_precision["fp32"][k] += v
+    for precision in LOW_PRECISIONS:
+        for k, v in precision_project_phase(dev, precision, fp32).items():
+            launches[k] += v
+            by_precision[precision][k] += v
     return launches
 
 
@@ -2113,13 +2507,17 @@ def summarize_entries(rows, errs, launches) -> list:
     return out
 
 
-def summarize(rows, errs, launches) -> dict:
+def summarize(rows, errs, launches, by_precision) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
     (gather, segment; the figures of the first slice; the resident
     stack; the one-hot kernels) and GAT's (softmax). ``launches`` counts
-    every phase-4 drain of every conv, resident drains included, and the
-    phase-7 Project programs (where the one-hot kernels run)."""
+    every phase-4 drain of every conv at every precision, resident drains
+    included, and the phase-7 Project programs (where the one-hot kernels
+    run); ``launches_by_precision`` splits it by the policy of the
+    program that launched. ``by_storage``: the same sums over phase 6's
+    bf16 and int8 rows (GCN's gathers; PNA's towers; the stack at those
+    precision rows)."""
     meta = {
         "fused_gather_aggregate": dict(
             source="src/repro_torch/csrc/fused_gather_aggregate.cu",
@@ -2176,6 +2574,23 @@ def summarize(rows, errs, launches) -> dict:
             "shapes": f"{m['conv']} {last}, per batch: "
                       + "; ".join(r["shape"] for r in sel),
         }
+        entry["launches_by_precision"] = {
+            p: by_precision[p][name] for p in PRECISIONS}
+        low = [r for r in rows if r["kernel"] == name and r.get("storage")]
+        if low:
+            entry["by_storage"] = {st: {
+                **{k: sum(r[k] for r in low if r["storage"] == st)
+                   for k in ("ms", "plain_ms", "bound_ms")},
+                "bound_by": "bytes" if all(
+                    r["bound_by"] == "bytes" for r in low
+                    if r["storage"] == st) else "operations",
+                "library_ms": None,
+                "shapes": "; ".join(r["shape"] for r in low
+                                    if r["storage"] == st)}
+                for st in LOW_PRECISIONS}
+        else:
+            entry["storage_note"] = ("fp32 at every policy: the softmax "
+                                     "weights never take the layer's width")
         if name == "fused_layer_stack":
             entry["max_abs_err_by_mode"] = {
                 mode: errs[f"{name} {mode}"] for mode in QP_ROWS}
@@ -2234,27 +2649,49 @@ def main() -> int:
           f"registered convs {CONV_TYPES} != launch table "
           f"{tuple(LAUNCHES_PER_BATCH)}")
     launches = dict.fromkeys(KERNELS, 0)
+    by_precision = {p: dict.fromkeys(KERNELS, 0) for p in PRECISIONS}
+
+    def add(part: dict, precision: str) -> None:
+        for k, v in part.items():
+            launches[k] += v
+            by_precision[precision][k] += v
+
+    t4 = time.perf_counter()
     for conv in CONV_TYPES:
         # 2048 requests at 1024 graphs/batch are two measured batches; the
         # 20480-request drain gives a window of 20 batches for graphs/s
         drains = [(256, 32), (2048, 1024), (20480, 1024)] if conv == "gcn" \
             else [(256, 32), (20480, 1024)]
         for requests, bg in drains:
-            for k, v in serve_phase(conv, requests, bg).items():
-                launches[k] += v
+            add(serve_phase(conv, requests, bg), "fp32")
+        for precision in LOW_PRECISIONS:
+            for requests, bg in LOW_DRAINS:
+                add(serve_phase(conv, requests, bg, precision), precision)
     for conv in RESIDENT_CONVS:
         for bg in RESIDENT_BATCHES:
             # 20 measured batches at each size
-            for k, v in resident_phase(dev, conv, bg, 20 * bg).items():
-                launches[k] += v
+            add(resident_phase(dev, conv, bg, 20 * bg), "fp32")
+        for precision in LOW_PRECISIONS:
+            for bg in RESIDENT_BATCHES:
+                add(resident_phase(dev, conv, bg, LOW_RESIDENT_BATCHES * bg,
+                                   precision), precision)
+    print(f"[4] phase 4 took {time.perf_counter() - t4:.1f} s")
     for conv in CONV_TYPES:
-        golden_phase(dev, conv)
-        if conv in RESIDENT_CONVS:
-            golden_phase(dev, conv, resident=True)
+        for precision in PRECISIONS:
+            golden_phase(dev, conv, precision=precision)
+            if conv in RESIDENT_CONVS:
+                golden_phase(dev, conv, resident=True, precision=precision)
         oracle_phase(dev, conv)
     rows = timing_phase(dev, path_batches, resident_batches)
-    for k, v in project_phase(dev).items():
+    rows += storage_timing_phase(dev, *batches[1024])
+    t7 = time.perf_counter()
+    for k, v in project_phase(dev, by_precision).items():
         launches[k] += v
+    print(f"[7] phase 7 took {time.perf_counter() - t7:.1f} s")
+    for precision, counts in by_precision.items():
+        check(all(v > 0 for v in counts.values()),
+              f"a kernel was never launched by a {precision} program: "
+              f"{counts}")
     t8 = time.perf_counter()
     tables = padded_tables(batches[1024][1], P.make_graph(ds, 0))
     entry_errs = entry_kernels_vs_plain(dev, tables)
@@ -2263,7 +2700,7 @@ def main() -> int:
     entry_rows = entry_timing_phase(calls, bodies)
     del calls
     print(f"[8] phase 8 took {time.perf_counter() - t8:.1f} s")
-    summary = summarize(rows, errs, launches)
+    summary = summarize(rows, errs, launches, by_precision)
     summary["kernels"] += summarize_entries(entry_rows, entry_errs,
                                             entry_launches)
     check(all(k["launches"] > 0 for k in summary["kernels"]),

@@ -16,6 +16,13 @@ PNA's four towers). Invalid elements — a segment id out of
 [0, num_segments), ``valid == False``, or for the gather a source id out
 of [0, N) — are left out of the CSR, so they are dropped outright.
 
+``precision=`` (a ``quantization.LayerPrecision``) sets the storage
+width of the node table or message tensor, as the reference's Pallas
+path does: bf16 tables, or real int8 tables on the layer's activation
+grid whose power-of-two resolution ``s`` is undone in fp32: folded into
+the gather's per-edge scale, or multiplied onto the segment output (by
+``s``, and by ``s^2`` for var). Accumulation is fp32 at every precision.
+
 ``aggregation_scope`` carries the JAX package's gather kernel generation
 and tile knobs (``repro.core.aggregations.backend_scope`` without the
 backend) to ``gather_aggregate`` and ``segment_aggregate``: under
@@ -33,6 +40,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import quantization as Q
 from repro_torch.kernels._build import check_tiles
 from repro_torch.kernels._csr_ref import stable_csr
 from repro_torch.kernels.fused_gather_aggregate.ops import (
@@ -130,72 +138,125 @@ def gather_csr(src: torch.Tensor, dst: torch.Tensor, n_src: int,
     return build_csr(dst, num_segments, ok)
 
 
+def _active(precision) -> Q.LayerPrecision | None:
+    """None for fp32 (or no precision), the ``LayerPrecision`` otherwise."""
+    if precision is None or precision.compute == "fp32":
+        return None
+    return precision
+
+
+def _stored(table: torch.Tensor, lp) -> tuple:
+    """``table`` at the layer's storage width, and the int8 grid's
+    resolution (None unless int8)."""
+    if lp is None:
+        return table, None
+    if lp.compute == "bf16":
+        return table.to(torch.bfloat16), None
+    return Q.quantize_int8(table, lp.act_fpx), lp.act_fpx.resolution
+
+
+def _dequant(agg: str, s: float) -> float:
+    """What an agg's output over int8 grid steps is multiplied by: the
+    resolution, squared for var (std is the root of var)."""
+    return s * s if agg == "var" else s
+
+
 def segment_aggregate(agg: str, messages: torch.Tensor,
                       seg_ids: torch.Tensor, num_segments: int,
                       valid: torch.Tensor | None = None, *,
-                      csr: SegmentCSR | None = None) -> torch.Tensor:
+                      csr: SegmentCSR | None = None,
+                      precision: Q.LayerPrecision | None = None
+                      ) -> torch.Tensor:
     """messages (E, F) -> (num_segments, F) float32; seg_ids (E,), with
     padding marked by an out-of-range id or ``valid == False``. ``csr``
     (from ``build_csr`` over the same ids) skips rebuilding the CSR; the
     one-hot kernel (``aggregation_scope(gather_mode="onehot")``) takes
-    the raw ids instead."""
-    if agg not in AGGREGATIONS:
-        raise ValueError(agg)
-    knobs = _KNOBS.get()
-    if knobs.gather_mode == "onehot":
-        return segment_aggregate_onehot(
-            messages.contiguous(), _ids(seg_ids, valid), num_segments,
-            agg=agg, edge_block=knobs.edge_block,
-            node_block=knobs.node_block)
-    if csr is None:
-        csr = build_csr(seg_ids, num_segments, valid)
-    return _segment_aggregate(messages.contiguous(), csr.perm, csr.offsets,
-                              agg=agg)
+    the raw ids instead. ``precision``: the messages' storage width
+    (module docstring)."""
+    return _aggregate_set((agg,), messages, seg_ids, num_segments, valid,
+                          csr, precision)
 
 
 def segment_aggregates(aggs, messages: torch.Tensor, seg_ids: torch.Tensor,
                        num_segments: int,
                        valid: torch.Tensor | None = None, *,
-                       csr: SegmentCSR | None = None) -> torch.Tensor:
+                       csr: SegmentCSR | None = None,
+                       precision: Q.LayerPrecision | None = None
+                       ) -> torch.Tensor:
     """Several aggs of one stream -> (num_segments, len(aggs) * F)
     float32: ``segment_aggregate(aggs[i], ...)`` in columns i * F ...
     (i + 1) * F. Under ``"dma"`` one launch reads each row once for all
-    of them (an agg named twice is folded once and its columns copied);
-    the one-hot schedule keeps one launch per agg."""
-    aggs = tuple(aggs)
+    of them; the one-hot schedule keeps one launch per agg. At int8 the
+    messages are quantized once and each agg's columns take their own
+    dequantization (``s``, or ``s^2`` for var)."""
+    return _aggregate_set(tuple(aggs), messages, seg_ids, num_segments,
+                          valid, csr, precision)
+
+
+def _aggregate_set(aggs: tuple, messages: torch.Tensor,
+                   seg_ids: torch.Tensor, num_segments: int, valid,
+                   csr: SegmentCSR | None, precision) -> torch.Tensor:
+    """(num_segments, len(aggs) * F) float32 over the messages at their
+    storage width: one launch for the whole set on the CSR route (an agg
+    named twice is folded once and its columns copied), one launch per
+    agg on the one-hot route; int8 columns dequantized per agg."""
     for agg in aggs:
         if agg not in AGGREGATIONS:
             raise ValueError(agg)
-    if _KNOBS.get().gather_mode == "onehot":
-        return torch.cat([segment_aggregate(a, messages, seg_ids,
-                                            num_segments, valid)
-                          for a in aggs], dim=-1)
-    if csr is None:
-        csr = build_csr(seg_ids, num_segments, valid)
-    once = tuple(dict.fromkeys(aggs))
-    out = _segment_aggregate(messages.contiguous(), csr.perm, csr.offsets,
-                             agg=once)
-    if once == aggs:
+    stored, s = _stored(messages, _active(precision))
+    stored = stored.contiguous()
+    knobs = _KNOBS.get()
+    if knobs.gather_mode == "onehot":
+        ids = _ids(seg_ids, valid)
+        outs = [segment_aggregate_onehot(
+            stored, ids, num_segments, agg=a,
+            edge_block=knobs.edge_block, node_block=knobs.node_block)
+            for a in aggs]
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    else:
+        if csr is None:
+            csr = build_csr(seg_ids, num_segments, valid)
+        once = tuple(dict.fromkeys(aggs))
+        out = _segment_aggregate(stored, csr.perm, csr.offsets,
+                                 agg=once[0] if len(aggs) == 1 else once)
+        if once != aggs:
+            f = stored.shape[1]
+            out = torch.cat([out[:, once.index(a) * f:
+                                 (once.index(a) + 1) * f] for a in aggs],
+                            dim=-1)
+    if s is None:
         return out
-    f = messages.shape[1]
-    return torch.cat([out[:, once.index(a) * f:(once.index(a) + 1) * f]
-                      for a in aggs], dim=-1)
+    if len(set(_dequant(a, s) for a in aggs)) == 1:
+        return out * _dequant(aggs[0], s)
+    per_col = torch.tensor([_dequant(a, s) for a in aggs],
+                           dtype=torch.float32, device=out.device)
+    return out * per_col.repeat_interleave(messages.shape[1])
 
 
 def gather_aggregate(agg: str, x: torch.Tensor, src: torch.Tensor,
                      dst: torch.Tensor, num_segments: int,
                      valid: torch.Tensor | None = None,
                      scale: torch.Tensor | None = None, *,
-                     csr: SegmentCSR | None = None) -> torch.Tensor:
+                     csr: SegmentCSR | None = None,
+                     precision: Q.LayerPrecision | None = None
+                     ) -> torch.Tensor:
     """Fused gather -> scale -> aggregate: (num_segments, F) float32 with
     ``out[d] = agg over edges e into d of scale[e] * x[src[e]]``; the
     (E, F) message tensor is never materialized. ``csr`` (from
     ``gather_csr`` over the same streams) skips rebuilding the CSR; the
     one-hot kernel (``aggregation_scope(gather_mode="onehot")``) takes
-    the raw streams instead."""
+    the raw streams instead. ``precision``: the table's storage width;
+    at int8 the grid's resolution folds into the per-edge scale (exact:
+    a positive power of two), an explicit vector of it where ``scale``
+    is None."""
     if agg not in GATHER_AGGREGATIONS:
         raise ValueError(f"gather_aggregate takes {GATHER_AGGREGATIONS}, "
                          f"got {agg!r}")
+    x, s = _stored(x, _active(precision))
+    if s is not None:
+        scale = torch.full(src.shape, s, dtype=torch.float32,
+                           device=x.device) if scale is None \
+            else scale.to(torch.float32) * s
     if scale is not None:
         scale = scale.to(torch.float32).contiguous()
     knobs = _KNOBS.get()

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import aggregations as agg_mod
+from repro_torch.core.quantization import LayerPrecision
 from repro_torch.nn.layers import act, linear, linear_plan
 from repro_torch.nn.param import ParamSpec
 
@@ -132,6 +133,9 @@ class ConvConfig:
     # transform/aggregate ordering for linear convs (resolve_dataflow)
     dataflow: str = "auto"
     avg_degree: float = 2.0   # dataset statistic driving the cost model
+    # the layer's datapath precision (PrecisionPolicy.layer(i)); the
+    # default is the fp32 identity
+    precision: LayerPrecision = LayerPrecision()
 
 
 def gather_compute_flops(num_nodes: int, num_edges: int, feat_dim: int,
@@ -180,15 +184,16 @@ def halo_comm_bytes(cut_edges: float, feat_dim: int,
 
 
 def resolve_dataflow(cfg: ConvConfig) -> str:
-    """Planner: the concrete ordering this conv layer executes with
-    (fp32 storage, 4 bytes per message value)."""
+    """Planner: the concrete ordering this conv layer executes with, the
+    messages priced at the layer's storage width."""
     if cfg.dataflow not in DATAFLOWS:
         raise ValueError(cfg.dataflow)
     if cfg.conv not in REORDERABLE_CONVS:
         return "aggregate_first"
     if cfg.dataflow != "auto":
         return cfg.dataflow
-    cost = dataflow_cost(cfg.in_dim, cfg.out_dim, cfg.avg_degree, 4.0,
+    cost = dataflow_cost(cfg.in_dim, cfg.out_dim, cfg.avg_degree,
+                         cfg.precision.bytes_per_value,
                          attention=conv_spec(cfg.conv).attention)
     return "transform_first" \
         if cost["transform_first"] < cost["aggregate_first"] \
@@ -310,18 +315,22 @@ def gcn_apply(params: dict, g: dict, x: torch.Tensor,
               cfg: ConvConfig) -> torch.Tensor:
     """x' = W (sum_u x_u / sqrt(d_u d_v)) + b  (self loops included),
     run as W (A x) + b (aggregate_first) or A (W x) + b
-    (transform_first); the neighbour sum is the fused gather kernel."""
+    (transform_first); the neighbour sum is the fused gather kernel. The
+    fp32 aggregate returns to the layer's width before the product and
+    the bias, as in the reference."""
     src, dst = edge_endpoints(g)
     n = x.shape[0]
     edge_scale, self_scale = _gcn_scales(g)
     agg_first = resolve_dataflow(cfg) == "aggregate_first"
     h = x if agg_first else torch.matmul(x, params["w"]["w"])
     aggr = agg_mod.gather_aggregate("sum", h, src, dst, n, g["valid_e"],
-                                    edge_scale, csr=g.get("edge_csr"))
-    aggr = aggr + h * self_scale[:, None]                   # self loop
+                                    edge_scale, csr=g.get("edge_csr"),
+                                    precision=cfg.precision)
+    # self loop; the fp32 scale lifts a bf16 h exactly, with no cast pass
+    aggr = aggr + h * self_scale[:, None]
     if agg_first:
-        return linear(params["w"], aggr)                    # gamma
-    return aggr + params["w"]["b"]
+        return linear(params["w"], aggr.to(x.dtype))        # gamma
+    return aggr.to(x.dtype) + params["w"]["b"]
 
 
 # ------------------------------------------------------------ GraphSAGE --
@@ -339,7 +348,8 @@ def sage_apply(params: dict, g: dict, x: torch.Tensor,
     agg_first = resolve_dataflow(cfg) == "aggregate_first"
     h = x if agg_first else torch.matmul(x, params["w_neigh"]["w"])
     aggr = agg_mod.gather_aggregate("mean", h, src, dst, x.shape[0],
-                                    g["valid_e"], csr=g.get("edge_csr"))
+                                    g["valid_e"], csr=g.get("edge_csr"),
+                                    precision=cfg.precision).to(x.dtype)
     neigh = linear(params["w_neigh"], aggr) if agg_first else aggr
     return linear(params["w_self"], x) + neigh
 
@@ -366,11 +376,11 @@ def gin_apply(params: dict, g: dict, x: torch.Tensor,
         msg = torch.relu(_gather(x, src)
                          + linear(params["w_edge"], g["edge_feat"]))
         aggr = agg_mod.segment_aggregate("sum", msg, dst, n, g["valid_e"],
-                                         csr=csr)
+                                         csr=csr, precision=cfg.precision)
     else:
         aggr = agg_mod.gather_aggregate("sum", x, src, dst, n, g["valid_e"],
-                                        csr=csr)
-    h = (1.0 + params["eps"]) * x + aggr
+                                        csr=csr, precision=cfg.precision)
+    h = (1.0 + params["eps"]) * x + aggr.to(x.dtype)
     h = act(cfg.activation)(linear(params["mlp1"], h))
     return linear(params["mlp2"], h)
 
@@ -401,14 +411,15 @@ def pna_apply(params: dict, g: dict, x: torch.Tensor,
     if csr is None:
         csr = agg_mod.build_csr(dst, n, g["valid_e"])
     towers = agg_mod.segment_aggregates(
-        PNA_AGGS, msg, dst, n, g["valid_e"], csr=csr).split(msg.shape[1],
-                                                             dim=-1)
+        PNA_AGGS, msg, dst, n, g["valid_e"], csr=csr,
+        precision=cfg.precision).split(msg.shape[1], dim=-1)
     deg = torch.clamp(g["in_deg"], min=1.0)
     logd = torch.log(deg + 1.0)[:, None]
     scaled = []
     for t in towers:
         scaled += [t, t * (logd / cfg.delta), t * (cfg.delta / logd)]
-    return linear(params["post"], torch.cat([x] + scaled, -1))
+    out = torch.cat([x.to(torch.float32)] + scaled, -1)
+    return linear(params["post"], out.to(x.dtype))
 
 
 # ---------------------------------------------------------------- GAT ---
@@ -426,26 +437,29 @@ def gat_apply(params: dict, g: dict, x: torch.Tensor,
               cfg: ConvConfig) -> torch.Tensor:
     """x' = W_self x_v + sum_u alpha_uv (W x_u) + b with alpha =
     softmax_v(LeakyReLU_0.2(a_src.(W x_u) + a_dst.(W x_v) + a_e.e_uv)):
-    the root-weight GAT, no implicit self loops. The logits are fp32 and
-    normalized by the segment-softmax kernel; alpha rides the fused
-    gather's per-edge scale slot, so the (E, F) messages are never
-    materialized."""
+    the root-weight GAT, no implicit self loops. The logits are fp32 at
+    every precision and normalized by the segment-softmax kernel; alpha
+    rides the fused gather's per-edge scale slot, so the (E, F) messages
+    are never materialized. Only the projection and the gathered stream
+    take the layer's width."""
     src, dst = edge_endpoints(g)
     n = x.shape[0]
     h = torch.matmul(x, params["w"]["w"])
-    s_src = torch.matmul(h, params["a_src"])
-    s_dst = torch.matmul(h, params["a_dst"])
+    hf = h.to(torch.float32)
+    s_src = torch.matmul(hf, params["a_src"].to(torch.float32))
+    s_dst = torch.matmul(hf, params["a_dst"].to(torch.float32))
     logits = _gather(s_src, src) + _gather(s_dst, dst)
     if "a_edge" in params:
-        logits = logits + torch.matmul(g["edge_feat"].to(torch.float32),
-                                       params["a_edge"]["w"])[:, 0]
+        logits = logits + torch.matmul(
+            g["edge_feat"].to(torch.float32),
+            params["a_edge"]["w"].to(torch.float32))[:, 0]
     # jax.nn.leaky_relu and F.leaky_relu both default to slope 0.01
     logits = F.leaky_relu(logits, 0.2)
     csr = g.get("edge_csr")
     alpha = agg_mod.segment_softmax(logits, dst, n, g["valid_e"], csr=csr)
     aggr = agg_mod.gather_aggregate("sum", h, src, dst, n, g["valid_e"],
-                                    alpha, csr=csr)
-    return linear(params["w_self"], x) + aggr + params["w"]["b"]
+                                    alpha, csr=csr, precision=cfg.precision)
+    return linear(params["w_self"], x) + aggr.to(x.dtype) + params["w"]["b"]
 
 
 # the reference's order and flags (repro/core/convs.py)

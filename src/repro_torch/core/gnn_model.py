@@ -10,13 +10,21 @@ resident layer-stack kernel). ``GNNModel`` wraps the tree as an
 ``nn.Module`` whose parameter names follow the tree's paths
 (``convs.c0.w.w``).
 
-Only fp32 runs so far: a config asking for another ``gnn_precision``
-raises ``NotImplementedError`` rather than silently running fp32. The
-legacy fixed-point hook of the reference runs: ``quant`` (a
-``quantization.FPX``) rounds the input, each conv's output, each layer's
-activation, the pooled vector and each head layer onto its grid, the
-testbench semantics of ``core.project.Project(float_or_fixed="fixed")``
-(whose caller quantizes the weights).
+Precision: ``gnn_precision`` names the model's ``PrecisionPolicy`` (fp32,
+bf16 or int8; ``apply``, ``apply_packed`` and ``apply_packed_resident``
+also take a resolved, possibly calibrated, policy as ``policy=``). Each
+conv layer runs its weights and the tensors entering its edge stream at
+the layer's width, and the head at the head's, while the residual
+stream, the skips, the activations and the pooling stay fp32, as in the
+reference. The weights are cast for the policy once per tree:
+``cast_for_policy`` returns a ``CastParams`` tree that carries its
+policy, which a server builds once and passes to every forward; a plain
+tree is cast on each call. The legacy fixed-point hook of the reference
+runs too: ``quant`` (a ``quantization.FPX``) rounds the input, each
+conv's output, each layer's activation, the pooled vector and each head
+layer onto its grid, the testbench semantics of
+``core.project.Project(float_or_fixed="fixed")`` (whose caller quantizes
+the weights).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.core import convs as C
 from repro_torch.core import quantization as Q
@@ -70,7 +79,8 @@ class GNNModelConfig:
     # transform/aggregate ordering for the linear convs (convs.DATAFLOWS)
     gnn_dataflow: str = "auto"
     avg_degree: float = 2.0
-    # datapath precision; the port runs fp32 only so far
+    # datapath precision spec (quantization.PRECISIONS), resolved to a
+    # per-layer PrecisionPolicy by the forwards unless policy= is given
     gnn_precision: str = "fp32"
 
     def conv_cfg(self, layer: int) -> C.ConvConfig:
@@ -98,15 +108,29 @@ def mlp_head_plan(cfg: MLPConfig) -> dict:
 
 
 def mlp_head_apply(params: dict, x: torch.Tensor, cfg: MLPConfig,
-                   quant: Q.FPX | None = None) -> torch.Tensor:
+                   quant: Q.FPX | None = None,
+                   lp: Q.LayerPrecision | None = None,
+                   record: list | None = None) -> torch.Tensor:
+    """The head at ``lp``'s width (the policy's head precision), on
+    weights as ``lp.cast_params`` gives them (``cast_for_policy``): bf16
+    casts the input; int8 rounds it onto ``in_fpx`` and each hidden
+    activation onto ``act_fpx`` after its product. Returns fp32.
+    ``record``: when a list, each hidden layer's pre-activation max-abs
+    is appended (the calibration probe of the head's ``act_fpx``)."""
+    if lp is not None and lp.compute != "fp32":
+        x = lp.cast_activation(x)
     n = cfg.hidden_layers + 1
     for i in range(n):
         x = linear(params[f"l{i}"], x)
         if quant is not None:
             x = Q.quantize(x, quant)
         if i < n - 1:
+            if record is not None:
+                record.append(x.abs().max())
+            if lp is not None and lp.compute == "int8":
+                x = Q.quantize(x, lp.act_fpx)
             x = act(cfg.activation)(x)
-    return x
+    return x.to(torch.float32)
 
 
 def model_plan(cfg: GNNModelConfig) -> dict:
@@ -184,21 +208,78 @@ def packed_inputs(batch: dict) -> tuple:
     return g, x, node_mask, graph_id
 
 
+def resolve_policy(cfg: GNNModelConfig, policy=None) -> Q.PrecisionPolicy:
+    """The model's policy: ``policy`` where given (a name or a
+    ``PrecisionPolicy``), else ``cfg.gnn_precision`` for every layer. An
+    unknown name raises ``ValueError``."""
+    return Q.resolve_policy(policy if policy is not None
+                            else cfg.gnn_precision, cfg.gnn_num_layers)
+
+
+class CastParams(dict):
+    """A parameter tree whose conv and head weights were cast for
+    ``policy`` (``cast_for_policy``); the skip projections stay fp32."""
+
+    def __init__(self, tree: dict, policy: Q.PrecisionPolicy):
+        super().__init__(tree)
+        self.policy = policy
+
+
+def cast_for_policy(params: dict, cfg: GNNModelConfig,
+                    policy=None) -> CastParams:
+    """``params`` with each conv's weights cast by its layer's
+    ``LayerPrecision.cast_params`` and the head's by the head's, for
+    ``policy`` (or ``cfg.gnn_precision``). The cast depends on the
+    weights and the policy alone: a server casts once and passes the
+    result to every forward, which then casts nothing. A ``CastParams``
+    of the same policy passes through; one of another policy raises."""
+    pol = resolve_policy(cfg, policy)
+    if isinstance(params, CastParams):
+        if params.policy != pol:
+            raise ValueError("params were cast for another precision policy")
+        return params
+    tree = dict(params)
+    if not pol.is_fp32:
+        tree["convs"] = {
+            f"c{i}": pol.layer(i).cast_params(params["convs"][f"c{i}"])
+            for i in range(cfg.gnn_num_layers)}
+        if "mlp" in tree:
+            tree["mlp"] = pol.head.cast_params(tree["mlp"])
+    return CastParams(tree, pol)
+
+
 def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
-              node_mask: torch.Tensor,
-              quant: Q.FPX | None = None) -> torch.Tensor:
+              node_mask: torch.Tensor, quant: Q.FPX | None = None,
+              policy: Q.PrecisionPolicy | None = None,
+              record: list | None = None) -> torch.Tensor:
     """Conv stack + skip + activation; padding rows are zeroed after
     every layer. ``quant`` rounds each conv output and each layer's
-    output onto its grid."""
+    output onto its grid. ``policy``: each layer's conv runs its weights
+    (``params`` as ``cast_for_policy`` gives them) and input at the
+    layer's width and returns fp32; the residual stream, skip and
+    activation stay fp32. ``record``: when a list, one max-abs per layer
+    (over its input and its conv's output) is appended, the probe
+    ``activation_ranges`` reads."""
     for i in range(cfg.gnn_num_layers):
-        h = C.conv_apply(params["convs"][f"c{i}"], g, x, cfg.conv_cfg(i))
+        cc = cfg.conv_cfg(i)
+        p_i = params["convs"][f"c{i}"]
+        x_in = x
+        lp = policy.layer(i) if policy is not None else None
+        if lp is not None and lp.compute != "fp32":
+            cc = dataclasses.replace(cc, precision=lp)
+            x_in = lp.cast_activation(x)
+        h = C.conv_apply(p_i, g, x_in, cc)
+        if record is not None:
+            record.append(torch.maximum(x.abs().max(), h.abs().max()))
         if quant is not None:
             h = Q.quantize(h, quant)
         if cfg.gnn_skip_connection:
             skip = x
             if f"skip{i}" in params:
                 skip = linear(params[f"skip{i}"], x)
-            h = h + skip
+            h = h + skip            # fp32: a bf16 h is lifted exactly
+        else:
+            h = h.to(torch.float32)
         x = act(cfg.gnn_activation)(h)
         x = x * node_mask[:, None]
         if quant is not None:
@@ -206,17 +287,13 @@ def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
     return x
 
 
-def _check_fp32(cfg: GNNModelConfig) -> None:
-    if cfg.gnn_precision != "fp32":
-        raise NotImplementedError(
-            f"gnn_precision={cfg.gnn_precision!r}: the port runs fp32 only")
-
-
 def _head(params: dict, cfg: GNNModelConfig, pooled: torch.Tensor,
-          quant: Q.FPX | None = None) -> torch.Tensor:
+          quant: Q.FPX | None = None,
+          policy: Q.PrecisionPolicy | None = None) -> torch.Tensor:
     if quant is not None:
         pooled = Q.quantize(pooled, quant)
-    out = mlp_head_apply(params["mlp"], pooled, cfg.mlp_head, quant)
+    out = mlp_head_apply(params["mlp"], pooled, cfg.mlp_head, quant,
+                         policy.head if policy is not None else None)
     if cfg.output_activation:
         out = act(cfg.output_activation)(out)
     return out
@@ -224,8 +301,8 @@ def _head(params: dict, cfg: GNNModelConfig, pooled: torch.Tensor,
 
 def _packed_tail(params: dict, cfg: GNNModelConfig, batch: dict,
                  x: torch.Tensor, node_mask: torch.Tensor,
-                 graph_id: torch.Tensor,
-                 quant: Q.FPX | None = None) -> torch.Tensor:
+                 graph_id: torch.Tensor, quant: Q.FPX | None = None,
+                 policy: Q.PrecisionPolicy | None = None) -> torch.Tensor:
     """After the conv stack of a packed batch: the node table for node
     tasks, else segment pooling (one CSR over the graph ids) and the
     head."""
@@ -235,50 +312,64 @@ def _packed_tail(params: dict, cfg: GNNModelConfig, batch: dict,
     pooled = segment_global_pooling(
         cfg.global_pooling, x, graph_id, num_graphs, node_mask,
         csr=build_csr(graph_id, num_graphs, node_mask))
-    return _head(params, cfg, pooled, quant)
+    return _head(params, cfg, pooled, quant, policy)
 
 
 def apply(params: dict, cfg: GNNModelConfig, batch_el: dict,
-          quant: Q.FPX | None = None) -> torch.Tensor:
+          quant: Q.FPX | None = None, policy=None) -> torch.Tensor:
     """Forward one padded graph (tensors, ``packed_to_device`` of one
     element of ``data.pipeline.graph_batch``): the per-graph oracle the
     packed paths are held against. Returns (out_dim,) for graph tasks or
     the (N_max, F) node embeddings for node tasks. ``quant``: the
-    fixed-point testbench datapath (module docstring)."""
-    _check_fp32(cfg)
+    fixed-point testbench datapath; ``policy`` (or ``cfg.gnn_precision``)
+    the precision policy (module docstring)."""
+    params = cast_for_policy(params, cfg, policy)
+    pol = None if params.policy.is_fp32 else params.policy
     g, x, node_mask = graph_inputs(batch_el)
     if quant is not None:
         x = Q.quantize(x, quant)
-    x = _backbone(params, cfg, g, x, node_mask, quant)
+    x = _backbone(params, cfg, g, x, node_mask, quant, pol)
     if cfg.task == "node":
         return x
     return _head(params, cfg, global_pooling(cfg.global_pooling, x,
-                                             node_mask), quant)
+                                             node_mask), quant, pol)
 
 
 def apply_packed(params: dict, cfg: GNNModelConfig, batch: dict,
-                 quant: Q.FPX | None = None) -> torch.Tensor:
+                 quant: Q.FPX | None = None, policy=None) -> torch.Tensor:
     """Forward a packed GraphBatch (tensors, ``packed_to_device``).
 
     Returns (num_graphs, out_dim) for graph tasks (rows where
     ``graph_valid`` is False are padding) or the (N_total, F) node
     embeddings for node tasks. ``quant``: the fixed-point testbench
-    datapath (module docstring)."""
-    _check_fp32(cfg)
+    datapath; ``policy`` (or ``cfg.gnn_precision``) the precision policy
+    (module docstring)."""
+    params = cast_for_policy(params, cfg, policy)
+    pol = None if params.policy.is_fp32 else params.policy
     g, x, node_mask, graph_id = packed_inputs(batch)
     if quant is not None:
         x = Q.quantize(x, quant)
-    x = _backbone(params, cfg, g, x, node_mask, quant)
-    return _packed_tail(params, cfg, batch, x, node_mask, graph_id, quant)
+    x = _backbone(params, cfg, g, x, node_mask, quant, pol)
+    return _packed_tail(params, cfg, batch, x, node_mask, graph_id, quant,
+                        pol)
 
 
-# the fp32 precision row [mode, s, lo, hi] of the resident kernel
-_FP32_QP = (0.0, 1.0, 0.0, 0.0)
+def _qp_row(lp: Q.LayerPrecision | None) -> list:
+    """The resident kernel's precision row [mode, s, lo, hi] of a layer:
+    the parameters of its ``LayerPrecision.cast_activation``."""
+    if lp is None or lp.compute == "fp32":
+        return [0.0, 1.0, 0.0, 0.0]
+    if lp.compute == "bf16":
+        return [1.0, 1.0, 0.0, 0.0]
+    fpx = lp.in_fpx or lp.act_fpx
+    return [2.0, fpx.resolution, fpx.min_val, fpx.max_val]
 
 
 def _pad2(w: torch.Tensor, fmax: int) -> torch.Tensor:
+    """``w`` as fp32 values (bf16 or grid values where the policy cast
+    it) in the corner of a zero (fmax, fmax) matrix."""
     out = torch.zeros((fmax, fmax), dtype=torch.float32, device=w.device)
-    out[:w.shape[0], :w.shape[1]] = w
+    out[:w.shape[0], :w.shape[1]] = w.to(torch.float32)
     return out
 
 
@@ -288,16 +379,18 @@ def layer_dims(cfg: GNNModelConfig) -> list:
             for i in range(cfg.gnn_num_layers)]
 
 
-def _group_stacks(params: dict, cfg: GNNModelConfig, layers, fmax: int,
-                  dev: torch.device) -> tuple:
+def _group_stacks(params: CastParams, cfg: GNNModelConfig, layers,
+                  fmax: int, dev: torch.device) -> tuple:
     """(w_a, w_n, w_skip, b, qp) stacks of the fused ``layers``,
     zero-padded to ``fmax`` as the JAX package builds them: GCN has no
-    self weights; the skip is the projection where the dims change, else
-    the identity, or zeros when skips are off."""
+    self weights; the conv weights as ``cast_for_policy`` gave them; the
+    skip is the fp32 projection where the dims change, else the
+    identity, or zeros when skips are off; one ``_qp_row`` a layer."""
     zero = torch.zeros((fmax, fmax), dtype=torch.float32, device=dev)
-    wa, wn, wsk, bias = [], [], [], []
+    wa, wn, wsk, bias, qps = [], [], [], [], []
     for i in layers:
         p_i = params["convs"][f"c{i}"]
+        qps.append(_qp_row(params.policy.layer(i)))
         if cfg.gnn_conv == "gcn":
             wa.append(zero)
             wn.append(_pad2(p_i["w"]["w"], fmax))
@@ -307,7 +400,7 @@ def _group_stacks(params: dict, cfg: GNNModelConfig, layers, fmax: int,
             wn.append(_pad2(p_i["w_neigh"]["w"], fmax))
             b_i = p_i["w_self"]["b"]
         b_pad = torch.zeros((fmax,), dtype=torch.float32, device=dev)
-        b_pad[:b_i.shape[0]] = b_i
+        b_pad[:b_i.shape[0]] = b_i.to(torch.float32)
         bias.append(b_pad)
         if not cfg.gnn_skip_connection:
             wsk.append(zero)
@@ -316,34 +409,48 @@ def _group_stacks(params: dict, cfg: GNNModelConfig, layers, fmax: int,
         else:
             wsk.append(_pad2(torch.eye(cfg.conv_cfg(i).in_dim, device=dev),
                              fmax))
-    qp = torch.tensor([_FP32_QP] * len(wn), dtype=torch.float32,
-                      device=dev)
+    qp = torch.tensor(qps, dtype=torch.float32, device=dev)
     return (torch.stack(wa), torch.stack(wn), torch.stack(wsk),
             torch.stack(bias), qp)
 
 
+class ResidentStacks(list):
+    """The resident kernel's weight operands: one (w_a, w_n, w_skip, b,
+    qp) tuple per fused group, and the ``policy`` they were cast for."""
+
+    def __init__(self, groups, policy: Q.PrecisionPolicy):
+        super().__init__(groups)
+        self.policy = policy
+
+
 def resident_stacks(params: dict, cfg: GNNModelConfig,
-                    fusion_depth: int = 2) -> list:
+                    fusion_depth: int = 2, policy=None) -> ResidentStacks:
     """The resident kernel's weight operands, one (w_a, w_n, w_skip, b,
     qp) tuple per fused group of ``fusion_depth`` layers, on the weights'
-    device. They depend on the weights alone: a server builds them once
-    per model and passes them to ``apply_packed_resident(stacks=...)``,
-    so that a batch runs only the launches."""
+    device, cast for ``policy`` (or ``cfg.gnn_precision``): fp32 tensors
+    holding bf16 or grid values, and the layers' precision rows. They
+    depend on the weights and the policy alone: a server builds them
+    once per model and passes them to
+    ``apply_packed_resident(stacks=...)``, so that a batch runs only the
+    launches."""
     if cfg.gnn_conv not in C.RESIDENT_CONVS:
         raise ValueError(f"conv {cfg.gnn_conv!r} has no resident stack")
     nl = cfg.gnn_num_layers
+    params = cast_for_policy(params, cfg, policy)
     plan = C.residency_plan(layer_dims(cfg), 0, cfg.gnn_conv, fusion_depth)
     c0 = params["convs"]["c0"]
     dev = c0["w" if cfg.gnn_conv == "gcn" else "w_self"]["w"].device
-    return [_group_stacks(params, cfg, range(i0, min(i0 + plan.depth, nl)),
-                          plan.fmax, dev)
-            for i0 in range(0, nl, plan.depth)]
+    return ResidentStacks(
+        [_group_stacks(params, cfg, range(i0, min(i0 + plan.depth, nl)),
+                       plan.fmax, dev)
+         for i0 in range(0, nl, plan.depth)], params.policy)
 
 
 def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
-                          quant: Q.FPX | None = None, *,
+                          quant: Q.FPX | None = None, policy=None, *,
                           fusion_depth: int = 2,
-                          stacks: list | None = None) -> torch.Tensor:
+                          stacks: ResidentStacks | None = None
+                          ) -> torch.Tensor:
     """``apply_packed`` with the conv stack run by the resident
     layer-stack kernel: consecutive layers fuse into one launch per group
     of ``fusion_depth`` (``kernels.fused_layer_stack``), the node table
@@ -358,11 +465,15 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
     failed build or
     launch raises; it is never a reason to fall back. ``stacks`` is
     ``resident_stacks(params, cfg, fusion_depth)``, built here when not
-    given. Each fused group runs at its layers' real widths
-    (``layer_dims(cfg)``, passed as the kernel's ``widths``) inside the
-    padded table, aggregating first, which is exact for fp32 up to
-    rounding. Pooling and the MLP head run as in ``apply_packed``."""
-    _check_fp32(cfg)
+    given, and must have been built for the same policy. Each fused group
+    runs at its layers' real widths (``layer_dims(cfg)``, passed as the
+    kernel's ``widths``) inside the padded table, aggregating first,
+    which is exact for fp32 up to rounding and within the layer width's
+    rounding for bf16 and int8 (the kernel casts the table on the fly by
+    each layer's precision row). Pooling and the MLP head run as in
+    ``apply_packed``, the head at the policy's head precision."""
+    params = cast_for_policy(params, cfg, policy)
+    pol = params.policy
     nl = cfg.gnn_num_layers
     n = batch["node_feat"].shape[0]
     plan = C.residency_plan(layer_dims(cfg), n, cfg.gnn_conv, fusion_depth,
@@ -370,9 +481,11 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
                             l2_bytes=l2_cache_bytes(
                                 batch["node_feat"].device))
     if quant is not None or not plan.legal:
-        return apply_packed(params, cfg, batch, quant)
+        return apply_packed(params, cfg, batch, quant, pol)
     if stacks is None:
-        stacks = resident_stacks(params, cfg, fusion_depth)
+        stacks = resident_stacks(params, cfg, fusion_depth, pol)
+    if getattr(stacks, "policy", None) != pol:
+        raise ValueError("stacks were built for another precision policy")
     fmax = plan.fmax
     sizes = [min(plan.depth, nl - i0) for i0 in range(0, nl, plan.depth)]
     if [s[1].shape for s in stacks] != [(k, fmax, fmax) for k in sizes]:
@@ -400,7 +513,7 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
             widths=dims[i0:i0 + plan.depth])
     return _packed_tail(params, cfg, batch,
                         xpad[:, :cfg.conv_cfg(nl - 1).out_dim], node_mask,
-                        graph_id)
+                        graph_id, None, None if pol.is_fp32 else pol)
 
 
 def _as_module(tree: dict) -> nn.Module:
@@ -424,21 +537,89 @@ def _as_tree(module: nn.Module) -> dict:
 
 
 class GNNModel(nn.Module):
-    """``apply_packed`` as a module. ``params`` is a tree with the JAX
-    package's keys (``nn.param.params_from_jax``); without one, random
-    parameters are drawn from ``generator`` on ``device``."""
+    """``apply_packed`` as a module, at ``policy`` (a name or a
+    ``PrecisionPolicy``; default ``cfg.gnn_precision``). ``params`` is a
+    tree with the JAX package's keys (``nn.param.params_from_jax``);
+    without one, random parameters are drawn from ``generator`` on
+    ``device``. The weights are cast for the policy once and again only
+    after a parameter moved or changed in place."""
 
     def __init__(self, cfg: GNNModelConfig, params: dict | None = None, *,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None, device="cuda",
+                 policy=None):
         super().__init__()
         self.cfg = cfg
+        self.policy = resolve_policy(cfg, policy)
         if params is None:
             params = init_params(cfg, generator, device)
         for k, v in params.items():
             self.add_module(k, _as_module(v))
+        self._cast: tuple | None = None
 
     def param_tree(self) -> dict:
         return _as_tree(self)
 
+    def cast_tree(self) -> CastParams:
+        """``cast_for_policy`` of the parameters, kept while every
+        parameter has the storage and version it was cast from."""
+        key = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        if self._cast is None or self._cast[0] != key:
+            self._cast = (key, cast_for_policy(self.param_tree(), self.cfg,
+                                               self.policy))
+        return self._cast[1]
+
     def forward(self, batch: dict) -> torch.Tensor:
-        return apply_packed(self.param_tree(), self.cfg, batch)
+        return apply_packed(self.cast_tree(), self.cfg, batch,
+                            policy=self.policy)
+
+
+def activation_ranges(params: dict, cfg: GNNModelConfig,
+                      batch: dict) -> dict:
+    """Calibration probe: one fp32 forward over a packed batch, recording
+    the max-abs ranges ``quantization.calibrate_policy`` fits the int8
+    grids to: ``acts[i]`` (layer i's input and conv output),
+    ``weights[i]`` (layer i's conv weights), ``head`` (the pooled head
+    input; 0.0 for node tasks), ``head_hidden`` (the head's hidden
+    activations) and ``head_weight`` (the head's weights)."""
+    def tree_max_abs(tree) -> float:
+        leaves = [a.abs().max() for a in tree_leaves(tree)
+                  if a.is_floating_point() and a.numel()]
+        return float(torch.stack(leaves).max()) if leaves else 0.0
+
+    params = cast_for_policy(params, cfg, "fp32")
+    with torch.no_grad():
+        g, x, node_mask, graph_id = packed_inputs(batch)
+        rec: list = []
+        x = _backbone(params, cfg, g, x, node_mask, record=rec)
+        head_range = head_hidden = 0.0
+        if cfg.task == "graph":
+            num_graphs = batch["graph_valid"].shape[0]
+            pooled = segment_global_pooling(
+                cfg.global_pooling, x, graph_id, num_graphs, node_mask,
+                csr=build_csr(graph_id, num_graphs, node_mask))
+            head_range = float(pooled.abs().max())
+            head_rec: list = []
+            mlp_head_apply(params["mlp"], pooled, cfg.mlp_head,
+                           record=head_rec)
+            if head_rec:
+                head_hidden = float(torch.stack(head_rec).max())
+        return {
+            "acts": [float(r) for r in rec],
+            "weights": [tree_max_abs(params["convs"][f"c{i}"])
+                        for i in range(cfg.gnn_num_layers)],
+            "head": head_range,
+            "head_hidden": head_hidden,
+            "head_weight": tree_max_abs(params.get("mlp", {})),
+        }
+
+
+def calibrated_policy(params: dict, cfg: GNNModelConfig, batch: dict,
+                      policy=None) -> Q.PrecisionPolicy:
+    """Resolve the model's policy and, where it has int8 grids not yet
+    calibrated, fit them by max-abs on one packed batch."""
+    pol = resolve_policy(cfg, policy)
+    if not pol.needs_calibration:
+        return pol
+    r = activation_ranges(params, cfg, batch)
+    return Q.calibrate_policy(pol, r["acts"], r["weights"], r["head"],
+                              r["head_weight"], r["head_hidden"])

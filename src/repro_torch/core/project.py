@@ -23,12 +23,16 @@ tiles (``aggregations.aggregation_scope``), and only there may the
 resident layer stack engage (a legal residency plan, ``fusion_depth >
 1``, no fixed-point hook); ``agg_backend="xla"``, the default, runs the
 port's default CSR kernels and ignores the tiles and the gather mode,
-as the reference's XLA path does. The port runs fp32 and the legacy
-fixed-point datapath (``float_or_fixed="fixed"``); another ``precision``
-raises.
+as the reference's XLA path does. ``precision`` (a name from
+``quantization.PRECISIONS`` or a resolved ``PrecisionPolicy``) selects
+the per-layer datapath width, as in the reference: int8 grids are
+calibrated on the testbench graphs before the testbench runs, and the
+fp32 reference outputs pin an explicit fp32 policy. The legacy
+fixed-point datapath (``float_or_fixed="fixed"``) runs too.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -80,15 +84,6 @@ class H100Target:
     kernel_step_overhead: float = 5.6083e-10
 
 
-def fp32_precision_record(num_layers: int) -> dict:
-    """config.json's "precision": what the reference's uniform fp32
-    ``PrecisionPolicy.describe()`` gives."""
-    layer = {"compute": "fp32", "accum": "fp32", "bytes_per_value": 4}
-    return {"name": "fp32", "calibrated": False, "compute_bytes": 4.0,
-            "layers": [dict(layer) for _ in range(num_layers)],
-            "head": dict(layer)}
-
-
 def _tree_leaves(tree: dict) -> list:
     """Tensor leaves in sorted key order (the reference's tree order)."""
     out = []
@@ -96,6 +91,13 @@ def _tree_leaves(tree: dict) -> list:
         v = tree[k]
         out += _tree_leaves(v) if isinstance(v, dict) else [v]
     return out
+
+
+def _flat(tree: dict) -> torch.Tensor:
+    """Every leaf of a tree, flattened in sorted key order, on the CPU
+    as fp32."""
+    return torch.cat([t.reshape(-1).cpu().to(torch.float32)
+                      for t in _tree_leaves(tree)])
 
 
 def _zero_params(plan: dict, device: torch.device) -> dict:
@@ -120,12 +122,14 @@ class _OpCounter(TorchDispatchMode):
     is not a view. A call into a kernel wrapper is priced by its
     function's work (``kernels._cost``) and its own operations are not
     counted. Live bytes: the outputs of the counted operations and
-    kernels while they are referenced."""
+    kernels while they are referenced. ``by_op``: the bytes of each
+    operation (its ATen name; ``kernels`` for the kernel calls)."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0.0
         self.bytes = 0
+        self.by_op = collections.Counter()
         self.live = 0
         self.peak = 0
         self._paused = 0
@@ -141,6 +145,7 @@ class _OpCounter(TorchDispatchMode):
     def kernel(self, moved: int, ops: float, out) -> None:
         self.flops += ops
         self.bytes += moved
+        self.by_op["kernels"] += moved
         self._track(out)
 
     def _track(self, t: torch.Tensor) -> None:
@@ -168,7 +173,9 @@ class _OpCounter(TorchDispatchMode):
         if not func.is_view:
             ins = [t for t in tree_leaves((args, kwargs))
                    if isinstance(t, torch.Tensor)]
-            self.bytes += _cost.nbytes(*ins, *outs)
+            moved = _cost.nbytes(*ins, *outs)
+            self.bytes += moved
+            self.by_op[str(packet)] += moved
             held = {t.untyped_storage().data_ptr() for t in ins}
             for t in outs:
                 if t.untyped_storage().data_ptr() not in held:
@@ -192,18 +199,20 @@ class Project:
                  gather_mode: str = "dma", fusion_depth: int = 1,
                  partition: int = 1, device="cuda"):
         self.name = name
-        if precision not in (None, "fp32") \
-                or model_cfg.gnn_precision != "fp32":
-            raise NotImplementedError(
-                f"precision {precision or model_cfg.gnn_precision!r}: the "
-                "port runs fp32 (and the fixed-point testbench) only; the "
-                "precision policy is ROADMAP queue 1 item 6")
         # the dataflow override and the dataset degree flow into the
-        # per-layer transform/aggregate planner (convs.resolve_dataflow)
+        # per-layer transform/aggregate planner (convs.resolve_dataflow);
+        # precision, a name or a resolved PrecisionPolicy, selects the
+        # per-layer datapath width
         cfg_updates = {"avg_degree": float(degree_guess)}
         if dataflow is not None:
             cfg_updates["gnn_dataflow"] = dataflow
+        if isinstance(precision, str):
+            cfg_updates["gnn_precision"] = precision
         self.cfg = dataclasses.replace(model_cfg, **cfg_updates)
+        # resolved once per project; build_and_run_testbench calibrates
+        # the int8 grids on the testbench graphs before it runs
+        self.policy = G.resolve_policy(
+            self.cfg, None if isinstance(precision, str) else precision)
         self.task = task
         self.build_dir = build_dir
         self.dataset_cfg = dataset_cfg or P.GraphDataConfig(
@@ -255,6 +264,7 @@ class Project:
         self._fn = None
         self._fn_packed = None
         self.params = None
+        self.counted = None          # run_synthesis's counting passes
         os.makedirs(build_dir, exist_ok=True)
 
     # ------------------------------------------------------- generation --
@@ -284,13 +294,19 @@ class Project:
         cfg = self.cfg
         quant = self._quant()
         knobs = self._knobs()
+        policy = self.policy
+
+        cast = {}           # the weights cast for the policy, once per params
 
         def bound(apply_fn):
             # the project's kernel generation and tiles hold for each call
             # of its programs and nowhere else
             def fn(params, batch):
+                if cast.get("params") is not params:
+                    cast.update(params=params, tree=G.cast_for_policy(
+                        params, cfg, policy))
                 with A.aggregation_scope(*knobs), torch.no_grad():
-                    return apply_fn(params, batch)
+                    return apply_fn(cast["tree"], batch)
             return fn
 
         self.residency = Cv.residency_plan(
@@ -300,28 +316,30 @@ class Project:
         resident = (self.residency.legal and self.fusion_depth > 1
                     and self.agg_backend == "pallas" and quant is None)
         self.residency_engaged = resident
-        self._fn = bound(lambda p, el: G.apply(p, cfg, el, quant))
+        self._fn = bound(lambda p, el: G.apply(p, cfg, el, quant, policy))
         if resident:
             depth = self.residency.depth
             built = {}          # the padded weight stacks, once per params
 
             def packed(p, b):
                 if built.get("params") is not p:
-                    built.update(params=p,
-                                 stacks=G.resident_stacks(p, cfg, depth))
-                return G.apply_packed_resident(p, cfg, b, fusion_depth=depth,
+                    built.update(params=p, stacks=G.resident_stacks(
+                        p, cfg, depth, policy))
+                return G.apply_packed_resident(p, cfg, b, None, policy,
+                                               fusion_depth=depth,
                                                stacks=built["stacks"])
             self._fn_packed = bound(packed)
         else:
             self._fn_packed = bound(
-                lambda p, b: G.apply_packed(p, cfg, b, quant))
+                lambda p, b: G.apply_packed(p, cfg, b, quant, policy))
         with open(os.path.join(self.build_dir, "config.json"), "w") as f:
             json.dump({"name": self.name,
                        "model": dataclasses.asdict(cfg),
                        "quant": str(self.fpx),
                        "float_or_fixed": self.float_or_fixed,
-                       "precision": fp32_precision_record(
-                           cfg.gnn_num_layers),
+                       # the resolved (possibly calibrated) policy the
+                       # programs run
+                       "precision": policy.describe(),
                        "max_nodes": self.max_nodes,
                        "max_edges": self.max_edges,
                        "batch_graphs": self.batch_graphs,
@@ -375,13 +393,15 @@ class Project:
     def gen_testbench(self, num_graphs: int = 64):
         """Export dataset graphs + fp32 reference outputs (the paper's
         binary testbench data). The reference runs the default kernels,
-        never the project's knobs or fixed-point hook."""
+        never the project's knobs or fixed-point hook, and an explicit
+        fp32 policy, so that ``cfg.gnn_precision`` cannot reach it."""
         ds = [P.make_graph(self.dataset_cfg, i) for i in range(num_graphs)]
         if self.params is None:
             self.init_params()
+        fp32 = Q.resolve_policy("fp32", self.cfg.gnn_num_layers)
         with torch.no_grad():
-            refs = [G.apply(self.params, self.cfg,
-                            self._graph_to_el(g)).cpu().numpy()
+            refs = [G.apply(self.params, self.cfg, self._graph_to_el(g),
+                            None, fp32).cpu().numpy()
                     for g in ds]
         np.savez(os.path.join(self.build_dir, "testbench.npz"),
                  refs=np.stack(refs), n=num_graphs)
@@ -396,10 +416,24 @@ class Project:
                                    "num_nodes": np.int32(g.num_nodes)},
                                   self.device)
 
-    def calibrate(self, num_graphs: int = 8) -> dict:
-        """The reference calibrates int8 grids here; the port runs fp32,
-        which has none, so this returns the precision record as is."""
-        return fp32_precision_record(self.cfg.gnn_num_layers)
+    def calibrate(self, num_graphs: int = 8) -> Q.PrecisionPolicy:
+        """Max-abs calibrate the project's int8 grids on a packed batch of
+        the first ``num_graphs`` testbench graphs, then regenerate the
+        programs (and config.json) with the calibrated policy. Returns the
+        policy; fp32 and bf16 have no grids and return it unchanged."""
+        if not self.policy.needs_calibration:
+            return self.policy
+        if self.params is None:
+            self.init_params()
+        graphs = getattr(self, "_tb_graphs", None) \
+            or [P.make_graph(self.dataset_cfg, i) for i in range(num_graphs)]
+        batch, _ = P.pack_graphs(graphs[:num_graphs], self.node_budget,
+                                 self.edge_budget, self.batch_graphs)
+        self.policy = G.calibrated_policy(
+            self.params, self.cfg, G.packed_to_device(batch, self.device),
+            self.policy)
+        self.gen_hw_model()          # the programs and config.json anew
+        return self.policy
 
     def build_and_run_testbench(self, packed: bool = True) -> dict:
         """Run the generated program on every testbench graph; report the
@@ -407,10 +441,13 @@ class Project:
         clock around each call, ending in ``torch.cuda.synchronize`` on
         the card). With ``packed`` the same graphs also drain through the
         packed program (graphs/s); ``num_shards > 1`` adds
-        ``tb["sharded"]``. The fixed-point path also reports the output
-        and weight quantization error."""
+        ``tb["sharded"]``. A low-precision policy (int8 grids calibrated
+        first) and the fixed-point path also report the output and weight
+        quantization error."""
         if self.params is None:
             self.init_params()
+        if self.policy.needs_calibration:
+            self.calibrate()
         if self._fn is None:
             self.gen_hw_model()
         params = self.params
@@ -435,14 +472,23 @@ class Project:
               "loop_graphs_per_s": 1.0 / max(float(np.mean(times)), 1e-12),
               "quant": str(self.fpx) if self.float_or_fixed == "fixed"
               else "float32",
-              "precision": "fp32"}
+              "precision": self.policy.name}
+        if not self.policy.is_fp32 or self.float_or_fixed == "fixed":
+            tb["quant_error"] = {"output": Q.error_stats(
+                np.stack(outs), np.stack(self._tb_refs))}
         if self.float_or_fixed == "fixed":
-            leaves = torch.cat([t.reshape(-1).cpu()
-                                for t in _tree_leaves(self.params)])
-            tb["quant_error"] = {
-                "output": Q.error_stats(np.stack(outs),
-                                        np.stack(self._tb_refs)),
-                "weights": Q.quant_error_stats(leaves, self.fpx)}
+            tb["quant_error"]["weights"] = Q.quant_error_stats(
+                _flat(self.params), self.fpx)
+        elif any(lp.compute == "int8" for lp in self.policy.layers) \
+                or self.policy.head.compute == "int8":
+            # the weights the datapath quantizes, each against its own
+            # grid: the conv weights of each layer and the head (the
+            # skip projections stay fp32)
+            def cast_part(tree):
+                return {"convs": tree["convs"], "mlp": tree.get("mlp", {})}
+            cast = G.cast_for_policy(self.params, self.cfg, self.policy)
+            tb["quant_error"]["weights"] = Q.error_stats(
+                _flat(cast_part(cast)), _flat(cast_part(self.params)))
         if packed:
             tb["packed"] = self._run_packed_testbench(params)
             if self.num_shards > 1:
@@ -528,7 +574,8 @@ class Project:
             else counter.peak
         args = _cost.nbytes(*_tree_leaves(params), *inputs.values())
         return {"first_s": first_s, "flops": counter.flops,
-                "bytes": counter.bytes, "temp": int(temp), "args": args}
+                "bytes": counter.bytes, "bytes_by_op": dict(counter.by_op),
+                "temp": int(temp), "args": args}
 
     def run_synthesis(self) -> dict:
         """Count the programs and emit the synthesis report: modeled
@@ -558,13 +605,20 @@ class Project:
         p_eff = min(max(self.cfg.gnn_p_hidden * self.cfg.gnn_p_out, 1),
                     128) / 128
         eff_peak = self.target.peak_flops * p_eff
-        # data-width scaling: the counted program is fp32; the legacy
-        # fixed-point width moves w/32 of its bytes
+        # data-width scaling: the legacy fixed-point width moves w/32 of
+        # the counted fp32 program's bytes. A precision policy is not
+        # scaled here, unlike in the reference (whose cost analysis sees
+        # fake-quant fp32): the counting pass prices every tensor and
+        # kernel operand at its element size, so bf16 and int8 storage
+        # already shows in the counted bytes
         width_scale = self.fpx.w / 32.0 \
             if self.float_or_fixed == "fixed" else 1.0
         latency = max(flops / eff_peak,
                       bytes_ * width_scale / self.target.hbm_bw)
         packed_m = self._measure(self._fn_packed, self._zero_packed())
+        # the counting passes as measured (``bytes_by_op`` among them),
+        # kept beside the report, whose keys are the reference's
+        self.counted = {"single": single, "packed": packed_m}
         flops_p = packed_m["flops"]
         bytes_p = packed_m["bytes"] * width_scale
         # aggregation tile model (the reference's formula): grid steps
@@ -593,8 +647,8 @@ class Project:
                         bytes_p / self.target.hbm_bw) + agg_overhead_s
         packed = {
             "latency_s": latency_p,
-            "precision": "fp32",
-            "compute_bytes": 4.0,
+            "precision": self.policy.name,
+            "compute_bytes": self.policy.compute_bytes,
             "agg_grid_steps": grid_steps,
             "agg_overhead_s": agg_overhead_s,
             "gather_mode": self.gather_mode,
@@ -640,7 +694,8 @@ class Project:
                        self.cfg.graph_input_feature_dim)
         cut_model = (self.partition - 1) / self.partition \
             * self.edge_budget
-        halo_bytes = Cv.halo_comm_bytes(cut_model, feat_dim, 4.0,
+        halo_bytes = Cv.halo_comm_bytes(cut_model, feat_dim,
+                                        self.policy.compute_bytes,
                                         self.cfg.gnn_num_layers)
         comm_s = halo_bytes / self.target.link_bw
         latency_pt = latency_p + comm_s
@@ -665,7 +720,7 @@ class Project:
             "fits_hbm": (temp + args) < self.target.hbm_bytes,
             "compile_s": single["first_s"],
             "target": self.target.name,
-            "precision": "fp32",
+            "precision": self.policy.name,
         }
         with open(os.path.join(self.build_dir, "report.json"), "w") as f:
             json.dump(report, f, indent=1)

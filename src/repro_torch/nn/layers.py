@@ -2,7 +2,9 @@
 
 Weights keep the JAX package's layout, ``y = x @ w + b`` with ``w`` of
 shape ``(d_in, d_out)``, so parameters carry over without a transpose
-(``nn.Linear`` stores ``(d_out, d_in)`` and is not used).
+(``nn.Linear`` stores ``(d_out, d_in)`` and is not used). Operands of
+two float widths meet at the wider one, as ``jnp``'s ``x @ w`` promotes
+them (``torch.matmul`` raises on mixed dtypes).
 """
 from __future__ import annotations
 
@@ -35,7 +37,9 @@ def linear_plan(d_in: int, d_out: int, *, bias: bool = False) -> dict:
 
 
 def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, params["w"])
+    w = params["w"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = torch.matmul(x.to(dt), w.to(dt))
     if "b" in params:
         y = y + params["b"]
     return y

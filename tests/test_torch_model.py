@@ -9,7 +9,10 @@ differ by ~1e-4 on the CPU), under the default ``xla`` backend and under
 
 Also holds the golden files ``src/repro_torch/testdata/{conv}_qm9_full.json``,
 one per registered conv (the JAX package's full-width output that the
-GPU run is held against): the test recomputes each with JAX.
+GPU run is held against), and ``{conv}_qm9_full_{bf16,int8}.json``, the
+same at a bf16 and an int8 policy (int8 grids calibrated on the golden
+batch, the policy stored in the file): the tests recompute each with
+JAX.
 ``python tests/test_torch_model.py --write-golden`` rewrites them. The
 other convs' parity grid is ``tests/test_torch_convs.py``.
 """
@@ -307,13 +310,22 @@ def test_gnn_model_module_names_follow_the_jax_tree(conv):
     assert {n for n, _ in drawn.named_parameters()} == set(names)
 
 
-def test_non_fp32_precision_raises():
+@pytest.mark.parametrize("spec", ["fp16", "int4"])
+def test_unknown_precision_raises(spec):
+    """An unknown name raises ``ValueError`` from ``resolve_policy``, in
+    the config and as ``policy=``, as in the JAX package."""
     cfg = port_cfg(dataclasses.replace(parity.model_cfg("gcn"),
-                                       gnn_precision="bf16"))
+                                       gnn_precision=spec))
     params = tprm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = TG.packed_to_device(small_batch(), "cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
+    with pytest.raises(ValueError, match=spec):
         TG.apply_packed(params, cfg, batch)
+    fp32 = dataclasses.replace(cfg, gnn_precision="fp32")
+    with pytest.raises(ValueError, match=spec):
+        TG.apply(params, fp32, batch, policy=spec)
+    with pytest.raises(ValueError, match=spec):
+        JG.resolve_policy(dataclasses.replace(parity.model_cfg("gcn"),
+                                              gnn_precision=spec))
 
 
 @pytest.mark.parametrize("name", sorted(JL.ACTIVATIONS))
@@ -325,8 +337,12 @@ def test_activations_match_jax(name):
 
 
 # ----------------------------------------------------- golden files --
-def golden_path(conv: str) -> Path:
-    return TESTDATA / f"{conv}_qm9_full.json"
+LOW_PRECISIONS = ("bf16", "int8")
+
+
+def golden_path(conv: str, precision: str = "fp32") -> Path:
+    suffix = "" if precision == "fp32" else f"_{precision}"
+    return TESTDATA / f"{conv}_qm9_full{suffix}.json"
 
 
 def golden_inputs(conv: str):
@@ -343,17 +359,41 @@ def golden_inputs(conv: str):
     return batch, nb, eb, params
 
 
-def golden_record(conv: str) -> dict:
+def jax_strict(fn, *args):
+    """``fn(*args)`` jitted and compiled with XLA's
+    ``xla_allow_excess_precision`` off: every bf16 cast of the program
+    rounds, as each of the port's casts does. By default XLA may keep the
+    intermediates of a fused bf16 chain in fp32, which moves a bf16
+    model's output by a few bf16 ulps."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+def golden_record(conv: str, precision: str = "fp32") -> dict:
+    """The JAX package's output on the golden inputs: at fp32 as before;
+    at bf16 or int8 under an explicit policy (int8 grids max-abs
+    calibrated on the same batch), which the record states, compiled
+    with every bf16 cast rounding (``jax_strict``)."""
     batch, nb, eb, params = golden_inputs(conv)
     cfg = JCfg.benchmark_config(conv)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
-    out = jax_apply(cfg, jparams, batch, "xla")
-    return {"what": "repro.core.gnn_model.apply_packed, jitted, xla "
-                    f"backend, benchmark_config('{conv}')",
-            "dataset": "qm9", "graphs": GOLDEN_GRAPHS,
-            "batch_graphs": GOLDEN_GRAPHS, "node_budget": nb,
-            "edge_budget": eb, "seed": GOLDEN_SEED,
-            "out": [[float(v) for v in row] for row in out]}
+    rec = {"what": "repro.core.gnn_model.apply_packed, jitted, xla "
+                   f"backend, benchmark_config('{conv}')",
+           "dataset": "qm9", "graphs": GOLDEN_GRAPHS,
+           "batch_graphs": GOLDEN_GRAPHS, "node_budget": nb,
+           "edge_budget": eb, "seed": GOLDEN_SEED}
+    if precision == "fp32":
+        out = jax_apply(cfg, jparams, batch, "xla")
+    else:
+        jb = {k: jnp.asarray(v) for k, v in batch.items() if k != "y"}
+        pol = JG.calibrated_policy(jparams, cfg, jb, precision)
+        out = np.asarray(jax_strict(lambda p, b: JG.apply_packed(
+            p, cfg, b, None, pol), jparams, jb))
+        rec["what"] += (f", policy={precision} (calibrated_policy), "
+                        "xla_allow_excess_precision=False")
+        rec.update(precision=precision, policy=pol.describe())
+    rec["out"] = [[float(v) for v in row] for row in out]
+    return rec
 
 
 @pytest.mark.parametrize("conv", TC.CONV_TYPES)
@@ -366,9 +406,18 @@ def test_golden_file_is_current(conv):
                                np.asarray(fresh["out"]), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("precision", LOW_PRECISIONS)
 @pytest.mark.parametrize("conv", TC.CONV_TYPES)
-def test_port_matches_golden_on_cpu(conv):
-    stored = json.loads(golden_path(conv).read_text())
+def test_low_precision_golden_file_is_current(conv, precision):
+    stored = json.loads(golden_path(conv, precision).read_text())
+    fresh = golden_record(conv, precision)
+    assert {k: v for k, v in stored.items() if k != "out"} \
+        == {k: v for k, v in fresh.items() if k != "out"}
+    np.testing.assert_allclose(np.asarray(stored["out"]),
+                               np.asarray(fresh["out"]), atol=1e-6, rtol=0)
+
+
+def _golden_port_inputs(conv, stored):
     _, _, _, params = golden_inputs(conv)
     tcfg = TCfg.benchmark_config(conv)
     tp = tprm.params_from_jax(tcfg, params, "cpu")
@@ -376,10 +425,38 @@ def test_port_matches_golden_on_cpu(conv):
         [TP.make_graph(TCfg.DATASETS["qm9"], i)
          for i in range(stored["graphs"])], stored["node_budget"],
         stored["edge_budget"], stored["batch_graphs"])
+    return tcfg, tp, TG.packed_to_device(tbatch, "cpu")
+
+
+@pytest.mark.parametrize("conv", TC.CONV_TYPES)
+def test_port_matches_golden_on_cpu(conv):
+    stored = json.loads(golden_path(conv).read_text())
+    tcfg, tp, tb = _golden_port_inputs(conv, stored)
     with torch.inference_mode():
-        got = TG.apply_packed(tp, tcfg, TG.packed_to_device(tbatch, "cpu"))
+        got = TG.apply_packed(tp, tcfg, tb)
     np.testing.assert_allclose(got.numpy(), np.asarray(stored["out"]),
                                atol=ATOL, rtol=1e-4)
+
+
+@pytest.mark.parametrize("precision", LOW_PRECISIONS)
+@pytest.mark.parametrize("conv", TC.CONV_TYPES)
+def test_port_matches_low_precision_golden_on_cpu(conv, precision):
+    """The port calibrates the file's grids on the CPU and lands within
+    the precision's bound of the JAX output (bf16: 2^-7 of the output
+    scale + 1e-4; int8: 1e-4 of it + 1.05 head-grid steps)."""
+    from repro_torch.core import quantization as TQ
+    stored = json.loads(golden_path(conv, precision).read_text())
+    tcfg, tp, tb = _golden_port_inputs(conv, stored)
+    pol = TG.calibrated_policy(tp, tcfg, tb, precision)
+    assert pol.describe() == stored["policy"]
+    assert TQ.policy_from_description(stored["policy"]) == pol
+    with torch.inference_mode():
+        got = TG.apply_packed(tp, tcfg, tb, policy=pol).numpy()
+    want = np.asarray(stored["out"])
+    scale = float(np.abs(want).max())
+    bound = 2.0 ** -7 * scale + 1e-4 if precision == "bf16" \
+        else 1e-4 * scale + 1.05 * pol.head.act_fpx.resolution
+    assert np.abs(got - want).max() <= bound
 
 
 if __name__ == "__main__":
@@ -388,6 +465,7 @@ if __name__ == "__main__":
                  "--write-golden")
     TESTDATA.mkdir(parents=True, exist_ok=True)
     for name in TC.CONV_TYPES:
-        golden_path(name).write_text(
-            json.dumps(golden_record(name), indent=1) + "\n")
-        print(f"wrote {golden_path(name)}")
+        for prec in ("fp32",) + LOW_PRECISIONS:
+            golden_path(name, prec).write_text(
+                json.dumps(golden_record(name, prec), indent=1) + "\n")
+            print(f"wrote {golden_path(name, prec)}")

@@ -36,8 +36,7 @@ from repro_torch.configs.gnn import DATASETS, config
 from repro_torch.core import aggregations as TA
 from repro_torch.core import gnn_model as TG
 from repro_torch.core import quantization as TQ
-from repro_torch.core.project import H100Target, Project, \
-    fp32_precision_record
+from repro_torch.core.project import H100Target, Project
 from repro_torch.data import pipeline as TP
 from repro_torch.nn.param import params_from_jax
 
@@ -276,27 +275,85 @@ def test_fusion_depth_engages_residency_only_under_pallas(tmp_path, conv,
                     <= parity.ORACLE_ATOL
 
 
-def test_precision_record_matches_jax_fp32_policy(tmp_path):
-    jp, tp = pair("gcn", tmp_path)
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_precision_record_matches_jax_fp32_policy(tmp_path, precision):
+    """config.json's "precision" is the JAX ``describe()`` of the same
+    policy, before and after calibration (which fits int8 grids only)."""
+    jp, tp = pair("gcn", tmp_path, precision=precision)
     jp.gen_hw_model()
     tp.gen_hw_model()
     assert _config(tp)["precision"] == _config(jp)["precision"] \
-        == fp32_precision_record(2)
-    assert tp.calibrate() == fp32_precision_record(2)
+        == jp.policy.describe()
+    assert tp.policy.describe() == jp.policy.describe()
+    jp.gen_testbench(8)
+    tp.gen_testbench(8)
+    assert tp.calibrate().describe() == jp.calibrate().describe()
+    assert _config(tp)["precision"] == _config(jp)["precision"]
+    assert tp.policy.calibrated == (precision == "int8")
 
 
-@pytest.mark.parametrize("precision", ["bf16", "int8"])
-def test_non_fp32_precision_raises(tmp_path, precision):
+@pytest.mark.parametrize("spec", ["fp16", "int4"])
+def test_unknown_precision_raises(tmp_path, spec):
     ds = dataclasses.replace(DATASETS["qm9"], **SMALL)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match=spec):
         Project("p", config("gcn", reduced=True), "c", str(tmp_path),
-                dataset_cfg=ds, device="cpu", precision=precision)
+                dataset_cfg=ds, device="cpu", precision=spec)
     cfg = dataclasses.replace(config("gcn", reduced=True),
-                              gnn_precision=precision)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+                              gnn_precision=spec)
+    with pytest.raises(ValueError, match=spec):
         Project("p", cfg, "c", str(tmp_path), dataset_cfg=ds, device="cpu")
-    Project("p", config("gcn", reduced=True), "c", str(tmp_path),
-            dataset_cfg=ds, device="cpu", precision="fp32")
+
+
+# bound of a low-precision program against the JAX one, on the output
+# scale: bf16 two ulps of it (a product rounded once more or less), int8
+# one step of the head's grid (tests/test_torch_precision.py)
+def _low_tol(precision: str, policy, scale: float) -> float:
+    if precision == "bf16":
+        return 2.0 ** -7 * scale + 1e-4
+    return 1e-4 * scale + 1.05 * (policy.head.act_fpx.resolution)
+
+
+@pytest.mark.parametrize("mode", ["onehot", "dma"])
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+def test_project_low_precision_matches_jax(tmp_path, precision, mode):
+    """``Project(precision=...)`` against the JAX Project: the same
+    calibrated policy, the testbench outputs within the precision's
+    bound, MAE and quant-error reports alike, and the report's precision
+    keys."""
+    jp, tp = pair("gcn", tmp_path, precision=precision,
+                  agg_backend="pallas", gather_mode=mode, edge_block=64,
+                  node_block=32)
+    for p in (jp, tp):
+        p.gen_hw_model()
+        p.gen_testbench(8)
+    for a, b in zip(jp._tb_refs, tp._tb_refs):      # the fp32 references
+        np.testing.assert_allclose(b, np.asarray(a),
+                                   atol=parity.ORACLE_ATOL, rtol=1e-5)
+    tb_j, tb_t = jp.build_and_run_testbench(), tp.build_and_run_testbench()
+    assert tp.policy.describe() == jp.policy.describe()
+    assert _keys(tb_t) == _keys(tb_j)
+    assert tb_t["precision"] == tb_j["precision"] == precision
+    scale = max(float(np.abs(np.asarray(r)).max()) for r in jp._tb_refs)
+    tol = _low_tol(precision, tp.policy, scale)
+    for g in tp._tb_graphs:
+        want = np.asarray(jp._fn(jp.params, jp._graph_to_el(g)))
+        got = tp._fn(tp.params, tp._graph_to_el(g)).numpy()
+        assert np.abs(got - want).max() <= tol
+    assert abs(tb_t["mae"] - tb_j["mae"]) <= tol
+    assert abs(tb_t["packed"]["mae"] - tb_j["packed"]["mae"]) <= tol
+    qj, qt = tb_j["quant_error"], tb_t["quant_error"]
+    assert set(qt) == set(qj)
+    assert abs(qt["output"]["max_abs"] - qj["output"]["max_abs"]) <= tol
+    if precision == "int8":
+        assert np.isclose(qt["weights"]["mean_abs"],
+                          qj["weights"]["mean_abs"], rtol=1e-5)
+        assert qt["weights"]["max_abs"] == qj["weights"]["max_abs"]
+    cj, ct = _config(jp), _config(tp)
+    for key in set(cj) - {"residency"}:
+        assert ct[key] == cj[key], key
+    rt = tp.run_synthesis()
+    assert rt["precision"] == precision
+    assert rt["packed"]["compute_bytes"] == jp.policy.compute_bytes
 
 
 def test_bad_knobs_raise_and_sharded_testbench_skips(tmp_path):

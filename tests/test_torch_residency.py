@@ -460,13 +460,21 @@ def test_resident_edgeless_batch_runs_the_layer_math():
         atol=parity.ORACLE_ATOL, rtol=1e-5)
 
 
-def test_resident_non_fp32_raises():
+def test_resident_low_precision_follows_cfg():
+    """``cfg.gnn_precision`` reaches the resident stack as it reaches
+    ``apply_packed`` (the default, uncalibrated int8 grids here): within
+    one step of the head's grid of the layer-by-layer forward."""
     cfg = port_cfg(dataclasses.replace(reduced_cfg("gcn"),
                                        gnn_precision="int8"))
     params = tprm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        TG.apply_packed_resident(params, cfg,
-                                 TG.packed_to_device(packed_batch(), "cpu"))
+    batch = TG.packed_to_device(packed_batch(), "cpu")
+    with torch.inference_mode():
+        got = TG.apply_packed_resident(params, cfg, batch)
+        want = TG.apply_packed(params, cfg, batch)
+        fp32 = TG.apply_packed(params, cfg, batch, policy="fp32")
+    step = TG.resolve_policy(cfg).head.act_fpx.resolution
+    assert float((got - want).abs().max()) <= 1.05 * step
+    assert not torch.equal(want, fp32)
 
 
 # ------------------------------------------------------ planner rule --

@@ -293,9 +293,10 @@ def test_model_output_keeps_the_bits_of_the_per_agg_calls(conv,
         got = TG.apply_packed(params, cfg, batch)
 
     def per_agg(aggs, messages, seg_ids, num_segments, valid=None, *,
-                csr=None):
+                csr=None, precision=None):
         return torch.cat([TA.segment_aggregate(a, messages, seg_ids,
-                                               num_segments, valid, csr=csr)
+                                               num_segments, valid, csr=csr,
+                                               precision=precision)
                           for a in aggs], dim=-1)
 
     from repro_torch.core import pooling as TP
