@@ -183,7 +183,31 @@ Phases, in order; any failure exits non-zero with no result line:
    ``scaled_dot_product_attention`` or, for a sum/mean/max over the
    padded table, ``embedding_bag`` (the table as bags with a padding id,
    held against the plain version too) as its library call, and its bound
-   prices bf16 products at the tensor-core peak (989 TFLOP/s).
+   prices bf16 products at the tensor-core peak (989 TFLOP/s);
+9. continuous serving on the card (``serve --scheduler continuous``,
+   ``runtime.scheduler``), each load a share of the wave drain's graphs/s
+   for the same conv and batch size in phase 4 of this call
+   (``CONTINUOUS_RUNS``): every conv at full width, 32 graphs/batch, 512
+   requests at 0.5x; GCN at 1024 graphs/batch, 8192 requests at 0.5x and
+   0.9x; p50/p99, batch fill and sustained graphs/s printed beside the
+   wave drain's. Each run: every request ``served_packed``, no failed
+   launch, retry or dead letter (an exception inside the served program
+   stops the phase at once: ``fail_fast``), the launches of
+   ``LAUNCHES_PER_BATCH`` per launch (counts zeroed just before the drain,
+   read just after), and every launch's rows bit for bit a re-run of the
+   same batch composition through ``apply_packed`` on the card. Then the
+   oversize route: GCN at 32 graphs/batch with four giant graphs
+   (``--oversize-requests``), through the wave and the continuous drain,
+   each ``served_fallback`` by ``apply`` on the card (``ORACLE_LAUNCHES``
+   a graph) within ``MODEL_TOL`` of the CPU plain path's ``apply``, with
+   the fallback latency per graph. Then a fault-injected measured drain
+   (GCN, 32 graphs/batch, ``FAULT_SEED``'s plan of crashes, hangs,
+   slowdowns and corrupted outputs, a 50 ms launch timeout, two
+   retries): every request one terminal status, each launch's failure
+   the fault it took, every corrupted launch caught by the non-finite
+   screen and its requests re-run, every served row bit for bit its
+   launch's offline re-run. Last, ``tools/chaos_serving.py``'s smoke
+   point with lane 0's GAT program on the card and every gate held.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -1032,7 +1056,7 @@ def cpu_forward(conv: str, batch: dict, policy=None) -> torch.Tensor:
 
 
 def serve_phase(conv: str, requests: int, batch_graphs: int,
-                precision: str = "fp32") -> dict:
+                precision: str = "fp32", wave: dict | None = None) -> dict:
     """``repro_torch.launch.serve --conv conv --precision precision``:
     every request served packed with finite outputs, each batch's
     launches as ``LAUNCHES_PER_BATCH`` says. fp32: the first batch against
@@ -1042,7 +1066,9 @@ def serve_phase(conv: str, requests: int, batch_graphs: int,
     ``SQNR_MARGIN_DB`` where ``INT8_REF_SQNR_DB`` has it); at 32
     graphs/batch the first batch against the CPU plain path at the same
     policy (``low_bound``) and the int8 grids calibrated on the card
-    beside the CPU's."""
+    beside the CPU's. ``wave``: where given, an fp32 drain records its
+    (graphs/s, p50 batch ms) under (conv, batch_graphs), the rates phase
+    9 offers its loads against."""
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
@@ -1085,6 +1111,9 @@ def serve_phase(conv: str, requests: int, batch_graphs: int,
         check(torch.allclose(outs[0].cpu(), ref, **MODEL_TOL),
               f"{label}: first batch vs CPU plain path: max |err| {err}")
         extra = f"; first batch vs CPU max |err| {err:.3e}"
+        if wave is not None:
+            wave[(conv, batch_graphs)] = (stats["graphs_per_s"],
+                                          p50_ms(stats))
     else:
         sq = stats["output_error_vs_fp32"]
         floor = SQNR_FLOOR_DB[precision]
@@ -2507,6 +2536,357 @@ def summarize_entries(rows, errs, launches) -> list:
     return out
 
 
+# ----------------------------------------------------------- phase 9 --
+# the load-shaped continuous drains: (conv, graphs/batch, requests, load
+# as a share of the wave drain's graphs/s for that conv and batch size in
+# phase 4 of the same call)
+CONTINUOUS_RUNS = tuple((conv, 32, 512, 0.5)
+                        for conv in LAUNCHES_PER_BATCH) \
+    + (("gcn", 1024, 8192, 0.5), ("gcn", 1024, 8192, 0.9))
+# the padded oracle (gnn_model.apply) pools with plain PyTorch reductions:
+# a graph launches the per-layer kernels of LAUNCHES_PER_BATCH, without
+# the pooling's segment launch
+ORACLE_LAUNCHES = {c: tuple(n - (name == "segment_aggregate")
+                            for name, n in zip(KERNELS, t))
+                   for c, t in LAUNCHES_PER_BATCH.items()}
+# the oversize route: GCN at 32 graphs/batch, this many giant graphs
+# (serve --oversize-requests) behind 64 qm9 ones
+OVERSIZE_REQUESTS = 4
+# the fault-injected measured drain (GCN, 32 graphs/batch): a seeded
+# plan (runtime.faults.FaultPlan.random) whose first 11 calls hold every
+# fault kind, a 50 ms launch timeout and two retries
+FAULT_SEED = 6
+FAULT_RATES = {"crash": 0.1, "hang": 0.1, "slowdown": 0.1, "corrupt": 0.1}
+FAULT_TIMEOUT_MS = 50.0
+FAULT_RETRIES = 2
+
+
+class KernelFault(BaseException):
+    """An exception inside the served program during phase 9. The
+    scheduler handles any ``Exception`` of an executor as a lane fault
+    (retry, then dead letter); after a CUDA error every retry fails too,
+    so this derives from ``BaseException``, passes the scheduler's
+    handler and stops the phase at the first failure."""
+
+
+@contextlib.contextmanager
+def fail_fast():
+    """Route every exception of ``gnn_model.apply_packed``/``apply`` (and
+    of the device work they queued: each call waits for the device) into
+    ``KernelFault`` while the block runs."""
+    from repro_torch.core import gnn_model as G
+    real = G.apply_packed, G.apply
+
+    def guard(fn):
+        def call(*args, **kwargs):
+            try:
+                out = fn(*args, **kwargs)
+                if out.is_cuda:
+                    torch.cuda.synchronize(out.device)
+                return out
+            except Exception as e:
+                raise KernelFault(f"{fn.__name__}: {e!r}") from e
+        return call
+
+    G.apply_packed, G.apply = guard(real[0]), guard(real[1])
+    try:
+        yield
+    finally:
+        G.apply_packed, G.apply = real
+
+
+def counts_of(wrappers: dict) -> dict:
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def check_launches(label: str, launches: dict, per: dict) -> None:
+    """``per``: {per-call launch table: number of calls}."""
+    for i, name in enumerate(KERNELS):
+        want = sum(t[i] * n for t, n in per.items())
+        check(launches[name] == want,
+              f"{label}: {launches[name]} {name} launches, expected {want}")
+
+
+def replay_launches(dev, conv: str, queue, nb: int, eb: int, bg: int,
+                    launches, responses) -> int:
+    """Each served packed launch re-run offline: its composition packed
+    again and sent through ``apply_packed`` on the card with the serving
+    weights; every row bit for bit the drain's. Returns the launches
+    replayed."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    cfg = benchmark_config(conv)
+    params = serve_params(cfg, dev)
+    by = {r.req_id: r for r in responses}
+    n = 0
+    with torch.inference_mode():
+        for launch in launches:
+            if launch["status"] != "ok" or launch["kind"] != "packed":
+                continue
+            batch, k = P.pack_graphs([queue[r] for r in launch["req_ids"]],
+                                     nb, eb, bg)
+            check(k == len(launch["req_ids"]),
+                  f"{conv}: launch {launch['seq']} does not pack again")
+            ref = G.apply_packed(params, cfg, G.packed_to_device(
+                batch, dev)).cpu().numpy()
+            for j, rid in enumerate(launch["req_ids"]):
+                check(by[rid].batch_seq == launch["seq"]
+                      and np.array_equal(by[rid].output, ref[j]),
+                      f"{conv}: request {rid} of launch {launch['seq']} is "
+                      "not bit for bit its offline re-run")
+            n += 1
+    return n
+
+
+def clean_run(label: str, stats: dict) -> None:
+    """A fault-free drain: no failed launch, retry, dead letter, crash or
+    timeout."""
+    bad = [e for e in stats["events"] if e["kind"] == "launch_failed"]
+    check(not bad and stats["failed"] == 0 and stats["retries"] == 0
+          and stats["failed_launches"] == 0,
+          f"{label}: {stats['failed_launches']} failed launches "
+          f"({[e['error'] for e in bad][:5]}), {stats['failed']} failed "
+          "requests")
+
+
+def latency_ms(v) -> str:
+    return "n/a" if v is None else f"{v * 1e3:.4f} ms"
+
+
+def continuous_phase(dev, conv: str, batch_graphs: int, requests: int,
+                     share: float, wave: dict) -> dict:
+    """``serve --scheduler continuous`` at ``share`` of the wave drain's
+    graphs/s: every request ``served_packed``, no failed launch, the
+    launches of ``LAUNCHES_PER_BATCH`` per batch (warm-up included) and
+    each launch bit for bit its offline re-run."""
+    from repro_torch.configs.gnn import DATASETS
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import serve
+    from repro_torch.runtime import scheduler as S
+
+    rate, wave_p50 = wave[(conv, batch_graphs)]
+    load = share * rate
+    label = f"{conv} continuous {batch_graphs} at {share}x"
+    wrappers = zero_counts()
+    with fail_fast():
+        responses, stats = serve.main([
+            "--conv", conv, "--requests", str(requests), "--batch-graphs",
+            str(batch_graphs), "--scheduler", "continuous", "--load",
+            repr(load), "--queue-depth", str(max(1024, 4 * batch_graphs)),
+            "--device", dev.type])
+    launches = counts_of(wrappers)
+    clean_run(label, stats)
+    check(stats["served"] == stats["packed_served"] == requests
+          and all(r.status == S.SERVED_PACKED for r in responses),
+          f"{label}: served {stats['packed_served']} of {requests} packed")
+    check(all(np.isfinite(r.output).all() for r in responses),
+          f"{label}: non-finite output")
+    n_batches = stats["n_batches"] + stats["warmup_batches"]
+    check_launches(label, launches, {LAUNCHES_PER_BATCH[conv]: n_batches})
+    ds = DATASETS["qm9"]
+    nb, eb = serve.budgets(batch_graphs, ds)
+    queue = [P.make_graph(ds, i) for i in range(requests)]
+    replayed = replay_launches(dev, conv, queue, nb, eb, batch_graphs,
+                               stats["launches"], responses)
+    print(f"[9] {label} ({load:.1f} graphs/s offered, {requests} requests): "
+          f"{stats['n_batches']} launches, p50 "
+          f"{latency_ms(stats['p50_latency_s'])} p99 "
+          f"{latency_ms(stats['p99_latency_s'])}, "
+          f"batch fill {stats['mean_batch_fill']:.4f}, sustained "
+          f"{stats['graphs_per_s']:.1f} graphs/s; the wave drain in phase 4: "
+          f"{rate:.1f} graphs/s, batch latency p50 {wave_p50:.4f} ms; "
+          f"{replayed} launches bit for bit their offline re-run; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    return launches
+
+
+def oversize_phase(dev, wave: dict) -> dict:
+    """GCN at 32 graphs/batch with ``--oversize-requests``, through the
+    wave and the continuous drain: every giant graph ``served_fallback``
+    by ``apply`` on the card, within ``MODEL_TOL`` of the CPU plain
+    path's ``apply`` on the same graph."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.launch import serve
+    from repro_torch.runtime import scheduler as S
+
+    ds = DATASETS["qm9"]
+    bg, n = 32, 64
+    nb, eb = serve.budgets(bg, ds)
+    big = serve.oversize_graphs(ds, nb, eb, OVERSIZE_REQUESTS)
+    cfg = benchmark_config("gcn")
+    cpu_params = serve_params(cfg, "cpu")
+    with torch.inference_mode():
+        want = [G.apply(cpu_params, cfg, serve._fallback_input(g, "cpu"))
+                for g in big]
+    total = dict.fromkeys(KERNELS, 0)
+    for scheduler in ("wave", "continuous"):
+        label = f"gcn oversize, {scheduler}"
+        argv = ["--conv", "gcn", "--requests", str(n), "--batch-graphs",
+                str(bg), "--oversize-requests", str(OVERSIZE_REQUESTS),
+                "--scheduler", scheduler, "--device", dev.type]
+        if scheduler == "continuous":
+            argv += ["--load", repr(0.5 * wave[("gcn", bg)][0])]
+        wrappers = zero_counts()
+        with fail_fast():
+            outs, stats = serve.main(argv)
+        launches = counts_of(wrappers)
+        check(stats["packed_served"] == n
+              and stats["fallback_served"] == OVERSIZE_REQUESTS
+              and stats["served"] == n + OVERSIZE_REQUESTS,
+              f"{label}: {stats['packed_served']} packed, "
+              f"{stats['fallback_served']} fallback")
+        if scheduler == "wave":
+            check([o["status"] for o in stats["outcomes"][n:]]
+                  == [S.SERVED_FALLBACK] * OVERSIZE_REQUESTS,
+                  f"{label}: oversize outcomes {stats['outcomes'][n:]}")
+            got = [o.cpu() for o in outs[stats["n_batches"]:]]
+            lat = stats["oversize_latency_s"]
+        else:
+            clean_run(label, stats)
+            by = {r.req_id: r for r in outs}
+            fb = [by[n + i] for i in range(OVERSIZE_REQUESTS)]
+            check(all(r.status == S.SERVED_FALLBACK for r in fb),
+                  f"{label}: oversize statuses {[r.status for r in fb]}")
+            got = [torch.from_numpy(r.output) for r in fb]
+            lat = [r.complete_s - r.launch_s for r in fb]
+        check_launches(label, launches, {
+            LAUNCHES_PER_BATCH["gcn"]: stats["n_batches"]
+            + stats["warmup_batches"],
+            ORACLE_LAUNCHES["gcn"]: OVERSIZE_REQUESTS})
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        check(all(torch.allclose(g, w, **MODEL_TOL)
+                  for g, w in zip(got, want)),
+              f"{label}: fallback vs CPU apply max |err| {errs}")
+        for k, v in launches.items():
+            total[k] += v
+        print(f"[9] {label}: {n} qm9 graphs packed, {OVERSIZE_REQUESTS} "
+              f"giant graphs ({', '.join(str(g.num_nodes) for g in big)} "
+              f"nodes in {big[0].node_feat.shape[0]}-node frames) served "
+              f"by apply on the card, max |err| vs the CPU "
+              f"{max(errs):.3e}; fallback latency per graph "
+              + ", ".join(f"{v * 1e3:.4f}" for v in lat) + " ms")
+    return total
+
+
+def fault_phase(dev, wave: dict) -> dict:
+    """GCN at 32 graphs/batch through ``drain_gnn_queue_continuous``
+    under a seeded fault plan (crash, hang, slowdown, corrupt), a 50 ms
+    launch timeout and two retries: every request one terminal status,
+    every fault kind fired and recorded as its failure, every corrupted
+    launch caught by the non-finite screen and its requests re-run (or
+    dead-lettered after the retries), every served row bit for bit its
+    launch's offline re-run."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import serve
+    from repro_torch.runtime import faults as F
+    from repro_torch.runtime import scheduler as S
+
+    ds = DATASETS["qm9"]
+    bg, n = 32, 512
+    nb, eb = serve.budgets(bg, ds)
+    cfg = benchmark_config("gcn")
+    params = serve_params(cfg, dev)
+    queue = [P.make_graph(ds, i) for i in range(n)]
+    plan = F.FaultPlan.random(FAULT_SEED, 4 * n // bg, FAULT_RATES)
+    wrappers = zero_counts()
+    with fail_fast():
+        responses, stats = serve.drain_gnn_queue_continuous(
+            lambda p, b: G.apply_packed(p, cfg, b), params, queue, nb, eb,
+            bg, load_graphs_per_s=0.5 * wave[("gcn", bg)][0],
+            launch_timeout_s=FAULT_TIMEOUT_MS / 1e3,
+            max_retries=FAULT_RETRIES, device=dev, fault_plan=plan)
+    launches = counts_of(wrappers)
+    label = "gcn fault-injected"
+    check(sorted(r.req_id for r in responses) == list(range(n)),
+          f"{label}: a request without exactly one terminal status")
+    injected = stats["injected"]
+    check({k for _, k in injected} == set(F.KINDS),
+          f"{label}: faults fired {injected}")
+    log = stats["launches"]
+    # one lane: its call i is launch i
+    want = {"crash": S.FAIL_CRASH, "hang": S.FAIL_TIMEOUT,
+            "corrupt": S.FAIL_NONFINITE, "slowdown": "ok"}
+    fired = dict(injected)
+    for launch in log:
+        kind = fired.get(launch["seq"])
+        expect = want[kind] if kind else "ok"
+        check(launch["status"] == expect,
+              f"{label}: launch {launch['seq']} ({kind or 'no fault'}) "
+              f"ended {launch['status']}, expected {expect}")
+    by = {r.req_id: r for r in responses}
+    for call, kind in injected:
+        if kind != "corrupt":
+            continue
+        for rid in log[call]["req_ids"]:
+            check(by[rid].status == S.FAILED or any(
+                rid in l["req_ids"] for l in log[call + 1:]),
+                f"{label}: request {rid} of corrupted launch {call} was "
+                "not re-run")
+    # every call but a crash ran the program (a crash fires before it)
+    ran = len(log) - sum(k == "crash" for _, k in injected)
+    check_launches(label, launches, {LAUNCHES_PER_BATCH["gcn"]: ran})
+    replayed = replay_launches(dev, "gcn", queue, nb, eb, bg, log,
+                               responses)
+    counts = {s: sum(r.status == s for r in responses)
+              for s in (S.SERVED_PACKED, S.FAILED)}
+    print(f"[9] {label} (seed {FAULT_SEED}, rates {FAULT_RATES}, timeout "
+          f"{FAULT_TIMEOUT_MS} ms, {FAULT_RETRIES} retries): {len(log)} "
+          f"launches, faults {injected}; {counts[S.SERVED_PACKED]} served, "
+          f"{counts[S.FAILED]} dead-lettered, {stats['retries']} retries, "
+          f"{stats['probes']['succeeded']} probe-backs, p99 "
+          f"{latency_ms(stats['p99_latency_s'])}; {replayed} served "
+          "launches bit for bit their offline re-run")
+    return launches
+
+
+def chaos_phase(dev) -> dict:
+    """``tools/chaos_serving.py``'s smoke point, lane 0's GAT program on
+    the card, with every gate held; the GAT kernels launch
+    ``LAUNCHES_PER_BATCH["gat"]`` per program call."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chaos_serving", ROOT / "tools" / "chaos_serving.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    program = tool._gat_program(dev)
+    key = next(k for k, v in tool._GAT_FN.items() if v is program)
+    calls = []
+
+    def counted(b):
+        calls.append(1)
+        return program(b)
+    tool._GAT_FN[key] = counted
+    wrappers = zero_counts()
+    with fail_fast():
+        res = tool.sweep([600], [1.0], 400, 0, device=dev,
+                         log=lambda line: print(f"[9] chaos smoke: {line}"))
+    launches = counts_of(wrappers)
+    try:
+        tool.check_acceptance(res)
+    except AssertionError as e:
+        raise PhaseError(f"chaos smoke gate: {e}") from e
+    check(calls, "chaos smoke: lane 0 never ran the GAT program")
+    check_launches("chaos smoke", launches,
+                   {LAUNCHES_PER_BATCH["gat"]: len(calls)})
+    return launches
+
+
+def serving_phase(dev, wave: dict) -> dict:
+    """Phase 9; returns the launches of every drain in it."""
+    total = dict.fromkeys(KERNELS, 0)
+    parts = [continuous_phase(dev, *run, wave) for run in CONTINUOUS_RUNS]
+    parts += [oversize_phase(dev, wave), fault_phase(dev, wave),
+              chaos_phase(dev)]
+    for part in parts:
+        for k, v in part.items():
+            total[k] += v
+    return total
+
+
 def summarize(rows, errs, launches, by_precision) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
@@ -2657,13 +3037,14 @@ def main() -> int:
             by_precision[precision][k] += v
 
     t4 = time.perf_counter()
+    wave = {}
     for conv in CONV_TYPES:
         # 2048 requests at 1024 graphs/batch are two measured batches; the
         # 20480-request drain gives a window of 20 batches for graphs/s
         drains = [(256, 32), (2048, 1024), (20480, 1024)] if conv == "gcn" \
             else [(256, 32), (20480, 1024)]
         for requests, bg in drains:
-            add(serve_phase(conv, requests, bg), "fp32")
+            add(serve_phase(conv, requests, bg, wave=wave), "fp32")
         for precision in LOW_PRECISIONS:
             for requests, bg in LOW_DRAINS:
                 add(serve_phase(conv, requests, bg, precision), precision)
@@ -2700,6 +3081,9 @@ def main() -> int:
     entry_rows = entry_timing_phase(calls, bodies)
     del calls
     print(f"[8] phase 8 took {time.perf_counter() - t8:.1f} s")
+    t9 = time.perf_counter()
+    add(serving_phase(dev, wave), "fp32")
+    print(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
     summary = summarize(rows, errs, launches, by_precision)
     summary["kernels"] += summarize_entries(entry_rows, entry_errs,
                                             entry_launches)
@@ -2718,7 +3102,7 @@ def main() -> int:
 if __name__ == "__main__":
     try:
         code = main()
-    except Exception:       # any failed phase: report it, exit non-zero
+    except (Exception, KernelFault):    # any failed phase: exit non-zero
         traceback.print_exc()
         code = 1
     sys.exit(code)

@@ -1,22 +1,48 @@
-"""Packed GNN serving: the port of the wave drain of ``repro.launch.serve``.
+"""Packed GNN serving: the port of the GNN half of ``repro.launch.serve``.
 
 Drains a queue of graph requests through fixed-shape packed GraphBatches
-and the packed forward (``core.gnn_model.apply_packed``), one batch at a
-time, reporting graphs/s and the latency of each batch. Malformed graphs
-are rejected explicitly (``rejected_invalid``), and requests too large
-for the packed budgets get ``rejected_oversize``: the port has no padded
-oracle or partitioned program to answer them yet. Serves the paper's
-full-width §VIII-B model (``configs.gnn.benchmark_config``) by default;
-``--reduced`` serves the small config. ``--conv`` takes any conv of the
-port's registry (``core.convs.CONV_TYPES``: gcn, sage, gin, pna, gat),
-and the summary line names the conv served. ``--precision bf16|int8``
-serves the model at that ``PrecisionPolicy`` (int8 grids max-abs
-calibrated on the warm-up batch) and also reports the output's max error
-and SQNR against the fp32 program on that batch.
+and the packed forward (``core.gnn_model.apply_packed``), reporting
+graphs/s and the latency of each batch. Admission mirrors the continuous
+scheduler's statuses: malformed graphs are rejected explicitly
+(``rejected_invalid``, ``data.pipeline.validate_graph``), and requests
+too large for the packed budgets are answered one by one through the
+padded per-graph oracle (``gnn_model.apply``, ``served_fallback``), or
+get ``rejected_oversize`` when no fallback program is given: never a
+silent drop. Serves the paper's full-width §VIII-B model
+(``configs.gnn.benchmark_config``) by default; ``--reduced`` serves the
+small config. ``--conv`` takes any conv of the port's registry
+(``core.convs.CONV_TYPES``: gcn, sage, gin, pna, gat), and the summary
+line names the conv served. ``--precision bf16|int8`` serves the model
+at that ``PrecisionPolicy`` (int8 grids max-abs calibrated on the
+warm-up batch) and also reports the output's max error and SQNR against
+the fp32 program on that batch. ``--oversize-requests N`` appends N
+giant graphs to the queue to exercise the oversize route;
+``--dataflow`` pins the transform/aggregate order of the linear convs.
+
+``--scheduler continuous`` swaps the synchronous wave drain for the
+continuous-batching scheduler (``runtime.scheduler``): the queue is
+replayed as an open-loop Poisson arrival process at ``--load`` graphs/s
+on a virtual clock, requests feed continuously into partially-filled
+packed batches, and a batch launches on ``--deadline-ms`` expiry or
+budget-full. Each launch's service time is the measured wall time of
+the real program (ending in a copy of its output to the host), so the
+reported p50/p99 are traffic-shaped while the compute is real.
+``--launch-timeout-ms`` and ``--max-retries`` drive its fault
+tolerance (a hung launch fails at the timeout and its requests re-pack,
+up to the retry bound, then end ``failed``).
+
+Not ported: ``--shards`` (the sharded drain) and the partitioned oversize
+program wait for the port's multi-device layer; ``partition_fn`` stays
+in the drains' signatures and is ``None`` from the CLI. ``--agg-backend``
+has no counterpart: each kernel wrapper dispatches on its tensor's
+device, so there is no backend to choose.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --conv gat \\
       --requests 256 --batch-graphs 32 [--precision fp32|bf16|int8] \\
-      [--device cuda|cpu] [--reduced]
+      [--dataflow auto|aggregate_first|transform_first] \\
+      [--oversize-requests 4] [--device cuda|cpu] [--reduced] \\
+      [--scheduler continuous --load 512 --deadline-ms 50 \\
+       --queue-depth 1024 --launch-timeout-ms 50 --max-retries 2]
 """
 from __future__ import annotations
 
@@ -24,6 +50,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core import convs as C
@@ -33,20 +60,38 @@ from repro_torch.data import pipeline as P
 from repro_torch.device import resolve_device
 from repro_torch.nn.param import init_params
 from repro_torch.runtime import scheduler as S
+from repro_torch.runtime.faults import FaultyExecutor
 
 #: seed of the served model's random weights (drawn on the CPU)
 WEIGHT_SEED = 0
 
 
+def _fallback_input(g, device) -> dict:
+    """Padded per-graph oracle input for one oversize Graph request, as
+    tensors on ``device``."""
+    dev = resolve_device(device)
+    return {"node_feat": torch.as_tensor(g.node_feat, device=dev),
+            "edge_index": torch.as_tensor(g.edge_index, device=dev),
+            "edge_feat": torch.as_tensor(g.edge_feat, device=dev),
+            "num_nodes": torch.tensor(g.num_nodes, dtype=torch.int32,
+                                      device=dev)}
+
+
 def _admit(queue, node_budget: int, edge_budget: int, *,
+           can_fallback: bool, can_partition: bool = False,
            validate: bool = True) -> tuple:
-    """Route every request to exactly one outcome up front: packable, or
-    an explicit rejection (``rejected_invalid`` when ``validate_graph``
-    says the graph is malformed, ``rejected_oversize`` when it exceeds
-    the packed budgets) — never a silent drop. Returns (packable,
-    outcomes); ``outcomes[i]`` carries the queue index, the status and a
-    reason for rejections."""
-    packable, outcomes = [], []
+    """Admission screen of the wave drain, mirroring the continuous
+    scheduler's ``submit``: every request is routed to exactly one
+    outcome up front: packable, oversize (answered by the partitioned
+    program when ``can_partition``, else the padded fallback), or an
+    explicit per-request rejection (``rejected_oversize`` when neither
+    oversize program exists, ``rejected_invalid`` when ``validate_graph``
+    says the graph is malformed), never a silent drop. Returns
+    (packable, oversize, outcomes); ``outcomes[i]`` carries the queue
+    index, the status (oversize statuses are the *planned* route,
+    reconciled to the actual one after launch) and a reason for
+    rejections."""
+    packable, oversize, outcomes = [], [], []
     for i, g in enumerate(queue):
         if validate:
             reason = P.validate_graph(g)
@@ -57,75 +102,238 @@ def _admit(queue, node_budget: int, edge_budget: int, *,
         if P.graph_fits_budget(g, node_budget, edge_budget):
             packable.append(g)
             outcomes.append({"index": i, "status": S.SERVED_PACKED})
+        elif can_partition or can_fallback:
+            oversize.append(g)
+            outcomes.append({"index": i, "status":
+                             S.SERVED_PARTITIONED if can_partition
+                             else S.SERVED_FALLBACK})
         else:
             outcomes.append({
                 "index": i, "status": S.REJECTED_OVERSIZE,
                 "reason": f"{g.num_nodes} nodes/{g.num_edges} edges exceed "
                           f"the packed budgets ({node_budget} nodes/"
-                          f"{edge_budget} edges) and no oversize program "
-                          "is available"})
-    return packable, outcomes
+                          f"{edge_budget} edges) and no partitioned or "
+                          "fallback program is available"})
+    return packable, oversize, outcomes
 
 
-def _launch_packed(run_batch, batches, *, node_budget: int,
-                   device: torch.device) -> tuple:
-    """Run every packed batch through ``run_batch`` and account. On a
-    card each batch ends in ``torch.cuda.synchronize()``, so its
-    host-clock time is the batch latency. Returns (outputs per batch,
-    stats)."""
-    outs, latencies = [], []
-    served = slots_used = 0
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        for b in batches:
-            tb = time.perf_counter()
-            outs.append(run_batch(b))
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            latencies.append(time.perf_counter() - tb)
-            served += int(b["num_graphs"])
-            slots_used += int((b["node_graph_id"]
-                               < b["graph_valid"].shape[0]).sum())
-    total_s = time.perf_counter() - t0
-    stats = {
-        "served": served,
-        "n_batches": len(batches),
-        "graphs_per_s": served / max(total_s, 1e-12),
-        "node_slot_utilization": slots_used
-        / max(len(batches) * node_budget, 1),
-        "total_s": total_s,
-        "batch_latency_s": latencies,
-    }
-    return outs, stats
+def _reconcile_oversize(outcomes, over_status):
+    """Rewrite the oversize outcomes' *planned* route with the actual
+    post-launch one (partition infeasibility reroutes a graph to the
+    padded fallback, or to an explicit rejection when none exists), so
+    ``outcomes`` and the partitioned/fallback counts always agree."""
+    it = iter(over_status)
+    for o in outcomes:
+        if o["status"] in (S.SERVED_PARTITIONED, S.SERVED_FALLBACK):
+            o["status"] = next(it)
+    return outcomes
 
 
 def _rejection_stats(stats: dict, outcomes) -> dict:
+    """Fold per-request admission outcomes into a wave drain's stats.
+    ``dropped`` is the JAX package's alias of ``rejected_oversize``."""
     stats["outcomes"] = outcomes
     stats["rejected_oversize"] = sum(
         1 for o in outcomes if o["status"] == S.REJECTED_OVERSIZE)
     stats["rejected_invalid"] = sum(
         1 for o in outcomes if o["status"] == S.REJECTED_INVALID)
+    stats["dropped"] = stats["rejected_oversize"]
     return stats
 
 
+def _launch_packed(run_batch, batches, oversize, fallback_fn, *,
+                   node_budget: int, device: torch.device,
+                   partition_fn=None) -> tuple:
+    """Run every packed batch through ``run_batch``, then answer each
+    oversize graph through ``partition_fn`` (the partitioned program;
+    None when the graph cannot split) or ``fallback_fn`` (the padded
+    per-graph oracle on a ``_fallback_input`` dict), and account. Each
+    oversize graph resolves to exactly one of partitioned / fallback /
+    rejected-oversize. On a card each batch and each oversize graph ends
+    in ``torch.cuda.synchronize()``, so its host-clock time is its
+    latency (``batch_latency_s``, ``oversize_latency_s``). Returns
+    (batch_outs, oversize_outs, oversize_statuses, stats);
+    ``oversize_outs``/``oversize_statuses`` line up with ``oversize``
+    (rejected graphs carry a None output)."""
+    def timed(call):
+        tb = time.perf_counter()
+        out = call()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out, time.perf_counter() - tb
+
+    outs, latencies = [], []
+    served = slots_used = 0
+    over_outs, over_status, over_lat = [], [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for b in batches:
+            out, dt = timed(lambda: run_batch(b))
+            outs.append(out)
+            latencies.append(dt)
+            served += int(b["num_graphs"])
+            slots_used += int((b["node_graph_id"]
+                               < b["graph_valid"].shape[0]).sum())
+        for g in oversize:
+            out, dt = (None, 0.0) if partition_fn is None \
+                else timed(lambda: partition_fn(g))
+            if out is not None:
+                status = S.SERVED_PARTITIONED
+            elif fallback_fn is not None:
+                out, dt = timed(lambda: fallback_fn(_fallback_input(g,
+                                                                    device)))
+                status = S.SERVED_FALLBACK
+            else:
+                status = S.REJECTED_OVERSIZE
+            over_outs.append(out)
+            over_status.append(status)
+            if out is not None:
+                over_lat.append(dt)
+    total_s = time.perf_counter() - t0
+    n_part = over_status.count(S.SERVED_PARTITIONED)
+    n_fallback = over_status.count(S.SERVED_FALLBACK)
+    stats = {
+        "served": served + n_part + n_fallback,
+        "packed_served": served,
+        "partitioned_served": n_part,
+        "fallback_served": n_fallback,
+        "n_batches": len(batches),
+        "graphs_per_s": (served + n_part + n_fallback)
+        / max(total_s, 1e-12),
+        "node_slot_utilization": slots_used
+        / max(len(batches) * node_budget, 1),
+        "total_s": total_s,
+        "batch_latency_s": latencies,
+        "oversize_latency_s": over_lat,
+    }
+    return outs, over_outs, over_status, stats
+
+
 def drain_gnn_queue(fn, params, queue, node_budget: int, edge_budget: int,
-                    batch_graphs: int, *, validate: bool = True,
+                    batch_graphs: int, fallback_fn=None, *,
+                    partition_fn=None, validate: bool = True,
                     device="cuda") -> tuple:
     """Synchronous wave drain of ``queue`` (a list of data.pipeline.Graph
     requests) through the packed program ``fn(params, batch)``: requests
     that fit the budgets are greedily packed into fixed-shape
     GraphBatches, moved to ``device`` and answered batch by batch.
-    Returns (outputs per batch, stats); ``stats["outcomes"]`` lists every
-    request's status."""
+    Requests too large for the budgets go to ``partition_fn`` (a
+    graph -> output-or-None callable; none exists in the port yet), else
+    one by one to ``fallback_fn(params, el)`` (the padded per-graph
+    oracle ``G.apply`` on ``_fallback_input``), else get
+    ``rejected_oversize``; malformed graphs get ``rejected_invalid``
+    (``validate=False`` skips the screen).
+
+    Returns (outputs per batch followed by the oversize outputs, stats):
+    ``stats["outcomes"]`` lists every request's status under the
+    continuous scheduler's names; ``packed_served``,
+    ``partitioned_served``, ``fallback_served``, ``rejected_oversize``,
+    ``rejected_invalid`` and ``dropped`` (an alias of
+    ``rejected_oversize``) count them. This drain is the offline
+    throughput baseline of ``drain_gnn_queue_continuous``."""
     dev = resolve_device(device)
-    packable, outcomes = _admit(queue, node_budget, edge_budget,
-                                validate=validate)
-    batches, _ = P.pack_dataset(packable, node_budget, edge_budget,
-                                batch_graphs)
-    outs, stats = _launch_packed(
-        lambda b: fn(params, G.packed_to_device(b, dev)), batches,
-        node_budget=node_budget, device=dev)
-    return outs, _rejection_stats(stats, outcomes)
+    packable, oversize, outcomes = _admit(
+        queue, node_budget, edge_budget,
+        can_fallback=fallback_fn is not None,
+        can_partition=partition_fn is not None, validate=validate)
+    batches, leftover = P.pack_dataset(packable, node_budget, edge_budget,
+                                       batch_graphs)
+    assert not leftover, "_admit already screened for budget fit"
+    outs, over_outs, over_status, stats = _launch_packed(
+        lambda b: fn(params, G.packed_to_device(b, dev)), batches, oversize,
+        None if fallback_fn is None else (lambda el: fallback_fn(params, el)),
+        node_budget=node_budget, device=dev, partition_fn=partition_fn)
+    _reconcile_oversize(outcomes, over_status)
+    return outs + [o for o in over_outs if o is not None], \
+        _rejection_stats(stats, outcomes)
+
+
+def _partition_or_infeasible(partition_fn, g):
+    """Adapt the wave drain's graph -> output-or-None partition callable
+    to the continuous scheduler's executor protocol, where infeasibility
+    is the explicit ``PartitionInfeasible`` routing signal."""
+    out = partition_fn(g)
+    if out is None:
+        raise S.PartitionInfeasible(
+            f"{g.num_nodes} nodes/{g.num_edges} edges cannot split under "
+            "the per-device budgets")
+    return out
+
+
+def _to_host(out: torch.Tensor) -> np.ndarray:
+    """The scheduler screens numpy outputs; the copy to the host also
+    waits for the device, so a measured launch ends with its result."""
+    return out.cpu().numpy()
+
+
+def drain_gnn_queue_continuous(fn, params, queue, node_budget: int,
+                               edge_budget: int, batch_graphs: int,
+                               fallback_fn=None, *, partition_fn=None,
+                               load_graphs_per_s: float = 512.0,
+                               deadline_s: float = 0.05,
+                               max_queue_depth: int = 1024,
+                               launch_timeout_s: float = float("inf"),
+                               max_retries: int = 2,
+                               validate: bool = True,
+                               seed: int = 0, device="cuda",
+                               fault_plan=None) -> tuple:
+    """Continuous-batching drain (``runtime.scheduler``): the queue is
+    replayed as an open-loop Poisson arrival process at
+    ``load_graphs_per_s`` on the scheduler's virtual clock (the JAX
+    package's seeding, so both replay the same arrivals), while each
+    launch's service time is the *measured* wall time of the real
+    program (``MeasuredExecutor``; each call ends in a copy of its
+    output to the host). Batches launch on deadline expiry or
+    budget-full; oversize requests ride ``partition_fn`` (raise
+    ``scheduler.PartitionInfeasible`` inside it to reroute) then
+    ``fallback_fn``; admissions beyond ``max_queue_depth`` (or malformed
+    graphs, when ``validate``) are rejected explicitly. A launch not
+    complete within ``launch_timeout_s`` of virtual time fails as a hang
+    and its requests re-pack, up to ``max_retries`` times each before
+    the dead-letter ``failed`` status. ``fault_plan``
+    (``runtime.faults.FaultPlan``) wraps the executor in a
+    ``FaultyExecutor`` on the scheduler's clock.
+
+    Returns (responses, stats): ``responses`` are
+    ``runtime.scheduler.Response`` records carrying per-request numpy
+    outputs and latencies; ``stats`` is ``summary()`` plus the drain's
+    knobs, the launch log (``launches``), the lane event log
+    (``events``) and, under a fault plan, the faults that fired
+    (``injected``: (call index, kind))."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(np.random.SeedSequence([seed, 0xA221]))
+    t = 0.0
+    trace = []
+    for g in queue:
+        t += float(rng.exponential(1.0 / load_graphs_per_s))
+        trace.append((t, g, "default"))
+    executor = S.MeasuredExecutor(
+        batch_fn=lambda b: _to_host(fn(params, G.packed_to_device(b, dev))),
+        fallback_fn=None if fallback_fn is None else (
+            lambda g: _to_host(fallback_fn(params, _fallback_input(g, dev)))),
+        partition_fn=None if partition_fn is None else (
+            lambda g: _to_host(_partition_or_infeasible(partition_fn, g))))
+    clock = S.VirtualClock()
+    if fault_plan is not None:
+        executor = FaultyExecutor(executor, fault_plan, clock)
+    sched = S.ContinuousScheduler(
+        S.SchedulerConfig(node_budget, edge_budget, batch_graphs,
+                          max_queue_depth=max_queue_depth,
+                          default_tier=S.SLOTier("standard", deadline_s, 1),
+                          launch_timeout_s=launch_timeout_s,
+                          max_retries=max_retries, validate=validate),
+        executor, clock=clock)
+    with torch.inference_mode():
+        S.run_trace(sched, trace)
+    stats = sched.summary()
+    stats["n_batches"] = stats["n_launches"]
+    stats["offered_load_graphs_per_s"] = load_graphs_per_s
+    stats["deadline_s"] = deadline_s
+    stats["launches"] = sched.launches
+    stats["events"] = sched.events
+    if fault_plan is not None:
+        stats["injected"] = list(executor.injected)
+    return sched.responses, stats
 
 
 def budgets(batch_graphs: int, ds: P.GraphDataConfig) -> tuple:
@@ -135,26 +343,54 @@ def budgets(batch_graphs: int, ds: P.GraphDataConfig) -> tuple:
             P.size_budget(batch_graphs, ds.avg_nodes * ds.avg_degree))
 
 
+def oversize_graphs(ds: P.GraphDataConfig, node_budget: int,
+                    edge_budget: int, n: int) -> list:
+    """``n`` giant graphs that exceed the packed budgets, as the JAX
+    CLI's ``--oversize-requests`` builds them: 1.2x the node budget on
+    average, frames of 4x the budgets."""
+    big = dataclasses.replace(
+        ds, avg_nodes=int(1.2 * node_budget),
+        max_nodes=max(ds.max_nodes, 4 * node_budget),
+        max_edges=max(ds.max_edges, 4 * edge_budget),
+        seed=ds.seed + 0x0B1)
+    return [P.make_graph(big, i) for i in range(n)]
+
+
 def gnn_main(args) -> tuple:
-    """Serve ``args.requests`` qm9 graphs in packed batches of
-    ``args.batch_graphs`` at ``args.precision``; weights are drawn from
-    ``WEIGHT_SEED`` on the CPU. The policy is resolved once, its int8
-    grids calibrated on the warm-up batch (the first ``batch_graphs``
-    requests). One warm-up drain (the kernels' build and the first
-    launches) precedes the measured one. Returns (outputs per batch,
-    stats); ``stats["policy"]`` is the policy served, and at a precision
-    other than fp32 ``stats["output_error_vs_fp32"]`` holds the
-    warm-up batch's error against the fp32 program."""
+    """Serve ``args.requests`` qm9 graphs (then ``args.oversize_requests``
+    giant ones) in packed batches of ``args.batch_graphs`` at
+    ``args.precision``; weights are drawn from ``WEIGHT_SEED`` on the
+    CPU and cast for the policy once. The policy is resolved once, its
+    int8 grids calibrated on the packable part of the warm-up window
+    (the first ``batch_graphs`` requests). Oversize requests are
+    answered by the padded oracle ``G.apply`` at the same policy. One
+    warm-up wave drain (the kernels' build and the first launches)
+    precedes the measured drain: the wave drain, or with
+    ``--scheduler continuous`` the continuous one. Returns (outputs,
+    stats): the wave drain's outputs per batch then per oversize graph,
+    or the continuous drain's responses. ``stats["policy"]`` is the
+    policy served, ``stats["dataflow"]`` each layer's resolved
+    transform/aggregate order; in the wave drain at a precision other
+    than fp32, ``stats["output_error_vs_fp32"]`` holds the warm-up
+    batch's error against the fp32 program."""
     from repro_torch.configs.gnn import DATASETS, config as gnn_config
 
     dev = resolve_device(args.device)
     ds = DATASETS["qm9"]
     cfg = dataclasses.replace(gnn_config(args.conv, reduced=args.reduced),
+                              gnn_dataflow=args.dataflow,
+                              avg_degree=float(ds.avg_degree),
                               gnn_precision=args.precision)
     params = init_params(cfg, torch.Generator().manual_seed(WEIGHT_SEED),
                          dev)
+    # the transform/aggregate order each layer runs (convs.resolve_dataflow)
+    dataflow = [C.resolve_dataflow(cfg.conv_cfg(i))
+                for i in range(cfg.gnn_num_layers)]
     queue = [P.make_graph(ds, i) for i in range(args.requests)]
     node_budget, edge_budget = budgets(args.batch_graphs, ds)
+    if args.oversize_requests > 0:
+        queue += oversize_graphs(ds, node_budget, edge_budget,
+                                 args.oversize_requests)
     warm = queue[:args.batch_graphs]
     warm_fit = [g for g in warm
                 if P.graph_fits_budget(g, node_budget, edge_budget)]
@@ -172,18 +408,54 @@ def gnn_main(args) -> tuple:
     def fn(p, b):
         return G.apply_packed(p, cfg, b, None, policy)
 
+    def fallback_fn(p, el):
+        return G.apply(p, cfg, el, None, policy)
+
     # the weights cast for the policy once, before the drains
     served = G.cast_for_policy(params, cfg, policy)
     _, warm_stats = drain_gnn_queue(fn, served, warm, node_budget,
                                     edge_budget, args.batch_graphs,
-                                    device=dev)
-    outs, stats = drain_gnn_queue(fn, served, queue, node_budget,
-                                  edge_budget, args.batch_graphs,
-                                  device=dev)
+                                    fallback_fn, device=dev)
+    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if args.scheduler == "continuous":
+        outs, stats = drain_gnn_queue_continuous(
+            fn, served, queue, node_budget, edge_budget, args.batch_graphs,
+            fallback_fn, load_graphs_per_s=args.load,
+            deadline_s=args.deadline_ms / 1e3,
+            max_queue_depth=args.queue_depth,
+            launch_timeout_s=(args.launch_timeout_ms / 1e3
+                              if args.launch_timeout_ms > 0
+                              else float("inf")),
+            max_retries=args.max_retries, device=dev)
+    else:
+        outs, stats = drain_gnn_queue(fn, served, queue, node_budget,
+                                      edge_budget, args.batch_graphs,
+                                      fallback_fn, device=dev)
     stats["warmup_batches"] = warm_stats["n_batches"]
     stats["precision"] = policy.name
     stats["compute_bytes"] = policy.compute_bytes
     stats["policy"] = policy
+    stats["dataflow"] = dataflow
+    if args.scheduler == "continuous":
+        stats["probe_batches"] = probes
+
+        def ms(v):          # None when served == 0: print it honestly
+            return "n/a" if v is None else f"{v * 1e3:.1f} ms"
+        print(f"conv={args.conv} precision={policy.name} continuous "
+              f"scheduler served {stats['served']}/{len(queue)} graphs in "
+              f"{stats['n_batches']} launches on {where} at "
+              f"{args.load:.0f} offered graphs/s "
+              f"(p50 {ms(stats['p50_latency_s'])}, "
+              f"p99 {ms(stats['p99_latency_s'])}, batch fill "
+              f"{stats['mean_batch_fill'] * 100:.0f}%, sustained "
+              f"{stats['graphs_per_s']:.0f} graphs/s, "
+              f"{stats['partitioned_served']} oversize via partitioned "
+              f"mesh, "
+              f"{stats['fallback_served']} oversize via padded fallback, "
+              f"{stats['rejected_queue_full']} rejected by backpressure, "
+              f"{stats['rejected_invalid']} invalid, "
+              f"{stats['failed']} failed after retries)")
+        return outs, stats
     err_txt = ""
     if not policy.is_fp32 and warm_batch is not None:
         # an explicit fp32 policy: cfg.gnn_precision must not reach it
@@ -199,7 +471,6 @@ def gnn_main(args) -> tuple:
                    f"(SQNR {err['sqnr_db']:.2f} dB)")
     stats["probe_batches"] = probes
     lat = sorted(stats["batch_latency_s"])
-    where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     p50 = f"{lat[len(lat) // 2] * 1e3:.3f} ms" if lat else "n/a"
     worst = f"{lat[-1] * 1e3:.3f} ms" if lat else "n/a"
     print(f"conv={args.conv} precision={policy.name} served "
@@ -208,6 +479,8 @@ def gnn_main(args) -> tuple:
           f"({stats['graphs_per_s']:.1f} graphs/s, batch latency p50 "
           f"{p50} max {worst}, node-slot utilization "
           f"{stats['node_slot_utilization'] * 100:.0f}%, "
+          f"{stats['partitioned_served']} oversize via partitioned mesh, "
+          f"{stats['fallback_served']} oversize via padded fallback, "
           f"{stats['rejected_oversize']} rejected oversize, "
           f"{stats['rejected_invalid']} rejected invalid){err_txt}")
     return outs, stats
@@ -219,10 +492,44 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--conv", default="gcn", choices=C.CONV_TYPES,
                     help="a registered conv (core.convs.CONV_TYPES)")
     ap.add_argument("--requests", type=int, default=256)
+    ap.add_argument("--oversize-requests", type=int, default=0,
+                    help="append N giant graphs (~1.2x the node budget) "
+                         "to the queue to exercise the oversize route "
+                         "(the padded per-graph oracle)")
     ap.add_argument("--batch-graphs", type=int, default=32)
+    ap.add_argument("--dataflow", default="auto",
+                    choices=["auto", "aggregate_first", "transform_first"],
+                    help="transform/aggregate ordering for linear convs "
+                         "(auto = per-layer cost model)")
     ap.add_argument("--precision", default="fp32", choices=Q.PRECISIONS,
                     help="datapath precision policy (int8 grids are "
                          "calibrated on the warm-up batch)")
+    ap.add_argument("--scheduler", default="wave",
+                    choices=["wave", "continuous"],
+                    help="queue discipline: 'wave' drains the whole queue "
+                         "through synchronous packed waves (offline "
+                         "throughput baseline); 'continuous' replays it as "
+                         "an open-loop Poisson arrival process through the "
+                         "continuous-batching scheduler (runtime.scheduler)")
+    ap.add_argument("--load", type=float, default=512.0,
+                    help="offered load in graphs/s for --scheduler "
+                         "continuous (open-loop Poisson arrivals)")
+    ap.add_argument("--deadline-ms", type=float, default=50.0,
+                    help="max queue wait before a partially-filled batch "
+                         "launches (--scheduler continuous; the "
+                         "latency/throughput knob)")
+    ap.add_argument("--queue-depth", type=int, default=1024,
+                    help="pending-queue bound for --scheduler continuous; "
+                         "admissions beyond it are rejected (backpressure)")
+    ap.add_argument("--launch-timeout-ms", type=float, default=0.0,
+                    help="per-launch virtual-time bound for --scheduler "
+                         "continuous: a launch not complete within it "
+                         "fails as a hang and its requests re-pack "
+                         "(0 = disabled)")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="failed-launch re-pack attempts per request for "
+                         "--scheduler continuous before the explicit "
+                         "dead-letter 'failed' status")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--reduced", action="store_true",

@@ -41,7 +41,9 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the package, chip_smoke.py and the port's tools
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "tools").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -55,6 +57,8 @@ def test_every_port_module_imports_without_a_gpu():
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
     assert "repro_torch.kernels.fused_gather_aggregate.ops" in names
+    assert {f"repro_torch.runtime.{m}" for m in
+            ("scheduler", "faults", "straggler", "elastic")} <= set(names)
     for name in names:
         importlib.import_module(name)
 

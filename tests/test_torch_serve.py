@@ -1,8 +1,12 @@
-"""The port's wave drain (repro_torch.launch.serve) against the JAX
-package's (repro.launch.serve): the same queue — with a malformed and an
-oversize request — gives the same per-request statuses, the same batch
+"""The port's serving (repro_torch.launch.serve) against the JAX
+package's (repro.launch.serve): the same queue, with malformed and
+oversize requests, gives the same per-request statuses, the same batch
 accounting and the same outputs (atol 1e-4, rtol 1e-5, the
-``tests/parity.py`` ORACLE_ATOL; the JAX side runs jitted)."""
+``tests/parity.py`` ORACLE_ATOL; the JAX side runs jitted), in the wave
+drain (oversize graphs answered by the padded oracle or rejected) and in
+the continuous drain (the same seeded arrivals; each launch also bit for
+bit the port's offline re-run of its composition). The CLI takes the JAX
+CLI's serving flags with its defaults."""
 import dataclasses
 
 import jax
@@ -14,6 +18,7 @@ import torch
 import parity
 from repro.core import gnn_model as JG
 from repro.data import pipeline as JP
+from repro.launch import serve as JS
 from repro.launch.serve import drain_gnn_queue as jax_drain
 from repro.nn import param as jprm
 from repro_torch.core import gnn_model as TG
@@ -170,3 +175,314 @@ def test_jax_arrays_are_not_needed_by_the_drain():
                       torch.Tensor)
     assert not any(isinstance(v, jnp.ndarray)
                    for v in TG.packed_to_device(tb[0], "cpu").values())
+
+
+# ------------------------------------------- oversize route, continuous --
+def models(conv: str):
+    """The parity model of ``conv`` in both packages, the port's weights
+    carried from the JAX parameters, and each package's packed program
+    and padded oracle (the JAX ones jitted, as its CLI runs them)."""
+    cfg = parity.model_cfg(conv)
+    jparams = jprm.materialize(JG.model_plan(cfg), jax.random.key(0))
+    d = dataclasses.asdict(cfg)
+    tcfg = TG.GNNModelConfig(**{**d, "mlp_head": TG.MLPConfig(
+        **d["mlp_head"])})
+    tparams = tprm.params_from_jax(
+        tcfg, jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    jax_prog = (jax.jit(lambda p, b: JG.apply_packed(p, cfg, b)),
+                jax.jit(lambda p, el: JG.apply(p, cfg, el)))
+    port_prog = (lambda p, b: TG.apply_packed(p, tcfg, b),
+                 lambda p, el: TG.apply(p, tcfg, el))
+    return (jparams, *jax_prog), (tparams, *port_prog), tcfg
+
+
+def big_graphs(mod, nb: int, eb: int, n: int) -> list:
+    """``n`` graphs of the BIG config that exceed the packed budgets."""
+    cfg = mod.GraphDataConfig(**BIG)
+    out = [g for g in (mod.make_graph(cfg, i) for i in range(4 * n))
+           if not mod.graph_fits_budget(g, nb, eb)]
+    assert len(out) >= n
+    return out[:n]
+
+
+def mixed_queues(n_small: int, n_big: int, nb: int, eb: int):
+    """The same queue in both packages: ``n_small`` graphs, the 4th
+    malformed, with an oversize graph after every 5th."""
+    out = []
+    for mod in (JP, TP):
+        small = [mod.make_graph(mod.GraphDataConfig(**DS), i)
+                 for i in range(n_small)]
+        bad = dataclasses.replace(small[3],
+                                  edge_index=small[3].edge_index.copy())
+        bad.edge_index[0, 0] = bad.num_nodes + 2
+        small[3] = bad
+        big = iter(big_graphs(mod, nb, eb, n_big))
+        q = []
+        for i, g in enumerate(small):
+            q.append(g)
+            if i % 5 == 4:
+                q.append(next(big, None))
+        q = [g for g in q if g is not None] + list(big)
+        out.append(q)
+    return out
+
+
+@pytest.mark.parametrize("conv", parity.conv_axis())
+def test_drain_with_fallback_matches_jax(conv):
+    """The wave drain with the padded oracle: the oversize graphs are
+    ``served_fallback`` after the batches, in queue order, with the JAX
+    drain's outcomes, counts and outputs."""
+    (jp, jfn, jfb), (tp, tfn, tfb), _ = models(conv)
+    nb, eb, bg = 40, 80, 4
+    jq, tq = mixed_queues(12, 3, nb, eb)
+    jouts, jstats = jax_drain(jfn, jp, jq, nb, eb, bg, jfb)
+    touts, tstats = TS.drain_gnn_queue(tfn, tp, tq, nb, eb, bg, tfb,
+                                       device="cpu")
+    assert set(jstats) <= set(tstats)
+    for key in ("served", "packed_served", "partitioned_served",
+                "fallback_served", "n_batches", "node_slot_utilization",
+                "rejected_oversize", "rejected_invalid", "dropped"):
+        assert tstats[key] == jstats[key], key
+    assert tstats["outcomes"] == jstats["outcomes"]
+    assert tstats["fallback_served"] == 3 and tstats["rejected_invalid"] == 1
+    assert len(tstats["oversize_latency_s"]) == 3
+    assert len(touts) == len(jouts) == tstats["n_batches"] + 3
+    for t, j in zip(touts, jouts):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j),
+                                   atol=parity.ORACLE_ATOL, rtol=1e-5)
+    # each fallback answer is the port's own oracle on that graph
+    over = [g for g in tq if not TP.graph_fits_budget(g, nb, eb)]
+    with torch.inference_mode():
+        for out, g in zip(touts[tstats["n_batches"]:], over):
+            assert torch.equal(out, tfb(tp, TS._fallback_input(g, "cpu")))
+
+
+def test_drain_without_fallback_rejects_each_oversize_graph():
+    (_, _, _), (tp, tfn, _), _ = models("gcn")
+    _, tq = mixed_queues(12, 3, 40, 80)
+    outs, stats = TS.drain_gnn_queue(tfn, tp, tq, 40, 80, 4, device="cpu")
+    assert stats["rejected_oversize"] == stats["dropped"] == 3
+    assert stats["fallback_served"] == 0
+    assert len(outs) == stats["n_batches"]
+    assert all("no partitioned or fallback program" in o["reason"]
+               for o in stats["outcomes"]
+               if o["status"] == "rejected_oversize")
+
+
+def test_partition_fn_routes_before_the_fallback():
+    """A partition callable answers what it can split; None reroutes the
+    graph to the fallback (item 8 plugs the partitioned program in)."""
+    (_, _, _), (tp, tfn, tfb), _ = models("gcn")
+    _, tq = mixed_queues(12, 3, 40, 80)
+    over = [g for g in tq if not TP.graph_fits_budget(g, 40, 80)]
+
+    def part(g):
+        return None if g is over[1] else torch.full((1,), 5.0)
+    outs, stats = TS.drain_gnn_queue(tfn, tp, tq, 40, 80, 4, tfb,
+                                     partition_fn=part, device="cpu")
+    assert stats["partitioned_served"] == 2
+    assert stats["fallback_served"] == 1
+    over_status = [o["status"] for o in stats["outcomes"]
+                   if o["status"] in ("served_partitioned",
+                                      "served_fallback")]
+    assert over_status == ["served_partitioned", "served_fallback",
+                           "served_partitioned"]
+    with pytest.raises(Exception, match="cannot split"):
+        TS._partition_or_infeasible(part, over[1])
+
+
+def offline_rows(fn, params, graphs, nb, eb, bg) -> np.ndarray:
+    batch, k = TP.pack_graphs(graphs, nb, eb, bg)
+    assert k == len(graphs)
+    with torch.inference_mode():
+        return fn(params, TG.packed_to_device(batch, "cpu")).numpy()
+
+
+@pytest.mark.parametrize("conv", ["gcn", "gat"])
+def test_continuous_drain_matches_jax(conv):
+    """Same queue, same seed: every request gets the JAX continuous
+    drain's status and arrival time, and its output within 1e-4 of
+    JAX's (the drains measure wall time, so their launch compositions
+    may differ); each packed launch is bit for bit the port's offline
+    re-run of its composition, each fallback the port's oracle."""
+    (jp, jfn, jfb), (tp, tfn, tfb), _ = models(conv)
+    nb, eb, bg = 40, 80, 4
+    jq, tq = mixed_queues(24, 2, nb, eb)
+    kw = dict(load_graphs_per_s=400.0, deadline_s=0.01, seed=3)
+    jresp, jstats = JS.drain_gnn_queue_continuous(jfn, jp, jq, nb, eb, bg,
+                                                  jfb, **kw)
+    tresp, tstats = TS.drain_gnn_queue_continuous(tfn, tp, tq, nb, eb, bg,
+                                                  tfb, device="cpu", **kw)
+    jby = {r.req_id: r for r in jresp}
+    tby = {r.req_id: r for r in tresp}
+    assert sorted(tby) == sorted(jby) == list(range(len(tq)))
+    for rid, r in tby.items():
+        assert r.status == jby[rid].status
+        assert r.arrival_s == jby[rid].arrival_s
+        if r.served:
+            np.testing.assert_allclose(r.output, np.asarray(jby[rid].output),
+                                       atol=parity.ORACLE_ATOL, rtol=1e-5)
+    for key in ("served", "packed_served", "fallback_served",
+                "rejected_invalid", "rejected_queue_full", "failed"):
+        assert tstats[key] == jstats[key], key
+    assert tstats["served"] == len(tq) - 1 and tstats["failed"] == 0
+    assert tstats["fallback_served"] == 2
+    assert tstats["n_batches"] == tstats["n_launches"]
+    assert not [e for e in tstats["events"] if e["kind"] == "launch_failed"]
+    for launch in tstats["launches"]:
+        assert launch["status"] == "ok"
+        graphs = [tq[rid] for rid in launch["req_ids"]]
+        if launch["kind"] == "packed":
+            ref = offline_rows(tfn, tp, graphs, nb, eb, bg)
+            for j, rid in enumerate(launch["req_ids"]):
+                assert np.array_equal(tby[rid].output, ref[j])
+                assert tby[rid].batch_seq == launch["seq"]
+        else:
+            (rid,) = launch["req_ids"]
+            with torch.inference_mode():
+                ref = tfb(tp, TS._fallback_input(graphs[0], "cpu")).numpy()
+            assert np.array_equal(tby[rid].output, ref)
+
+
+def test_continuous_drain_under_a_fault_plan():
+    """A seeded fault plan on the measured executor: every request ends in
+    exactly one status, every corrupted launch fails the non-finite
+    screen and its requests re-run, every served row is bit for bit its
+    launch composition's offline re-run."""
+    from repro_torch.runtime import faults as F
+    (_, _, _), (tp, tfn, tfb), _ = models("gcn")
+    nb, eb, bg = 40, 80, 4
+    queue = [TP.make_graph(TP.GraphDataConfig(**DS), i) for i in range(40)]
+    plan = F.FaultPlan([F.FaultSpec("corrupt", launch=1),
+                        F.FaultSpec("crash", launch=2),
+                        F.FaultSpec("hang", launch=4),
+                        F.FaultSpec("slowdown", launch=5),
+                        F.FaultSpec("corrupt", launch=7, value=float("inf"))])
+    resp, stats = TS.drain_gnn_queue_continuous(
+        tfn, tp, queue, nb, eb, bg, tfb, load_graphs_per_s=400.0,
+        deadline_s=0.01, launch_timeout_s=2.0, max_retries=2, seed=1,
+        device="cpu", fault_plan=plan)
+    assert sorted(r.req_id for r in resp) == list(range(40))
+    assert stats["injected"] == [(1, "corrupt"), (2, "crash"), (4, "hang"),
+                                 (5, "slowdown"), (7, "corrupt")]
+    by = {r.req_id: r for r in resp}
+    launches = stats["launches"]
+    want = {"corrupt": "nonfinite_output", "crash": "crash",
+            "hang": "timeout", "slowdown": "ok"}
+    for call, kind in stats["injected"]:
+        assert launches[call]["status"] == want[kind]
+        if kind != "slowdown":
+            for rid in launches[call]["req_ids"]:
+                assert any(rid in l["req_ids"] for l in launches[call + 1:])
+    assert stats["failed_launches"] == 4 and stats["failed"] == 0
+    for launch in launches:
+        if launch["status"] != "ok":
+            continue
+        ref = offline_rows(tfn, tp, [queue[r] for r in launch["req_ids"]],
+                           nb, eb, bg)
+        for j, rid in enumerate(launch["req_ids"]):
+            assert by[rid].batch_seq == launch["seq"]
+            assert np.array_equal(by[rid].output, ref[j])
+
+
+def test_serve_cli_continuous_with_every_new_flag(capsys):
+    responses, stats = TS.main([
+        "--device", "cpu", "--reduced", "--requests", "40",
+        "--batch-graphs", "16", "--scheduler", "continuous", "--load",
+        "400", "--deadline-ms", "10", "--queue-depth", "64",
+        "--launch-timeout-ms", "5000", "--max-retries", "1",
+        "--oversize-requests", "2", "--dataflow", "transform_first",
+        "--precision", "bf16"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert "continuous scheduler served 42/42 graphs" in line
+    assert "2 oversize via padded fallback" in line and "on cpu" in line
+    assert stats["served"] == 42 and stats["fallback_served"] == 2
+    assert stats["failed"] == 0 and stats["rejected_queue_full"] == 0
+    assert stats["offered_load_graphs_per_s"] == 400.0
+    assert stats["deadline_s"] == 0.01
+    assert stats["precision"] == "bf16"
+    assert stats["dataflow"] == ["transform_first", "transform_first"]
+    assert stats["warmup_batches"] == 1
+    assert all(np.isfinite(r.output).all() for r in responses)
+    # the oversize graphs are the last two requests, answered by the
+    # padded oracle at the served policy
+    from repro_torch.configs.gnn import DATASETS, config
+    ds = DATASETS["qm9"]
+    nb, eb = TS.budgets(16, ds)
+    cfg = dataclasses.replace(config("gcn", reduced=True),
+                              gnn_dataflow="transform_first",
+                              gnn_precision="bf16")
+    params = tprm.init_params(
+        cfg, torch.Generator().manual_seed(TS.WEIGHT_SEED), "cpu")
+    by = {r.req_id: r for r in responses}
+    for i, g in enumerate(TS.oversize_graphs(ds, nb, eb, 2)):
+        assert not TP.graph_fits_budget(g, nb, eb)
+        assert by[40 + i].status == "served_fallback"
+        with torch.inference_mode():
+            want = TG.apply(params, cfg, TS._fallback_input(g, "cpu"),
+                            None, stats["policy"])
+        assert np.array_equal(by[40 + i].output, want.numpy())
+
+
+def test_serve_cli_wave_oversize_outputs_follow_the_batches(capsys):
+    outs, stats = TS.main(["--device", "cpu", "--reduced", "--requests",
+                           "20", "--batch-graphs", "16",
+                           "--oversize-requests", "3"])
+    assert stats["served"] == 23 and stats["fallback_served"] == 3
+    assert stats["packed_served"] == 20 and stats["dropped"] == 0
+    assert len(outs) == stats["n_batches"] + 3
+    assert all(o.shape == (1,) for o in outs[stats["n_batches"]:])
+    assert "3 oversize via padded fallback" in capsys.readouterr().out
+
+
+def jax_cli_args(argv):
+    """The JAX CLI's parsed arguments for ``argv`` (its ``gnn_main``
+    replaced by a recorder)."""
+    import sys
+    from repro.launch import serve as JSm
+    old, real = sys.argv, JSm.gnn_main
+    captured = {}
+    try:
+        sys.argv = ["serve", "--gnn", *argv]
+        JSm.gnn_main = lambda a: captured.setdefault("args", a)
+        JSm.main()
+    finally:
+        JSm.gnn_main = real
+        sys.argv = old
+    return captured["args"]
+
+
+NEW_FLAGS = ("scheduler", "load", "deadline_ms", "queue_depth",
+             "launch_timeout_ms", "max_retries", "oversize_requests",
+             "dataflow")
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--scheduler", "continuous", "--load", "123.5", "--deadline-ms",
+         "7", "--queue-depth", "9", "--launch-timeout-ms", "50",
+         "--max-retries", "4", "--oversize-requests", "4", "--dataflow",
+         "aggregate_first"]])
+def test_new_flags_parse_as_in_jax(argv):
+    j, t = jax_cli_args(argv), TS.parser().parse_args(argv)
+    for name in NEW_FLAGS:
+        assert getattr(t, name) == getattr(j, name), name
+    assert t.device == "cuda"
+
+
+@pytest.mark.parametrize("dataflow", ["auto", "aggregate_first",
+                                      "transform_first"])
+@pytest.mark.parametrize("conv", ["gcn", "sage", "gat"])
+def test_dataflow_resolves_as_jax(conv, dataflow):
+    """``--dataflow`` reaches each layer's planner as in the JAX CLI
+    (``gnn_dataflow`` and the dataset's ``avg_degree`` on the config)."""
+    from repro.configs.gnn import DATASETS as JDS, config as jconfig
+    from repro.core import convs as JC
+    jcfg = dataclasses.replace(jconfig(conv, reduced=True),
+                               gnn_dataflow=dataflow,
+                               avg_degree=float(JDS["qm9"].avg_degree))
+    want = [JC.resolve_dataflow(jcfg.conv_cfg(i))
+            for i in range(jcfg.gnn_num_layers)]
+    _, stats = TS.main(["--device", "cpu", "--reduced", "--conv", conv,
+                        "--requests", "4", "--batch-graphs", "4",
+                        "--dataflow", dataflow])
+    assert stats["dataflow"] == want
