@@ -207,7 +207,30 @@ Phases, in order; any failure exits non-zero with no result line:
    the fault it took, every corrupted launch caught by the non-finite
    screen and its requests re-run, every served row bit for bit its
    launch's offline re-run. Last, ``tools/chaos_serving.py``'s smoke
-   point with lane 0's GAT program on the card and every gate held.
+   point with lane 0's GAT program on the card and every gate held;
+10. the multi-device layer (``launch.mesh``) on the one card: ``DIST_RANKS``
+   spawned ranks of one gloo group share it (NCCL needs a card a rank;
+   gloo takes the CUDA tensors and stages them through host memory);
+   the transport and the rank count are printed. (a) The sharded GCN wave drain
+   (``serve.drain_gnn_queue_sharded``, ``gnn_model.make_sharded_apply``)
+   on ranks 0 and 1 at full width, ``SHARD_GRAPHS`` qm9 graphs a shard,
+   ``SHARD_WAVES`` waves: each rank's launches ``LAUNCHES_PER_BATCH``
+   a wave (zeroed just before the drain, read just after), each shard's
+   rows bit for bit that rank's single-rank ``apply_packed`` of it. (b)
+   The partitioned program (``apply_packed_partitioned``), every conv at
+   full width and fp32, on the ``PART_REQUESTS`` oversize graphs of
+   ``serve.oversize_graphs`` at ``PART_GRAPHS`` graphs a batch's budgets
+   and a ``HUB_IN_EDGES``-in-edge hub, over 2 and ``DIST_RANKS`` ranks:
+   GCN and GAT bit for bit the padded oracle ``apply`` on the card, the
+   others within ``MODEL_TOL``; each rank's launches ``ORACLE_LAUNCHES``
+   a graph. (c) ``serve --shards 2 --dist-backend gloo
+   --oversize-requests 4``: every request answered, all four oversize
+   ones ``served_partitioned``. (d) On rank 0's clock, in turns: the GCN
+   drain's graphs/s at ``SHARD_GRAPHS`` graphs a shard on rank 0 alone
+   and on two ranks (single, 2, 2, single), and ms a graph of the four
+   oversize GCN graphs through the padded oracle on rank 0 alone and
+   the partitioned program on 2 and ``DIST_RANKS`` ranks, with the card
+   line (ranks that share one card time-slice it: no scaling figure).
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -2887,6 +2910,358 @@ def serving_phase(dev, wave: dict) -> dict:
     return total
 
 
+# ---------------------------------------------------------- phase 10 --
+# the multi-device layer on the one card: the ranks of one gloo group
+# share it (NCCL needs a card a rank), each launching the port's kernels.
+# DIST_RANKS ranks are spawned once; the sharded program and the 2-part
+# partitions run on the sub-group of ranks 0 and 1
+DIST_RANKS = 4
+# graphs a shard of the sharded GCN drain, and its measured waves
+SHARD_GRAPHS = 1024
+SHARD_WAVES = 4
+# the packed budgets (graphs a batch) the oversize graphs are cut under,
+# as serve --oversize-requests builds them, and how many
+PART_GRAPHS = 32
+PART_REQUESTS = 4
+# the hub graph: one node with this many in-edges (past the segment
+# softmax's 128-edge fold, which it then splits in 32 parts)
+HUB_IN_EDGES = 200
+# serve --shards 2: qm9 requests at 32 graphs a shard behind the
+# oversize ones
+DIST_SERVE = ["--conv", "gcn", "--requests", "256", "--batch-graphs",
+              str(PART_GRAPHS), "--oversize-requests", str(PART_REQUESTS),
+              "--shards", "2", "--dist-backend", "gloo"]
+
+
+def hub_graph(frame_nodes: int, frame_edges: int, n_in: int = HUB_IN_EDGES):
+    """A qm9-width graph whose node 0 takes ``n_in`` in-edges from its
+    spokes; each spoke also hears the hub and the next spoke on a ring.
+    Features from a numpy seed, in a padded frame of ``frame_nodes`` /
+    ``frame_edges`` rows (the oversize graphs' frames)."""
+    from repro_torch.configs.gnn import DATASETS
+    from repro_torch.data import pipeline as P
+    ds = DATASETS["qm9"]
+    n = n_in + 1
+    edges = [(i, 0) for i in range(1, n)] + [(0, i) for i in range(1, n)] \
+        + [(i, i % n_in + 1) for i in range(1, n)]
+    rng = np.random.default_rng(10)
+    nf = np.zeros((frame_nodes, ds.node_feat_dim), np.float32)
+    nf[:n] = rng.normal(size=(n, ds.node_feat_dim))
+    ei = np.full((frame_edges, 2), -1, np.int32)
+    ei[:len(edges)] = edges
+    ef = np.zeros((frame_edges, ds.edge_feat_dim), np.float32)
+    ef[:len(edges)] = rng.normal(size=(len(edges), ds.edge_feat_dim))
+    return P.Graph(node_feat=nf, edge_index=ei, edge_feat=ef, num_nodes=n,
+                   num_edges=len(edges), y=np.zeros((1,), np.float32))
+
+
+def sharded_drain_rank(pair, dev) -> dict:
+    """(a) on the ranks of ``pair``: the sharded GCN wave drain at
+    ``SHARD_GRAPHS`` graphs a shard, full width, weights drawn on the
+    root and broadcast; each rank's launches per wave as
+    ``LAUNCHES_PER_BATCH`` says (counts zeroed just before the drain,
+    read just after) and its shard of every wave bit for bit its own
+    single-rank ``apply_packed`` of that shard on the card."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+
+    ds = DATASETS["qm9"]
+    cfg = benchmark_config("gcn")
+    params = G.cast_for_policy(M.broadcast_tree(
+        pair, serve_params(cfg, dev) if pair.is_root else None), cfg)
+    nb, eb = serve.budgets(SHARD_GRAPHS, ds)
+    queue = [P.make_graph(ds, i)
+             for i in range(SHARD_WAVES * pair.size * SHARD_GRAPHS)]
+    fn = G.make_sharded_apply(cfg, pair)
+    serve.drain_gnn_queue_sharded(fn, params, queue[:pair.size
+                                                    * SHARD_GRAPHS],
+                                  nb, eb, SHARD_GRAPHS, pair.size,
+                                  device=dev)
+    wrappers = zero_counts()
+    outs, stats = serve.drain_gnn_queue_sharded(
+        fn, params, queue, nb, eb, SHARD_GRAPHS, pair.size, device=dev)
+    launches = counts_of(wrappers)
+    label = f"sharded gcn, rank {pair.rank}"
+    check(stats["packed_served"] == len(queue),
+          f"{label}: served {stats['packed_served']} of {len(queue)}")
+    check_launches(label, launches,
+                   {LAUNCHES_PER_BATCH["gcn"]: stats["n_batches"]})
+    waves, _ = P.pack_dataset(queue, nb, eb, SHARD_GRAPHS,
+                              num_shards=pair.size)
+    check(len(waves) == stats["n_batches"], f"{label}: wave count")
+    same = True
+    with torch.inference_mode():
+        for w, host in zip(waves, outs):
+            ix = w.index[pair.rank]
+            own = G.apply_packed(params, cfg, G.packed_to_device(
+                w.shards[pair.rank], dev))[:len(ix)].cpu().numpy()
+            same &= bool(np.array_equal(own, host[ix]))
+            check(bool(np.isfinite(host).all()), f"{label}: non-finite")
+    check(same, f"{label}: a shard differs from its single-rank output")
+    return {"launches": launches, "waves": stats["n_batches"],
+            "graphs_per_s": stats["graphs_per_s"]}
+
+
+def partitioned_rank(mesh, groups: dict, dev) -> dict:
+    """(b): every conv at fp32 on the ``PART_REQUESTS`` oversize graphs of
+    ``serve.oversize_graphs`` at ``PART_GRAPHS`` graphs a batch's budgets
+    and the hub, partitioned over each group of ``groups`` (by part
+    count). The root holds each answer against the padded oracle
+    ``apply`` on the card: bit for bit for the convs whose spec promises
+    it (GCN, GAT), else within ``MODEL_TOL``. Each member's launches
+    over a group's run (zeroed just before it) are
+    ``ORACLE_LAUNCHES`` a graph: the per-layer kernels, the tail pooling
+    with the oracle's plain reductions."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import convs as C
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+
+    ds = DATASETS["qm9"]
+    nb, eb = serve.budgets(PART_GRAPHS, ds)
+    big = serve.oversize_graphs(ds, nb, eb, PART_REQUESTS)
+    graphs = big + [hub_graph(big[0].node_feat.shape[0],
+                              big[0].edge_index.shape[0])]
+    launches = dict.fromkeys(KERNELS, 0)
+    errs = {}
+    for conv in C.CONV_TYPES:
+        cfg = benchmark_config(conv)
+        params = G.cast_for_policy(M.broadcast_tree(
+            mesh, serve_params(cfg, dev) if mesh.is_root else None), cfg)
+        with torch.inference_mode():
+            want = [G.apply(params, cfg, serve._fallback_input(g, dev))
+                    for g in graphs] if mesh.is_root else None
+        for n, group in groups.items():
+            if group is None:
+                continue
+            parts = [P.partition_graph(g, n, nb, eb) for g in graphs]
+            torch.cuda.synchronize(dev)
+            wrappers = zero_counts()
+            with torch.inference_mode():
+                got = [G.apply_packed_partitioned(params, cfg, p, group)
+                       for p in parts]
+            torch.cuda.synchronize(dev)
+            part_launches = counts_of(wrappers)
+            check_launches(f"partitioned {conv} on {n} ranks",
+                           part_launches, {ORACLE_LAUNCHES[conv]: len(parts)})
+            for k, v in part_launches.items():
+                launches[k] += v
+            if not group.is_root:
+                continue
+            bitwise = C.conv_spec(conv).partition_bitwise
+            for g, p, a, b in zip(graphs, parts, got, want):
+                label = (f"partitioned {conv}, {n} parts, {g.num_nodes} "
+                         f"nodes ({p.cut_edges} cut edges)")
+                check(bool(torch.isfinite(a).all()), f"{label}: non-finite")
+                if bitwise:
+                    check(torch.equal(a, b), f"{label}: not bit for bit the "
+                          f"padded oracle, max |err| "
+                          f"{float((a - b).abs().max())}")
+                else:
+                    check(torch.allclose(a, b, **MODEL_TOL),
+                          f"{label}: max |err| {float((a - b).abs().max())}")
+                errs[(conv, n)] = max(errs.get((conv, n), 0.0),
+                                      float((a - b).abs().max()))
+    return {"launches": launches, "errs": errs,
+            "sizes": [g.num_nodes for g in graphs],
+            "cuts": {n: [P.partition_graph(g, n, nb, eb).cut_edges
+                         for g in graphs] for n in groups}}
+
+
+def dist_timing_rank(mesh, pair, dev) -> dict:
+    """(d), on the root's clock: graphs/s of the GCN drain at
+    ``SHARD_GRAPHS`` graphs a shard on rank 0 alone (``drain_gnn_queue``)
+    and on the pair (the sharded drain, the same queue), in turns
+    (single, pair, pair, single); then ms a graph of the four oversize
+    GCN graphs through the padded oracle on rank 0 alone and the
+    partitioned program on 2 and on 4 ranks, in turns (oracle, 2, 4, 4,
+    2, oracle), with the host time of cutting each graph and of one
+    staged all-gather at the halo exchange's size. Every turn ends in a
+    device synchronisation and a barrier of the whole group."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+
+    ds = DATASETS["qm9"]
+    cfg = benchmark_config("gcn")
+    params = G.cast_for_policy(M.broadcast_tree(
+        mesh, serve_params(cfg, dev) if mesh.is_root else None), cfg)
+    nb, eb = serve.budgets(SHARD_GRAPHS, ds)
+    queue = [P.make_graph(ds, i)
+             for i in range(SHARD_WAVES * 2 * SHARD_GRAPHS)]
+    sharded = G.make_sharded_apply(cfg, pair) if pair is not None else None
+
+    def single(p, b):
+        return G.apply_packed(p, cfg, b)
+
+    rates = {"single": [], "pair": []}
+    for turn in ("single", "pair", "pair", "single"):
+        if turn == "single" and mesh.is_root:
+            _, st = serve.drain_gnn_queue(single, params, queue, nb, eb,
+                                          SHARD_GRAPHS, device=dev)
+            rates[turn].append(st["graphs_per_s"])
+        elif turn == "pair" and pair is not None:
+            _, st = serve.drain_gnn_queue_sharded(
+                sharded, params, queue, nb, eb, SHARD_GRAPHS, pair.size,
+                device=dev)
+            if pair.is_root:
+                rates[turn].append(st["graphs_per_s"])
+        M.barrier(mesh)
+    pnb, peb = serve.budgets(PART_GRAPHS, ds)
+    graphs = serve.oversize_graphs(ds, pnb, peb, PART_REQUESTS)
+    groups = {2: pair, DIST_RANKS: mesh}
+    ms = {"oracle": [], 2: [], DIST_RANKS: []}
+
+    def timed(call) -> float:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            call()
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    # the host's share of the partitioned route: cutting the graph
+    cut_ms = []
+    for g in graphs:
+        t0 = time.perf_counter()
+        P.partition_graph(g, 2, pnb, peb)
+        cut_ms.append((time.perf_counter() - t0) * 1e3)
+    # one staged collective of the partitioned program's sizes: the halo
+    # all-gather of a (node budget, 128) table, on 2 and on all ranks
+    coll = {2: [], DIST_RANKS: []}
+    table = torch.ones((pnb, 128), device=dev)
+    for n, group in groups.items():
+        for _ in range(20):
+            if group is not None:
+                t0 = time.perf_counter()
+                M.all_gather(group, table)
+                torch.cuda.synchronize(dev)
+                coll[n].append((time.perf_counter() - t0) * 1e3)
+            M.barrier(mesh)
+    for turn in ("oracle", 2, DIST_RANKS, DIST_RANKS, 2, "oracle"):
+        if turn == "oracle" and mesh.is_root:
+            ms[turn] += [timed(lambda: G.apply(
+                params, cfg, serve._fallback_input(g, dev))) for g in graphs]
+        elif turn != "oracle" and groups[turn] is not None:
+            parts = [P.partition_graph(g, turn, pnb, peb) for g in graphs]
+            t = [timed(lambda: G.apply_packed_partitioned(
+                params, cfg, p, groups[turn])) for p in parts]
+            if mesh.is_root:
+                ms[turn] += t
+        M.barrier(mesh)
+    return {"rates": rates, "ms": ms, "cut_ms": cut_ms,
+            "all_gather_ms": coll}
+
+
+def dist_rank(mesh) -> dict:
+    """One rank of phase 10's group: (a), (b) and (d) on the sub-group
+    of ranks 0 and 1 and on the whole group."""
+    from repro_torch.launch import mesh as M
+    dev = mesh.device
+    pair = M.sub_mesh(mesh, [0, 1])
+    t0 = time.perf_counter()
+    sharded = sharded_drain_rank(pair, dev) if pair is not None else None
+    M.barrier(mesh)
+    t_a = time.perf_counter() - t0
+    part = partitioned_rank(mesh, {2: pair, DIST_RANKS: mesh}, dev)
+    M.barrier(mesh)
+    t_b = time.perf_counter() - t0 - t_a
+    timing = dist_timing_rank(mesh, pair, dev)
+    return {"rank": mesh.rank, "device": str(dev),
+            "transport": mesh.transport,
+            "sharded": sharded, "partitioned": part, "timing": timing,
+            "seconds": (t_a, t_b, time.perf_counter() - t0 - t_a - t_b)}
+
+
+def dist_serve_phase() -> None:
+    """(c): ``serve --shards 2 --dist-backend gloo --oversize-requests 4``
+    on the card: every request answered, the qm9 ones packed, all four
+    oversize ones ``served_partitioned``, every output finite."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import scheduler as S
+    t0 = time.perf_counter()
+    outs, stats = serve.main(DIST_SERVE)
+    n = int(DIST_SERVE[DIST_SERVE.index("--requests") + 1])
+    check(stats["served"] == n + PART_REQUESTS
+          and stats["packed_served"] == n
+          and stats["partitioned_served"] == PART_REQUESTS,
+          f"serve --shards 2: {stats['packed_served']} packed, "
+          f"{stats['partitioned_served']} partitioned of "
+          f"{n + PART_REQUESTS}")
+    check([o["status"] for o in stats["outcomes"]]
+          == [S.SERVED_PACKED] * n + [S.SERVED_PARTITIONED] * PART_REQUESTS,
+          "serve --shards 2: statuses")
+    check(all(bool(np.isfinite(np.asarray(o)).all()) for o in outs),
+          "serve --shards 2: non-finite output")
+    print(f"[10] (c) serve {' '.join(DIST_SERVE)}: {stats['served']} "
+          f"answered ({stats['packed_served']} packed in "
+          f"{stats['n_batches']} waves, {stats['partitioned_served']} "
+          f"partitioned at "
+          + ", ".join(f"{v * 1e3:.4f}" for v in stats["oversize_latency_s"])
+          + f" ms), {stats['graphs_per_s']:.1f} graphs/s, "
+          f"{time.perf_counter() - t0:.1f} s with the spawn")
+
+
+def dist_phase(card: str) -> dict:
+    """Phase 10; returns the launches of every rank's counted runs."""
+    from repro_torch.launch import mesh as M
+    t0 = time.perf_counter()
+    res = M.spawn(dist_rank, DIST_RANKS, device="cuda", backend="gloo")
+    root = res[0]
+    print(f"[10] {DIST_RANKS} ranks on {torch.cuda.device_count()} card(s) "
+          f"({', '.join(r['device'] for r in res)}), transport: "
+          f"{root['transport']} (torch {torch.__version__}); spawn and phase {time.perf_counter() - t0:.1f} s (a, b, d "
+          + ", ".join(f"{s:.1f}" for s in root["seconds"]) + " s on rank 0)")
+    total = dict.fromkeys(KERNELS, 0)
+    for r in res:
+        for part in (r["sharded"], r["partitioned"]):
+            if part is not None:
+                for k, v in part["launches"].items():
+                    total[k] += v
+    for r in res[:2]:
+        s = r["sharded"]
+        print(f"[10] (a) sharded gcn drain, rank {r['rank']} of 2, "
+              f"{SHARD_GRAPHS} graphs a shard: {s['waves']} waves, each "
+              f"shard bit for bit its single-rank apply_packed; launches "
+              + ", ".join(f"{k} {v}" for k, v in s["launches"].items()))
+    p = root["partitioned"]
+    print(f"[10] (b) partitioned program at fp32 on graphs of "
+          f"{p['sizes']} nodes (the last the {HUB_IN_EDGES}-in-edge hub), "
+          f"cut edges " + "; ".join(f"{n} parts {c}"
+                                    for n, c in p["cuts"].items())
+          + ": max |err| vs the padded oracle on the card "
+          + ", ".join(f"{c}/{n} {e:.3e}" for (c, n), e in p["errs"].items())
+          + " (gcn, gat bit for bit)")
+    t = root["timing"]
+    rates, ms = t["rates"], t["ms"]
+    print(f"[10] (d) {card}: gcn drain at {SHARD_GRAPHS} graphs a shard, "
+          f"graphs/s in turns single, 2 ranks, 2 ranks, single: "
+          f"{rates['single'][0]:.1f}, {rates['pair'][0]:.1f}, "
+          f"{rates['pair'][1]:.1f}, {rates['single'][1]:.1f} (ranks share "
+          f"one card: no scaling figure)")
+    print(f"[10] (d) {card}: oversize gcn ms a graph, median of "
+          f"{len(ms['oracle'])}: padded oracle "
+          f"{statistics.median(ms['oracle']):.4f}, partitioned on 2 ranks "
+          f"{statistics.median(ms[2]):.4f}, on {DIST_RANKS} ranks "
+          f"{statistics.median(ms[DIST_RANKS]):.4f}; each turn: "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs)
+                      for k, vs in ms.items()))
+    print(f"[10] (d) {card}: partition_graph on the host "
+          + ", ".join(f"{v:.4f}" for v in t["cut_ms"]) + " ms a graph (2 "
+          f"parts); one staged all-gather of a ({PART_GRAPHS}-graph node "
+          f"budget, 128) fp32 table, median of 20: "
+          + ", ".join(f"{n} ranks {statistics.median(v):.4f} ms"
+                      for n, v in t["all_gather_ms"].items()))
+    dist_serve_phase()
+    return total
+
+
 def summarize(rows, errs, launches, by_precision) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
@@ -3084,6 +3459,9 @@ def main() -> int:
     t9 = time.perf_counter()
     add(serving_phase(dev, wave), "fp32")
     print(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    add(dist_phase(card), "fp32")
+    print(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
     summary = summarize(rows, errs, launches, by_precision)
     summary["kernels"] += summarize_entries(entry_rows, entry_errs,
                                             entry_launches)

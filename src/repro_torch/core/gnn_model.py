@@ -8,7 +8,11 @@ packed GraphBatch, layer by layer) and ``apply_packed_resident`` (the
 same batch with consecutive GCN/SAGE layers fused into one launch of the
 resident layer-stack kernel). ``GNNModel`` wraps the tree as an
 ``nn.Module`` whose parameter names follow the tree's paths
-(``convs.c0.w.w``).
+(``convs.c0.w.w``). Over a group of ranks (``launch.mesh``), the sharded
+program (``make_sharded_apply``) runs ``apply_packed`` on each rank's
+shard of a wave, and the partitioned program (``make_partitioned_apply``)
+runs it on each rank's part of one oversize graph with a halo exchange
+between layers, then the padded oracle's pooling and head on the root.
 
 Precision: ``gnn_precision`` names the model's ``PrecisionPolicy`` (fp32,
 bf16 or int8; ``apply``, ``apply_packed`` and ``apply_packed_resident``
@@ -251,7 +255,7 @@ def cast_for_policy(params: dict, cfg: GNNModelConfig,
 def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
               node_mask: torch.Tensor, quant: Q.FPX | None = None,
               policy: Q.PrecisionPolicy | None = None,
-              record: list | None = None) -> torch.Tensor:
+              record: list | None = None, exchange=None) -> torch.Tensor:
     """Conv stack + skip + activation; padding rows are zeroed after
     every layer. ``quant`` rounds each conv output and each layer's
     output onto its grid. ``policy``: each layer's conv runs its weights
@@ -259,8 +263,13 @@ def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
     layer's width and returns fp32; the residual stream, skip and
     activation stay fp32. ``record``: when a list, one max-abs per layer
     (over its input and its conv's output) is appended, the probe
-    ``activation_ranges`` reads."""
-    for i in range(cfg.gnn_num_layers):
+    ``activation_ranges`` reads. ``exchange``: an (N, F) -> (N, F) hook
+    run between consecutive layers (not after the last): the
+    partitioned program's halo exchange, which overwrites the replicated
+    boundary rows with their owners' values so that the next layer
+    aggregates over up-to-date neighbours."""
+    nl = cfg.gnn_num_layers
+    for i in range(nl):
         cc = cfg.conv_cfg(i)
         p_i = params["convs"][f"c{i}"]
         x_in = x
@@ -284,6 +293,8 @@ def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
         x = x * node_mask[:, None]
         if quant is not None:
             x = Q.quantize(x, quant)
+        if exchange is not None and i < nl - 1:
+            x = exchange(x)
     return x
 
 
@@ -336,20 +347,30 @@ def apply(params: dict, cfg: GNNModelConfig, batch_el: dict,
 
 
 def apply_packed(params: dict, cfg: GNNModelConfig, batch: dict,
-                 quant: Q.FPX | None = None, policy=None) -> torch.Tensor:
+                 quant: Q.FPX | None = None, policy=None, *,
+                 halo_exchange=None,
+                 return_node_features: bool = False) -> torch.Tensor:
     """Forward a packed GraphBatch (tensors, ``packed_to_device``).
 
     Returns (num_graphs, out_dim) for graph tasks (rows where
     ``graph_valid`` is False are padding) or the (N_total, F) node
     embeddings for node tasks. ``quant``: the fixed-point testbench
     datapath; ``policy`` (or ``cfg.gnn_precision``) the precision policy
-    (module docstring)."""
+    (module docstring). ``halo_exchange``: the between-layer hook of
+    ``_backbone`` (the partitioned program's boundary-row swap);
+    ``return_node_features`` skips pooling and the head and returns the
+    (N, F) node table after the conv stack, the per-rank body of the
+    partitioned program, which pools only after reassembling the global
+    node order."""
     params = cast_for_policy(params, cfg, policy)
     pol = None if params.policy.is_fp32 else params.policy
     g, x, node_mask, graph_id = packed_inputs(batch)
     if quant is not None:
         x = Q.quantize(x, quant)
-    x = _backbone(params, cfg, g, x, node_mask, quant, pol)
+    x = _backbone(params, cfg, g, x, node_mask, quant, pol,
+                  exchange=halo_exchange)
+    if return_node_features:
+        return x
     return _packed_tail(params, cfg, batch, x, node_mask, graph_id, quant,
                         pol)
 
@@ -514,6 +535,206 @@ def apply_packed_resident(params: dict, cfg: GNNModelConfig, batch: dict,
     return _packed_tail(params, cfg, batch,
                         xpad[:, :cfg.conv_cfg(nl - 1).out_dim], node_mask,
                         graph_id, None, None if pol.is_fp32 else pol)
+
+
+# ---------------------------------------------------- multi-device --
+def stack_shards(shards) -> dict:
+    """Host shards (a ``data.pipeline.ShardedBatch``, a
+    ``GraphPartition``'s parts or a list of same-shape GraphBatch dicts)
+    -> one dict of numpy arrays with a leading shard dim (num_shards,
+    ...), stripping the host-only ``y`` as ``packed_to_device`` does.
+    Each rank of a sharded or partitioned program takes its own row."""
+    shards = getattr(shards, "shards", shards)
+    return {k: np.stack([np.asarray(b[k]) for b in shards])
+            for k in shards[0] if k != "y"}
+
+
+def _own_row(stacked: dict, mesh) -> dict:
+    n = len(stacked["node_feat"])
+    if n != mesh.size:
+        raise ValueError(f"{n} shards for a group of {mesh.size} ranks")
+    return {k: v[mesh.rank] for k, v in stacked.items()}
+
+
+def make_sharded_apply(cfg: GNNModelConfig, mesh,
+                       quant: Q.FPX | None = None, policy=None):
+    """The data-parallel sharded program over the group ``mesh``
+    (``launch.mesh.DataMesh``): ``fn(params, stacked)`` with ``stacked``
+    a wave as ``stack_shards`` gives it, one shard per rank. Every rank
+    calls it on the same wave with the same (replicated) parameters and
+    runs ``apply_packed`` unchanged on its own shard, so each shard's
+    output is bit for bit the single-rank program's on it; the
+    (max_graphs, out_dim) outputs are all-gathered into (num_shards,
+    max_graphs, out_dim) on every rank (JAX's ``out_specs=P("data")``).
+    Restore host order with ``data.pipeline.gather_shard_outputs``; node
+    tasks give the stacked per-shard node tables."""
+    from repro_torch.launch.mesh import all_gather
+
+    def fn(params, stacked):
+        batch = packed_to_device(_own_row(stacked, mesh), mesh.device)
+        out = apply_packed(params, cfg, batch, quant, policy)
+        return torch.stack(all_gather(mesh, out))
+    return fn
+
+
+def apply_packed_sharded(params, cfg: GNNModelConfig, shards, mesh,
+                         quant: Q.FPX | None = None, policy=None):
+    """One-shot sharded forward of ``shards`` (a ``ShardedBatch``, a
+    list of same-shape GraphBatch dicts, or a ``stack_shards`` dict) over
+    the group ``mesh``, one shard per rank; every rank of the group calls
+    it. Serving loops hold on to ``make_sharded_apply`` instead."""
+    stacked = shards if isinstance(shards, dict) else stack_shards(shards)
+    return make_sharded_apply(cfg, mesh, quant, policy)(params, stacked)
+
+
+def _reassemble_and_pool(params: CastParams, cfg: GNNModelConfig, tables,
+                         gids: np.ndarray, total: int, rows: int,
+                         quant: Q.FPX | None) -> torch.Tensor:
+    """The partitioned program's tail, on the root: scatter the parts'
+    node tables into global node order by ``node_global_id`` (each owned
+    row written once; halo and padding rows carry an out-of-range
+    sentinel and drop), then the padded oracle's own pooling and head
+    over the (rows, F) buffer, so that the answer is ``apply``'s."""
+    tbl = torch.cat(tables)
+    gid = gids.reshape(-1)
+    keep = gid < rows
+    dev = tbl.device
+    buf = torch.zeros((rows, tbl.shape[1]), dtype=tbl.dtype, device=dev)
+    buf = buf.index_copy(0, torch.as_tensor(gid[keep], dtype=torch.long,
+                                            device=dev),
+                         tbl[torch.as_tensor(keep, device=dev)])
+    if cfg.task == "node":
+        return buf
+    mask = torch.arange(rows, device=dev) < total
+    pol = None if params.policy.is_fp32 else params.policy
+    return _head(params, cfg, global_pooling(cfg.global_pooling, buf, mask),
+                 quant, pol)
+
+
+def make_partitioned_apply(cfg: GNNModelConfig, mesh,
+                           quant: Q.FPX | None = None, policy=None, *,
+                           out_rows: int | None = None):
+    """The intra-graph partitioned program over the group ``mesh``: ONE
+    oversize graph split into per-rank subgraphs
+    (``data.pipeline.partition_graph``), ``fn(params, stacked)`` with
+    ``stacked`` the parts as ``stack_shards`` gives them. Every rank of
+    the group calls it on the same parts.
+
+    Each rank runs ``apply_packed`` unchanged on its part
+    (``return_node_features=True``) with a halo exchange between conv
+    layers: it publishes its ``halo_send`` rows (a -1 slot publishes a
+    zero row), the (halo_budget, F) publish buffers are all-gathered,
+    and each rank overwrites its halo rows (``halo_recv_dst``, the
+    ``node_budget`` sentinel dropping) with the owners' fresh values
+    (``halo_recv_src`` into the gathered buffer), so layer i+1 aggregates
+    over exact neighbour features despite the edge cut. Each
+    destination's in-edges stay on its owner in stream order, so the
+    kernels fold each aggregation as the padded oracle does.
+
+    After the last layer the node tables are gathered to the root, which
+    alone runs the tail (``_reassemble_and_pool``: the global-order
+    buffer, the padded oracle's pooling and head), as JAX runs it once on
+    one device, and broadcasts the answer to every rank.
+
+    ``out_rows`` is the source graph's padded row count
+    (``GraphPartition.padded_nodes``, what ``apply_packed_partitioned``
+    passes), for bitwise fp32 parity with ``apply`` where the conv
+    promises it (``ConvSpec.partition_bitwise``): the reassembly buffer
+    has out_rows rows, so the pooling reduces over the oracle's shape, and
+    each rank runs its conv stack over a table of max(node_budget,
+    out_rows) rows (its part, then zero rows outside every graph), so
+    every dense transform has the oracle's row count too: cuBLAS picks
+    its kernel, and with it the order of a row's sum, by the shape of the
+    product. Without ``out_rows`` a rank's table is its part and the
+    buffer ``num_parts * node_budget`` rows, which matches the oracle to
+    fp32 rounding. Returns the (out_dim,) graph output, or the (out_rows,
+    F) global-order node table for node tasks."""
+    from repro_torch.launch.mesh import all_gather, broadcast, gather
+
+    def fn(params, stacked):
+        params = cast_for_policy(params, cfg, policy)
+        mine = _own_row(stacked, mesh)
+        send = np.asarray(mine.pop("halo_send"))
+        recv_src = np.asarray(mine.pop("halo_recv_src"))
+        recv_dst = np.asarray(mine.pop("halo_recv_dst"))
+        for k in ("node_global_id", "total_nodes"):
+            mine.pop(k)
+        nb = len(mine["node_feat"])
+        rows = out_rows or mesh.size * nb
+        if out_rows and out_rows > nb:
+            mine = _pad_rows(mine, out_rows)
+        dev = mesh.device
+        batch = packed_to_device(mine, dev)
+        live = recv_dst < nb
+
+        def index(a):
+            return torch.as_tensor(a, dtype=torch.long, device=dev)
+        publish = index(np.clip(send, 0, nb - 1))
+        ok = torch.as_tensor(send >= 0, device=dev)[:, None]
+        dst_rows, src_rows = index(recv_dst[live]), index(recv_src[live])
+
+        def exchange(x):
+            pub = torch.where(ok, x[publish], torch.zeros((), dtype=x.dtype,
+                                                          device=dev))
+            flat = torch.cat(all_gather(mesh, pub))
+            return x.index_copy(0, dst_rows, flat[src_rows])
+
+        feats = apply_packed(params, cfg, batch, quant, params.policy,
+                             halo_exchange=exchange,
+                             return_node_features=True)[:nb]
+        tables = gather(mesh, feats)
+        if tables is not None:
+            out = _reassemble_and_pool(
+                params, cfg, tables, np.asarray(stacked["node_global_id"]),
+                int(np.asarray(stacked["total_nodes"])[0]), rows, quant)
+        else:
+            shape = (rows, feats.shape[1]) if cfg.task == "node" \
+                else (cfg.mlp_head.out_dim,)
+            out = torch.empty(shape, dtype=torch.float32, device=dev)
+        return broadcast(mesh, out)
+    return fn
+
+
+def _pad_rows(part: dict, rows: int) -> dict:
+    """A partitioned part's node arrays grown to ``rows`` rows: zero
+    features and degrees, graph id ``max_graphs`` (outside every graph,
+    so the mask drops them). The edge stream is unchanged."""
+    out = dict(part)
+    extra = rows - len(part["node_feat"])
+    fill = {"node_graph_id": len(part["graph_valid"])}
+    for k in ("node_feat", "node_graph_id", "node_in_deg", "node_out_deg"):
+        a = np.asarray(part[k])
+        out[k] = np.concatenate([a, np.full((extra,) + a.shape[1:],
+                                            fill.get(k, 0), a.dtype)])
+    return out
+
+
+#: partitioned programs keyed by (config, group, quant, policy) identity,
+#: out_rows and the part count, as the reference caches its compiled
+#: ones; the value holds the keyed objects so that their ids cannot be
+#: recycled while the entry lives. A serving loop calls
+#: ``apply_packed_partitioned`` per oversize request and reuses the
+#: program instead of building it each time.
+_PARTITIONED_PROGRAMS: dict = {}
+
+
+def apply_packed_partitioned(params, cfg: GNNModelConfig, partition, mesh,
+                             quant: Q.FPX | None = None, policy=None):
+    """One-shot partitioned forward of one oversize graph: a
+    ``data.pipeline.GraphPartition`` (or a plain list of same-shape part
+    dicts) over the group ``mesh``, one part per rank; every rank of the
+    group calls it. Returns the graph's output row, the padded oracle's
+    answer (``make_partitioned_apply``), on every rank."""
+    parts = getattr(partition, "parts", partition)
+    out_rows = getattr(partition, "padded_nodes", 0) or None
+    key = (id(cfg), id(mesh), id(quant), id(policy), out_rows, len(parts))
+    hit = _PARTITIONED_PROGRAMS.get(key)
+    if hit is None:
+        hit = (make_partitioned_apply(cfg, mesh, quant, policy,
+                                      out_rows=out_rows),
+               (cfg, mesh, quant, policy))
+        _PARTITIONED_PROGRAMS[key] = hit
+    return hit[0](params, stack_shards(parts))
 
 
 def _as_module(tree: dict) -> nn.Module:

@@ -492,7 +492,7 @@ class Project:
         if packed:
             tb["packed"] = self._run_packed_testbench(params)
             if self.num_shards > 1:
-                tb["sharded"] = self._run_sharded_testbench()
+                tb["sharded"] = self._run_sharded_testbench(params)
         with open(os.path.join(self.build_dir, "tb_data.json"), "w") as f:
             json.dump(tb, f, indent=1)
         return tb
@@ -542,15 +542,55 @@ class Project:
             "edge_budget": self.edge_budget,
         }
 
-    def _run_sharded_testbench(self) -> dict:
+    def _run_sharded_testbench(self, params) -> dict:
+        """Drain the testbench graphs through the data-parallel sharded
+        program on ``num_shards`` spawned ranks of one group (each rank
+        consuming its own packed shard of each wave,
+        ``gnn_model.make_sharded_apply``) and report sharded graphs/s
+        next to the packed numbers, with MAE against the same per-graph
+        fp32 references (host order restored by
+        ``gather_shard_outputs``). On the card the group is NCCL, one
+        card a rank, and the testbench is skipped where there are fewer
+        cards than shards (the reference's rule where it lacks devices);
+        on the CPU it runs over gloo ranks, as the reference runs
+        simulated host devices. The parameters (``params``, fixed-point
+        rounded where the datapath is) and the policy are made once here
+        and handed to every rank."""
         have = torch.cuda.device_count()
-        if have < self.num_shards:
+        if self.device.type == "cuda" and have < self.num_shards:
             return {"skipped": f"needs {self.num_shards} devices, have "
                                f"{have}",
                     "num_shards": self.num_shards}
-        raise NotImplementedError(
-            "sharded testbench drains: multi-device inference is not "
-            "ported yet (ROADMAP queue 1 item 8)")
+        from repro_torch.launch.mesh import spawn
+        job = _ShardedBench(
+            self.cfg, _host_tree(params),
+            self._quant(), self.policy, self._knobs(), self._tb_graphs,
+            self.node_budget, self.edge_budget, self.batch_graphs)
+        outs, index, n_dropped, total_s = spawn(
+            _sharded_testbench_rank, self.num_shards, job,
+            device=self.device.type)[0]
+        n_graphs = sum(len(ix) for w in index for ix in w)
+        maes = []
+        if self.cfg.task == "graph":
+            refs = iter(r for g, r in zip(self._tb_graphs, self._tb_refs)
+                        if P.graph_fits_budget(g, self.node_budget,
+                                               self.edge_budget))
+            for out, ix in zip(outs, index):
+                host = P.gather_shard_outputs(out, ix)
+                for row in host:
+                    maes.append(float(np.mean(np.abs(row - next(refs)))))
+        return {
+            "mae": float(np.mean(maes)) if maes else float("nan"),
+            "graphs_per_s": n_graphs / max(total_s, 1e-12),
+            "mean_wave_ms": total_s / max(len(outs), 1) * 1e3,
+            "n_waves": len(outs),
+            "n_graphs": n_graphs,
+            "n_dropped": n_dropped,
+            "num_shards": self.num_shards,
+            "batch_graphs": self.batch_graphs,
+            "node_budget": self.node_budget,
+            "edge_budget": self.edge_budget,
+        }
 
     # -------------------------------------------------------- synthesis --
     def _measure(self, fn, inputs) -> dict:
@@ -728,3 +768,64 @@ class Project:
 
     # paper-API alias
     run_vitis_hls_synthesis = run_synthesis
+
+
+def _host_tree(tree: dict) -> dict:
+    """A parameter tree as numpy arrays, to hand to spawned ranks."""
+    return {k: _host_tree(v) if isinstance(v, dict)
+            else v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShardedBench:
+    """What every rank of the sharded testbench needs, made once by the
+    project: the model, its weights on the host, the datapath, the
+    aggregation knobs, the testbench graphs and the packed budgets."""
+    cfg: G.GNNModelConfig
+    params: dict
+    quant: Q.FPX | None
+    policy: Q.PrecisionPolicy
+    knobs: tuple
+    graphs: list
+    node_budget: int
+    edge_budget: int
+    batch_graphs: int
+
+
+def _sharded_testbench_rank(mesh, job: _ShardedBench):
+    """One rank of ``Project._run_sharded_testbench``: the testbench's
+    shard waves through the sharded program under the project's
+    aggregation knobs, a warm-up pass (the kernels' build), then the
+    timed one (host clock, ending in a device synchronisation). The root
+    returns (wave outputs, wave indices, dropped graphs, seconds)."""
+    from repro_torch.launch.mesh import barrier
+    cfg = job.cfg
+    params = G.cast_for_policy(
+        prm.load_tree(G.model_plan(cfg), job.params, mesh.device), cfg,
+        job.policy)
+    program = G.make_sharded_apply(cfg, mesh, job.quant, job.policy)
+
+    def fn(stacked):
+        with A.aggregation_scope(*job.knobs), torch.no_grad():
+            return program(params, stacked)
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    waves, dropped = P.pack_dataset(job.graphs, job.node_budget,
+                                    job.edge_budget, job.batch_graphs,
+                                    num_shards=mesh.size)
+    stacked = [G.stack_shards(w) for w in waves]
+    for b in stacked:                               # warm-up, build
+        fn(b)
+    sync()
+    barrier(mesh)
+    t0 = time.perf_counter()
+    outs = [fn(b) for b in stacked]
+    sync()
+    total_s = time.perf_counter() - t0
+    if not mesh.is_root:
+        return None
+    return ([o.cpu().numpy() for o in outs], [w.index for w in waves],
+            len(dropped), total_s)

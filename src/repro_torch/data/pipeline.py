@@ -1,11 +1,13 @@
 """Synthetic molecular graphs and the packed GraphBatch format (numpy).
 
 A copy of the GNN half of ``repro.data.pipeline``: the same generator,
-budgets and greedy packer, so the same ``GraphDataConfig`` yields
-array-equal graphs and batches in both packages. A packed batch fuses
-many graphs into one budget-sized buffer: node/edge slots carry the
-owning graph id, padding slots get graph id ``max_graphs`` and padding
-edges ``src == -1``.
+budgets and greedy packer, the same shard waves (``shard_pack``,
+``pack_dataset(..., num_shards=)``) and the same intra-graph partition
+(``partition_graph``), so the same ``GraphDataConfig`` yields
+array-equal graphs, batches, waves and partitions in both packages. A
+packed batch fuses many graphs into one budget-sized buffer: node/edge
+slots carry the owning graph id, padding slots get graph id
+``max_graphs`` and padding edges ``src == -1``.
 """
 from __future__ import annotations
 
@@ -196,14 +198,119 @@ def pack_graphs(graphs, node_budget: int, edge_budget: int,
     return batch, k
 
 
+# ------------------------------------------------------ sharded packing --
+#
+# Data-parallel execution over the ranks of a process group
+# (launch.mesh.DataMesh): one *wave* is num_shards GraphBatch shards
+# with identical static shapes, one per rank, each rank running the same
+# program on its own shard (gnn_model.make_sharded_apply). The
+# partitioner below is the graph-level analogue of GNNBuilder's
+# parallelization factors one level up: instead of splitting a matmul
+# over MAC lanes, it splits the request stream over ranks.
+
+@dataclasses.dataclass
+class ShardedBatch:
+    """One wave of per-rank packed shards.
+
+    ``shards`` holds ``num_shards`` GraphBatch dicts with identical
+    static shapes (idle shards are ``empty_graph_batch``).
+    ``index[s][j]`` is the wave-relative position of the graph packed
+    into shard ``s`` row ``j`` — a permutation of range(n_graphs), so
+    ``gather_shard_outputs`` can restore host order after the per-rank
+    outputs come back stacked."""
+    shards: list
+    index: list
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def n_graphs(self) -> int:
+        return sum(len(ix) for ix in self.index)
+
+
+def shard_pack(graphs, node_budget: int, edge_budget: int, max_graphs: int,
+               num_shards: int) -> tuple:
+    """Partition a prefix of ``graphs`` into ``num_shards`` per-rank
+    packed shards under the same *per-shard* node/edge budgets.
+
+    Greedy least-loaded: each graph lands in the shard with the fewest
+    used node slots that can still take it, so shards stay balanced
+    while each shard's internal order follows the stream. Stops at the
+    first graph no shard can accept (budgets or max_graphs bind).
+    Returns (ShardedBatch, n_consumed); the consumed prefix is assigned
+    exhaustively — every one of the first n_consumed graphs rides some
+    shard. Raises ValueError if graphs[0] cannot fit an empty shard
+    (the caller must drop or resize, as with pack_graphs)."""
+    if not graphs:
+        raise ValueError("shard_pack needs at least one graph")
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    if not graph_fits_budget(graphs[0], node_budget, edge_budget):
+        raise ValueError(
+            f"graph with {graphs[0].num_nodes} nodes/"
+            f"{graphs[0].num_edges} edges exceeds the per-shard budget "
+            f"({node_budget} nodes/{edge_budget} edges)")
+    assign: list = [[] for _ in range(num_shards)]
+    used_n = [0] * num_shards
+    used_e = [0] * num_shards
+    k = 0
+    for pos, g in enumerate(graphs):
+        cands = [s for s in range(num_shards)
+                 if len(assign[s]) < max_graphs
+                 and used_n[s] + g.num_nodes <= node_budget
+                 and used_e[s] + g.num_edges <= edge_budget]
+        if not cands:
+            break
+        s = min(cands, key=lambda s: (used_n[s], used_e[s], s))
+        assign[s].append(pos)
+        used_n[s] += g.num_nodes
+        used_e[s] += g.num_edges
+        k += 1
+    f = graphs[0].node_feat.shape[1]
+    fe = graphs[0].edge_feat.shape[1]
+    t = graphs[0].y.shape[0]
+    shards = []
+    for s in range(num_shards):
+        if assign[s]:
+            batch, _ = pack_graphs([graphs[i] for i in assign[s]],
+                                   node_budget, edge_budget, max_graphs)
+        else:
+            batch = empty_graph_batch(node_budget, edge_budget, max_graphs,
+                                      f, fe, t)
+        shards.append(batch)
+    return ShardedBatch(shards, assign), k
+
+
+def gather_shard_outputs(outs, index) -> np.ndarray:
+    """Stacked per-shard graph outputs (num_shards, max_graphs, ...) ->
+    wave host order (n_graphs, ...), inverting a ShardedBatch's
+    ``index`` permutation. Graph tasks only — node-task outputs are
+    per-shard packed node tables with no global row order to restore."""
+    outs = np.asarray(outs)
+    n = sum(len(ix) for ix in index)
+    host = np.zeros((n,) + outs.shape[2:], outs.dtype)
+    for s, ix in enumerate(index):
+        for j, pos in enumerate(ix):
+            host[pos] = outs[s, j]
+    return host
+
+
 def pack_dataset(graphs, node_budget: int, edge_budget: int,
-                 max_graphs: int) -> tuple:
+                 max_graphs: int, num_shards: int = 1) -> tuple:
     """Pack an entire dataset into a list of GraphBatch dicts.
 
     Graphs that can never fit the budget on their own are returned in
     ``dropped`` instead of stalling the stream. Order is preserved:
     concatenating the valid rows of each batch visits the non-dropped
-    graphs in dataset order. Returns (batches, dropped)."""
+    graphs in dataset order. Returns (batches, dropped).
+
+    With ``num_shards > 1`` the batches are ``ShardedBatch`` *waves*
+    instead: each wave carries ``num_shards`` per-rank shards under the
+    same per-shard budgets (``shard_pack``), and concatenating the
+    waves' ``gather_shard_outputs`` results visits the non-dropped
+    graphs in dataset order."""
     batches, dropped = [], []
     i = 0
     while i < len(graphs):
@@ -211,11 +318,229 @@ def pack_dataset(graphs, node_budget: int, edge_budget: int,
             dropped.append(graphs[i])
             i += 1
             continue
-        batch, k = pack_graphs(graphs[i:], node_budget, edge_budget,
-                               max_graphs)
-        batches.append(batch)
+        if num_shards > 1:
+            wave, k = shard_pack(graphs[i:], node_budget, edge_budget,
+                                 max_graphs, num_shards)
+            batches.append(wave)
+        else:
+            batch, k = pack_graphs(graphs[i:], node_budget, edge_budget,
+                                   max_graphs)
+            batches.append(batch)
         i += k
     return batches, dropped
+
+
+# ------------------------------------------------- intra-graph partition --
+#
+# Giant-graph partitioned inference: one graph larger than the packed
+# node/edge budgets is split into per-rank subgraphs under the same
+# per-shard budgets, each carrying a *halo* (replicated boundary-node
+# rows plus a fixed-shape exchange index), so that between
+# message-passing layers the ranks swap updated halo features over the
+# process group (gnn_model.apply_packed_partitioned). Edge ownership
+# follows the destination: the owner of an edge's dst holds the edge, so
+# every aggregation is computed entirely on one rank and only node
+# *rows* cross the group. The exchange is all-gather-of-boundary-rows
+# (point-to-point later); comm volume is what the DSE's `partition` axis
+# prices (convs.halo_comm_bytes).
+
+#: batch keys carried only by partitioned per-rank batches (consumed by
+#: the partitioned program's exchange and tail, not by apply_packed)
+PARTITION_HALO_KEYS = ("halo_send", "halo_recv_src", "halo_recv_dst",
+                       "node_global_id", "total_nodes")
+
+
+@dataclasses.dataclass
+class GraphPartition:
+    """One oversize graph split into ``num_parts`` per-rank subgraphs.
+
+    ``parts`` holds per-rank GraphBatch dicts (``max_graphs == 1``,
+    identical static shapes) with the standard packed layout — owned
+    rows first, then halo rows, then padding — plus the partition-only
+    keys: ``node_in_deg``/``node_out_deg`` (true *global* degrees, so
+    GCN normalization is exact even for halo sources whose in-edges
+    live on their owner), ``node_global_id`` (reassembly scatter index,
+    out-of-range sentinel on halo/padding rows),
+    ``halo_send`` (owned local rows to publish, -1 pad),
+    ``halo_recv_src`` (index into the (P*halo_budget, F) all-gathered
+    publish buffer), ``halo_recv_dst`` (local halo row to overwrite,
+    sentinel ``node_budget`` pad) and ``total_nodes``."""
+    parts: list
+    num_parts: int
+    total_nodes: int
+    total_edges: int
+    cut_edges: int
+    halo_nodes: int          # total replicated boundary rows across parts
+    node_budget: int
+    edge_budget: int
+    halo_budget: int
+    #: row count of the source graph's padded node buffer — the
+    #: reassembly buffer is sized to it so partitioned pooling reduces
+    #: over the exact same shape as the padded oracle (bitwise parity)
+    padded_nodes: int = 0
+
+    def comm_bytes(self, feat_dim: int, bytes_per_value: float,
+                   num_layers: int) -> float:
+        """Modeled exchange volume: edge-cut x feature bytes per layer
+        boundary (the DSE comm-cost term, convs.halo_comm_bytes)."""
+        return (float(self.cut_edges) * float(feat_dim)
+                * float(bytes_per_value) * max(num_layers - 1, 0))
+
+
+def partition_graph(g: Graph, num_parts: int, node_budget: int,
+                    edge_budget: int, halo_budget: int | None = None
+                    ) -> GraphPartition:
+    """Greedy edge-cut partition of one graph into ``num_parts``
+    per-rank subgraphs under the per-shard budgets.
+
+    Nodes are streamed in BFS order (lowest unvisited id seeds each
+    component) and assigned to the part holding most of their
+    already-assigned neighbors (LDG-style greedy, capacity
+    ``ceil(n / num_parts)``; ties go to the least-loaded part). BFS
+    order makes the greedy fill each part with one connected region,
+    so the cut is the BFS frontier at each capacity boundary rather
+    than a random bisection of every edge. Each edge is owned by the owner of its
+    *destination*, so a destination's full in-neighborhood reduces on
+    one rank and only boundary-node rows are exchanged. Raises
+    ``ValueError`` when any part would exceed a budget (owned + halo
+    rows > node_budget, owned edges > edge_budget, or boundary rows >
+    halo_budget) — the caller falls back to the padded oracle."""
+    if num_parts < 1:
+        raise ValueError(f"num_parts must be >= 1, got {num_parts}")
+    if halo_budget is None:
+        halo_budget = node_budget
+    n, e = int(g.num_nodes), int(g.num_edges)
+    src = np.asarray(g.edge_index[:e, 0], np.int64)
+    dst = np.asarray(g.edge_index[:e, 1], np.int64)
+    # -- greedy LDG node assignment -------------------------------------
+    own_cap = max(-(-n // num_parts), 1)
+    owner = np.full((n,), -1, np.int64)
+    owned_count = np.zeros((num_parts,), np.int64)
+    neighbors: list = [[] for _ in range(n)]
+    for s, d in zip(src, dst):
+        neighbors[s].append(int(d))
+        neighbors[d].append(int(s))
+    order: list = []
+    visited = np.zeros((n,), bool)
+    for seed in range(n):
+        if visited[seed]:
+            continue
+        visited[seed] = True
+        frontier = [seed]
+        while frontier:
+            v = frontier.pop(0)
+            order.append(v)
+            for u in sorted(set(neighbors[v])):
+                if not visited[u]:
+                    visited[u] = True
+                    frontier.append(u)
+    for v in order:
+        score = np.zeros((num_parts,), np.int64)
+        for u in neighbors[v]:
+            if owner[u] >= 0:
+                score[owner[u]] += 1
+        score[owned_count >= own_cap] = -1
+        cands = np.flatnonzero(score == score.max())
+        p = int(min(cands, key=lambda c: (owned_count[c], c)))
+        owner[v] = p
+        owned_count[p] += 1
+    # -- edge ownership + halo sets -------------------------------------
+    edge_owner = owner[dst] if e else np.zeros((0,), np.int64)
+    cut = int(np.sum(owner[src] != owner[dst])) if e else 0
+    indeg = np.bincount(dst, minlength=n).astype(np.float32) if n else \
+        np.zeros((0,), np.float32)
+    outdeg = np.bincount(src, minlength=n).astype(np.float32) if n else \
+        np.zeros((0,), np.float32)
+    owned_nodes = [np.flatnonzero(owner == p) for p in range(num_parts)]
+    edge_rows = [np.flatnonzero(edge_owner == p) for p in range(num_parts)]
+    halo_nodes = []
+    for p in range(num_parts):
+        rows = edge_rows[p]
+        remote = src[rows][owner[src[rows]] != p] if rows.size else \
+            np.zeros((0,), np.int64)
+        halo_nodes.append(np.unique(remote))
+    send_nodes = []
+    for p in range(num_parts):
+        needed = [h[owner[h] == p] for h in halo_nodes]
+        send_nodes.append(np.unique(np.concatenate(needed)) if needed
+                          else np.zeros((0,), np.int64))
+    for p in range(num_parts):
+        n_own, n_halo = len(owned_nodes[p]), len(halo_nodes[p])
+        if n_own + n_halo > node_budget:
+            raise ValueError(
+                f"part {p}: {n_own} owned + {n_halo} halo rows exceed "
+                f"node_budget {node_budget}")
+        if len(edge_rows[p]) > edge_budget:
+            raise ValueError(
+                f"part {p}: {len(edge_rows[p])} owned edges exceed "
+                f"edge_budget {edge_budget}")
+        if max(n_halo, len(send_nodes[p])) > halo_budget:
+            raise ValueError(
+                f"part {p}: {max(n_halo, len(send_nodes[p]))} boundary "
+                f"rows exceed halo_budget {halo_budget}")
+    # -- per-part batches ------------------------------------------------
+    f = g.node_feat.shape[1]
+    fe = g.edge_feat.shape[1]
+    t = g.y.shape[0]
+    # out-of-range for any reassembly buffer: the drop-mode scatter
+    # ignores halo/padding rows no matter how the buffer is sized
+    gid_sentinel = np.int32(2 ** 30)
+    # global node id -> (part-local send position) for recv_src lookup
+    send_pos = {}
+    for p in range(num_parts):
+        for j, v in enumerate(send_nodes[p]):
+            send_pos[int(v)] = p * halo_budget + j
+    parts = []
+    for p in range(num_parts):
+        own = owned_nodes[p]
+        halo = halo_nodes[p]
+        n_own, n_halo = len(own), len(halo)
+        local = np.full((max(n, 1),), -1, np.int64)
+        local[own] = np.arange(n_own)
+        local[halo] = n_own + np.arange(n_halo)
+        batch = empty_graph_batch(node_budget, edge_budget, 1, f, fe, t)
+        batch["node_feat"][:n_own] = g.node_feat[own]
+        batch["node_feat"][n_own:n_own + n_halo] = g.node_feat[halo]
+        batch["node_graph_id"][:n_own + n_halo] = 0
+        rows = edge_rows[p]
+        ne = len(rows)
+        batch["edge_index"][:ne, 0] = local[src[rows]]
+        batch["edge_index"][:ne, 1] = local[dst[rows]]
+        batch["edge_feat"][:ne] = g.edge_feat[rows]
+        batch["edge_graph_id"][:ne] = 0
+        batch["graph_valid"][0] = True
+        batch["graph_num_nodes"][0] = n_own + n_halo
+        batch["num_graphs"] = np.int32(1)
+        batch["y"][0] = g.y
+        # true global degrees for every active local row (owned + halo)
+        deg_in = np.zeros((node_budget,), np.float32)
+        deg_out = np.zeros((node_budget,), np.float32)
+        deg_in[:n_own] = indeg[own]
+        deg_in[n_own:n_own + n_halo] = indeg[halo]
+        deg_out[:n_own] = outdeg[own]
+        deg_out[n_own:n_own + n_halo] = outdeg[halo]
+        batch["node_in_deg"] = deg_in
+        batch["node_out_deg"] = deg_out
+        gid = np.full((node_budget,), gid_sentinel, np.int32)
+        gid[:n_own] = own
+        batch["node_global_id"] = gid
+        hs = np.full((halo_budget,), -1, np.int32)
+        hs[:len(send_nodes[p])] = local[send_nodes[p]]
+        batch["halo_send"] = hs
+        hr_src = np.zeros((halo_budget,), np.int32)
+        hr_dst = np.full((halo_budget,), node_budget, np.int32)
+        for j, v in enumerate(halo):
+            hr_src[j] = send_pos[int(v)]
+            hr_dst[j] = n_own + j
+        batch["halo_recv_src"] = hr_src
+        batch["halo_recv_dst"] = hr_dst
+        batch["total_nodes"] = np.int32(n)
+        parts.append(batch)
+    return GraphPartition(
+        parts=parts, num_parts=num_parts, total_nodes=n, total_edges=e,
+        cut_edges=cut, halo_nodes=int(sum(len(h) for h in halo_nodes)),
+        node_budget=node_budget, edge_budget=edge_budget,
+        halo_budget=halo_budget, padded_nodes=int(g.node_feat.shape[0]))
 
 
 def compute_average_nodes_and_edges(dataset, round_val: bool = True):

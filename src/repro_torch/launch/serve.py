@@ -31,16 +31,25 @@ reported p50/p99 are traffic-shaped while the compute is real.
 tolerance (a hung launch fails at the timeout and its requests re-pack,
 up to the retry bound, then end ``failed``).
 
-Not ported: ``--shards`` (the sharded drain) and the partitioned oversize
-program wait for the port's multi-device layer; ``partition_fn`` stays
-in the drains' signatures and is ``None`` from the CLI. ``--agg-backend``
-has no counterpart: each kernel wrapper dispatches on its tensor's
-device, so there is no backend to choose.
+``--shards N`` serves on N spawned ranks of one ``torch.distributed``
+group (``launch.mesh``): every rank walks the same queue through the
+sharded wave drain (``drain_gnn_queue_sharded``: per-rank packed shards
+of each wave, ``gnn_model.make_sharded_apply``), oversize requests split
+across the ranks through the partitioned program
+(``gnn_model.apply_packed_partitioned``, ``partitioned_served``; a graph
+the partitioner cannot split falls back to the padded oracle), and rank
+0 prints the summary. ``--dist-backend`` names the group's transport:
+NCCL (the default on cuda) needs a card a rank; gloo runs on the CPU or
+puts several ranks on one card. A single process has one device and
+answers oversize requests by the padded oracle. ``--agg-backend`` has no
+counterpart: each kernel wrapper dispatches on its tensor's device, so
+there is no backend to choose.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --conv gat \\
       --requests 256 --batch-graphs 32 [--precision fp32|bf16|int8] \\
       [--dataflow auto|aggregate_first|transform_first] \\
       [--oversize-requests 4] [--device cuda|cpu] [--reduced] \\
+      [--shards 2 --dist-backend nccl|gloo] \\
       [--scheduler continuous --load 512 --deadline-ms 50 \\
        --queue-depth 1024 --launch-timeout-ms 50 --max-retries 2]
 """
@@ -142,19 +151,21 @@ def _rejection_stats(stats: dict, outcomes) -> dict:
 
 
 def _launch_packed(run_batch, batches, oversize, fallback_fn, *,
-                   node_budget: int, device: torch.device,
-                   partition_fn=None) -> tuple:
-    """Run every packed batch through ``run_batch``, then answer each
-    oversize graph through ``partition_fn`` (the partitioned program;
-    None when the graph cannot split) or ``fallback_fn`` (the padded
-    per-graph oracle on a ``_fallback_input`` dict), and account. Each
-    oversize graph resolves to exactly one of partitioned / fallback /
-    rejected-oversize. On a card each batch and each oversize graph ends
-    in ``torch.cuda.synchronize()``, so its host-clock time is its
-    latency (``batch_latency_s``, ``oversize_latency_s``). Returns
-    (batch_outs, oversize_outs, oversize_statuses, stats);
-    ``oversize_outs``/``oversize_statuses`` line up with ``oversize``
-    (rejected graphs carry a None output)."""
+                   device: torch.device, graphs_in, slots_in,
+                   slot_capacity: int, partition_fn=None) -> tuple:
+    """Run every packed batch (or sharded wave) through ``run_batch``,
+    then answer each oversize graph through ``partition_fn`` (the
+    partitioned program; None when the graph cannot split) or
+    ``fallback_fn`` (the padded per-graph oracle on a ``_fallback_input``
+    dict), and account: ``graphs_in(b)`` / ``slots_in(b)`` count a
+    batch's graphs and used node slots, ``slot_capacity`` the slots of
+    all batches. Each oversize graph resolves to exactly one of
+    partitioned / fallback / rejected-oversize. On a card each batch and
+    each oversize graph ends in ``torch.cuda.synchronize()``, so its
+    host-clock time is its latency (``batch_latency_s``,
+    ``oversize_latency_s``). Returns (batch_outs, oversize_outs,
+    oversize_statuses, stats); ``oversize_outs``/``oversize_statuses``
+    line up with ``oversize`` (rejected graphs carry a None output)."""
     def timed(call):
         tb = time.perf_counter()
         out = call()
@@ -171,9 +182,8 @@ def _launch_packed(run_batch, batches, oversize, fallback_fn, *,
             out, dt = timed(lambda: run_batch(b))
             outs.append(out)
             latencies.append(dt)
-            served += int(b["num_graphs"])
-            slots_used += int((b["node_graph_id"]
-                               < b["graph_valid"].shape[0]).sum())
+            served += graphs_in(b)
+            slots_used += slots_in(b)
         for g in oversize:
             out, dt = (None, 0.0) if partition_fn is None \
                 else timed(lambda: partition_fn(g))
@@ -200,13 +210,16 @@ def _launch_packed(run_batch, batches, oversize, fallback_fn, *,
         "n_batches": len(batches),
         "graphs_per_s": (served + n_part + n_fallback)
         / max(total_s, 1e-12),
-        "node_slot_utilization": slots_used
-        / max(len(batches) * node_budget, 1),
+        "node_slot_utilization": slots_used / max(slot_capacity, 1),
         "total_s": total_s,
         "batch_latency_s": latencies,
         "oversize_latency_s": over_lat,
     }
     return outs, over_outs, over_status, stats
+
+
+def _used_slots(b: dict) -> int:
+    return int((b["node_graph_id"] < b["graph_valid"].shape[0]).sum())
 
 
 def drain_gnn_queue(fn, params, queue, node_budget: int, edge_budget: int,
@@ -218,7 +231,8 @@ def drain_gnn_queue(fn, params, queue, node_budget: int, edge_budget: int,
     that fit the budgets are greedily packed into fixed-shape
     GraphBatches, moved to ``device`` and answered batch by batch.
     Requests too large for the budgets go to ``partition_fn`` (a
-    graph -> output-or-None callable; none exists in the port yet), else
+    graph -> output-or-None callable: the partitioned program over a
+    group, ``_partition_program``), else
     one by one to ``fallback_fn(params, el)`` (the padded per-graph
     oracle ``G.apply`` on ``_fallback_input``), else get
     ``rejected_oversize``; malformed graphs get ``rejected_invalid``
@@ -242,8 +256,56 @@ def drain_gnn_queue(fn, params, queue, node_budget: int, edge_budget: int,
     outs, over_outs, over_status, stats = _launch_packed(
         lambda b: fn(params, G.packed_to_device(b, dev)), batches, oversize,
         None if fallback_fn is None else (lambda el: fallback_fn(params, el)),
-        node_budget=node_budget, device=dev, partition_fn=partition_fn)
+        device=dev, graphs_in=lambda b: int(b["num_graphs"]),
+        slots_in=_used_slots, slot_capacity=len(batches) * node_budget,
+        partition_fn=partition_fn)
     _reconcile_oversize(outcomes, over_status)
+    return outs + [o for o in over_outs if o is not None], \
+        _rejection_stats(stats, outcomes)
+
+
+def drain_gnn_queue_sharded(fn, params, queue, node_budget: int,
+                            edge_budget: int, batch_graphs: int,
+                            num_shards: int, fallback_fn=None,
+                            task: str = "graph", *, partition_fn=None,
+                            validate: bool = True, device="cuda") -> tuple:
+    """Sharded wave drain, run by every rank of a group on the same
+    queue: requests are split into per-rank shard waves
+    (``data.pipeline.pack_dataset(num_shards=)``) and each wave runs
+    through ``fn(params, stacked)``, the sharded program of
+    ``gnn_model.make_sharded_apply`` over the group (each rank its own
+    shard, outputs all-gathered). Graph-task outputs come back in wave
+    host order (``gather_shard_outputs``, numpy); node tasks
+    (``task="node"``) get the stacked per-shard node tables of each wave,
+    whose row order is shard-local. Oversize requests and rejections
+    behave exactly as in ``drain_gnn_queue`` (the same ``_admit`` screen
+    and ``_launch_packed`` body: ``partition_fn``, the partitioned
+    program over the same group, first, then ``fallback_fn``, then an
+    explicit rejection). ``device`` is this rank's. Returns (outputs per
+    wave followed by the oversize outputs, stats) with
+    ``stats["num_shards"]``."""
+    dev = resolve_device(device)
+    packable, oversize, outcomes = _admit(
+        queue, node_budget, edge_budget,
+        can_fallback=fallback_fn is not None,
+        can_partition=partition_fn is not None, validate=validate)
+    waves, leftover = P.pack_dataset(packable, node_budget, edge_budget,
+                                     batch_graphs, num_shards=num_shards)
+    assert not leftover, "_admit already screened for budget fit"
+    dev_outs, over_outs, over_status, stats = _launch_packed(
+        lambda w: fn(params, G.stack_shards(w)), waves, oversize,
+        None if fallback_fn is None else (lambda el: fallback_fn(params, el)),
+        device=dev, graphs_in=lambda w: w.n_graphs,
+        slots_in=lambda w: sum(_used_slots(b) for b in w.shards),
+        slot_capacity=len(waves) * num_shards * node_budget,
+        partition_fn=partition_fn)
+    stats["num_shards"] = num_shards
+    _reconcile_oversize(outcomes, over_status)
+    if task == "graph":
+        outs = [P.gather_shard_outputs(o.cpu().numpy(), w.index)
+                for w, o in zip(waves, dev_outs)]
+    else:
+        outs = dev_outs
     return outs + [o for o in over_outs if o is not None], \
         _rejection_stats(stats, outcomes)
 
@@ -359,30 +421,87 @@ def oversize_graphs(ds: P.GraphDataConfig, node_budget: int,
 def gnn_main(args) -> tuple:
     """Serve ``args.requests`` qm9 graphs (then ``args.oversize_requests``
     giant ones) in packed batches of ``args.batch_graphs`` at
-    ``args.precision``; weights are drawn from ``WEIGHT_SEED`` on the
-    CPU and cast for the policy once. The policy is resolved once, its
-    int8 grids calibrated on the packable part of the warm-up window
-    (the first ``batch_graphs`` requests). Oversize requests are
-    answered by the padded oracle ``G.apply`` at the same policy. One
-    warm-up wave drain (the kernels' build and the first launches)
-    precedes the measured drain: the wave drain, or with
-    ``--scheduler continuous`` the continuous one. Returns (outputs,
-    stats): the wave drain's outputs per batch then per oversize graph,
-    or the continuous drain's responses. ``stats["policy"]`` is the
-    policy served, ``stats["dataflow"]`` each layer's resolved
-    transform/aggregate order; in the wave drain at a precision other
-    than fp32, ``stats["output_error_vs_fp32"]`` holds the warm-up
-    batch's error against the fp32 program."""
-    from repro_torch.configs.gnn import DATASETS, config as gnn_config
+    ``args.precision`` (``_serve``). With ``--shards N`` (N >= 2) the
+    same runs on N spawned ranks of one group (``launch.mesh.spawn``,
+    backend ``args.dist_backend``, each rank on ``args.device``): every
+    rank walks the same queue through the sharded wave drain, oversize
+    graphs go to the partitioned program over the group, and rank 0
+    prints the summary; its (outputs, stats) are returned, the outputs
+    on the host. ``--scheduler continuous`` drives one process's
+    executor and refuses ``--shards``, as the JAX CLI does."""
+    if args.shards <= 1:
+        return _serve(args, None)
+    if args.scheduler == "continuous":
+        raise SystemExit("--scheduler continuous drives a single-host "
+                         "executor; drop --shards or use --scheduler wave")
+    from repro_torch.launch.mesh import spawn
+    return spawn(serve_rank, args.shards, args, device=args.device,
+                 backend=args.dist_backend)[0]
 
-    dev = resolve_device(args.device)
+
+def serve_rank(mesh, args):
+    """One rank of ``serve --shards``: ``_serve`` over the group; the
+    root returns its (outputs, stats) with every output on the host,
+    the other ranks None."""
+    outs, stats = _serve(args, mesh)
+    if not mesh.is_root:
+        return None
+    return [o.cpu() if isinstance(o, torch.Tensor) else o
+            for o in outs], stats
+
+
+def _partition_program(mesh, params, cfg, policy, node_budget: int,
+                       edge_budget: int):
+    """The drains' ``partition_fn`` over the group ``mesh``: split the
+    graph across the group's ranks under the per-rank budgets and run
+    the partitioned program; None when the partitioner cannot split it
+    (``partition_graph``'s ValueError), which reroutes the graph to the
+    padded oracle."""
+    def partition_fn(g):
+        try:
+            part = P.partition_graph(g, mesh.size, node_budget, edge_budget)
+        except ValueError:
+            return None
+        return G.apply_packed_partitioned(params, cfg, part, mesh, None,
+                                          policy)
+    return partition_fn
+
+
+def _serve(args, mesh) -> tuple:
+    """The serving run of ``gnn_main`` in this process, alone (``mesh``
+    None) or as one rank of a group. Weights are drawn from
+    ``WEIGHT_SEED`` on the CPU and cast for the policy once. The policy
+    is resolved once, its int8 grids calibrated on the packable part of
+    the warm-up window (the first ``batch_graphs`` requests); in a group
+    the root draws the weights and calibrates, and broadcasts both.
+    Oversize requests are answered by the partitioned program over the
+    group where there is one, else (or where the graph cannot split) by
+    the padded oracle ``G.apply`` at the same policy. A single process
+    has one device and never partitions (the JAX CLI partitions whenever
+    its process sees two devices). One warm-up drain (the kernels' build
+    and the first launches) precedes the measured drain: the wave drain
+    (sharded in a group), or with ``--scheduler continuous`` the
+    continuous one. Returns (outputs, stats): the wave drain's outputs
+    per batch then per oversize graph, or the continuous drain's
+    responses. ``stats["policy"]`` is the policy served,
+    ``stats["dataflow"]`` each layer's resolved transform/aggregate
+    order; in the wave drain at a precision other than fp32,
+    ``stats["output_error_vs_fp32"]`` holds the warm-up batch's error
+    against the fp32 program."""
+    from repro_torch.configs.gnn import DATASETS, config as gnn_config
+    from repro_torch.launch import mesh as M
+
+    dev = resolve_device(args.device) if mesh is None else mesh.device
+    root = mesh is None or mesh.is_root
     ds = DATASETS["qm9"]
     cfg = dataclasses.replace(gnn_config(args.conv, reduced=args.reduced),
                               gnn_dataflow=args.dataflow,
                               avg_degree=float(ds.avg_degree),
                               gnn_precision=args.precision)
     params = init_params(cfg, torch.Generator().manual_seed(WEIGHT_SEED),
-                         dev)
+                         dev) if root else None
+    if mesh is not None:
+        params = M.broadcast_tree(mesh, params)
     # the transform/aggregate order each layer runs (convs.resolve_dataflow)
     dataflow = [C.resolve_dataflow(cfg.conv_cfg(i))
                 for i in range(cfg.gnn_num_layers)]
@@ -403,7 +522,10 @@ def gnn_main(args) -> tuple:
         warm_batch = G.packed_to_device(P.pack_graphs(
             warm_fit, node_budget, edge_budget, args.batch_graphs)[0], dev)
         probes += policy.needs_calibration
-        policy = G.calibrated_policy(params, cfg, warm_batch, policy)
+        if root:
+            policy = G.calibrated_policy(params, cfg, warm_batch, policy)
+    if mesh is not None:
+        policy = M.broadcast_object(mesh, policy)
 
     def fn(p, b):
         return G.apply_packed(p, cfg, b, None, policy)
@@ -413,10 +535,25 @@ def gnn_main(args) -> tuple:
 
     # the weights cast for the policy once, before the drains
     served = G.cast_for_policy(params, cfg, policy)
-    _, warm_stats = drain_gnn_queue(fn, served, warm, node_budget,
-                                    edge_budget, args.batch_graphs,
-                                    fallback_fn, device=dev)
+    if mesh is None:
+        def drain(q):
+            return drain_gnn_queue(fn, served, q, node_budget, edge_budget,
+                                   args.batch_graphs, fallback_fn,
+                                   device=dev)
+    else:
+        sharded_fn = G.make_sharded_apply(cfg, mesh, None, policy)
+        partition_fn = _partition_program(mesh, served, cfg, policy,
+                                          node_budget, edge_budget)
+
+        def drain(q):
+            return drain_gnn_queue_sharded(
+                sharded_fn, served, q, node_budget, edge_budget,
+                args.batch_graphs, mesh.size, fallback_fn, task=cfg.task,
+                partition_fn=partition_fn, device=dev)
+    _, warm_stats = drain(warm)
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    if mesh is not None:
+        where += f", {mesh.size} ranks over {mesh.transport}"
     if args.scheduler == "continuous":
         outs, stats = drain_gnn_queue_continuous(
             fn, served, queue, node_budget, edge_budget, args.batch_graphs,
@@ -428,9 +565,7 @@ def gnn_main(args) -> tuple:
                               else float("inf")),
             max_retries=args.max_retries, device=dev)
     else:
-        outs, stats = drain_gnn_queue(fn, served, queue, node_budget,
-                                      edge_budget, args.batch_graphs,
-                                      fallback_fn, device=dev)
+        outs, stats = drain(queue)
     stats["warmup_batches"] = warm_stats["n_batches"]
     stats["precision"] = policy.name
     stats["compute_bytes"] = policy.compute_bytes
@@ -473,16 +608,19 @@ def gnn_main(args) -> tuple:
     lat = sorted(stats["batch_latency_s"])
     p50 = f"{lat[len(lat) // 2] * 1e3:.3f} ms" if lat else "n/a"
     worst = f"{lat[-1] * 1e3:.3f} ms" if lat else "n/a"
-    print(f"conv={args.conv} precision={policy.name} served "
-          f"{stats['served']} "
-          f"graphs in {stats['n_batches']} packed batches on {where} "
-          f"({stats['graphs_per_s']:.1f} graphs/s, batch latency p50 "
-          f"{p50} max {worst}, node-slot utilization "
-          f"{stats['node_slot_utilization'] * 100:.0f}%, "
-          f"{stats['partitioned_served']} oversize via partitioned mesh, "
-          f"{stats['fallback_served']} oversize via padded fallback, "
-          f"{stats['rejected_oversize']} rejected oversize, "
-          f"{stats['rejected_invalid']} rejected invalid){err_txt}")
+    unit = "packed batches" if mesh is None else "sharded waves"
+    if root:
+        print(f"conv={args.conv} precision={policy.name} served "
+              f"{stats['served']} "
+              f"graphs in {stats['n_batches']} {unit} on {where} "
+              f"({stats['graphs_per_s']:.1f} graphs/s, batch latency p50 "
+              f"{p50} max {worst}, node-slot utilization "
+              f"{stats['node_slot_utilization'] * 100:.0f}%, "
+              f"{stats['partitioned_served']} oversize via partitioned "
+              f"mesh, "
+              f"{stats['fallback_served']} oversize via padded fallback, "
+              f"{stats['rejected_oversize']} rejected oversize, "
+              f"{stats['rejected_invalid']} rejected invalid){err_txt}")
     return outs, stats
 
 
@@ -495,7 +633,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--oversize-requests", type=int, default=0,
                     help="append N giant graphs (~1.2x the node budget) "
                          "to the queue to exercise the oversize route "
-                         "(the padded per-graph oracle)")
+                         "(the partitioned program under --shards, else "
+                         "the padded per-graph oracle)")
     ap.add_argument("--batch-graphs", type=int, default=32)
     ap.add_argument("--dataflow", default="auto",
                     choices=["auto", "aggregate_first", "transform_first"],
@@ -532,6 +671,15 @@ def parser() -> argparse.ArgumentParser:
                          "dead-letter 'failed' status")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="serve on N spawned ranks of one group (N >= 2): "
+                         "per-rank packed shard waves, oversize graphs "
+                         "partitioned across the ranks (--scheduler wave "
+                         "only)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the group's transport for --shards (default "
+                         "nccl on cuda, one card a rank; gloo on cpu, or "
+                         "to put several ranks on one card)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the small config instead of the paper's "
                          "full-width model")

@@ -1,13 +1,21 @@
-"""Elastic planning of device grids and serving pools: the planning
-half of ``repro.runtime.elastic`` (``plan_mesh_shape``, ``pool_plan``),
-which the serving scheduler re-plans its executor pool with.
+"""Elastic planning of device grids and serving pools: the port of
+``repro.runtime.elastic``.
 
-The rest of the reference module, ``replan`` (a device mesh from the
-surviving devices) and ``recover`` (restore a checkpoint resharded onto
-it), needs the port's multi-device layer and checkpoint manager, which
-do not exist yet.
+``plan_mesh_shape`` and ``pool_plan`` are the reference's planning rules
+(the serving scheduler re-plans its executor pool with ``pool_plan``).
+``replan`` is its recovery step on the port's multi-device layer: the
+largest (data, model) grid buildable from the surviving ranks of a
+group, keeping the model axis where the survivor count allows and
+degrading it to a divisor otherwise, and a new group over the ranks it
+keeps (``launch.mesh.sub_mesh``). The reference's ``recover``, which
+restores a checkpoint resharded onto that grid, waits for the port's
+checkpoint manager (ROADMAP queue 1, item 12).
 """
 from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
 
 
 def plan_mesh_shape(n_devices: int, model_pref: int = 16,
@@ -34,3 +42,27 @@ def pool_plan(n_lanes: int, shards_per_executor: int = 1) -> dict:
                                   model_pref=shards_per_executor)
     return {"n_lanes": int(n_lanes), "mesh_shape": tuple(shape),
             "axes": tuple(axes)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Replan:
+    """A grid planned over surviving ranks: its ``shape`` and ``axes``
+    (the reference's ``Mesh.devices.shape`` and ``axis_names``), the
+    global ranks laid out in that shape, and this rank's view of the
+    group over them (None on a rank the grid leaves out)."""
+    shape: tuple
+    axes: tuple
+    ranks: np.ndarray
+    mesh: object
+
+
+def replan(mesh, survivors, model_pref: int = 16) -> Replan:
+    """The (data, model) grid of ``plan_mesh_shape`` over the surviving
+    global ranks ``survivors`` of ``mesh``'s world, in order, and a group
+    over the first ``data * model`` of them. Every rank of the world
+    calls it with the same survivors (a new group is collective)."""
+    from repro_torch.launch.mesh import sub_mesh
+    shape, axes = plan_mesh_shape(len(survivors), model_pref)
+    keep = [int(r) for r in survivors][:int(np.prod(shape))]
+    return Replan(tuple(shape), tuple(axes),
+                  np.asarray(keep).reshape(shape), sub_mesh(mesh, keep))

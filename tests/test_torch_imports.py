@@ -59,6 +59,7 @@ def test_every_port_module_imports_without_a_gpu():
     assert "repro_torch.kernels.fused_gather_aggregate.ops" in names
     assert {f"repro_torch.runtime.{m}" for m in
             ("scheduler", "faults", "straggler", "elastic")} <= set(names)
+    assert "repro_torch.launch.mesh" in names
     for name in names:
         importlib.import_module(name)
 
@@ -198,6 +199,17 @@ def test_entry_points_refuse_to_run_without_a_card():
         serve.main(["--requests", "2", "--reduced"])
     with pytest.raises(RuntimeError):
         serve.drain_gnn_queue(None, None, [], 8, 8, 2)
+    with pytest.raises(RuntimeError):
+        serve.drain_gnn_queue_sharded(None, None, [], 8, 8, 2, 2)
+    # the multi-device layer: a group runs on cards unless asked for the
+    # CPU, and so does serve --shards
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.spawn(print, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.spawn(print, 2, backend="gloo")
+    with pytest.raises(RuntimeError):
+        serve.main(["--requests", "2", "--reduced", "--shards", "2"])
 
 
 def test_fp32_numerics_are_pinned():

@@ -20,6 +20,11 @@ tolerance is used there.
 """
 import dataclasses
 import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -356,7 +361,8 @@ def test_project_low_precision_matches_jax(tmp_path, precision, mode):
     assert rt["packed"]["compute_bytes"] == jp.policy.compute_bytes
 
 
-def test_bad_knobs_raise_and_sharded_testbench_skips(tmp_path):
+def test_bad_knobs_raise_and_sharded_testbench_skips(tmp_path,
+                                                     monkeypatch):
     ds = dataclasses.replace(DATASETS["qm9"], **SMALL)
     cfg = config("gcn", reduced=True)
     for bad in (dict(agg_backend="mosaic"), dict(gather_mode="mxu"),
@@ -364,14 +370,78 @@ def test_bad_knobs_raise_and_sharded_testbench_skips(tmp_path):
         with pytest.raises(ValueError):
             Project("p", cfg, "c", str(tmp_path), dataset_cfg=ds,
                     device="cpu", **bad)
-    if torch.cuda.device_count() >= 2:
-        pytest.skip("the skipped entry needs a host with fewer cards")
+    # on the card the sharded testbench needs one card a rank (NCCL) and
+    # skips, as the reference does where it lacks devices; on the CPU it
+    # runs over gloo ranks (test_sharded_testbench_matches_jax)
     p = Project("p", cfg, "c", str(tmp_path), dataset_cfg=ds, device="cpu",
                 num_shards=2, batch_graphs=4)
-    p.gen_testbench(4)
+    p.init_params()
+    monkeypatch.setattr(p, "device", torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    tb = p._run_sharded_testbench(p.params)
+    assert set(tb) == {"skipped", "num_shards"}
+    assert tb["num_shards"] == 2
+
+
+JAX_SHARDED_TESTBENCH = textwrap.dedent("""
+    import dataclasses, json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    import jax, numpy as np
+    from repro.configs.gnn import DATASETS, config
+    from repro.core.project import Project
+    p = Project("e2e", config("gcn", reduced=True), "classification",
+                sys.argv[1], dataset_cfg=dataclasses.replace(
+                    DATASETS["qm9"], max_nodes=48, max_edges=96),
+                batch_graphs=4, num_shards=2)
+    params = p.init_params()
+    p.gen_hw_model()
+    p.gen_testbench(10)
     tb = p.build_and_run_testbench()
-    assert set(tb["sharded"]) == {"skipped", "num_shards"}
-    assert tb["sharded"]["num_shards"] == 2
+    np.savez(os.path.join(sys.argv[1], "params.npz"), **{
+        "/".join(k.key for k in path): np.asarray(v)
+        for path, v in jax.tree_util.tree_leaves_with_path(params)})
+    print("JAX_SHARDED_TB " + json.dumps(tb["sharded"]))
+""")
+
+
+def test_sharded_testbench_matches_jax(tmp_path):
+    """On 2 gloo CPU ranks, ``tb["sharded"]`` has the JAX project's keys
+    and counts (its 2 simulated host devices, one subprocess), and its
+    MAE against the fp32 references is the JAX one's to
+    ``parity.ORACLE_ATOL``; the JAX parameters are carried across."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).parents[1] / "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", JAX_SHARDED_TESTBENCH,
+                          str(tmp_path)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    line = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("JAX_SHARDED_TB ")]
+    assert line, out.stderr[-3000:]
+    want = json.loads(line[0].split(" ", 1)[1])
+    tree: dict = {}
+    with np.load(tmp_path / "params.npz") as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for k in parents:
+                node = node.setdefault(k, {})
+            node[leaf] = z[key]
+    tp = Project("e2e", config("gcn", reduced=True), "classification",
+                 str(tmp_path / "torch"),
+                 dataset_cfg=dataclasses.replace(DATASETS["qm9"], **SMALL),
+                 batch_graphs=4, num_shards=2, device="cpu")
+    tp.params = params_from_jax(tp.cfg, tree, "cpu")
+    tp.gen_hw_model()
+    assert tp.gen_testbench(10) == 10
+    got = tp.build_and_run_testbench()["sharded"]
+    assert set(got) == set(want)
+    for key in ("n_waves", "n_graphs", "n_dropped", "num_shards",
+                "batch_graphs", "node_budget", "edge_budget"):
+        assert got[key] == want[key], key
+    assert got["n_graphs"] == 10 and got["num_shards"] == 2
+    assert got["graphs_per_s"] > 0 and got["mean_wave_ms"] > 0
+    assert got["mae"] < parity.ORACLE_ATOL
+    assert abs(got["mae"] - want["mae"]) <= parity.ORACLE_ATOL
 
 
 def test_project_refuses_to_run_without_a_card(tmp_path):
