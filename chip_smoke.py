@@ -223,14 +223,17 @@ Phases, in order; any failure exits non-zero with no result line:
    and a ``HUB_IN_EDGES``-in-edge hub, over 2 and ``DIST_RANKS`` ranks:
    GCN and GAT bit for bit the padded oracle ``apply`` on the card, the
    others within ``MODEL_TOL``; each rank's launches ``ORACLE_LAUNCHES``
-   a graph. (c) ``serve --shards 2 --dist-backend gloo
-   --oversize-requests 4``: every request answered, all four oversize
-   ones ``served_partitioned``. (d) On rank 0's clock, in turns: the GCN
-   drain's graphs/s at ``SHARD_GRAPHS`` graphs a shard on rank 0 alone
-   and on two ranks (single, 2, 2, single), and ms a graph of the four
-   oversize GCN graphs through the padded oracle on rank 0 alone and
-   the partitioned program on 2 and ``DIST_RANKS`` ranks, with the card
-   line (ranks that share one card time-slice it: no scaling figure).
+   a graph, and its ``tiled_matmul`` launches (the row-stable products
+   of each rank's part, ``nn.layers.row_stable_products``) the oracle's
+   a graph, less the head's on every rank but the root. (c) ``serve
+   --shards 2 --dist-backend gloo --oversize-requests 4``: every request
+   answered, all four oversize ones ``served_partitioned``. (d) On rank
+   0's clock, in turns: the GCN drain's graphs/s at ``SHARD_GRAPHS``
+   graphs a shard on rank 0 alone and on two ranks (single, 2, 2,
+   single), and ms a graph of the four oversize GCN graphs through the
+   padded oracle on rank 0 alone and the partitioned program on 2 and
+   ``DIST_RANKS`` ranks, with the card line (ranks that share one card
+   time-slice it: no scaling figure).
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -3014,11 +3017,15 @@ def partitioned_rank(mesh, groups: dict, dev) -> dict:
     it (GCN, GAT), else within ``MODEL_TOL``. Each member's launches
     over a group's run (zeroed just before it) are
     ``ORACLE_LAUNCHES`` a graph: the per-layer kernels, the tail pooling
-    with the oracle's plain reductions."""
+    with the oracle's plain reductions. Its ``tiled_matmul`` launches
+    (every fp32 product of the program is row stable, as the oracle's
+    are) are the oracle's a graph, less the head's products on every
+    member but the root, which alone runs the tail."""
     from repro_torch.configs.gnn import DATASETS, benchmark_config
     from repro_torch.core import convs as C
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
+    from repro_torch.kernels.tiled_linear.ops import tiled_matmul
     from repro_torch.launch import mesh as M
     from repro_torch.launch import serve
 
@@ -3028,29 +3035,47 @@ def partitioned_rank(mesh, groups: dict, dev) -> dict:
     graphs = big + [hub_graph(big[0].node_feat.shape[0],
                               big[0].edge_index.shape[0])]
     launches = dict.fromkeys(KERNELS, 0)
+    products = 0
     errs = {}
     for conv in C.CONV_TYPES:
         cfg = benchmark_config(conv)
         params = G.cast_for_policy(M.broadcast_tree(
             mesh, serve_params(cfg, dev) if mesh.is_root else None), cfg)
-        with torch.inference_mode():
-            want = [G.apply(params, cfg, serve._fallback_input(g, dev))
-                    for g in graphs] if mesh.is_root else None
+        per_graph = None
+        if mesh.is_root:
+            tiled_matmul.launches = 0
+            with torch.inference_mode():
+                want = [G.apply(params, cfg, serve._fallback_input(g, dev))
+                        for g in graphs]
+            check(tiled_matmul.launches % len(graphs) == 0,
+                  f"oracle {conv}: {tiled_matmul.launches} tiled_matmul "
+                  f"launches over {len(graphs)} graphs")
+            per_graph = tiled_matmul.launches // len(graphs)
+        per_graph = M.broadcast_object(mesh, per_graph)
+        head = cfg.mlp_head.hidden_layers + 1
         for n, group in groups.items():
             if group is None:
                 continue
             parts = [P.partition_graph(g, n, nb, eb) for g in graphs]
             torch.cuda.synchronize(dev)
             wrappers = zero_counts()
+            tiled_matmul.launches = 0
             with torch.inference_mode():
                 got = [G.apply_packed_partitioned(params, cfg, p, group)
                        for p in parts]
             torch.cuda.synchronize(dev)
             part_launches = counts_of(wrappers)
-            check_launches(f"partitioned {conv} on {n} ranks",
-                           part_launches, {ORACLE_LAUNCHES[conv]: len(parts)})
+            label = f"partitioned {conv} on {n} ranks"
+            check_launches(label, part_launches,
+                           {ORACLE_LAUNCHES[conv]: len(parts)})
             for k, v in part_launches.items():
                 launches[k] += v
+            own = per_graph - (0 if group.is_root else head)
+            check(per_graph > head and tiled_matmul.launches
+                  == own * len(parts),
+                  f"{label}, rank {group.rank}: {tiled_matmul.launches} "
+                  f"tiled_matmul launches, expected {own} a graph")
+            products += tiled_matmul.launches
             if not group.is_root:
                 continue
             bitwise = C.conv_spec(conv).partition_bitwise
@@ -3067,7 +3092,7 @@ def partitioned_rank(mesh, groups: dict, dev) -> dict:
                           f"{label}: max |err| {float((a - b).abs().max())}")
                 errs[(conv, n)] = max(errs.get((conv, n), 0.0),
                                       float((a - b).abs().max()))
-    return {"launches": launches, "errs": errs,
+    return {"launches": launches, "products": products, "errs": errs,
             "sizes": [g.num_nodes for g in graphs],
             "cuts": {n: [P.partition_graph(g, n, nb, eb).cut_edges
                          for g in graphs] for n in groups}}
@@ -3208,8 +3233,9 @@ def dist_serve_phase() -> None:
           f"{time.perf_counter() - t0:.1f} s with the spawn")
 
 
-def dist_phase(card: str) -> dict:
-    """Phase 10; returns the launches of every rank's counted runs."""
+def dist_phase(card: str) -> tuple:
+    """Phase 10; returns the launches of every rank's counted runs and
+    the ``tiled_matmul`` launches of every rank's partitioned runs."""
     from repro_torch.launch import mesh as M
     t0 = time.perf_counter()
     res = M.spawn(dist_rank, DIST_RANKS, device="cuda", backend="gloo")
@@ -3224,6 +3250,7 @@ def dist_phase(card: str) -> dict:
             if part is not None:
                 for k, v in part["launches"].items():
                     total[k] += v
+    products = sum(r["partitioned"]["products"] for r in res)
     for r in res[:2]:
         s = r["sharded"]
         print(f"[10] (a) sharded gcn drain, rank {r['rank']} of 2, "
@@ -3237,7 +3264,8 @@ def dist_phase(card: str) -> dict:
                                     for n, c in p["cuts"].items())
           + ": max |err| vs the padded oracle on the card "
           + ", ".join(f"{c}/{n} {e:.3e}" for (c, n), e in p["errs"].items())
-          + " (gcn, gat bit for bit)")
+          + " (gcn, gat bit for bit); tiled_matmul launches (row-stable "
+          f"products) on the ranks: {products}")
     t = root["timing"]
     rates, ms = t["rates"], t["ms"]
     print(f"[10] (d) {card}: gcn drain at {SHARD_GRAPHS} graphs a shard, "
@@ -3259,7 +3287,7 @@ def dist_phase(card: str) -> dict:
           + ", ".join(f"{n} ranks {statistics.median(v):.4f} ms"
                       for n, v in t["all_gather_ms"].items()))
     dist_serve_phase()
-    return total
+    return total, products
 
 
 def summarize(rows, errs, launches, by_precision) -> dict:
@@ -3460,11 +3488,18 @@ def main() -> int:
     add(serving_phase(dev, wave), "fp32")
     print(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s")
     t10 = time.perf_counter()
-    add(dist_phase(card), "fp32")
+    dist_launches, products = dist_phase(card)
+    add(dist_launches, "fp32")
     print(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
     summary = summarize(rows, errs, launches, by_precision)
     summary["kernels"] += summarize_entries(entry_rows, entry_errs,
                                             entry_launches)
+    # the partitioned program's row-stable products (phase 10) are
+    # tiled_matmul launches on a model path
+    for k in summary["kernels"]:
+        if k["name"] == "tiled_matmul":
+            k["launches_by_phase"] = {"8": k["launches"], "10": products}
+            k["launches"] += products
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import aggregations as agg_mod
 from repro_torch.core.quantization import LayerPrecision
-from repro_torch.nn.layers import act, linear, linear_plan
+from repro_torch.nn.layers import act, linear, linear_plan, matmul
 from repro_torch.nn.param import ParamSpec
 
 PNA_AGGS = ("mean", "min", "max", "std")
@@ -322,7 +322,7 @@ def gcn_apply(params: dict, g: dict, x: torch.Tensor,
     n = x.shape[0]
     edge_scale, self_scale = _gcn_scales(g)
     agg_first = resolve_dataflow(cfg) == "aggregate_first"
-    h = x if agg_first else torch.matmul(x, params["w"]["w"])
+    h = x if agg_first else matmul(x, params["w"]["w"])
     aggr = agg_mod.gather_aggregate("sum", h, src, dst, n, g["valid_e"],
                                     edge_scale, csr=g.get("edge_csr"),
                                     precision=cfg.precision)
@@ -346,7 +346,7 @@ def sage_apply(params: dict, g: dict, x: torch.Tensor,
     neighbour mean is the fused gather kernel."""
     src, dst = edge_endpoints(g)
     agg_first = resolve_dataflow(cfg) == "aggregate_first"
-    h = x if agg_first else torch.matmul(x, params["w_neigh"]["w"])
+    h = x if agg_first else matmul(x, params["w_neigh"]["w"])
     aggr = agg_mod.gather_aggregate("mean", h, src, dst, x.shape[0],
                                     g["valid_e"], csr=g.get("edge_csr"),
                                     precision=cfg.precision).to(x.dtype)
@@ -444,13 +444,13 @@ def gat_apply(params: dict, g: dict, x: torch.Tensor,
     take the layer's width."""
     src, dst = edge_endpoints(g)
     n = x.shape[0]
-    h = torch.matmul(x, params["w"]["w"])
+    h = matmul(x, params["w"]["w"])
     hf = h.to(torch.float32)
-    s_src = torch.matmul(hf, params["a_src"].to(torch.float32))
-    s_dst = torch.matmul(hf, params["a_dst"].to(torch.float32))
+    s_src = matmul(hf, params["a_src"])
+    s_dst = matmul(hf, params["a_dst"])
     logits = _gather(s_src, src) + _gather(s_dst, dst)
     if "a_edge" in params:
-        logits = logits + torch.matmul(
+        logits = logits + matmul(
             g["edge_feat"].to(torch.float32),
             params["a_edge"]["w"].to(torch.float32))[:, 0]
     # jax.nn.leaky_relu and F.leaky_relu both default to slope 0.01

@@ -45,7 +45,7 @@ from repro_torch.core.aggregations import build_csr, degrees, gather_csr
 from repro_torch.core.pooling import global_pooling, segment_global_pooling
 from repro_torch.device import l2_cache_bytes, resolve_device
 from repro_torch.kernels.fused_layer_stack.ops import fused_layer_stack
-from repro_torch.nn.layers import act, linear, linear_plan
+from repro_torch.nn.layers import act, linear, linear_plan, row_stable_products
 from repro_torch.nn.param import init_params
 
 
@@ -333,17 +333,21 @@ def apply(params: dict, cfg: GNNModelConfig, batch_el: dict,
     packed paths are held against. Returns (out_dim,) for graph tasks or
     the (N_max, F) node embeddings for node tasks. ``quant``: the
     fixed-point testbench datapath; ``policy`` (or ``cfg.gnn_precision``)
-    the precision policy (module docstring)."""
+    the precision policy (module docstring). Its fp32 products are row
+    stable (``nn.layers.row_stable_products``: the tiled matmul kernel
+    on the card), as the partitioned program's are, so that the two give
+    a graph the same bits."""
     params = cast_for_policy(params, cfg, policy)
     pol = None if params.policy.is_fp32 else params.policy
     g, x, node_mask = graph_inputs(batch_el)
     if quant is not None:
         x = Q.quantize(x, quant)
-    x = _backbone(params, cfg, g, x, node_mask, quant, pol)
-    if cfg.task == "node":
-        return x
-    return _head(params, cfg, global_pooling(cfg.global_pooling, x,
-                                             node_mask), quant, pol)
+    with row_stable_products():
+        x = _backbone(params, cfg, g, x, node_mask, quant, pol)
+        if cfg.task == "node":
+            return x
+        return _head(params, cfg, global_pooling(cfg.global_pooling, x,
+                                                 node_mask), quant, pol)
 
 
 def apply_packed(params: dict, cfg: GNNModelConfig, batch: dict,
@@ -613,7 +617,7 @@ def _reassemble_and_pool(params: CastParams, cfg: GNNModelConfig, tables,
 
 def make_partitioned_apply(cfg: GNNModelConfig, mesh,
                            quant: Q.FPX | None = None, policy=None, *,
-                           out_rows: int | None = None):
+                           out_rows: int):
     """The intra-graph partitioned program over the group ``mesh``: ONE
     oversize graph split into per-rank subgraphs
     (``data.pipeline.partition_graph``), ``fn(params, stacked)`` with
@@ -621,34 +625,32 @@ def make_partitioned_apply(cfg: GNNModelConfig, mesh,
     the group calls it on the same parts.
 
     Each rank runs ``apply_packed`` unchanged on its part
-    (``return_node_features=True``) with a halo exchange between conv
-    layers: it publishes its ``halo_send`` rows (a -1 slot publishes a
-    zero row), the (halo_budget, F) publish buffers are all-gathered,
-    and each rank overwrites its halo rows (``halo_recv_dst``, the
-    ``node_budget`` sentinel dropping) with the owners' fresh values
-    (``halo_recv_src`` into the gathered buffer), so layer i+1 aggregates
-    over exact neighbour features despite the edge cut. Each
-    destination's in-edges stay on its owner in stream order, so the
-    kernels fold each aggregation as the padded oracle does.
+    (``return_node_features=True``), a table of the part's
+    ``node_budget`` rows, with a halo exchange between conv layers: it
+    publishes its ``halo_send`` rows (a -1 slot publishes a zero row),
+    the (halo_budget, F) publish buffers are all-gathered, and each rank
+    overwrites its halo rows (``halo_recv_dst``, the ``node_budget``
+    sentinel dropping) with the owners' fresh values (``halo_recv_src``
+    into the gathered buffer), so layer i+1 aggregates over exact
+    neighbour features despite the edge cut. Each destination's in-edges
+    stay on its owner in stream order, so the kernels fold each
+    aggregation as the padded oracle does.
 
     After the last layer the node tables are gathered to the root, which
     alone runs the tail (``_reassemble_and_pool``: the global-order
-    buffer, the padded oracle's pooling and head), as JAX runs it once on
-    one device, and broadcasts the answer to every rank.
+    buffer of ``out_rows`` rows, the source graph's padded row count
+    ``GraphPartition.padded_nodes``, then the padded oracle's pooling and
+    head over it), as JAX runs it once on one device, and broadcasts the
+    answer to every rank.
 
-    ``out_rows`` is the source graph's padded row count
-    (``GraphPartition.padded_nodes``, what ``apply_packed_partitioned``
-    passes), for bitwise fp32 parity with ``apply`` where the conv
-    promises it (``ConvSpec.partition_bitwise``): the reassembly buffer
-    has out_rows rows, so the pooling reduces over the oracle's shape, and
-    each rank runs its conv stack over a table of max(node_budget,
-    out_rows) rows (its part, then zero rows outside every graph), so
-    every dense transform has the oracle's row count too: cuBLAS picks
-    its kernel, and with it the order of a row's sum, by the shape of the
-    product. Without ``out_rows`` a rank's table is its part and the
-    buffer ``num_parts * node_budget`` rows, which matches the oracle to
-    fp32 rounding. Returns the (out_dim,) graph output, or the (out_rows,
-    F) global-order node table for node tasks."""
+    The whole program runs under ``nn.layers.row_stable_products``, as
+    ``apply`` does: every fp32 product gives a node's row the same bits
+    over a part's rows as over the oracle's frame, and the pooling
+    reduces over the oracle's shape, so the answer is bit for bit
+    ``apply``'s where the conv promises it
+    (``ConvSpec.partition_bitwise``). Returns the (out_dim,) graph
+    output, or the (out_rows, F) global-order node table for node
+    tasks."""
     from repro_torch.launch.mesh import all_gather, broadcast, gather
 
     def fn(params, stacked):
@@ -660,9 +662,6 @@ def make_partitioned_apply(cfg: GNNModelConfig, mesh,
         for k in ("node_global_id", "total_nodes"):
             mine.pop(k)
         nb = len(mine["node_feat"])
-        rows = out_rows or mesh.size * nb
-        if out_rows and out_rows > nb:
-            mine = _pad_rows(mine, out_rows)
         dev = mesh.device
         batch = packed_to_device(mine, dev)
         live = recv_dst < nb
@@ -679,62 +678,37 @@ def make_partitioned_apply(cfg: GNNModelConfig, mesh,
             flat = torch.cat(all_gather(mesh, pub))
             return x.index_copy(0, dst_rows, flat[src_rows])
 
-        feats = apply_packed(params, cfg, batch, quant, params.policy,
-                             halo_exchange=exchange,
-                             return_node_features=True)[:nb]
-        tables = gather(mesh, feats)
-        if tables is not None:
-            out = _reassemble_and_pool(
-                params, cfg, tables, np.asarray(stacked["node_global_id"]),
-                int(np.asarray(stacked["total_nodes"])[0]), rows, quant)
-        else:
-            shape = (rows, feats.shape[1]) if cfg.task == "node" \
-                else (cfg.mlp_head.out_dim,)
-            out = torch.empty(shape, dtype=torch.float32, device=dev)
+        with row_stable_products():
+            feats = apply_packed(params, cfg, batch, quant, params.policy,
+                                 halo_exchange=exchange,
+                                 return_node_features=True)
+            tables = gather(mesh, feats)
+            if tables is not None:
+                out = _reassemble_and_pool(
+                    params, cfg, tables,
+                    np.asarray(stacked["node_global_id"]),
+                    int(np.asarray(stacked["total_nodes"])[0]), out_rows,
+                    quant)
+            else:
+                shape = (out_rows, feats.shape[1]) if cfg.task == "node" \
+                    else (cfg.mlp_head.out_dim,)
+                out = torch.empty(shape, dtype=torch.float32, device=dev)
         return broadcast(mesh, out)
     return fn
 
 
-def _pad_rows(part: dict, rows: int) -> dict:
-    """A partitioned part's node arrays grown to ``rows`` rows: zero
-    features and degrees, graph id ``max_graphs`` (outside every graph,
-    so the mask drops them). The edge stream is unchanged."""
-    out = dict(part)
-    extra = rows - len(part["node_feat"])
-    fill = {"node_graph_id": len(part["graph_valid"])}
-    for k in ("node_feat", "node_graph_id", "node_in_deg", "node_out_deg"):
-        a = np.asarray(part[k])
-        out[k] = np.concatenate([a, np.full((extra,) + a.shape[1:],
-                                            fill.get(k, 0), a.dtype)])
-    return out
-
-
-#: partitioned programs keyed by (config, group, quant, policy) identity,
-#: out_rows and the part count, as the reference caches its compiled
-#: ones; the value holds the keyed objects so that their ids cannot be
-#: recycled while the entry lives. A serving loop calls
-#: ``apply_packed_partitioned`` per oversize request and reuses the
-#: program instead of building it each time.
-_PARTITIONED_PROGRAMS: dict = {}
-
-
 def apply_packed_partitioned(params, cfg: GNNModelConfig, partition, mesh,
                              quant: Q.FPX | None = None, policy=None):
-    """One-shot partitioned forward of one oversize graph: a
-    ``data.pipeline.GraphPartition`` (or a plain list of same-shape part
-    dicts) over the group ``mesh``, one part per rank; every rank of the
-    group calls it. Returns the graph's output row, the padded oracle's
-    answer (``make_partitioned_apply``), on every rank."""
-    parts = getattr(partition, "parts", partition)
-    out_rows = getattr(partition, "padded_nodes", 0) or None
-    key = (id(cfg), id(mesh), id(quant), id(policy), out_rows, len(parts))
-    hit = _PARTITIONED_PROGRAMS.get(key)
-    if hit is None:
-        hit = (make_partitioned_apply(cfg, mesh, quant, policy,
-                                      out_rows=out_rows),
-               (cfg, mesh, quant, policy))
-        _PARTITIONED_PROGRAMS[key] = hit
-    return hit[0](params, stack_shards(parts))
+    """One-shot partitioned forward of one oversize graph, a
+    ``data.pipeline.GraphPartition``, over the group ``mesh``, one part
+    per rank; every rank of the group calls it. Returns the graph's
+    output row, the padded oracle's answer (``make_partitioned_apply``
+    with ``out_rows`` the partition's ``padded_nodes``), on every rank.
+    Nothing is compiled, so there is no program to keep: a serving loop
+    calls this per oversize request."""
+    return make_partitioned_apply(
+        cfg, mesh, quant, policy, out_rows=partition.padded_nodes)(
+            params, stack_shards(partition.parts))
 
 
 def _as_module(tree: dict) -> nn.Module:

@@ -7,6 +7,14 @@ not take. ``tiled_matmul.launches`` counts kernel launches and
 ``tiled_matmul.launches_by_body`` splits them by the body that ran
 (``"wgmma"`` or ``"simt"``, as the launch records the body
 ``kernel.body_for`` chose).
+
+``row_stable_matmul`` is the fp32 product whose every output row has
+bits that depend on its input row and the weights alone: on a CUDA
+tensor the same kernel (its fp32 body folds each output in one
+ascending FMA chain over k whatever the tile, with no split-K), on the
+CPU the plain ascending chain. A library product (cuBLAS, or the CPU's
+BLAS for a matrix-vector product) picks its kernel, and with it the
+order of a row's sum, by the shape of the call.
 """
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._cost import matmul_work, priced
 from repro_torch.kernels.tiled_linear.kernel import (BODIES, check_inputs,
                                                      tiled_matmul_cuda)
-from repro_torch.kernels.tiled_linear.ref import tiled_matmul_ref
+from repro_torch.kernels.tiled_linear.ref import (ascending_matmul_ref,
+                                                  tiled_matmul_ref)
 
 LANE = 128  # the TPU's MXU systolic dimension, which the mapping targets
 
@@ -54,3 +63,30 @@ def tiled_matmul(x: torch.Tensor, w: torch.Tensor, *, block_m: int = 128,
 
 tiled_matmul.launches = 0
 tiled_matmul.launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+@priced(matmul_work)
+def _ascending_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return ascending_matmul_ref(x, w)
+
+
+def row_stable_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """fp32 x (M, K) @ w (K, N) -> (M, N), with ``torch.matmul``'s
+    shapes for a vector x (K,) or w (K,), whose row i is the same bits
+    for any M and wherever x's row i sits: the tiled matmul kernel on a
+    CUDA tensor (one launch, counted by ``tiled_matmul.launches``), the
+    ascending plain chain on the CPU. The partitioned program's ranks
+    and the padded oracle run their products through it
+    (``nn.layers.row_stable_products``), so that a rank's part of a
+    graph and the oracle's frame agree bit for bit."""
+    if x.dtype != torch.float32 or w.dtype != torch.float32:
+        raise ValueError(f"row_stable_matmul takes fp32 operands, got "
+                         f"{x.dtype} and {w.dtype}")
+    x2 = (x[None] if x.dim() == 1 else x).contiguous()
+    w2 = (w[:, None] if w.dim() == 1 else w).contiguous()
+    check_inputs(x2, w2, 1, 1, 1)
+    out = _ascending_plain(x2, w2) if _build.runs_plain(x2) \
+        else tiled_matmul(x2, w2)
+    if w.dim() == 1:
+        out = out[:, 0]
+    return out[0] if x.dim() == 1 else out

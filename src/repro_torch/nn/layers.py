@@ -5,13 +5,26 @@ shape ``(d_in, d_out)``, so parameters carry over without a transpose
 (``nn.Linear`` stores ``(d_out, d_in)`` and is not used). Operands of
 two float widths meet at the wider one, as ``jnp``'s ``x @ w`` promotes
 them (``torch.matmul`` raises on mixed dtypes).
+
+Inside ``row_stable_products()`` every fp32 product of ``matmul`` and
+``linear`` goes through ``row_stable_matmul`` (the tiled matmul kernel
+on the card), whose output rows do not depend on the row count: the
+padded oracle and the partitioned program run under it, so that a
+rank's part of a graph and the oracle's frame give each node the same
+bits.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.tiled_linear.ops import row_stable_matmul
 from repro_torch.nn.param import ParamSpec
+
+_ROW_STABLE = contextvars.ContextVar("row_stable_products", default=False)
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -36,10 +49,29 @@ def linear_plan(d_in: int, d_out: int, *, bias: bool = False) -> dict:
     return p
 
 
-def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
-    w = params["w"]
+@contextlib.contextmanager
+def row_stable_products():
+    """Run every fp32 ``matmul``/``linear`` of the block through
+    ``row_stable_matmul``; other widths keep ``torch.matmul``."""
+    token = _ROW_STABLE.set(True)
+    try:
+        yield
+    finally:
+        _ROW_STABLE.reset(token)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) or (K,), the operands promoted as ``jnp``
+    promotes them."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    y = torch.matmul(x.to(dt), w.to(dt))
+    x, w = x.to(dt), w.to(dt)
+    if dt == torch.float32 and _ROW_STABLE.get():
+        return row_stable_matmul(x, w)
+    return torch.matmul(x, w)
+
+
+def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
+    y = matmul(x, params["w"])
     if "b" in params:
         y = y + params["b"]
     return y

@@ -281,7 +281,26 @@ def partitioned_rank(mesh):
                 want = TG.apply(params, cfg, _oracle_input(gr))
                 extra[(name, conv)] = (got.numpy(), want.numpy(),
                                        part.cut_edges, part.halo_nodes)
+            if conv == "gcn":
+                extra[("rows", conv)] = (_table_rows(
+                    params, cfg, parts[2], groups[2]), parts[2])
     return cells, extra
+
+
+def _table_rows(params, cfg, part, group) -> list:
+    """The row count of each ``apply_packed`` table the partitioned
+    program runs on this rank."""
+    rows, plain = [], TG.apply_packed
+
+    def spy(p, c, batch, *args, **kwargs):
+        rows.append(batch["node_feat"].shape[0])
+        return plain(p, c, batch, *args, **kwargs)
+    TG.apply_packed = spy
+    try:
+        TG.apply_packed_partitioned(params, cfg, part, group)
+    finally:
+        TG.apply_packed = plain
+    return rows
 
 
 @pytest.fixture(scope="module")
@@ -387,6 +406,15 @@ def test_hub_past_128_in_edges_is_bitwise(port_out, conv):
 def test_one_part_on_one_rank_is_bitwise(port_out, conv):
     got, want = port_out[1][("one part", conv)]
     np.testing.assert_array_equal(got, want)
+
+
+def test_each_rank_runs_its_part_not_the_frame(port_out):
+    """A rank's conv stack runs over its part's ``node_budget`` rows,
+    not the source graph's padded frame (only the root's tail buffer has
+    the frame's rows)."""
+    rows, part = port_out[1][("rows", "gcn")]
+    assert rows == [part.node_budget] and part.node_budget < \
+        part.padded_nodes
 
 
 def test_cut_free_split_has_an_inert_exchange(port_out):

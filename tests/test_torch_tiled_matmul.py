@@ -240,6 +240,102 @@ def test_launch_records_the_body_it_launched(monkeypatch, shape, body,
         **dict.fromkeys(K.BODIES, 0), body: 1}
 
 
+# ------------------------------------------------ row-stable product --
+# (M, K, N) of the products the padded oracle and the partitioned program
+# run (N = 0: a vector w, the attention logits), and M's to cut them to
+ROW_STABLE_SHAPES = ((300, 7, 8), (300, 11, 128), (300, 128, 64),
+                     (300, 24, 0), (300, 64, 1))
+ROW_COUNTS = (1, 2, 3, 5, 17, 64, 261)
+
+
+def _row_stable_operands(m, k, n, seed):
+    a, b = operands(m, k, max(n, 1), seed)
+    w = torch.from_numpy(b)
+    return torch.from_numpy(a), (w[:, 0].contiguous() if n == 0 else w)
+
+
+@pytest.mark.parametrize("m,k,n", ROW_STABLE_SHAPES)
+def test_row_stable_rows_do_not_depend_on_the_row_count(m, k, n):
+    """Every row of ``row_stable_matmul`` is the same bits whatever the
+    row count and wherever the row sits (the CPU's BLAS gives a matrix-
+    vector product's rows other bits at other row counts); the product
+    is x @ w to fp32 rounding."""
+    x, w = _row_stable_operands(m, k, n, seed=m + k + n)
+    full = O.row_stable_matmul(x, w)
+    assert full.shape == torch.matmul(x, w).shape
+    for rows in ROW_COUNTS:
+        for start in (0, 7):
+            assert torch.equal(O.row_stable_matmul(x[start:start + rows], w),
+                               full[start:start + rows]), (rows, start)
+    want = x.double() @ w.double()
+    np.testing.assert_allclose(full.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(O.row_stable_matmul(x[3], w), full[3])
+
+
+def test_row_stable_refuses_other_widths():
+    x, w = torch.ones((4, 3)), torch.ones((3, 2))
+    for a, b in ((x.bfloat16(), w.bfloat16()), (x, w.double())):
+        with pytest.raises(ValueError, match="fp32"):
+            O.row_stable_matmul(a, b)
+
+
+def test_row_stable_cuda_branch_launches_the_kernel(monkeypatch):
+    """On a CUDA tensor the product is one ``tiled_matmul`` launch on
+    contiguous 2-D operands, a vector as one column (the wrapper's CUDA
+    branch on the CPU, the launch replaced by a recorder)."""
+    calls = []
+
+    def launch(x, w, **_):
+        calls.append((tuple(x.shape), tuple(w.shape), x.is_contiguous(),
+                      w.is_contiguous()))
+        return torch.matmul(x, w)
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(O, "tiled_matmul_cuda", launch)
+    monkeypatch.setattr(O.tiled_matmul, "launches", 0)
+    x = torch.ones((6, 10))[:, :5]          # a strided view
+    w = torch.ones((5, 3))
+    assert O.row_stable_matmul(x, w).shape == (6, 3)
+    assert O.row_stable_matmul(x, w[:, 1]).shape == (6,)
+    assert O.row_stable_matmul(x[0], w).shape == (3,)
+    assert calls == [((6, 5), (5, 3), True, True),
+                     ((6, 5), (5, 1), True, True),
+                     ((1, 5), (5, 3), True, True)]
+    assert O.tiled_matmul.launches == 3
+
+
+def test_row_stable_is_priced_as_one_product():
+    """Under ``Project.run_synthesis``'s counting pass the CPU chain
+    counts as the product it computes (``_cost.matmul_work``), not as
+    its 2 K elementwise steps."""
+    from repro_torch.core.project import _OpCounter
+    x, w = _row_stable_operands(40, 12, 6, seed=1)
+    counter = _OpCounter()
+    with counter, _cost.pricing(counter):
+        O.row_stable_matmul(x, w)
+    moved, ops = _cost.matmul_work(x, w)
+    assert (counter.bytes, counter.flops) == (moved, ops)
+    assert dict(counter.by_op) == {"kernels": moved}
+
+
+def test_row_stable_products_scope():
+    """Inside ``nn.layers.row_stable_products`` an fp32 ``matmul`` or
+    ``linear`` is ``row_stable_matmul``; bf16 operands and every product
+    outside keep ``torch.matmul``."""
+    from repro_torch.nn import layers as L
+    x, w = _row_stable_operands(64, 24, 8, seed=2)
+    b = torch.linspace(-1, 1, 8)
+    with L.row_stable_products():
+        assert torch.equal(L.matmul(x, w), O.row_stable_matmul(x, w))
+        assert torch.equal(L.linear({"w": w, "b": b}, x),
+                           O.row_stable_matmul(x, w) + b)
+        assert torch.equal(L.matmul(x.bfloat16(), w.bfloat16()),
+                           torch.matmul(x.bfloat16(), w.bfloat16()))
+    assert torch.equal(L.matmul(x, w), torch.matmul(x, w))
+    assert torch.equal(L.matmul(x.bfloat16(), w),
+                       torch.matmul(x.bfloat16().float(), w))
+
+
 # ------------------------------------------------- CUDA launch tests --
 @pytest.fixture
 def cuda_device():
@@ -293,3 +389,26 @@ def test_cuda_bodies_by_shape(cuda_device):
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         assert err <= 1e-2 * float(want.float().abs().max()), (m, k, n, err)
+
+
+def test_cuda_row_stable_rows(cuda_device):
+    """On the card every row of ``row_stable_matmul`` is the same bits at
+    the partitioned program's and the padded oracle's row counts, each
+    call one ``tiled_matmul`` launch, within fp32 rounding of the plain
+    product."""
+    from repro_torch.device import set_fp32_numerics
+    set_fp32_numerics()
+    for m, k, n in ((3488, 11, 128), (3488, 128, 128), (3488, 128, 64),
+                    (3488, 128, 0)):
+        x, w = (t.to(cuda_device) for t in _row_stable_operands(
+            m, k, n, seed=k + n))
+        before = O.tiled_matmul.launches
+        full = O.row_stable_matmul(x, w)
+        assert O.tiled_matmul.launches == before + 1
+        for rows in (1, 17, 261, 872, 1040):
+            assert torch.equal(O.row_stable_matmul(x[5:5 + rows], w),
+                               full[5:5 + rows]), (m, k, n, rows)
+        want = torch.matmul(x, w)
+        torch.cuda.synchronize()
+        err = float((full - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (m, k, n, err)

@@ -20,11 +20,10 @@ whose declared worst case is 20000 nodes / 24000 edges, served two ways:
 
 Each point records the times (best of ``--repeats`` calls, on rank 0's
 clock, each ending in a device synchronisation; two passes of each path
-in turns) of the padded oracle and of the partitioned program twice: as
-served (``out_rows`` the oracle's frame, so each rank's table has the
-frame's rows and the answer is the oracle's bit for bit) and unpadded
-(each rank's table its part, the answer the oracle's to fp32 rounding),
-and the cut and the exchange volume it implies
+in turns) of the padded oracle and of the partitioned program (each
+rank's table its part's node budget, the tail's buffer the oracle's
+frame; both under row-stable products, so the answer is the oracle's bit
+for bit), and the cut and the exchange volume it implies
 (``GraphPartition.comm_bytes``) beside the one ``Project.run_synthesis``
 models (the balanced worst-case cut of the edge budget). The gate
 (``check_acceptance``) is the reference's parity gate: the served
@@ -111,8 +110,8 @@ def point_rank(mesh, repeats: int):
         if mesh.is_root else None), cfg)
     g = P.make_graph(ds, 0)
     nb, part = tight_budget(g, mesh.size)
-    exact = G.make_partitioned_apply(cfg, mesh, out_rows=part.padded_nodes)
-    unpadded = G.make_partitioned_apply(cfg, mesh)
+    program = G.make_partitioned_apply(cfg, mesh,
+                                       out_rows=part.padded_nodes)
     stacked = G.stack_shards(part.parts)
     el = {"node_feat": torch.as_tensor(g.node_feat, device=dev),
           "edge_index": torch.as_tensor(g.edge_index, device=dev),
@@ -129,15 +128,14 @@ def point_rank(mesh, repeats: int):
             best = min(best, time.perf_counter() - t0)
         return best
 
-    t = dict.fromkeys(("exact", "unpadded", "padded"), float("inf"))
+    t = dict.fromkeys(("partitioned", "padded"), float("inf"))
     with torch.inference_mode():
-        out_exact = exact(params, stacked)              # also the warm-up
-        out_unpadded = unpadded(params, stacked)
+        out_part = program(params, stacked)             # also the warm-up
         out_pad = G.apply(params, cfg, el) if mesh.is_root else None
         for _ in range(2):          # two passes of each path, in turns
-            for name, fn in (("exact", exact), ("unpadded", unpadded)):
-                M.barrier(mesh)
-                t[name] = min(t[name], best_of(lambda: fn(params, stacked)))
+            M.barrier(mesh)
+            t["partitioned"] = min(t["partitioned"], best_of(
+                lambda: program(params, stacked)))
             M.barrier(mesh)
             if mesh.is_root:
                 t["padded"] = min(t["padded"], best_of(
@@ -156,14 +154,11 @@ def point_rank(mesh, repeats: int):
             "node_budget": nb, "edge_budget": 4 * nb,
             "cut_edges": int(part.cut_edges),
             "halo_nodes": int(part.halo_nodes),
-            "bitwise": bool(torch.equal(out_exact, out_pad)),
-            "max_err": float((out_exact - out_pad).abs().max()),
-            "unpadded_max_err": float((out_unpadded - out_pad).abs().max()),
-            "partitioned_ms": t["exact"] * 1e3,
-            "unpadded_ms": t["unpadded"] * 1e3,
+            "bitwise": bool(torch.equal(out_part, out_pad)),
+            "max_err": float((out_part - out_pad).abs().max()),
+            "partitioned_ms": t["partitioned"] * 1e3,
             "padded_ms": t["padded"] * 1e3,
-            "speedup": t["padded"] / max(t["exact"], 1e-12),
-            "unpadded_speedup": t["padded"] / max(t["unpadded"], 1e-12),
+            "speedup": t["padded"] / max(t["partitioned"], 1e-12),
             "measured_comm_bytes": part.comm_bytes(
                 cfg.gnn_hidden_dim, 4.0, cfg.gnn_num_layers),
             "modeled_cut_edges": cut_model,
@@ -186,11 +181,8 @@ def sweep(rank_counts, repeats: int, device: str, backend: str | None,
         points.append(pt)
         if log:
             log(f"ranks={n} ({pt['ranks_on']}, {used}): partitioned "
-                f"{pt['partitioned_ms']:.4f} ms (unpadded "
-                f"{pt['unpadded_ms']:.4f} ms, max |err| "
-                f"{pt['unpadded_max_err']:.3e}) vs padded "
+                f"{pt['partitioned_ms']:.4f} ms vs padded "
                 f"{pt['padded_ms']:.4f} ms ({pt['speedup']:.3f}x, "
-                f"unpadded {pt['unpadded_speedup']:.3f}x, "
                 f"bitwise={pt['bitwise']}) | node budget "
                 f"{pt['node_budget']}, cut {pt['cut_edges']} edges, "
                 f"exchange {pt['measured_comm_bytes']:.0f} B measured / "
