@@ -233,13 +233,48 @@ Phases, in order; any failure exits non-zero with no result line:
    single), and ms a graph of the four oversize GCN graphs through the
    padded oracle on rank 0 alone and the partitioned program on 2 and
    ``DIST_RANKS`` ranks, with the card line (ranks that share one card
-   time-slice it: no scaling figure).
+   time-slice it: no scaling figure);
+11. the design-space exploration on the card (``core.dse``,
+   ``core.perf_model``). (a) ``dse.build_database(DSE_DESIGNS,
+   seed=DSE_SEED, run_testbench=True)``: each design synthesized
+   (``Project.run_synthesis``) and its testbench run on the card, its
+   launches read around it: every record's ``latency_s``, ``hbm_bytes``,
+   ``graphs_per_s`` and ``measured_ms`` finite and positive, every design
+   launching its conv's CSR kernels (``dse_expected``: GIN with edge
+   features and PNA run no gather) and ``tiled_matmul`` (the padded
+   oracle's row-stable fp32 products), and none the kernels its inert
+   knobs name (``DSE_INERT``). (b) Every design's timed program (the
+   per-graph padded program ``measured_ms`` times) on its testbench
+   graphs against the CPU plain path with the same parameters and
+   (calibrated) policy, fp32 within ``MODEL_TOL``, int8 within
+   ``low_bound``, bf16 within it or, where larger, the policy's own
+   largest error against fp32 over the design's inputs (``within``);
+   its testbench report gated (fp32 MAE within ``MODEL_TOL`` of the
+   references' scale; bf16/int8 SQNR at least ``SQNR_FLOOR_DB``, or
+   within ``SQNR_MARGIN_DB`` of the CPU plain path's own where that is
+   lower); for the first design of each conv its packed program on one
+   batch against the CPU plain path's at the same bound, and the memory
+   target (``_measure``'s device peak) on the zero frame
+   ``run_synthesis`` reads beside a real graph's frame. (c)
+   5-fold CV-MAPE of the latency forest on the modeled (``latency_s``)
+   and the measured (``measured_ms``) target and of the memory forest
+   (``hbm_bytes``), beside the paper's 36 / 17.5 %: finite, not gated at
+   24 designs. (d) ``explore(DSE_CANDIDATES, seed=1)`` under one H100's
+   HBM: the winner feasible, its ms an evaluation, then the winner
+   synthesized and measured on the card (predicted, modeled and measured
+   latency side by side; its timed program held as in (b)), then
+   ``objective="p99_latency"`` under ``DEFAULT_SLO``. (e) Fig. 5:
+   synthesis seconds a design against model ms an evaluation, in orders
+   of magnitude. (f) The phase's wall time against its ``DSE_TARGET_S``
+   target.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
 entries also carries ``launches_by_precision`` (the launches of the
 fp32, bf16 and int8 programs) and ``by_storage`` (phase 6's bf16 and
-int8 rows, summed; the softmax is fp32 at every policy).
+int8 rows, summed; the softmax is fp32 at every policy); every entry
+carries ``launches_by_phase["11"]``, the DSE's launches (in
+``launches``).
 """
 from __future__ import annotations
 
@@ -3290,6 +3325,332 @@ def dist_phase(card: str) -> tuple:
     return total, products
 
 
+# ---------------------------------------------------------- phase 11 --
+DSE_DIR = ROOT / "build" / "chip_smoke_dse"
+DSE_DESIGNS = 24           # dse.build_database(DSE_DESIGNS, seed=DSE_SEED)
+DSE_SEED = 0
+DSE_CANDIDATES = 4096      # dse.explore(DSE_CANDIDATES, seed=1)
+DSE_EXPLORE_SEED = 1
+DSE_TARGET_S = 120.0       # the phase's wall-time target, printed
+PAPER_LATENCY_MAPE = 36.0  # the paper's 5-fold CV-MAPE (§VII-B, Fig. 4)
+PAPER_BRAM_MAPE = 17.5
+PAPER_SYNTHESIS_S = 9.4 * 60   # Fig. 5: a Vitis run against a model call
+PAPER_MODEL_MS = 1.7
+# the kernels that can never run in a DSE design: it keeps the default
+# aggregation backend, so gather_mode/edge_block/node_block/fusion_depth
+# do not reach the program (as in the reference's synthesize_design)
+DSE_INERT = ("fused_layer_stack", "fused_gather_onehot",
+             "segment_aggregate_onehot")
+DSE_RECORDED = ("latency_s", "hbm_bytes", "graphs_per_s", "measured_ms")
+
+
+def dse_counters() -> dict:
+    """The model-path kernels' wrappers and ``tiled_matmul``'s (the
+    padded oracle's row-stable fp32 products)."""
+    return {**counters(), "tiled_matmul": entry_counters()["tiled_matmul"]}
+
+
+def dse_expected(conv: str) -> set:
+    """The kernels every design of ``conv`` launches on the card: its CSR
+    kernels (``LAUNCHES_PER_BATCH``; GIN with edge features and PNA fold
+    every aggregation in the segment kernel and run no gather) and
+    ``tiled_matmul`` (the testbench's fp32 references at least)."""
+    per = dict(zip(KERNELS, LAUNCHES_PER_BATCH[conv]))
+    return {k for k in KERNELS[:3] if per[k] > 0} | {"tiled_matmul"}
+
+
+@contextlib.contextmanager
+def counted_designs(wrappers: dict, seconds: list, launches: list,
+                    benches: list):
+    """Inside the block every ``dse.synthesize_design`` appends its wall
+    seconds, its launches by kernel (counts read just before and just
+    after it) and (its design, its ``Project``, its testbench report) to
+    ``benches``."""
+    from repro_torch.core import dse
+    from repro_torch.core.project import Project
+    inner, run_tb = dse.synthesize_design, Project.build_and_run_testbench
+    ran = []
+
+    def kept(self, *args, **kwargs):
+        tb = run_tb(self, *args, **kwargs)
+        ran.append((self, tb))
+        return tb
+
+    def counted(d, *args, **kwargs):
+        before = {k: w.launches for k, w in wrappers.items()}
+        ran.clear()
+        t0 = time.perf_counter()
+        rec = inner(d, *args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        launches.append({k: w.launches - before[k]
+                         for k, w in wrappers.items()})
+        check(len(ran) == 1, f"[11] {len(ran)} testbenches in one design")
+        benches.append((dict(d), *ran[0]))
+        return rec
+    dse.synthesize_design = counted
+    Project.build_and_run_testbench = kept
+    try:
+        yield
+    finally:
+        dse.synthesize_design = inner
+        Project.build_and_run_testbench = run_tb
+
+
+def check_design(label: str, rec: dict, n: dict) -> None:
+    for key in DSE_RECORDED:
+        v = rec[key]
+        check(np.isfinite(v) and v > 0, f"{label}: {key} = {v}")
+    missing = sorted(k for k in dse_expected(rec["conv"]) if n[k] == 0)
+    check(not missing, f"{label}: never launched {missing}: {n}")
+    engaged = [k for k in DSE_INERT if n[k]]
+    check(not engaged, f"{label}: a DSE knob reached the program: {n}")
+
+
+def design_line(i, rec: dict, secs: float, n: dict) -> str:
+    shards = rec["num_shards"]
+    return (f"[11] (a) design {i:2d} {rec['conv']:4s} {rec['precision']:4s} "
+            f"hidden {rec['gnn_hidden_dim']} x{rec['gnn_layers']}, "
+            f"{rec['batch_graphs']} graphs/batch, {shards} shard(s)"
+            + (" (sharded testbench skipped on one card; graphs/s modeled)"
+               if shards > 1 else "")
+            + f": modeled {rec['latency_s'] * 1e3:.6f} ms, measured "
+            f"{rec['measured_ms']:.4f} ms a graph, hbm {rec['hbm_bytes']} B, "
+            f"modeled {rec['graphs_per_s']:.1f} graphs/s; {secs:.2f} s; "
+            + ", ".join(f"{k} {v}" for k, v in n.items() if v))
+
+
+def dse_host(d: dict, proj):
+    """The CPU plain path's ``Project`` of design ``d`` with the card
+    project ``proj``'s parameters and (int8: calibrated) policy."""
+    from repro_torch.core import dse
+    host = dse.make_project(d, str(DSE_DIR / "cpu"), device="cpu")
+    host.params = tree_to(proj.params, "cpu")
+    host.policy = proj.policy
+    host.gen_hw_model()
+    return host
+
+
+def within(precision: str, got, want, policy, own: float) -> tuple:
+    """(max |err|, bound, whether ``got`` is within the bound of ``want``,
+    the CPU plain path's output of the same policy): fp32 ``MODEL_TOL``;
+    int8 ``low_bound``; bf16 ``low_bound`` or, where it is larger,
+    ``own``, the policy's own largest error against fp32 over the
+    design's inputs (the CPU plain path's bf16 against its fp32 output).
+    A DSE design is up to 4 layers deep and 256 wide: a sum folded in
+    another order rounds to the other side of a bf16 boundary in an
+    early layer and reaches the output through every later one, as far
+    as the policy's rounding moves this design's output from fp32. An
+    int8 value snaps to its grid after every layer, so the two folds
+    meet again there."""
+    err = float((got - want).abs().max())
+    if precision == "fp32":
+        bound = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * float(
+            want.abs().max())
+        ok = torch.allclose(got, want, **MODEL_TOL)
+    else:
+        bound = low_bound(precision, want, policy)
+        if precision == "bf16":
+            bound = max(bound, own)
+        ok = err <= bound
+    return err, bound, bool(torch.isfinite(got).all()) and ok
+
+
+def dse_timed_parity(label: str, d: dict, proj, tb: dict):
+    """(b) The timed program ``_fn`` of a synthesized design (the one
+    ``measured_ms`` times) on its testbench graphs on the card against
+    the CPU plain path's with the same parameters and policy (``within``),
+    and its testbench report gated: fp32 MAE against the fp32 references
+    within ``MODEL_TOL`` of their scale; bf16/int8 SQNR against them at
+    least ``SQNR_FLOOR_DB``, or, where the CPU plain path's own SQNR
+    against its fp32 references is below that, within ``SQNR_MARGIN_DB``
+    of it. Returns the host project and the line to print."""
+    from repro_torch.core import dse
+    from repro_torch.core import gnn_model as G
+    from repro_torch.core import quantization as Q
+    host = dse_host(d, proj)
+    precision = proj.policy.name
+    fp32 = Q.resolve_policy("fp32", host.cfg.gnn_num_layers)
+    gots, outs, refs = [], [], []
+    for g in proj._tb_graphs:
+        gots.append(proj._fn(proj.params, proj._graph_to_el(g)).cpu())
+        el = host._graph_to_el(g)
+        outs.append(host._fn(host.params, el))
+        refs.append(outs[-1] if precision == "fp32"
+                    else G.apply(host.params, host.cfg, el, None, fp32))
+    own = max(float((w - r).abs().max()) for w, r in zip(outs, refs))
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(gots, outs)):
+        err, bound, ok = within(precision, got, want, proj.policy, own)
+        check(ok, f"{label}: testbench graph {i}: the card's timed "
+                  f"{precision} program is {err} off the CPU plain path "
+                  f"(bound {bound})")
+        worst = max(worst, err / bound)
+    line = (f"{label} {d['conv']} {precision} {dse.design_name(d)} "
+            f"(hidden {d['gnn_hidden_dim']} x{d['gnn_layers']}): timed "
+            f"program on {len(outs)} graphs against the CPU plain path at "
+            f"most {worst:.3f} of its bound; testbench ")
+    if precision == "fp32":
+        scale = max(float(np.abs(r).max()) for r in proj._tb_refs)
+        bound = MODEL_TOL["atol"] + MODEL_TOL["rtol"] * scale
+        check(np.isfinite(tb["mae"]) and tb["mae"] <= bound,
+              f"{label}: testbench MAE {tb['mae']} > {bound}")
+        return host, line + f"MAE {tb['mae']:.3e} (bound {bound:.3e})"
+    sq_own = Q.error_stats(torch.stack(outs), torch.stack(refs))["sqnr_db"]
+    floor = min(SQNR_FLOOR_DB[precision], sq_own - SQNR_MARGIN_DB)
+    sqnr = tb["quant_error"]["output"]["sqnr_db"]
+    check(sqnr >= floor, f"{label}: testbench SQNR {sqnr} dB < {floor} dB "
+                         f"(the CPU plain path's own {sq_own} dB)")
+    return host, line + (f"SQNR {sqnr:.2f} dB (floor {floor:.2f}; the "
+                         f"CPU plain path's own {sq_own:.2f})")
+
+
+def dse_packed_parity(d: dict, proj, host) -> str:
+    """(b) The design's packed program on one batch of
+    ``batch_graphs`` graphs on the card against the CPU plain path's."""
+    from repro_torch.core import dse
+    from repro_torch.core import gnn_model as G
+    from repro_torch.core import quantization as Q
+    from repro_torch.data import pipeline as P
+    graphs = [P.make_graph(host.dataset_cfg, i)
+              for i in range(d["batch_graphs"])]
+    batch, _ = P.pack_graphs(graphs, host.node_budget, host.edge_budget,
+                             host.batch_graphs)
+    got = proj._fn_packed(proj.params,
+                          G.packed_to_device(batch, proj.device)).cpu()
+    host_batch = G.packed_to_device(batch, "cpu")
+    want = host._fn_packed(host.params, host_batch)
+    ref = G.apply_packed(host.params, host.cfg, host_batch, None,
+                         Q.resolve_policy("fp32", host.cfg.gnn_num_layers))
+    precision = proj.policy.name
+    err, bound, ok = within(precision, got, want, proj.policy,
+                            float((want - ref).abs().max()))
+    check(ok, f"[11] (b) {d['conv']}: the card's packed {precision} "
+              f"program is {err} off the CPU plain path (bound {bound})")
+    return (f"[11] (b) {d['conv']} {precision} {dse.design_name(d)}: packed "
+            f"program on {int(batch['num_graphs'])} graphs in one batch max "
+            f"|err| {err:.3e} against the CPU plain path (bound "
+            f"{bound:.3e})")
+
+
+def dse_memory_input(d: dict, proj) -> str:
+    """(b) The memory target's input: ``run_synthesis`` measures the
+    per-graph program on a zero frame (every edge slot a 0 -> 0 edge);
+    the same measurement on the frame of the first testbench graph."""
+    from repro_torch.core import dse
+    zero = proj._measure(proj._fn, proj._zero_graph())
+    real = proj._measure(proj._fn, proj._graph_to_el(proj._tb_graphs[0]))
+    return (f"[11] (b) {d['conv']} {proj.policy.name} {dse.design_name(d)}: "
+            f"memory target's input: hbm temp {zero['temp']} B on the zero frame, {real['temp']} B "
+            f"on a real graph's ({real['temp'] - zero['temp']:+d}); counted "
+            f"bytes {zero['bytes']} / {real['bytes']}")
+
+
+def dse_checks(benches: list) -> None:
+    """(b) over every design of the database: the timed program against
+    the CPU plain path and the testbench gate; for the first design of
+    each conv also the packed program against the CPU plain path and
+    the memory target's input."""
+    firsts = set()
+    for i, (d, proj, tb) in enumerate(benches):
+        host, line = dse_timed_parity(f"[11] (b) design {i:2d}", d, proj, tb)
+        print(line)
+        if d["conv"] not in firsts:
+            firsts.add(d["conv"])
+            print(dse_packed_parity(d, proj, host))
+            print(dse_memory_input(d, proj))
+    print(f"[11] (b) every one of the {len(benches)} designs' timed "
+          f"programs held against the CPU plain path; convs "
+          f"{sorted(firsts)}")
+
+
+def dse_phase(dev) -> dict:
+    """Phase 11: the DSE on the card; returns the launches of its
+    synthesized designs (the winner's included) by kernel, the parity
+    checks' not counted."""
+    from repro_torch.core import dse
+    from repro_torch.core import perf_model as PM
+    from repro_torch.core.project import H100Target
+    t0 = time.perf_counter()
+    wrappers = dse_counters()
+    seconds, launches, benches = [], [], []
+    with counted_designs(wrappers, seconds, launches, benches):
+        db = dse.build_database(DSE_DESIGNS, str(DSE_DIR), seed=DSE_SEED,
+                                run_testbench=True, log=None, device=dev)
+    check(len(db) == len(launches) == DSE_DESIGNS,
+          f"[11] {len(db)} designs, {len(launches)} counted")
+    for i, (rec, secs, n) in enumerate(zip(db, seconds, launches)):
+        check_design(f"[11] (a) design {i}", rec, n)
+        print(design_line(i, rec, secs, n))
+    synth_s = statistics.mean(seconds)
+    print(f"[11] (a) {DSE_DESIGNS} designs synthesized and measured on the "
+          f"card in {sum(seconds):.1f} s ({synth_s:.3f} s a design, median "
+          f"{statistics.median(seconds):.3f}, first {seconds[0]:.3f}); "
+          "launches " + ", ".join(f"{k} {sum(n[k] for n in launches)}"
+                                  for k in wrappers))
+    dse_checks(benches)
+
+    x = np.stack([PM.features(d) for d in db])
+    cv = {key: PM.kfold_cv_mape(x, np.array([d[key] for d in db]), k=5)
+          for key in ("latency_s", "measured_ms", "hbm_bytes")}
+    check(all(np.isfinite(v) for v in cv.values()), f"[11] (c) CV-MAPE {cv}")
+    print(f"[11] (c) 5-fold CV-MAPE over {len(db)} designs: latency "
+          f"{cv['latency_s']:.2f} % on the modeled target (latency_s), "
+          f"{cv['measured_ms']:.2f} % on the measured one (measured_ms; "
+          f"paper {PAPER_LATENCY_MAPE} %); memory {cv['hbm_bytes']:.2f} % "
+          f"(hbm_bytes; paper BRAM {PAPER_BRAM_MAPE} %); not gated at "
+          f"{len(db)} designs")
+
+    models = dse.fit_models(db)
+    budget = H100Target().hbm_bytes
+    best = dse.explore(models, DSE_CANDIDATES, seed=DSE_EXPLORE_SEED)
+    check(best["feasible"] and best["pred_hbm_bytes"] <= budget,
+          f"[11] (d) the explored winner is infeasible: {best}")
+    winner = {k: best[k] for k in dse.sample_design(
+        np.random.default_rng(0))}
+    mark = len(seconds)
+    with counted_designs(wrappers, seconds, launches, benches):
+        rec = dse.synthesize_design(winner, str(DSE_DIR), run_testbench=True,
+                                    device=dev)
+    check_design("[11] (d) winner", rec, launches[mark])
+    print(dse_timed_parity("[11] (d) winner", *benches[mark])[1])
+    print(f"[11] (d) explore({DSE_CANDIDATES}) under {budget:.3g} B: "
+          f"{best['ms_per_eval']:.5f} ms an evaluation "
+          f"({best['dse_seconds']:.3f} s); winner {dse.design_name(winner)} "
+          f"{winner['conv']} {winner['precision']} hidden "
+          f"{winner['gnn_hidden_dim']} x{winner['gnn_layers']}, "
+          f"{winner['batch_graphs']} graphs/batch, {winner['num_shards']} "
+          f"shard(s); latency predicted {best['pred_latency_s'] * 1e3:.6f} "
+          f"ms, modeled {rec['latency_s'] * 1e3:.6f} ms, measured "
+          f"{rec['measured_ms']:.4f} ms a graph; hbm predicted "
+          f"{best['pred_hbm_bytes']:.4g} B, synthesized {rec['hbm_bytes']} B")
+    slo = dse.explore(models, DSE_CANDIDATES, seed=DSE_EXPLORE_SEED,
+                      objective="p99_latency", slo=dse.DEFAULT_SLO)
+    check(slo["feasible"] and np.isfinite(slo["pred_p99_latency_s"]),
+          f"[11] (d) p99 objective: {slo}")
+    print(f"[11] (d) objective p99_latency at "
+          f"{slo['slo']['load_graphs_per_s']} graphs/s: winner "
+          f"{slo['conv']} {slo['precision']}, {slo['batch_graphs']} "
+          f"graphs/batch, predicted p50 / p99 "
+          f"{slo['pred_p50_latency_s'] * 1e3:.4f} / "
+          f"{slo['pred_p99_latency_s'] * 1e3:.4f} ms, fill "
+          f"{slo['pred_batch_fill']:.3f}, {slo['pred_rejected']} rejected "
+          f"({slo['slo_sim_seconds']:.2f} s of simulation)")
+
+    model_s = best["ms_per_eval"] * 1e-3
+    rest_s = statistics.mean(seconds[1:DSE_DESIGNS])
+    print(f"[11] (e) Fig. 5: synthesis {synth_s:.3f} s a design ("
+          f"{rest_s:.3f} s without the first) against "
+          f"{best['ms_per_eval']:.5f} ms a model evaluation: "
+          f"{np.log10(synth_s / model_s):.2f} ("
+          f"{np.log10(rest_s / model_s):.2f}) orders of magnitude (paper: "
+          f"{PAPER_SYNTHESIS_S:.0f} s against {PAPER_MODEL_MS} ms, "
+          f"{np.log10(PAPER_SYNTHESIS_S / (PAPER_MODEL_MS * 1e-3)):.2f})")
+    wall = time.perf_counter() - t0
+    print(f"[11] (f) phase 11 took {wall:.1f} s (target "
+          f"{DSE_TARGET_S:.0f} s)")
+    return {k: sum(n[k] for n in launches) for k in wrappers}
+
+
 def summarize(rows, errs, launches, by_precision) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
@@ -3491,6 +3852,7 @@ def main() -> int:
     dist_launches, products = dist_phase(card)
     add(dist_launches, "fp32")
     print(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
+    dse_launches = dse_phase(dev)
     summary = summarize(rows, errs, launches, by_precision)
     summary["kernels"] += summarize_entries(entry_rows, entry_errs,
                                             entry_launches)
@@ -3500,6 +3862,11 @@ def main() -> int:
         if k["name"] == "tiled_matmul":
             k["launches_by_phase"] = {"8": k["launches"], "10": products}
             k["launches"] += products
+    # the DSE's designs on the card (phase 11)
+    for k in summary["kernels"]:
+        n = dse_launches.get(k["name"], 0)
+        k.setdefault("launches_by_phase", {})["11"] = n
+        k["launches"] += n
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "

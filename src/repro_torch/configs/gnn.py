@@ -1,15 +1,18 @@
 """The paper's own GNN workloads (§VIII-B benchmark), as in
 ``repro.configs.gnn``.
 
-``benchmark_config(conv)`` is the §VIII-B model: hidden width 128, two
-layers, output width 64, add/mean/max pooling and an MLP head
-192 -> 64 -> 64 -> 64 -> out. ``config(conv, reduced=True)`` is the
+``benchmark_config(conv, parallel)`` is the §VIII-B model: hidden width
+128, two layers, output width 64, add/mean/max pooling and an MLP head
+192 -> 64 -> 64 -> 64 -> out; FPGA-Parallel uses gnn_p_in=1 /
+p_hidden=16 / p_out=8, MLP 8/8/1 and <16,10> fixed point, FPGA-Base
+all-1 parallelism and <32,16>. ``config(conv, reduced=True)`` is the
 small model the CPU tests and quick runs use. Dataset statistics mirror
 the five MoleculeNet graph-level tasks.
 """
 from __future__ import annotations
 
 from repro_torch.core.gnn_model import GNNModelConfig, MLPConfig
+from repro_torch.core.quantization import FPX
 from repro_torch.data.pipeline import GraphDataConfig
 
 # synthetic stand-ins matched to MoleculeNet size statistics
@@ -26,6 +29,9 @@ DATASETS = {
     "hiv": GraphDataConfig(avg_nodes=25, avg_degree=2, node_feat_dim=9,
                            edge_feat_dim=3, seed=13),
 }
+
+FPX_PARALLEL = FPX(16, 10)   # paper: <16,10> for FPGA-Parallel
+FPX_BASE = FPX(32, 16)       # paper: <32,16> for FPGA-Base
 
 
 def benchmark_config(conv: str, dataset: str = "qm9",

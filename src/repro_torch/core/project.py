@@ -72,6 +72,11 @@ class H100Target:
     # L2 (data sheet; L2_cache_size reads 52428800 on the card): the
     # residency budget where no card is present
     l2_bytes: float = 50 * 2 ** 20
+    # shared memory one block may take (227 KB, the CUDA programming
+    # guide's compute capability 9.0 table): the counterpart of the
+    # reference's per-core VMEM, against which tools/resources.py holds
+    # the tiled_matmul body's tile
+    smem_bytes: float = 227 * 1024
     # time per (node tile x edge tile) step of the one-hot kernels: the
     # one-hot launches of a full-width GCN batch at 1024 graphs/batch
     # (two gathers, three poolings, default tiles), their time over their

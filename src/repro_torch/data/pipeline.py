@@ -550,6 +550,13 @@ def compute_average_nodes_and_edges(dataset, round_val: bool = True):
     return (round(n), round(e)) if round_val else (n, e)
 
 
+def compute_median_nodes_and_edges(dataset, round_val: bool = True):
+    """Paper API: gnnb.compute_median_nodes_and_edges."""
+    n = float(np.median([g.num_nodes for g in dataset]))
+    e = float(np.median([g.num_edges for g in dataset]))
+    return (round(n), round(e)) if round_val else (n, e)
+
+
 def compute_average_degree(dataset):
     """Paper API: gnnb.compute_average_degree, the mean over graphs of
     edges per node."""

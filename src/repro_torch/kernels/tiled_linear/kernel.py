@@ -34,6 +34,11 @@ BODIES = ("wgmma", "simt")
 SIMT_TILES = ((112, 64), (16, 32))
 # the fewest blocks a tall tile may give: below, the small tile's
 MIN_BLOCKS = 100
+# the shared memory one block of each body takes (csrc/tiled_matmul.cu:
+# sm::Tile::kSmem of the SIMT tiles in SIMT_TILES order, fp32 words of 4
+# staged K chunks whatever the storage type; wg::kSmem)
+SIMT_SMEM_BYTES = (52224, 25600)
+WGMMA_SMEM_BYTES = 197696
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -62,6 +67,14 @@ def simt_tile_for(m: int, n: int) -> int:
     the same bits."""
     bm, bn = SIMT_TILES[0]
     return 0 if -(-m // bm) * -(-n // bn) >= MIN_BLOCKS else 1
+
+
+def smem_bytes(dtype: torch.dtype, m: int, k: int, n: int) -> int:
+    """The shared memory a block of the body an aligned (m, k) @ (k, n)
+    call runs takes (``body_for``, ``simt_tile_for``)."""
+    if body_for(dtype, k, n) == "wgmma":
+        return WGMMA_SMEM_BYTES
+    return SIMT_SMEM_BYTES[simt_tile_for(m, n)]
 
 
 def check_inputs(x: torch.Tensor, w: torch.Tensor, block_m: int,

@@ -60,6 +60,8 @@ def test_every_port_module_imports_without_a_gpu():
     assert {f"repro_torch.runtime.{m}" for m in
             ("scheduler", "faults", "straggler", "elastic")} <= set(names)
     assert "repro_torch.launch.mesh" in names
+    assert {"repro_torch.core.perf_model", "repro_torch.core.dse"} \
+        <= set(names)
     for name in names:
         importlib.import_module(name)
 
