@@ -1,4 +1,21 @@
-"""Packed GNN serving: the port of the GNN half of ``repro.launch.serve``.
+"""Serving drivers: the port of ``repro.launch.serve``, GNN and LM.
+
+LM mode (``--arch``): prefill, then a greedy decode loop over caches
+sized for the prompt and the generated tokens (``lm_generate``), every
+attention in the ``flash_attention`` kernel; it prints tok/s and
+ms/step. The arch ids are ``configs.registry.ARCHS``; the six
+attention-only ones run (the others raise ``NotImplementedError``,
+ROADMAP item 12b). ``--reduced`` serves the small config, and without
+it the full one. Weights are random, drawn on the device from a seeded
+generator; the prompts are the reference's (numpy seed 0), and a vlm's
+image patches or an audio model's frames are random too.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
+      [--reduced] --batch 4 --prompt-len 32 --gen 32 [--device cpu]
+
+GNN mode (the default; ``--gnn`` is accepted, as the reference's CLI
+takes it; the reference serves LMs by default and GNNs under ``--gnn``,
+the port GNNs unless ``--arch`` names an LM):
 
 Drains a queue of graph requests through fixed-shape packed GraphBatches
 and the packed forward (``core.gnn_model.apply_packed``), reporting
@@ -62,17 +79,126 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core import convs as C
 from repro_torch.core import gnn_model as G
 from repro_torch.core import quantization as Q
 from repro_torch.data import pipeline as P
 from repro_torch.device import resolve_device
-from repro_torch.nn.param import init_params
+from repro_torch.models import lm
+from repro_torch.nn.param import abstract, init_params, materialize
 from repro_torch.runtime import scheduler as S
 from repro_torch.runtime.faults import FaultyExecutor
 
-#: seed of the served model's random weights (drawn on the CPU)
+#: seed of the served model's random weights (a GNN's drawn on the CPU,
+#: an LM's on the device it is served on)
 WEIGHT_SEED = 0
+
+
+def pad_caches(prefill_caches: dict, full_caches: dict) -> dict:
+    """Write prompt-length caches into the leading corner of the
+    full-length serving buffers (in place); returns ``full_caches``."""
+    for k, full in full_caches.items():
+        part = prefill_caches[k]
+        if isinstance(full, dict):
+            pad_caches(part, full)
+        else:
+            full[tuple(slice(0, n) for n in part.shape)].copy_(part)
+    return full_caches
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lm_memory(cfg: lm.LMConfig, batch: int, total: int,
+              generator: torch.Generator, device) -> torch.Tensor | None:
+    """The frontend memory an LM is served with: a vlm's image patches
+    (B, num_mem_tokens, mem_dim), an audio model's frames (B, total,
+    d_model), random normals in the model's dtype; None for the rest."""
+    if cfg.family == "vlm":
+        shape = (batch, cfg.num_mem_tokens, cfg.mem_dim)
+    elif cfg.family == "audio":
+        shape = (batch, total, cfg.d_model)
+    else:
+        return None
+    return torch.randn(shape, generator=generator, device=device).to(
+        cfg.dtype)
+
+
+def lm_generate(cfg: lm.LMConfig, params: dict, prompts: torch.Tensor,
+                gen: int, mem: torch.Tensor | None = None) -> dict:
+    """Prefill ``prompts`` (B, P), write the caches into buffers of P +
+    ``gen`` positions (``pad_caches``; cross-attention caches of the
+    memory's length), then decode ``gen`` greedy steps at positions P ..
+    P + gen - 1. Returns ``tokens`` (B, gen + 1: the prefill's token,
+    then each step's), ``logits`` (the prefill's and each step's
+    last-position logits, (B, vocab) each), the ``caches``, and
+    ``prefill_s``, ``decode_s``, ``tok_s`` (generated tokens a second
+    over the decode loop, B · gen / decode_s), ``ms_per_step`` (its
+    mean, the reference's figures) and ``step_ms`` (each step's), on the
+    host clock around work ending in a device synchronisation. The
+    prefill and the first step include the first launch of every kernel
+    the model runs."""
+    dev = prompts.device
+    b, plen = prompts.shape
+    total = plen + gen
+    mem_len = mem.shape[1] if cfg.family == "audio" else cfg.num_mem_tokens
+    with torch.inference_mode():
+        caches = abstract(lm.cache_plan(cfg, b, total, mem_len=mem_len),
+                          dev)
+        t0 = time.perf_counter()
+        logits, pref = lm.prefill(params, cfg, prompts, mem)
+        pad_caches(pref, caches)
+        del pref
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out_logits, out_tokens = [logits[:, -1]], [tok]
+        _sync(dev)
+        t1 = time.perf_counter()
+        marks = [t1]
+        for i in range(gen):
+            logits, caches = lm.decode_step(params, cfg, caches, tok,
+                                            plen + i)
+            tok = torch.argmax(logits[:, 0], dim=-1)[:, None]
+            out_logits.append(logits[:, 0])
+            out_tokens.append(tok)
+            _sync(dev)
+            marks.append(time.perf_counter())
+    decode_s = marks[-1] - t1
+    return {"tokens": torch.cat(out_tokens, dim=1), "logits": out_logits,
+            "caches": caches, "prefill_s": t1 - t0, "decode_s": decode_s,
+            "tok_s": gen * b / decode_s if gen else 0.0,
+            "ms_per_step": decode_s / gen * 1e3 if gen else 0.0,
+            "step_ms": [(e - s) * 1e3 for s, e in zip(marks, marks[1:])]}
+
+
+def lm_main(args) -> dict:
+    """Serve ``args.arch``: random weights (seed ``WEIGHT_SEED``, drawn
+    on the device), ``args.batch`` prompts of ``args.prompt_len`` tokens
+    (the reference's numpy seed 0), ``args.gen`` greedy tokens each
+    (``lm_generate``); prints tok/s and ms/step and returns
+    ``lm_generate``'s result with ``cfg``."""
+    cfg = registry.get_config(args.arch, reduced=args.reduced)
+    lm.check_runnable(cfg)
+    dev = resolve_device(args.device)
+    generator = torch.Generator(device=dev).manual_seed(WEIGHT_SEED)
+    params = materialize(lm.model_plan(cfg), generator, dev)
+    b, plen = args.batch, args.prompt_len
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, plen))
+                               ).to(dev)
+    mem = lm_memory(cfg, b, plen + args.gen, generator, dev)
+    out = lm_generate(cfg, params, prompts, args.gen, mem)
+    toks = out["tokens"].cpu()
+    rest = sorted(out["step_ms"][1:])
+    steps = (f"first step {out['step_ms'][0]:.3f} ms, median of the rest "
+             f"{rest[len(rest) // 2]:.3f} ms; ") if rest else ""
+    print(f"arch={cfg.name} on {dev} generated {tuple(toks.shape)} tokens "
+          f"({out['tok_s']:.1f} tok/s total, {out['ms_per_step']:.3f} "
+          f"ms/step; {steps}prefill {out['prefill_s'] * 1e3:.3f} ms)")
+    print("sample:", toks[0, :16].tolist())
+    return {**out, "cfg": cfg}
 
 
 def _fallback_input(g, device) -> dict:
@@ -626,7 +752,20 @@ def _serve(args, mesh) -> tuple:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Serve packed GraphBatch GNN inference.")
+        description="Serve packed GraphBatch GNN inference, or an LM "
+                    "(--arch).")
+    ap.add_argument("--arch", default=None, choices=list(registry.ARCHS),
+                    help="serve this LM (prefill and greedy decode) "
+                         "instead of the GNN queue")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="--arch: prompts a batch")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="--arch: tokens a prompt")
+    ap.add_argument("--gen", type=int, default=32,
+                    help="--arch: greedy tokens generated after the prompt")
+    ap.add_argument("--gnn", action="store_true",
+                    help="serve the GNN queue (the default; overrides "
+                         "--arch, as in the reference's CLI)")
     ap.add_argument("--conv", default="gcn", choices=C.CONV_TYPES,
                     help="a registered conv (core.convs.CONV_TYPES)")
     ap.add_argument("--requests", type=int, default=256)
@@ -682,12 +821,16 @@ def parser() -> argparse.ArgumentParser:
                          "to put several ranks on one card)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the small config instead of the paper's "
-                         "full-width model")
+                         "full-width model (--arch: the arch's reduced())")
     return ap
 
 
-def main(argv=None) -> tuple:
-    return gnn_main(parser().parse_args(argv))
+def main(argv=None):
+    """GNN mode's (outputs, stats), or LM mode's ``lm_main`` result."""
+    args = parser().parse_args(argv)
+    if args.arch and not args.gnn:
+        return lm_main(args)
+    return gnn_main(args)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,6 @@
-"""Activations and the ``(d_in, d_out)`` linear layer of ``repro.nn.layers``.
+"""The core layers of ``repro.nn.layers``: activations, the ``(d_in,
+d_out)`` linear layer, RMS and layer norms, the embedding and the
+(gated) MLP, each a plan and a plain function on tensors.
 
 Weights keep the JAX package's layout, ``y = x @ w + b`` with ``w`` of
 shape ``(d_in, d_out)``, so parameters carry over without a transpose
@@ -6,12 +8,20 @@ shape ``(d_in, d_out)``, so parameters carry over without a transpose
 two float widths meet at the wider one, as ``jnp``'s ``x @ w`` promotes
 them (``torch.matmul`` raises on mixed dtypes).
 
-Inside ``row_stable_products()`` every fp32 product of ``matmul`` and
-``linear`` goes through ``row_stable_matmul`` (the tiled matmul kernel
-on the card), whose output rows do not depend on the row count: the
-padded oracle and the partitioned program run under it, so that a
-rank's part of a graph and the oracle's frame give each node the same
-bits.
+Inside ``row_stable_products()`` every fp32 and bf16 product of
+``matmul`` and ``linear`` goes through ``row_stable_matmul`` (the tiled
+matmul kernel on the card), whose output rows do not depend on the row
+count: the padded oracle and the partitioned program run under it, so
+that a rank's part of a graph and the oracle's frame give each node the
+same bits. A bf16 product is taken in fp32 and rounded to bf16 once:
+each product of two bf16 values is exact in fp32, so the card's FMA
+chain and the CPU's multiply-then-add chain give the same fp32 sums,
+and the card's bf16 products are the CPU plain path's bit for bit
+(cuBLAS and the CPU's BLAS sum a bf16 product in orders of their own).
+
+``rmsnorm`` and ``layernorm`` compute in fp32 and cast back to the
+input's dtype, as the reference does. ``chunked_softmax_xent`` is a
+training loss and waits for the training slice (ROADMAP item 12c).
 """
 from __future__ import annotations
 
@@ -42,17 +52,19 @@ def act(name: str):
     return ACTIVATIONS[name]
 
 
-def linear_plan(d_in: int, d_out: int, *, bias: bool = False) -> dict:
-    p = {"w": ParamSpec((d_in, d_out))}
+def linear_plan(d_in: int, d_out: int, *, in_axis=None, out_axis=None,
+                bias: bool = False, dtype: torch.dtype = torch.float32) -> dict:
+    p = {"w": ParamSpec((d_in, d_out), dtype, (in_axis, out_axis))}
     if bias:
-        p["b"] = ParamSpec((d_out,), init="zeros")
+        p["b"] = ParamSpec((d_out,), dtype, (out_axis,), init="zeros")
     return p
 
 
 @contextlib.contextmanager
 def row_stable_products():
-    """Run every fp32 ``matmul``/``linear`` of the block through
-    ``row_stable_matmul``; other widths keep ``torch.matmul``."""
+    """Run every fp32 and bf16 ``matmul``/``linear`` of the block
+    through ``row_stable_matmul`` (bf16: on fp32 copies, rounded back);
+    other widths keep ``torch.matmul``."""
     token = _ROW_STABLE.set(True)
     try:
         yield
@@ -65,8 +77,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     promotes them."""
     dt = torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(dt), w.to(dt)
-    if dt == torch.float32 and _ROW_STABLE.get():
-        return row_stable_matmul(x, w)
+    if _ROW_STABLE.get():
+        if dt == torch.float32:
+            return row_stable_matmul(x, w)
+        if dt == torch.bfloat16:
+            return row_stable_matmul(x.to(torch.float32),
+                                     w.to(torch.float32)).to(dt)
     return torch.matmul(x, w)
 
 
@@ -75,3 +91,67 @@ def linear(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "b" in params:
         y = y + params["b"]
     return y
+
+
+# ------------------------------------------------------------------ norm --
+def rmsnorm_plan(d: int, dtype: torch.dtype = torch.bfloat16,
+                 axis=None) -> dict:
+    return {"scale": ParamSpec((d,), dtype, (axis,), init="ones")}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_plan(d: int, dtype: torch.dtype = torch.bfloat16,
+                   axis=None) -> dict:
+    return {"scale": ParamSpec((d,), dtype, (axis,), init="ones"),
+            "bias": ParamSpec((d,), dtype, (axis,), init="zeros")}
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].to(torch.float32) \
+        + params["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------- embedding --
+def embedding_plan(vocab: int, d: int,
+                   dtype: torch.dtype = torch.bfloat16) -> dict:
+    return {"table": ParamSpec((vocab, d), dtype, ("vocab", "embed"),
+                               init="embed")}
+
+
+def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
+    return params["table"][ids]
+
+
+# --------------------------------------------------------------- MLP ffn --
+def mlp_plan(d: int, d_ff: int, *, gated: bool = True,
+             dtype: torch.dtype = torch.bfloat16) -> dict:
+    p = {"up": linear_plan(d, d_ff, in_axis="embed", out_axis="mlp",
+                           dtype=dtype),
+         "down": linear_plan(d_ff, d, in_axis="mlp", out_axis="embed",
+                             dtype=dtype)}
+    if gated:
+        p["gate"] = linear_plan(d, d_ff, in_axis="embed", out_axis="mlp",
+                                dtype=dtype)
+    return p
+
+
+def mlp(params: dict, x: torch.Tensor,
+        activation: str = "silu") -> torch.Tensor:
+    h = linear(params["up"], x)
+    if "gate" in params:
+        h = h * act(activation)(linear(params["gate"], x))
+    else:
+        h = act(activation)(h)
+    return linear(params["down"], h)

@@ -41,9 +41,10 @@ def _imported_roots(path: Path) -> set:
     return roots
 
 
-# the package, chip_smoke.py and the port's tools
+# the package, chip_smoke.py, the port's tools and examples
 PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
-    + sorted((ROOT / "tools").glob("*.py"))
+    + sorted((ROOT / "tools").glob("*.py")) \
+    + sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -486,3 +486,155 @@ def test_dataflow_resolves_as_jax(conv, dataflow):
                         "--requests", "4", "--batch-graphs", "4",
                         "--dataflow", dataflow])
     assert stats["dataflow"] == want
+
+
+# ---------------------------------------------------------------- LM mode --
+LM_TOL = 1e-4
+
+
+def reference_generate(jcfg, jparams, prompts, gen, mem):
+    """The reference's serving loop (``repro.launch.serve.main``'s LM
+    mode): prefill, ``pad_caches``, then greedy decode steps; the
+    prefill's and each step's last logits and the tokens."""
+    from repro.models import lm as JL
+    b, plen = prompts.shape
+    total = plen + gen
+    mem_len = total if jcfg.family == "audio" else jcfg.num_mem_tokens
+    caches = jax.tree_util.tree_map(
+        lambda s: jnp.zeros(s.shape, s.dtype),
+        jprm.abstract(JL.cache_plan(jcfg, b, total, mem_len=mem_len)))
+    logits, pref = jax.jit(lambda p, ids, m: JL.prefill(p, jcfg, ids, m))(
+        jparams, jnp.asarray(prompts), mem)
+    caches = JS.pad_caches(pref, caches)
+    decode = jax.jit(lambda p, c, ids, pos: JL.decode_step(p, jcfg, c, ids,
+                                                           pos))
+    out_logits = [np.asarray(logits[:, -1])]
+    tok = jnp.argmax(logits[:, -1], axis=-1)[:, None].astype(jnp.int32)
+    toks = [np.asarray(tok)]
+    for i in range(gen):
+        logits, caches = decode(jparams, caches, tok, jnp.int32(plen + i))
+        out_logits.append(np.asarray(logits[:, 0]))
+        tok = jnp.argmax(logits[:, 0], axis=-1)[:, None].astype(jnp.int32)
+        toks.append(np.asarray(tok))
+    return out_logits, np.concatenate(toks, axis=1)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "whisper-base"])
+def test_lm_generate_matches_reference_loop(arch):
+    """``lm_generate`` on the JAX parameters (fp32 configs, xattn gates
+    0.5) against the reference's prefill-and-decode loop: every step's
+    logits within 1e-4 of their scale; the tokens equal wherever the
+    reference's top-2 margin exceeds twice that, which most steps do."""
+    from repro.configs import registry as JR
+    from repro.models import lm as JL
+    from repro_torch.configs import registry as TR
+    jcfg = dataclasses.replace(JR.get_config(arch, True), dtype=jnp.float32)
+    tcfg = dataclasses.replace(TR.get_config(arch, True), dtype=torch.float32)
+    tree = jax.tree_util.tree_map(np.asarray, jprm.materialize(
+        JL.model_plan(jcfg), jax.random.key(0)))
+    for i, (mixer, _) in enumerate(jcfg.superblock):
+        if mixer == "xattn":
+            tree["blocks"][f"r{i}"]["mixer"]["gate"] = np.full(
+                (jcfg.repeat, 1), 0.5, np.float32)
+    b, plen, gen = 2, 6, 5
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, jcfg.vocab_size, (b, plen)).astype(np.int32)
+    mem = None
+    if jcfg.family == "audio":
+        mem = rng.standard_normal((b, plen + gen, jcfg.d_model)).astype(
+            np.float32)
+    want_logits, want_toks = reference_generate(
+        jcfg, jax.tree_util.tree_map(jnp.asarray, tree), prompts, gen,
+        None if mem is None else jnp.asarray(mem))
+    out = TS.lm_generate(tcfg, tprm.params_from_jax(tcfg, tree, "cpu"),
+                         torch.from_numpy(prompts).long(), gen,
+                         None if mem is None else torch.from_numpy(mem))
+    assert out["tokens"].shape == (b, gen + 1)
+    qualified = 0
+    for step, (got, want) in enumerate(zip(out["logits"], want_logits)):
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= LM_TOL * scale, (step, err, scale)
+        top2 = np.sort(want, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 2 * LM_TOL * scale
+        qualified += int(clear.sum())
+        got_tok = out["tokens"][:, step].numpy()
+        assert (got_tok[clear] == want_toks[clear, step]).all(), step
+    assert qualified > 0.75 * b * (gen + 1)
+    assert out["tok_s"] > 0 and out["ms_per_step"] > 0
+
+
+def test_serve_arch_reduced_on_cpu(capsys):
+    out = TS.main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    assert out["cfg"].name == "qwen3-8b-smoke"
+    assert out["tokens"].shape == (2, 4)
+    assert all(bool(torch.isfinite(lg.float()).all()) for lg in out["logits"])
+    assert int(out["tokens"].max()) < out["cfg"].vocab_size
+    text = capsys.readouterr().out
+    assert "arch=qwen3-8b-smoke on cpu generated (2, 4) tokens" in text
+    assert "tok/s total" in text and "ms/step" in text
+
+
+def test_serve_arch_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.main(["--arch", "qwen3-8b", "--reduced", "--gen", "1"])
+
+
+def test_lm_mode_by_arch_and_gnn_mode_by_default(monkeypatch):
+    """A deliberate divergence: the reference serves an LM unless --gnn
+    is given; the port serves GNNs unless --arch names an LM (--gnn is
+    accepted and, as in the reference, wins over --arch)."""
+    seen = []
+    monkeypatch.setattr(TS, "gnn_main", lambda a: seen.append("gnn"))
+    monkeypatch.setattr(TS, "lm_main", lambda a: seen.append(a.arch))
+    TS.main([])
+    TS.main(["--gnn"])
+    TS.main(["--arch", "whisper-base"])
+    TS.main(["--gnn", "--arch", "whisper-base"])
+    assert seen == ["gnn", "gnn", "whisper-base", "gnn"]
+    j = jax_cli_args([])
+    assert j.arch == "qwen3-8b"
+    t = TS.parser().parse_args([])
+    assert t.arch is None and not t.gnn
+    for flag in ("batch", "prompt_len", "gen"):
+        assert getattr(t, flag) == getattr(j, flag), flag
+
+
+def test_pad_caches_matches_reference():
+    rng = np.random.default_rng(0)
+    part = {"a": {"k": rng.standard_normal((2, 3, 4, 5)).astype(np.float32)},
+            "b": rng.standard_normal((2, 7)).astype(np.float32)}
+    full = {"a": {"k": np.zeros((2, 3, 9, 5), np.float32)},
+            "b": np.zeros((2, 7), np.float32)}
+    want = JS.pad_caches(jax.tree_util.tree_map(jnp.asarray, part),
+                         jax.tree_util.tree_map(jnp.asarray, full))
+    tfull = {"a": {"k": torch.zeros(2, 3, 9, 5)}, "b": torch.zeros(2, 7)}
+    got = TS.pad_caches({"a": {"k": torch.from_numpy(part["a"]["k"])},
+                         "b": torch.from_numpy(part["b"])}, tfull)
+    assert got is tfull
+    assert np.array_equal(got["a"]["k"].numpy(), np.asarray(want["a"]["k"]))
+    assert np.array_equal(got["b"].numpy(), np.asarray(want["b"]))
+
+
+def test_serve_batched_example_smoke(capsys):
+    """``examples_torch/serve_batched.py`` in both modes on the CPU."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples_torch" \
+        / "serve_batched.py"
+    spec = importlib.util.spec_from_file_location("serve_batched", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    out = ex.main(["--arch", "whisper-base", "--reduced", "--device", "cpu",
+                   "--batch", "2", "--gen", "2"])
+    assert out["tokens"].shape == (2, 3)
+    _, stats = ex.main(["--gnn", "--reduced", "--device", "cpu",
+                        "--requests", "8", "--batch-graphs", "4"])
+    assert stats["served"] == 8
+    with pytest.raises(SystemExit):
+        ex.main(["--reduced"])
+    text = capsys.readouterr().out
+    assert "arch=whisper-base-smoke on cpu" in text and "conv=gcn" in text
