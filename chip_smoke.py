@@ -49,12 +49,16 @@ Phases, in order; any failure exits non-zero with no result line:
    3000-edge hub row, bad ids on each stream, N = 1001, F = 96 and 160,
    K = 1 and 4, no edges; ragged ``EDGE_WIDTHS``), then every
    activation; to ``STACK_TOL`` on the output scale, each bf16 and int8
-   output differing from the fp32 one;
+   output differing from the fp32 one. The streaming form
+   (``aggregations.aggregate_stream``, a loop of updates on the card)
+   against the CSR segment kernel, every agg, over the 8 destinations of
+   the 32-graph batch with the most incoming edges, within 1e-5
+   (``stream_vs_segment``);
 4. serving of every registered conv (``core.convs.CONV_TYPES``: gcn,
    sage, gin, pna, gat) at the paper's full width
    (``configs.gnn.benchmark_config``) on qm9 graphs through
    ``repro_torch.launch.serve --conv``: 256 requests at 32 graphs per
-   batch and 20480 at 1024 (20 measured batches), and for GCN also 2048
+   batch and 10240 at 1024 (10 measured batches), and for GCN also 2048
    at 1024. Every request is served with finite outputs; each batch
    launches each kernel exactly as ``LAUNCHES_PER_BATCH`` says (one
    segment launch for the pooling set, one for PNA's four towers; the
@@ -62,7 +66,7 @@ Phases, in order; any failure exits non-zero with no result line:
    first batch matches the port's CPU plain path with the same weights
    (atol 1e-4, rtol 1e-4). Then GCN and SAGE through
    ``apply_packed_resident(fusion_depth=2)`` by ``serve.drain_gnn_queue``
-   at 32, 256 and 1024 graphs/batch (20 measured batches each), with the
+   at 32, 256 and 1024 graphs/batch (10 measured batches each), with the
    residency plan's verdict, ``RESIDENT_LAUNCHES`` per batch when it is
    legal, the first batch against ``apply_packed`` on the card (1e-5 of
    the output scale) and the CPU plain path (1e-4), and graphs/s and p50
@@ -96,7 +100,8 @@ Phases, in order; any failure exits non-zero with no result line:
 6. kernel timings at the serving path's shapes: CUDA events, median of
    25 runs of 10 launches queued behind a spin kernel (device time, not
    the host's launch rate) after a warm-up, beside the plain version
-   (which synchronises with the host; its time includes that), one
+   (which synchronises with the host; its time includes that; the median
+   of 5 calls, ``PLAIN_TIMING``), one
    PyTorch library call computing the same function where there is one,
    and the bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s fp32;
    the H100 SXM data sheet); the segment kernel's pooling set and PNA's
@@ -379,6 +384,10 @@ ONEHOT_DEFAULT_TILES = (128, 128)     # Project's node_block, edge_block
 # BLAS) can land a value on the neighbouring grid point, and a later
 # layer's rounding of a value so moved can move it one step more
 FIXED_GRID_STEPS = 2
+# how phase 6 times a plain version: few calls, since they are slow (3 to
+# 20 ms at the served shapes, 1.5 s on the 3000-edge hub) and stand
+# beside the kernels only for scale; each synchronises with the host
+PLAIN_TIMING = dict(reps=5, inner=1, device_only=False)
 # the scatter_reduce_ reduction of each agg, the library yardstick of the
 # segment kernels (var/std have none)
 LIB_REDUCE = {"sum": "sum", "mean": "mean", "min": "amin", "max": "amax",
@@ -976,6 +985,53 @@ def stack_vs_plain(dev, resident_batches, errs: dict) -> int:
     return n_cmp
 
 
+# the streaming form's check: the destinations of the 32-graph batch with
+# the most incoming edges, and its tolerance against the CSR kernel (the
+# same Welford fold, its operations in another order of launches)
+STREAM_DESTINATIONS = 8
+STREAM_TOL = 1e-5
+
+
+def stream_vs_segment(dev, batch, rng) -> int:
+    """``aggregations.aggregate_stream`` (the streaming form, a loop of
+    updates on the card) against the CSR segment kernel, every agg, over
+    the ``STREAM_DESTINATIONS`` destinations of ``batch`` with the most
+    incoming valid edges: each destination's rows in stream order, the
+    kernel's row within ``STREAM_TOL``."""
+    from repro_torch.core import aggregations as A
+    from repro_torch.kernels.segment_aggregate.kernel import (
+        AGGS as SEGMENT_AGGS, segment_aggregate_cuda)
+
+    ei = torch.from_numpy(batch["edge_index"]).to(dev)
+    n = batch["node_feat"].shape[0]
+    msgs = torch.from_numpy(rng.standard_normal(
+        (ei.shape[0], 64)).astype(np.float32)).to(dev)
+    csr = A.build_csr(ei[:, 1], n, ei[:, 0] >= 0)
+    deg = csr.offsets[1:] - csr.offsets[:-1]
+    dests = torch.argsort(deg, descending=True, stable=True)[
+        :STREAM_DESTINATIONS].tolist()
+    off = csr.offsets.tolist()
+    worst = 0.0
+    for agg in SEGMENT_AGGS:
+        out = segment_aggregate_cuda(msgs, csr.perm, csr.offsets, agg=agg)
+        for d in dests:
+            rows = msgs[csr.perm[off[d]:off[d + 1]].long()]
+            got = A.aggregate_stream(agg, rows)
+            check(got.device == msgs.device and got.dtype == torch.float32,
+                  f"aggregate_stream {agg}: {got.dtype} on {got.device}")
+            err = float((got - out[d]).abs().max())
+            check(err <= STREAM_TOL,
+                  f"aggregate_stream {agg} at destination {d} "
+                  f"({off[d + 1] - off[d]} edges): max |err| {err} against "
+                  f"segment_aggregate, above {STREAM_TOL}")
+            worst = max(worst, err)
+    print(f"[3] aggregate_stream on the card against segment_aggregate, "
+          f"every agg, over the {len(dests)} destinations with the most "
+          f"incoming edges ({[off[d + 1] - off[d] for d in dests]}): max "
+          f"|err| {worst:.3e} (tolerance {STREAM_TOL})")
+    return len(SEGMENT_AGGS) * len(dests)
+
+
 def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
     from repro_torch.core import aggregations as A
     from repro_torch.kernels.fused_gather_aggregate.kernel import (
@@ -1119,6 +1175,7 @@ def kernels_vs_plain(dev, path_batches, resident_batches) -> dict:
         want = segment_softmax_ref(z, perm, off)
         compare_softmax(label, got, want, errs)
         n_cmp += 1
+    n_cmp += stream_vs_segment(dev, path_batches[0][1], rng)
     n_cmp += stack_vs_plain(dev, resident_batches, errs)
     torch.cuda.synchronize()
     print(f"[3] {n_cmp} kernel-vs-plain comparisons passed; max |err| "
@@ -1519,7 +1576,7 @@ def timing_phase(dev, path_batches, resident_batches) -> list:
         rows.append(dict(
             kernel=kernel, conv=conv, batch=label, shape=shape, path=path,
             ms=cuda_ms(kern),
-            plain_ms=cuda_ms(plain, reps=21, inner=2, device_only=False),
+            plain_ms=cuda_ms(plain, **PLAIN_TIMING),
             library_ms=None if lib is None else cuda_ms(lib),
             bound_ms=bound, bound_by=by,
             **{k: fn() for k, fn in extra.items()}))
@@ -1759,7 +1816,7 @@ def storage_timing_phase(dev, label: str, batch) -> list:
         rows.append(dict(
             kernel=kernel, conv=conv, batch=label, shape=shape, path=False,
             storage=stored, ms=cuda_ms(kern),
-            plain_ms=cuda_ms(plain, reps=21, inner=2, device_only=False),
+            plain_ms=cuda_ms(plain, **PLAIN_TIMING),
             library_ms=None, bound_ms=bound, bound_by=by))
 
     def table(x, stored):
@@ -1978,6 +2035,11 @@ def resident_project_phase(dev, conv: str) -> dict:
     return launches
 
 
+# the testbench graphs of phase 7's GCN drains at 1024 graphs/batch (two
+# measured batches; each graph's fp32 reference is a padded-oracle run)
+THROUGHPUT_GRAPHS = 2048
+
+
 def throughput_phase(dev) -> tuple:
     """GCN at 1024 graphs/batch through the packed testbench drain in
     both gather modes, side by side, with the modeled graphs/s of each
@@ -1987,15 +2049,17 @@ def throughput_phase(dev) -> tuple:
         p = make_project("gcn", 1024, f"{mode}_1024", gather_mode=mode)
         p.gen_hw_model()
         p.init_params()
-        p.gen_testbench(3072)
+        p.gen_testbench(THROUGHPUT_GRAPHS)
         wrappers = zero_counts()
         packed = p._run_packed_testbench(p.params)
         for k, w in wrappers.items():
             total[k] += w.launches
-        check(packed["mae"] <= 1e-4 and packed["n_graphs"] == 3072,
+        check(packed["mae"] <= 1e-4
+              and packed["n_graphs"] == THROUGHPUT_GRAPHS,
               f"gcn {mode} 1024: {packed}")
         results[mode] = (packed, p.run_synthesis()["packed"])
-    print("[7] GCN Project at 1024 graphs/batch, 3 measured batches: "
+    print(f"[7] GCN Project at 1024 graphs/batch, "
+          f"{THROUGHPUT_GRAPHS // 1024} measured batches: "
           + "; ".join(f"{m} {r['graphs_per_s']:.1f} graphs/s "
                       f"({r['mean_batch_ms']:.4f} ms per batch, MAE "
                       f"{r['mae']:.3e}; modeled {s['graphs_per_s']:.1f})"
@@ -4110,7 +4174,9 @@ def main() -> int:
     path_batches = [batches[32], batches[1024]]
     resident_batches = [batches[bg] for bg in RESIDENT_BATCHES]
 
+    t3 = time.perf_counter()
     errs = kernels_vs_plain(dev, path_batches, resident_batches)
+    print(f"[3] phase 3 took {time.perf_counter() - t3:.1f} s")
     check(set(CONV_TYPES) == set(LAUNCHES_PER_BATCH),
           f"registered convs {CONV_TYPES} != launch table "
           f"{tuple(LAUNCHES_PER_BATCH)}")
@@ -4126,9 +4192,9 @@ def main() -> int:
     wave = {}
     for conv in CONV_TYPES:
         # 2048 requests at 1024 graphs/batch are two measured batches; the
-        # 20480-request drain gives a window of 20 batches for graphs/s
-        drains = [(256, 32), (2048, 1024), (20480, 1024)] if conv == "gcn" \
-            else [(256, 32), (20480, 1024)]
+        # 10240-request drain gives a window of 10 batches for graphs/s
+        drains = [(256, 32), (2048, 1024), (10240, 1024)] if conv == "gcn" \
+            else [(256, 32), (10240, 1024)]
         for requests, bg in drains:
             add(serve_phase(conv, requests, bg, wave=wave), "fp32")
         for precision in LOW_PRECISIONS:
@@ -4136,21 +4202,25 @@ def main() -> int:
                 add(serve_phase(conv, requests, bg, precision), precision)
     for conv in RESIDENT_CONVS:
         for bg in RESIDENT_BATCHES:
-            # 20 measured batches at each size
-            add(resident_phase(dev, conv, bg, 20 * bg), "fp32")
+            # 10 measured batches at each size
+            add(resident_phase(dev, conv, bg, 10 * bg), "fp32")
         for precision in LOW_PRECISIONS:
             for bg in RESIDENT_BATCHES:
                 add(resident_phase(dev, conv, bg, LOW_RESIDENT_BATCHES * bg,
                                    precision), precision)
     print(f"[4] phase 4 took {time.perf_counter() - t4:.1f} s")
+    t5 = time.perf_counter()
     for conv in CONV_TYPES:
         for precision in PRECISIONS:
             golden_phase(dev, conv, precision=precision)
             if conv in RESIDENT_CONVS:
                 golden_phase(dev, conv, resident=True, precision=precision)
         oracle_phase(dev, conv)
+    print(f"[5] phase 5 took {time.perf_counter() - t5:.1f} s")
+    t6 = time.perf_counter()
     rows = timing_phase(dev, path_batches, resident_batches)
     rows += storage_timing_phase(dev, *batches[1024])
+    print(f"[6] phase 6 took {time.perf_counter() - t6:.1f} s")
     t7 = time.perf_counter()
     for k, v in project_phase(dev, by_precision).items():
         launches[k] += v

@@ -31,6 +31,11 @@ raw id streams at the scope's ``node_block``/``edge_block`` tiles (a
 given CSR is not used); under ``"dma"``, the default, the CSR kernels
 above, for which the tiles mean nothing. ``segment_softmax`` has one
 kernel under every mode.
+
+The streaming form (``init_state`` / ``update`` / ``finalize`` and
+``aggregate_stream`` over the rows of one segment) is the reference's
+O(1)-space single pass, with the same dict states; it runs on the
+tensor's device as a loop over rows.
 """
 from __future__ import annotations
 
@@ -313,3 +318,78 @@ def degrees(edge_index: torch.Tensor, num_nodes: int,
         valid = src >= 0
     return (segment_counts(dst, num_nodes, valid),
             segment_counts(src, num_nodes, valid))
+
+
+# ------------------------------------------------------- streaming form --
+# The paper's single-pass O(1)-space aggregation (§V-B, Welford for
+# var/std), the reference's init / update / finalize with the same dict
+# states. The kernels fold each segment with the same update; this form
+# shows the state a fold carries, not speed.
+def init_state(agg: str, dim: int, dtype: torch.dtype = torch.float32,
+               device=None) -> dict:
+    z = torch.zeros((dim,), dtype=dtype, device=device)
+    if agg in ("sum", "mean"):
+        return {"acc": z, "count": torch.zeros((), dtype=dtype,
+                                               device=device)}
+    if agg == "min":
+        return {"acc": torch.full((dim,), torch.inf, dtype=dtype,
+                                  device=device)}
+    if agg == "max":
+        return {"acc": torch.full((dim,), -torch.inf, dtype=dtype,
+                                  device=device)}
+    if agg in ("var", "std"):  # Welford: mean, M2, count
+        return {"mean": z, "m2": z.clone(),
+                "count": torch.zeros((), dtype=dtype, device=device)}
+    raise ValueError(agg)
+
+
+def update(agg: str, state: dict, x: torch.Tensor) -> dict:
+    """One neighbor embedding x: (dim,). O(1) space."""
+    if agg in ("sum", "mean"):
+        return {"acc": state["acc"] + x, "count": state["count"] + 1}
+    if agg == "min":
+        return {"acc": torch.minimum(state["acc"], x)}
+    if agg == "max":
+        return {"acc": torch.maximum(state["acc"], x)}
+    if agg in ("var", "std"):
+        c = state["count"] + 1
+        delta = x - state["mean"]
+        mean = state["mean"] + delta / c
+        m2 = state["m2"] + delta * (x - mean)
+        return {"mean": mean, "m2": m2, "count": c}
+    raise ValueError(agg)
+
+
+def finalize(agg: str, state: dict) -> torch.Tensor:
+    if agg == "sum":
+        return state["acc"]
+    if agg == "mean":
+        return state["acc"] / torch.clamp(state["count"], min=1.0)
+    if agg in ("min", "max"):
+        # no row came: the neutral element -> 0 (the paper zero-fills)
+        acc = state["acc"]
+        return torch.where(torch.isfinite(acc), acc, torch.zeros_like(acc))
+    if agg in ("var", "std"):
+        var = state["m2"] / torch.clamp(state["count"], min=1.0)
+        var = torch.clamp(var, min=1e-12)
+        return torch.sqrt(var) if agg == "std" else var
+    raise ValueError(agg)
+
+
+def aggregate_stream(agg: str, xs: torch.Tensor,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Streaming aggregation over the rows of xs: (n, dim) -> (dim,)
+    float32, one ``update`` a row in order on the tensor's own device
+    (the reference's ``lax.scan``); a row with ``mask`` False leaves the
+    state as it was, chosen on the device, so no row makes the host
+    wait."""
+    n, dim = xs.shape
+    state = init_state(agg, dim, device=xs.device)
+    for i in range(n):
+        new = update(agg, state, xs[i].to(torch.float32))
+        if mask is None:
+            state = new
+        else:
+            m = mask[i]
+            state = {k: torch.where(m, new[k], v) for k, v in state.items()}
+    return finalize(agg, state)
