@@ -32,9 +32,9 @@ Phases, in order; any failure exits non-zero with no result line:
    pooling set, PNA's four towers, all six) at every storage type: each
    slice bit for bit the single-agg launch's output and within the same
    tolerances of the plain version. The one-hot kernels also on the
-   streams that stress their bucketing (``ADVERSARIAL``: a hub of ~4500
+   streams that stress their bucketing (``ADVERSARIAL``: a hub of ~1125
    edges, every edge into one node tile, a reversed stream, every id
-   dropped, S = 1, S = 301 that no tile divides). The segment-softmax
+   dropped, S = 1 of ~500 edges, S = 301 that no tile divides). The segment-softmax
    kernel: both GAT layers' logits at both serving shapes and the edge
    cases (a prime edge count, -1 and >= S ids, ``valid == False``, an
    empty, a one-edge and a several-thousand-edge segment, which the
@@ -280,21 +280,36 @@ Phases, in order; any failure exits non-zero with no result line:
    just before: ``flash_attention`` launches exactly 36 times at prefill
    and 36 x 32 decoding, all on the wgmma body, no other kernel
    launches, every token in range and every logit finite; tok/s and
-   ms/step printed. (b) One launch of each distinct attention shape of
-   (a) (``LM_SHAPES``: the causal prefill at BH = 128, S = 128, D = 128;
-   decode at BH = 32, Sq = 4, Skv = 129 and 160), captured from the run,
-   launched again against ``attention_ref`` within ``ATTN_TOL`` and
-   timed beside its plain version, ``scaled_dot_product_attention`` and
-   its bound; the reduced configs whose head sizes are new to the kernel
-   (``LM_REDUCED``: D = 16 on wgmma, D = 8 on simt) served on the card
-   against the CPU plain path. (c) Full-width models cut in depth
-   (``LM_CUTS``: qwen3-8b at 2 layers; llama-3.2-vision-11b at one
-   superblock, an ``xattn`` and four ``attn`` rows, over 2048 image
-   tokens x 1280 with its gates at 0.5; whisper-base whole over 1500
-   encoder frames) on the card against the CPU plain path with the same
-   parameters fed the card's tokens: the prefill's and 4 decode steps'
-   logits within ``LM_BF16_TOL`` of the logit scale. (d) The depth cuts
-   and the phase's wall time against ``LM_TARGET_S``.
+   ms/step printed. (a') rwkv6-1.6b at its full config (24 layers, d
+   2048, vocab 65536, ~1.6e9 bf16 parameters drawn on the card) through
+   ``serve --arch rwkv6-1.6b`` at the same sizes: attention-free, so no
+   kernel launches (asserted), every token in range and every logit
+   finite; tok/s and ms/step printed. (b) One launch of each distinct
+   attention shape (``LM_SHAPES``: qwen3-8b's causal prefill at BH =
+   128, S = 128, D = 128, its decode at BH = 32, Sq = 4, Skv = 129 and
+   160; ``MLA_SHAPE``: deepseek-v2's MLA prefill from its (c) cut, BH =
+   128, S = 64, D = 192, Dv = 128), captured from the runs, launched
+   again on the wgmma body against ``attention_ref`` within
+   ``ATTN_TOL`` and timed beside its plain version,
+   ``scaled_dot_product_attention`` (null, with its error, where SDPA
+   refuses) and its bound; the reduced configs whose head sizes are new
+   to the kernel (``LM_REDUCED``: D = 16 on wgmma, D = 8 on simt)
+   served on the card against the CPU plain path. (c) Full-width models
+   cut in depth (``LM_CUTS``: qwen3-8b at 2 layers; llama-3.2-vision-11b
+   at one superblock, an ``xattn`` and four ``attn`` rows, over 2048
+   image tokens x 1280 with its gates at 0.5; whisper-base whole over
+   1500 encoder frames; deepseek-v2-236b at its (mla, mlp) prefix and
+   one (mla, moe) repeat of 160 experts; llama4-scout-17b-a16e at 2 of
+   48 repeats; jamba-1.5-large-398b at the superblock ((mamba, moe),
+   (attn, mlp)) once; rwkv6-1.6b at 2 of 24 layers, and whole at fp32)
+   on the card against the CPU plain path with the same parameters fed
+   the card's tokens: the prefill's and 4 decode steps' logits within
+   ``LM_TOL`` of the logit scale (bf16 2^-5, fp32 1e-4), each card run's ``flash_attention`` launches counted
+   (zeroed just before) and held to ``attention_launches``, the MoE
+   cuts' least gap between a token's k-th and (k+1)-th router
+   probability printed, the host's free memory printed before the jamba
+   cut. (d) The depth cuts and the phase's wall time against
+   ``LM_TARGET_S``.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -302,16 +317,19 @@ entries also carries ``launches_by_precision`` (the launches of the
 fp32, bf16 and int8 programs) and ``by_storage`` (phase 6's bf16 and
 int8 rows, summed; the softmax is fp32 at every policy); every entry
 carries ``launches_by_phase["11"]``, the DSE's launches, and
-``launches_by_phase["12"]``, the LM path's (in ``launches``);
-``flash_attention``'s also ``lm_launches_by_body``, ``lm_calls`` (phase
-12 (b)'s rows) and ``lm_serving`` (tok/s, ms/step, the first and the median step, prefill
-ms).
+``launches_by_phase["12"]``, the LM path's (in ``launches``: (a)'s
+serving run and (c)'s card runs); ``flash_attention``'s also
+``lm_launches_by_body`` ((a)'s), ``lm_cut_launches`` ((c)'s by arch),
+``lm_calls`` (phase 12 (b)'s rows), ``lm_serving`` and
+``lm_serving_rwkv6`` (tok/s, ms/step, the first and the median step,
+prefill ms of (a) and (a')).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -693,11 +711,14 @@ ADVERSARIAL = ("hub", "one tile", "reversed", "all dropped", "S=1",
 
 def adversarial_streams(kind: str, rng) -> tuple:
     """(n_src, num_segments, src, dst) int32 numpy streams that stress
-    the one-hot kernels' bucketing: a hub destination of ~4500 edges,
+    the one-hot kernels' bucketing: a hub destination of ~1125 edges,
     every edge into one node tile, a reversed (descending) stream, every
-    edge dropped (bad src or bad dst), one segment, and a segment count
-    that no tile divides."""
-    n, s, e = 300, 300, 6000
+    edge dropped (bad src or bad dst), one segment (~500 edges), and a
+    segment count that no tile divides. The hub and the one segment take
+    1500 edges where the others take 6000: their plain versions fold
+    them edge by edge, the longest part of phase 3."""
+    n, s = 300, 300
+    e = 1500 if kind in ("hub", "S=1") else 6000
     src = rng.integers(0, n, e)
     dst = rng.integers(0, s, e)
     if kind == "hub":
@@ -2177,6 +2198,13 @@ WGMMA_MATMUL_EDGES = ((192, 448, 320), (130, 200, 72))
 WGMMA_ATTN_EDGES = ((2, 300, 700, 128, 128, 128, (True, False)),
                     (2, 700, 300, 128, 128, 128, (True, False)),
                     (8, 1500, 1500, 64, 128, 128, (True,)))
+# the wgmma body's wide instances (bf16 only; fp32 there raises): D = 192
+# (three 64-column boxes) with Dv = 128, MLA's prefill, at Sq != Skv;
+# Dv = 64 beside it; D = 144 (zero-filled to 192), each (bh, Sq, Skv, D,
+# Dv, tiles, causal set)
+WGMMA_WIDE_ATTN = ((2, 300, 700, 192, 128, 128, 128, (True, False)),
+                   (2, 200, 129, 192, 64, 128, 128, (True, False)),
+                   (3, 100, 100, 144, 128, 128, 128, (True,)))
 BODIES = ("wgmma", "simt")
 # the bf16 calls held against their plain versions that must run the
 # SIMT body: the matmul's (M, K, N) where K or N is no multiple of 8
@@ -2400,9 +2428,11 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
                       (3, 40, 72, 128, 32, 48, (True, False)),
                       (2, 1024, 1024, 128, 128, 128, (True,)),
                       *WGMMA_ATTN_EDGES)]
-    for case in attn_cases + list(SIMT_BF16_ATTN) + list(SIMT_ATTN_EDGES):
+    for case in (attn_cases + list(SIMT_BF16_ATTN) + list(SIMT_ATTN_EDGES)
+                 + list(WGMMA_WIDE_ATTN)):
         bh, sq, skv, d, dv, bq, bk, causal_set = case
         dts = (torch.float32,) if case in SIMT_ATTN_EDGES \
+            else (torch.bfloat16,) if case in WGMMA_WIDE_ATTN \
             else (torch.float32, torch.bfloat16)
         for dt in dts:
             q, k = (torch.randn((bh, s, d), device=dev).to(dt)
@@ -2420,6 +2450,24 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
                          attention_ref(q, k, v, causal=causal),
                          ATTN_TOL[dt], errs)
                 by_body[body] += 1
+    # D above the SIMT body's 128 runs only on the wgmma body: fp32, and
+    # bf16 at a pointer TMA cannot take, raise naming the limits
+    def wide(dv, dt, offset=0):      # contiguous, ``offset`` elements in
+        flat = torch.randn(2 * 64 * dv + offset, device=dev).to(dt)
+        return flat[offset:].view(2, 64, dv)
+    for label, args in (
+            ("fp32", (wide(192, torch.float32), wide(192, torch.float32),
+                      wide(128, torch.float32))),
+            ("bf16 misaligned", (wide(192, torch.bfloat16, 1),
+                                 wide(192, torch.bfloat16, 1),
+                                 wide(128, torch.bfloat16, 1)))):
+        try:
+            flash_attention_cuda(*args)
+        except ValueError as e:
+            check("192" in str(e) and "128" in str(e),
+                  f"flash_attention D = 192 {label}: {e}")
+        else:
+            raise PhaseError(f"flash_attention D = 192 {label} launched")
     torch.cuda.synchronize()
     n_cmp += sum(by_body.values())
     print(f"[8] {n_cmp} kernel-vs-plain comparisons passed (matmul and "
@@ -3754,41 +3802,69 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 32
 LM_SERVE = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
             str(LM_PROMPT), "--gen", str(LM_GEN)]
 LM_ATTN_ROWS = 36           # qwen3-8b's attention rows, one launch each
-# (BH, Sq, Skv, D, causal) of (a)'s distinct attention calls that (b)
-# holds and times: the prefill (B x 32 query heads, K/V repeated from the
-# KV heads), the first and the last decode step (B x 8 KV heads, the GQA
-# group of 4 folded into Sq, the valid prefix as Skv)
-LM_SHAPES = ((LM_BATCH * 32, LM_PROMPT, LM_PROMPT, 128, True),
-             (LM_BATCH * 8, 4, LM_PROMPT + 1, 128, False),
-             (LM_BATCH * 8, 4, LM_PROMPT + LM_GEN, 128, False))
+# (a') rwkv6-1.6b at its full config (configs/rwkv6_16b.py: 24 layers,
+# d_model 2048, vocab 65536), attention-free, through the same CLI
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_SERVE = ["--arch", RWKV_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+              str(LM_PROMPT), "--gen", str(LM_GEN)]
+# (BH, Sq, Skv, D, Dv, causal) of the distinct attention calls (b) holds
+# and times: qwen3-8b's prefill (B x 32 query heads, K/V repeated from
+# the KV heads), its first and last decode step (B x 8 KV heads, the GQA
+# group of 4 folded into Sq, the valid prefix as Skv); deepseek-v2's MLA
+# prefill from its (c) cut (B = 1, 128 heads, D = nope + rope = 192, Dv =
+# 128)
+LM_SHAPES = ((LM_BATCH * 32, LM_PROMPT, LM_PROMPT, 128, 128, True),
+             (LM_BATCH * 8, 4, LM_PROMPT + 1, 128, 128, False),
+             (LM_BATCH * 8, 4, LM_PROMPT + LM_GEN, 128, 128, False))
+LM_CUT_PROMPT, LM_CUT_STEPS = 64, 4
+MLA_SHAPE = (128, LM_CUT_PROMPT, LM_CUT_PROMPT, 192, 128, True)
 # (b) the reduced configs whose head sizes are new to the kernel, each
 # with the body kernel.body_for picks: D = 16 (a k16 step) and D = 8
 LM_REDUCED = (("qwen3-8b", "wgmma"), ("internlm2-20b", "simt"))
+# jamba's superblock cut to the pattern of its own reduced() config: a
+# Mamba row with MoE and an attention row with the MLP
+JAMBA_CUT = (("mamba", "moe"), ("attn", "mlp"))
 # (c) full-width models cut in depth, held against the CPU plain path
 # with the same parameters at B = 1, a LM_CUT_PROMPT-token prompt and
-# LM_CUT_STEPS decode steps: (arch, repeat kept (None: the full config),
-# memory tokens: llama's image patches, whisper's encoder frames)
-LM_CUTS = (("qwen3-8b", 2, 0), ("llama-3.2-vision-11b", 1, 2048),
-           ("whisper-base", None, 1500))
-LM_CUT_PROMPT, LM_CUT_STEPS = 64, 4
+# LM_CUT_STEPS decode steps: (arch, repeat kept (None: the config's),
+# superblock (None: the config's), memory tokens: llama's image patches,
+# whisper's encoder frames, dtype). rwkv6-1.6b runs twice: bf16 at 2 of
+# its 24 layers, and whole at fp32. Whole at bf16 it misses the bf16
+# bound (7.1 times it, tools/lm_divergence.py): each row adds one or two
+# bf16 steps of the card's and the CPU's sums in their own orders, and
+# 24 random layers compound them (fp32: 0.002 of the bound).
+LM_CUTS = (("qwen3-8b", 2, None, 0, "bf16"),
+           ("llama-3.2-vision-11b", 1, None, 2048, "bf16"),
+           ("whisper-base", None, None, 1500, "bf16"),
+           ("deepseek-v2-236b", 1, None, 0, "bf16"),
+           ("llama4-scout-17b-a16e", 2, None, 0, "bf16"),
+           ("jamba-1.5-large-398b", 1, JAMBA_CUT, 0, "bf16"),
+           ("rwkv6-1.6b", 2, None, 0, "bf16"),
+           ("rwkv6-1.6b", None, None, 0, "fp32"))
 XATTN_GATE = 0.5            # the xattn gates initialize to 0
-# the CPU tests' bf16 bound (tests/test_torch_lm.py): max |err| <=
-# LM_BF16_TOL * max |plain|, on the logits
+# the CPU tests' bounds (tests/test_torch_lm.py): max |err| <= tol * max
+# |plain|, on the logits
 LM_BF16_TOL = 2.0 ** -5
+LM_TOL = {"bf16": LM_BF16_TOL, "fp32": 1e-4}
 LM_TARGET_S = 150.0         # the phase's wall-time target, printed
+
+
+def attention_key(q, k, v, causal: bool) -> tuple:
+    """(BH, Sq, Skv, D, Dv, causal) of a ``flash_attention`` call."""
+    return (q.numel() // (q.shape[-2] * q.shape[-1]), q.shape[-2],
+            k.shape[-2], q.shape[-1], v.shape[-1], causal)
 
 
 @contextlib.contextmanager
 def captured_attention(shapes: tuple, store: dict):
     """Record a copy of the 3-D (q, k, v) of the first call of each
-    (BH, Sq, Skv, D, causal) in ``shapes`` that the LM attention
+    ``attention_key`` in ``shapes`` that the LM attention
     (``nn.attention.flash_attention``) makes inside the block."""
     from repro_torch.nn import attention as TA
     real = TA.flash_attention
 
     def spy(q, k, v, *, causal=True):
-        key = (q.numel() // (q.shape[-2] * q.shape[-1]), q.shape[-2],
-               k.shape[-2], q.shape[-1], causal)
+        key = attention_key(q, k, v, causal)
         if key in shapes and key not in store:
             store[key] = tuple(t.reshape(-1, *t.shape[-2:]).contiguous()
                                .clone() for t in (q, k, v))
@@ -3800,10 +3876,13 @@ def captured_attention(shapes: tuple, store: dict):
         TA.flash_attention = real
 
 
-def lm_config(arch: str, reduced: bool = False, repeat=None):
+def lm_config(arch: str, reduced: bool = False, repeat=None,
+              superblock=None, dtype=None):
     from repro_torch.configs import registry
     cfg = registry.get_config(arch, reduced=reduced)
-    return cfg if repeat is None else dataclasses.replace(cfg, repeat=repeat)
+    over = {k: v for k, v in (("repeat", repeat), ("superblock", superblock),
+                              ("dtype", dtype)) if v is not None}
+    return dataclasses.replace(cfg, **over) if over else cfg
 
 
 def lm_params(cfg, dev) -> dict:
@@ -3819,11 +3898,24 @@ def lm_params(cfg, dev) -> dict:
     return params
 
 
-def lm_serve_phase() -> dict:
-    """(a) qwen3-8b at its full config through ``serve --arch``: every
-    kernel's count set to 0 just before and read just after. Returns the
-    launches, their bodies, the captured attention inputs and the
-    rates."""
+def attention_launches(cfg, steps: int, with_mem: bool) -> int:
+    """The ``flash_attention`` launches of a prefill and ``steps`` decode
+    steps of ``cfg``: one a prefill for each ``attn``, ``xattn`` and
+    ``mla`` row (and each encoder row, given the memory), one a decode
+    step for each ``attn`` and ``xattn`` row (MLA's decode is the
+    absorbed form, plain PyTorch, as the reference's)."""
+    rows = cfg.prefix + cfg.superblock * cfg.repeat
+    pre = sum(m in ("attn", "xattn", "mla") for m, _ in rows)
+    if cfg.encoder is not None and with_mem:
+        pre += len(cfg.encoder.superblock) * cfg.encoder.repeat
+    return pre + steps * sum(m in ("attn", "xattn") for m, _ in rows)
+
+
+def served(argv: list, shapes: tuple) -> tuple:
+    """``serve.main(argv)`` with every kernel's count set to 0 just before
+    and read just after. Returns (its result, the launches by kernel, the
+    attention launches by body, the captured attention inputs of
+    ``shapes``, the command's wall seconds)."""
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import serve
     wrappers = {**counters(), **entry_counters()}
@@ -3832,12 +3924,46 @@ def lm_serve_phase() -> dict:
     flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with captured_attention(LM_SHAPES, {}) as captured:
-        out = serve.main(LM_SERVE)
+    with captured_attention(shapes, {}) as captured:
+        out = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    by_body = dict(flash_attention.launches_by_body)
+    return (out, launches, dict(flash_attention.launches_by_body), captured,
+            wall)
+
+
+def check_generated(label: str, out: dict) -> float:
+    """Every token in range and every logit finite; returns the median
+    step ms after the first."""
+    cfg, toks = out["cfg"], out["tokens"]
+    check(tuple(toks.shape) == (LM_BATCH, LM_GEN + 1)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+          f"{label} tokens {tuple(toks.shape)} out of range")
+    check(all(bool(torch.isfinite(lg.float()).all())
+              for lg in out["logits"]), f"{label} non-finite logits")
+    return statistics.median(out["step_ms"][1:])
+
+
+def serving_rates(out: dict, median: float) -> dict:
+    return dict(tok_s=out["tok_s"], ms_per_step=out["ms_per_step"],
+                first_step_ms=out["step_ms"][0], median_step_ms=median,
+                prefill_ms=out["prefill_s"] * 1e3)
+
+
+def rate_line(out: dict, median: float) -> str:
+    return (f"{LM_BATCH} x {LM_GEN} tokens, {out['tok_s']:.2f} tok/s, "
+            f"{out['ms_per_step']:.4f} ms/step (first step "
+            f"{out['step_ms'][0]:.4f} ms, median of the rest {median:.4f} "
+            f"ms: {LM_BATCH / median * 1e3:.2f} tok/s), prefill "
+            f"{out['prefill_s'] * 1e3:.3f} ms (both with first launches)")
+
+
+def lm_serve_phase() -> dict:
+    """(a) qwen3-8b at its full config through ``serve --arch``. Returns
+    the launches, their bodies, the captured attention inputs and the
+    rates."""
+    out, launches, by_body, captured, wall = served(LM_SERVE, LM_SHAPES)
     cfg = out["cfg"]
     want = LM_ATTN_ROWS * (1 + LM_GEN)
     check(cfg.repeat == LM_ATTN_ROWS and cfg.d_model == 4096
@@ -3850,54 +3976,67 @@ def lm_serve_phase() -> dict:
     stray = {k: n for k, n in launches.items()
              if k != "flash_attention" and n}
     check(not stray, f"[12] (a) other kernels launched: {stray}")
-    toks = out["tokens"]
-    check(tuple(toks.shape) == (LM_BATCH, LM_GEN + 1)
-          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
-          f"[12] (a) tokens {tuple(toks.shape)} out of range")
-    check(all(bool(torch.isfinite(lg.float()).all())
-              for lg in out["logits"]), "[12] (a) non-finite logits")
+    median = check_generated("[12] (a)", out)
     check(set(captured) == set(LM_SHAPES),
           f"[12] (a) captured {sorted(captured)}, expected {LM_SHAPES}")
-    median = statistics.median(out["step_ms"][1:])
     print(f"[12] (a) {cfg.name} at its full config ({cfg.repeat} layers, "
           f"d {cfg.d_model}, {cfg.attn.num_heads}/{cfg.attn.num_kv_heads} "
           f"heads of {cfg.attn.head_dim}, vocab {cfg.vocab_size}, bf16, "
           f"random weights drawn on the card) through serve "
-          f"{' '.join(LM_SERVE)}: {LM_BATCH} x {LM_GEN} tokens, "
-          f"{out['tok_s']:.2f} tok/s, {out['ms_per_step']:.4f} ms/step "
-          f"(first step {out['step_ms'][0]:.4f} ms, median of the rest "
-          f"{median:.4f} ms: {LM_BATCH / median * 1e3:.2f} tok/s), prefill "
-          f"{out['prefill_s'] * 1e3:.3f} ms (both with first launches); "
-          "the command "
+          f"{' '.join(LM_SERVE)}: {rate_line(out, median)}; the command "
           f"{wall:.1f} s with the weights' draw; flash_attention launches "
           f"{launches['flash_attention']} ({LM_ATTN_ROWS} at prefill + "
           f"{LM_ATTN_ROWS} x {LM_GEN} decode steps), by body {by_body}; "
           "every token in range, every logit finite")
     return dict(launches=launches["flash_attention"], by_body=by_body,
-                captured=captured, tok_s=out["tok_s"],
-                ms_per_step=out["ms_per_step"],
-                first_step_ms=out["step_ms"][0], median_step_ms=median,
-                prefill_ms=out["prefill_s"] * 1e3)
+                captured=captured, **serving_rates(out, median))
+
+
+def rwkv_serve_phase() -> dict:
+    """(a') rwkv6-1.6b at its full config through ``serve --arch``: an
+    attention-free model, so no kernel launches. Returns its rates."""
+    out, launches, _, _, wall = served(RWKV_SERVE, ())
+    cfg = out["cfg"]
+    check(cfg.repeat == 24 and cfg.d_model == 2048
+          and cfg.vocab_size == 65536, f"[12] (a') {cfg}")
+    stray = {k: n for k, n in launches.items() if n}
+    check(not stray, f"[12] (a') kernels launched: {stray}")
+    median = check_generated("[12] (a')", out)
+    from repro_torch.models import lm
+    from repro_torch.nn.param import count_params
+    print(f"[12] (a') {cfg.name} at its full config ({cfg.repeat} layers, "
+          f"d {cfg.d_model}, {cfg.rwkv.num_heads} heads of "
+          f"{cfg.rwkv.head_dim}, vocab {cfg.vocab_size}, "
+          f"{count_params(lm.model_plan(cfg)):.4e} bf16 parameters drawn on "
+          f"the card) through serve {' '.join(RWKV_SERVE)}: "
+          f"{rate_line(out, median)}; the command {wall:.1f} s with the "
+          "weights' draw; flash_attention launches 0 (attention-free), no "
+          "other kernel; every token in range, every logit finite")
+    return serving_rates(out, median)
 
 
 def lm_attention_phase(captured: dict, errs: dict) -> list:
-    """(b) Each captured attention call of (a) launched again outside the
-    counted run against ``attention_ref`` on the card within
-    ``ATTN_TOL``, on the body ``body_for`` picks, then timed beside its
-    plain version, ``scaled_dot_product_attention`` and its bound."""
+    """(b) Each captured attention call launched again outside the
+    counted runs against ``attention_ref`` on the card within
+    ``ATTN_TOL``, on the body ``body_for`` picks (the wgmma body for
+    every one), then timed beside its plain version,
+    ``scaled_dot_product_attention`` and its bound."""
     from repro_torch.kernels._cost import attention_work
     from repro_torch.kernels.flash_attention.kernel import (
         body_for, flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     rows = []
-    for key in LM_SHAPES:
-        bh, sq, skv, d, causal = key
+    for key in LM_SHAPES + (MLA_SHAPE,):
+        bh, sq, skv, d, dv, causal = key
         q, k, v = captured[key]
-        what = "prefill, causal" if causal else "decode, GQA fold"
-        label = (f"qwen3-8b {what}: BH={bh} Sq={sq} Skv={skv} D={d} "
+        what = ("deepseek-v2 MLA prefill, causal" if key == MLA_SHAPE
+                else "qwen3-8b prefill, causal" if causal
+                else "qwen3-8b decode, GQA fold")
+        label = (f"{what}: BH={bh} Sq={sq} Skv={skv} D={d} Dv={dv} "
                  f"{str(q.dtype).split('.')[-1]}")
-        body = body_for(q.dtype, d, v.shape[-1], q.data_ptr(), k.data_ptr(),
+        body = body_for(q.dtype, d, dv, q.data_ptr(), k.data_ptr(),
                         v.data_ptr())
+        check(body == "wgmma", f"[12] (b) {label}: body {body}")
         out, _ = launched_body(f"[12] (b) {label}", flash_attention_cuda,
                                q, k, v, causal=causal, want=body)
         ref = attention_ref(q, k, v, causal=causal)
@@ -3911,36 +4050,69 @@ def lm_attention_phase(captured: dict, errs: dict) -> list:
             ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal)),
             plain_ms=cuda_ms(lambda: attention_ref(q, k, v, causal=causal),
                              reps=5, inner=1, device_only=False),
-            # (1, BH, S, D): the layout SDPA's fused backends take
-            library_ms=cuda_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q[None], k[None], v[None], is_causal=causal)),
             bound_ms=bound, bound_by=by)
+        try:
+            # (1, BH, S, D): the layout SDPA's fused backends take
+            row["library_ms"] = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=causal))
+            lib = f"{row['library_ms']:.6f} ms"
+        except RuntimeError as e:
+            row["library_ms"] = None
+            row["library_note"] = f"scaled_dot_product_attention: {e}"
+            lib = f"null ({e})"
         rows.append(row)
         print(f"[12] (b) flash_attention [{body} body] {label}: max |err| "
               f"{err:.3e} against attention_ref; kernel {row['ms']:.6f} ms, "
-              f"plain {row['plain_ms']:.6f} ms, "
-              f"scaled_dot_product_attention {row['library_ms']:.6f} ms, "
-              f"bound {bound:.6f} ms ({by})")
+              f"plain {row['plain_ms']:.6f} ms, scaled_dot_product_attention "
+              f"{lib}, bound {bound:.6f} ms ({by})")
     return rows
 
 
+@contextlib.contextmanager
+def router_gaps(store: list):
+    """Record, for each ``nn.moe.route`` call inside the block, the least
+    gap between a token's k-th and (k+1)-th router probability: a near
+    tie a rounding step can flip."""
+    from repro_torch.nn import moe
+    real = moe.route
+
+    def spy(params, x, cfg):
+        probs = torch.softmax(x.to(torch.float32) @ params["router"], -1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        k = cfg.top_k
+        if k < top.shape[-1]:
+            store.append(float((top[..., k - 1] - top[..., k]).min()))
+        return real(params, x, cfg)
+    moe.route = spy
+    try:
+        yield store
+    finally:
+        moe.route = real
+
+
 def lm_vs_plain(label: str, cfg, params: dict, prompts: torch.Tensor,
-                mem, steps: int) -> tuple:
-    """``serve.lm_generate`` on the card, then the CPU plain path with
-    the same parameters fed the card's tokens: the prefill's and every
-    decode step's logits within ``LM_BF16_TOL`` of the plain path's
-    scale. Returns (worst max |err| / bound, the card's result)."""
+                mem, steps: int, tol: float = LM_BF16_TOL) -> tuple:
+    """``serve.lm_generate`` on the card (the kernel counts set to 0 just
+    before and read just after), then the CPU plain path with the same
+    parameters fed the card's tokens: the prefill's and every decode
+    step's logits within ``tol`` of the plain path's scale.
+    Returns (worst max |err| / bound, the card's result, its
+    flash_attention launches by body, the least router gap of the CPU
+    run or None)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.nn.param import abstract
+    flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
     card = serve.lm_generate(cfg, params, prompts, steps, mem)
+    by_body = dict(flash_attention.launches_by_body)
     host = tree_to(params, "cpu")
     hmem = None if mem is None else mem.cpu()
     b, plen = prompts.shape
     mem_len = hmem.shape[1] if cfg.family == "audio" else cfg.num_mem_tokens
     worst = 0.0
-    with torch.inference_mode():
+    with torch.inference_mode(), router_gaps([]) as gaps:
         logits, pref = lm.prefill(host, cfg, prompts.cpu(), hmem)
         caches = serve.pad_caches(pref, abstract(
             lm.cache_plan(cfg, b, plen + steps, mem_len=mem_len), "cpu"))
@@ -3950,31 +4122,31 @@ def lm_vs_plain(label: str, cfg, params: dict, prompts: torch.Tensor,
             logits, caches = lm.decode_step(
                 host, cfg, caches, card["tokens"][:, i:i + 1].cpu(), plen + i)
             plain.append(logits[:, 0])
+    gap = min(gaps) if gaps else None
     for i, (got, want) in enumerate(zip(card["logits"], plain)):
         want = want.float()
         err = float((got.cpu().float() - want).abs().max())
-        bound = LM_BF16_TOL * float(want.abs().max())
+        bound = tol * float(want.abs().max())
         check(bool(torch.isfinite(got).all()) and err <= bound,
               f"{label}: step {i} logits {err} off the CPU plain path "
-              f"(bound {bound})")
+              f"(bound {bound}; least router gap {gap})")
         worst = max(worst, err / bound)
-    return worst, card
+    return worst, card, by_body, gap
 
 
 def lm_reduced_phase(dev) -> None:
     """(b) The reduced configs' head sizes on the card: each served on
     the card (its attention on the body ``LM_REDUCED`` names) against the
     CPU plain path."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     for arch, body in LM_REDUCED:
         cfg = lm_config(arch, reduced=True)
         params = lm_params(cfg, dev)
         prompts = torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab_size, (2, 16))).to(dev)
-        flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
-        worst, _ = lm_vs_plain(f"[12] (b) {cfg.name}", cfg, params, prompts,
-                               None, LM_CUT_STEPS)
-        ran = {b: n for b, n in flash_attention.launches_by_body.items() if n}
+        worst, _, by_body, _ = lm_vs_plain(f"[12] (b) {cfg.name}", cfg,
+                                           params, prompts, None,
+                                           LM_CUT_STEPS)
+        ran = {b: n for b, n in by_body.items() if n}
         check(set(ran) == {body}, f"[12] (b) {cfg.name}: ran {ran}, "
                                   f"expected the {body} body")
         print(f"[12] (b) {cfg.name} (head dim {cfg.attn.head_dim}, "
@@ -3984,14 +4156,26 @@ def lm_reduced_phase(dev) -> None:
               f"plain path")
 
 
-def lm_cut_phase(dev) -> list:
+def host_free_gib() -> float:
+    """The host's free memory, GiB."""
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+
+def lm_cut_phase(dev) -> tuple:
     """(c) Full-width models cut in depth on the card against the CPU
-    plain path with the same parameters (``lm_vs_plain``); returns the
-    printed lines' cuts."""
-    cuts = []
-    for arch, repeat, mem_tokens in LM_CUTS:
+    plain path with the same parameters (``lm_vs_plain``), deepseek-v2's
+    MLA prefill captured for (b). Returns (the printed lines' cuts, the
+    card runs' flash_attention launches by arch, the captured inputs)."""
+    from repro_torch.models import lm
+    from repro_torch.nn.param import count_params
+    cuts, launches, captured = [], {}, {}
+    for arch, repeat, superblock, mem_tokens, dtype in LM_CUTS:
         full = lm_config(arch)
-        cfg = lm_config(arch, repeat=repeat)
+        cfg = lm_config(arch, repeat=repeat, superblock=superblock,
+                        dtype=torch.float32 if dtype == "fp32" else None)
+        if superblock is not None:
+            print(f"[12] (c) host memory free before the {cfg.name} "
+                  f"cut: {host_free_gib():.1f} GiB")
         params = lm_params(cfg, dev)
         gen = torch.Generator(device=dev).manual_seed(1)
         prompts = torch.from_numpy(np.random.default_rng(1).integers(
@@ -4005,36 +4189,59 @@ def lm_cut_phase(dev) -> list:
             mem = torch.randn((1, mem_tokens, cfg.d_model), generator=gen,
                               device=dev).to(cfg.dtype)
         t0 = time.perf_counter()
-        worst, card = lm_vs_plain(f"[12] (c) {cfg.name}", cfg, params,
-                                  prompts, mem, LM_CUT_STEPS)
-        cut = (f"{cfg.repeat} of {full.repeat} superblock repeats "
-               f"({cfg.num_layers} of {full.num_layers} layers)"
-               if repeat is not None else "not cut")
-        cuts.append(f"{cfg.name}: {cut}")
+        with captured_attention((MLA_SHAPE,), captured):
+            worst, card, by_body, gap = lm_vs_plain(
+                f"[12] (c) {cfg.name} {dtype}", cfg, params, prompts, mem,
+                LM_CUT_STEPS, LM_TOL[dtype])
+        n = sum(by_body.values())
+        want = attention_launches(cfg, LM_CUT_STEPS, mem is not None)
+        check(n == want, f"[12] (c) {cfg.name}: {by_body} flash_attention "
+                         f"launches, expected {want}")
+        launches[f"{arch} {dtype}"] = n
+        cut = []
+        if superblock is not None:
+            cut.append(f"superblock {superblock} of the "
+                       f"{len(full.superblock)}-row one")
+        if repeat is not None:
+            cut.append(f"{cfg.repeat} of {full.repeat} repeats")
+        cut = (", ".join(cut) + f" ({cfg.num_layers} of {full.num_layers} "
+               "layers)") if cut else "not cut"
+        cuts.append(f"{cfg.name} {dtype}: {cut}")
         mem_s = "" if mem is None else f", memory {tuple(mem.shape)}"
-        print(f"[12] (c) {cfg.name} at full width, {cut}{mem_s}: prefill "
-              f"of {LM_CUT_PROMPT} tokens and {LM_CUT_STEPS} decode steps "
-              f"at most {worst:.3f} of the bf16 bound ({LM_BF16_TOL} of "
-              f"the logit scale) against the CPU plain path; "
+        gap_s = "" if gap is None else (
+            f"; least gap between a token's k-th and (k+1)-th router "
+            f"probability {gap:.3e}")
+        print(f"[12] (c) {cfg.name} at full width, {dtype}, {cut}, "
+              f"{count_params(lm.model_plan(cfg)):.4e} parameters{mem_s}: "
+              f"prefill of {LM_CUT_PROMPT} tokens and {LM_CUT_STEPS} decode "
+              f"steps at most {worst:.3f} of the {dtype} bound "
+              f"({LM_TOL[dtype]} of the logit scale) against the CPU plain "
+              f"path; flash_attention {by_body}{gap_s}; "
               f"{time.perf_counter() - t0:.1f} s")
         del params, card
-    return cuts
+        torch.cuda.empty_cache()
+    check(MLA_SHAPE in captured, f"[12] (c) no MLA prefill call {MLA_SHAPE}")
+    return cuts, launches, captured
 
 
 def lm_phase(dev, errs: dict) -> dict:
-    """Phase 12: LM serving. Returns (a)'s launches and rates and (b)'s
-    timed rows."""
+    """Phase 12: LM serving. Returns (a)'s launches and rates, (a')'s
+    rates, (b)'s timed rows and (c)'s launches."""
     t0 = time.perf_counter()
-    served = lm_serve_phase()
-    rows = lm_attention_phase(served.pop("captured"), errs)
+    served_a = lm_serve_phase()
+    captured = served_a.pop("captured")
+    rwkv = rwkv_serve_phase()
     torch.cuda.empty_cache()
     lm_reduced_phase(dev)
-    cuts = lm_cut_phase(dev)
+    cuts, cut_launches, mla = lm_cut_phase(dev)
+    rows = lm_attention_phase({**captured, **mla}, errs)
+    del captured, mla
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
     print(f"[12] (d) depth cuts: {'; '.join(cuts)}; phase 12 took "
           f"{wall:.1f} s (target {LM_TARGET_S:.0f} s)")
-    return {**served, "rows": rows, "wall_s": wall}
+    return {**served_a, "rwkv_serving": rwkv, "rows": rows,
+            "cut_launches": cut_launches, "wall_s": wall}
 
 
 def summarize(rows, errs, launches, by_precision) -> dict:
@@ -4260,18 +4467,22 @@ def main() -> int:
         n = dse_launches.get(k["name"], 0)
         k.setdefault("launches_by_phase", {})["11"] = n
         k["launches"] += n
-    # the LM serving path (phase 12): every attention in flash_attention
+    # the LM serving path (phase 12): every attention in flash_attention,
+    # (a)'s serving run and (c)'s card runs
     for k in summary["kernels"]:
-        n = lm["launches"] if k["name"] == "flash_attention" else 0
+        n = (lm["launches"] + sum(lm["cut_launches"].values())
+             if k["name"] == "flash_attention" else 0)
         k["launches_by_phase"]["12"] = n
         k["launches"] += n
         if n:
             k["launches_by_phase"]["8"] = entry_launches[k["name"]]
             k["lm_launches_by_body"] = lm["by_body"]
+            k["lm_cut_launches"] = lm["cut_launches"]
             k["lm_calls"] = lm["rows"]
             k["lm_serving"] = {key: lm[key] for key in (
                 "tok_s", "ms_per_step", "first_step_ms", "median_step_ms",
                 "prefill_ms")}
+            k["lm_serving_rwkv6"] = lm["rwkv_serving"]
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "

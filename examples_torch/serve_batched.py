@@ -3,9 +3,9 @@
 ``repro_torch.launch.serve``, the counterpart of ``examples/serve_batched.py``.
 
 LM mode (``--arch``): prefill a batch of prompts, then run the greedy
-decode loop over KV caches, every attention in the ``flash_attention``
-kernel (the six attention-only archs; the others raise, ROADMAP item
-12b).
+decode loop over its caches (KV caches, MLA's latent, the recurrent
+states of Mamba and RWKV), every attention in the ``flash_attention``
+kernel; every arch of ``configs.registry.ARCHS`` runs.
 
   PYTHONPATH=src python examples_torch/serve_batched.py --arch qwen3-8b \\
       --reduced [--device cpu]

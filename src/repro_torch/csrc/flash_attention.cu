@@ -56,18 +56,25 @@
 // under 168 registers spilled 160 bytes and read 1.23x slower
 // (PERF.md, the design steps). E = 128 takes 186 KB, one block.
 //
-// "wgmma" (bf16 with D and Dv multiples of 16, at most 128): one block
-// per (bh, 128 q rows): two consumer warpgroups of 64 rows and a
-// producer warpgroup (hopper.cuh); block_q and block_k are not used.
+// "wgmma" (bf16 with D and Dv multiples of 16, D at most 192 and Dv at
+// most 128): one block per (bh, 128 q rows): two consumer warpgroups of
+// 64 rows and a producer warpgroup (hopper.cuh); block_q and block_k are
+// not used.
 // TMA brings the q tile once and the (128-key) K and V tiles through a
 // ring of 2 stages, 128-byte swizzled, through 3-D tensor maps over
 // (BH, S, D): keys past Skv arrive as zeros of this head, never as the
 // next head's rows (a non-finite row there times a weight of 0 would
-// be NaN). D and Dv are padded to 64 or 128 by the same zero fill. Per
-// KV tile, each consumer:
+// be NaN). D is padded to 64, 128 or 192 (one to three 64-column boxes)
+// and Dv to 64 or 128 by the same zero fill. D = 192 with Dv = 128 is
+// MLA's prefill (deepseek-v2: q = [q_nope ; q_rope] of 128 + 64, v of
+// 128), whose scale (nope + rope)^-0.5 is D^-0.5: its tile takes 1 KB of
+// alignment slack + q 48 KB + 2 stages x (K 48 KB + V 32 KB) = 209 KB,
+// under the 227 KB opt-in limit (checked against the device's, as every
+// instance is). Per KV tile, each consumer:
 //   1. S = q K^T by wgmma m64n128k16 (K-major B) into 64 fp32 registers
-//      a thread. The scale multiplies S in fp32 (with log2 e, for exp2f),
-//      not q: the two differ only by fp32 rounding;
+//      a thread, D / 16 k16 steps, four a 64-column box (the registers
+//      do not grow with D). The scale multiplies S in fp32 (with log2 e,
+//      for exp2f), not q: the two differ only by fp32 rounding;
 //   2. the online softmax runs in registers on the accumulator layout:
 //      four threads share a row, so the row max is a quad shuffle; the
 //      masked keys are -inf and weigh exactly 0; l sums the fp32 p;
@@ -91,7 +98,7 @@
 // barrier turns between the two consumers (1.15x slower); a third ring
 // stage (no gain).
 //
-// Bound on this card: operations (4 D flops per score at D = 64-128 over
+// Bound on this card: operations (4 D flops per score at D = 64-192 over
 // a few bytes per score), at the tensor-core rate for bf16 inputs, at
 // the SIMT fp32 rate for fp32. The split alone caps the wgmma body at
 // 2/3 of that bound.
@@ -372,7 +379,7 @@ __host__ __device__ constexpr int box_bytes(int rows) {
   return rows * kSwizzleBytes;
 }
 
-template <int DP, int DVP>     // D and Dv padded to 64 or 128
+template <int DP, int DVP>     // D padded to 64/128/192, Dv to 64/128
 struct Tile {
   static constexpr int kQBytes = (DP / kBoxCols) * box_bytes(kBQ);
   static constexpr int kKBytes = (DP / kBoxCols) * box_bytes(kBKV);
@@ -614,10 +621,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+constexpr int kMaxD = 192;                 // three 64-column boxes
+constexpr int kMaxDv = 128;
+
+// the widths D and Dv are padded to
+inline int padded_d(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 192; }
+inline int padded_dv(int dv) { return dv <= 64 ? 64 : 128; }
+
+template <int DP>
+size_t smem_for(int dvp) {
+  return dvp == 64 ? Tile<DP, 64>::kSmem : Tile<DP, 128>::kSmem;
+}
+
 size_t smem_bytes(int d, int dv) {
-  const bool d64 = d <= 64, dv64 = dv <= 64;
-  return d64 ? (dv64 ? Tile<64, 64>::kSmem : Tile<64, 128>::kSmem)
-             : (dv64 ? Tile<128, 64>::kSmem : Tile<128, 128>::kSmem);
+  const int dp = padded_d(d), dvp = padded_dv(dv);
+  return dp == 64 ? smem_for<64>(dvp)
+                  : dp == 128 ? smem_for<128>(dvp) : smem_for<192>(dvp);
+}
+
+template <int DP>
+cudaError_t launch_for(int dvp, const void* q, const void* k, const void* v,
+                       void* out, int bh, int sq, int skv, int d, int dv,
+                       int causal, float scale, cudaStream_t stream) {
+  return dvp == 64
+             ? launch<DP, 64>(q, k, v, out, bh, sq, skv, d, dv, causal, scale,
+                              stream)
+             : launch<DP, 128>(q, k, v, out, bh, sq, skv, d, dv, causal,
+                               scale, stream);
 }
 
 }  // namespace wg
@@ -679,18 +709,19 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 
 // The tensor-core body: q (bh, sq, d), k (bh, skv, d), v (bh, skv, dv),
 // out (bh, sq, dv), contiguous bf16, 16-byte aligned, d and dv
-// multiples of 16 and at most 128. Returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for what it does not
-// take (a size or alignment, more blocks than a grid holds, or more
-// shared memory than the device's opt-in limit).
+// multiples of 16, d at most 192 and dv at most 128. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for what it does not take (a size or alignment,
+// more blocks than a grid holds, or more shared memory than the device's
+// opt-in limit).
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, int bh, int sq,
                                            int skv, int d, int dv,
                                            int causal, float scale,
                                            void* out, void* stream) {
   using namespace repro::wg;
-  if (bh < 1 || sq < 1 || skv < 1 || d < 16 || dv < 16 || d > 128 ||
-      dv > 128 || d % 16 != 0 || dv % 16 != 0 ||
+  if (bh < 1 || sq < 1 || skv < 1 || d < 16 || dv < 16 || d > kMaxD ||
+      dv > kMaxDv || d % 16 != 0 || dv % 16 != 0 ||
       reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v) % 16 != 0)
@@ -700,16 +731,16 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
   if (smem_bytes(d, dv) > static_cast<size_t>(limit))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool d64 = d <= 64, dv64 = dv <= 64;
+  const int dp = padded_d(d), dvp = padded_dv(dv);
   cudaError_t err;
-  if (d64 && dv64)
-    err = launch<64, 64>(q, k, v, out, bh, sq, skv, d, dv, causal, scale, st);
-  else if (d64)
-    err = launch<64, 128>(q, k, v, out, bh, sq, skv, d, dv, causal, scale, st);
-  else if (dv64)
-    err = launch<128, 64>(q, k, v, out, bh, sq, skv, d, dv, causal, scale, st);
+  if (dp == 64)
+    err = launch_for<64>(dvp, q, k, v, out, bh, sq, skv, d, dv, causal, scale,
+                         st);
+  else if (dp == 128)
+    err = launch_for<128>(dvp, q, k, v, out, bh, sq, skv, d, dv, causal,
+                          scale, st);
   else
-    err = launch<128, 128>(q, k, v, out, bh, sq, skv, d, dv, causal, scale,
-                           st);
+    err = launch_for<192>(dvp, q, k, v, out, bh, sq, skv, d, dv, causal,
+                          scale, st);
   return static_cast<int>(err);
 }

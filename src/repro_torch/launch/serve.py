@@ -3,10 +3,10 @@
 LM mode (``--arch``): prefill, then a greedy decode loop over caches
 sized for the prompt and the generated tokens (``lm_generate``), every
 attention in the ``flash_attention`` kernel; it prints tok/s and
-ms/step. The arch ids are ``configs.registry.ARCHS``; the six
-attention-only ones run (the others raise ``NotImplementedError``,
-ROADMAP item 12b). ``--reduced`` serves the small config, and without
-it the full one. Weights are random, drawn on the device from a seeded
+ms/step. The arch ids are ``configs.registry.ARCHS``, all ten served:
+the attention-only ones, deepseek-v2 (MLA, MoE), llama4-scout (MoE),
+jamba (Mamba, MoE, attention) and rwkv6 (RWKV). ``--reduced`` serves
+the small config, and without it the full one. Weights are random, drawn on the device from a seeded
 generator; the prompts are the reference's (numpy seed 0), and a vlm's
 image patches or an audio model's frames are random too.
 
@@ -97,7 +97,10 @@ WEIGHT_SEED = 0
 
 def pad_caches(prefill_caches: dict, full_caches: dict) -> dict:
     """Write prompt-length caches into the leading corner of the
-    full-length serving buffers (in place); returns ``full_caches``."""
+    full-length serving buffers (in place); a cache with no sequence
+    axis (Mamba's ``conv``/``ssm``, RWKV's ``state``/``tm_last``/
+    ``cm_last``) has the buffer's shape and is written whole. Returns
+    ``full_caches``."""
     for k, full in full_caches.items():
         part = prefill_caches[k]
         if isinstance(full, dict):
@@ -180,7 +183,6 @@ def lm_main(args) -> dict:
     (``lm_generate``); prints tok/s and ms/step and returns
     ``lm_generate``'s result with ``cfg``."""
     cfg = registry.get_config(args.arch, reduced=args.reduced)
-    lm.check_runnable(cfg)
     dev = resolve_device(args.device)
     generator = torch.Generator(device=dev).manual_seed(WEIGHT_SEED)
     params = materialize(lm.model_plan(cfg), generator, dev)

@@ -9,13 +9,14 @@ leading axis of ``repeat`` layers, and the decode caches likewise
 (``nn.param.params_from_jax``). Where the reference scans over that
 axis, the port indexes layer ``i`` in a Python loop.
 
-Mixers run here: ``attn`` (causal), ``attn_bidir`` (the encoder's) and
-``xattn`` (cross-attention over image patches or the encoder's output),
+Every row of the reference runs here. Mixers: ``attn`` (causal),
+``attn_bidir`` (the encoder's), ``xattn`` (cross-attention over image
+patches or the encoder's output) and ``mla`` (deepseek-v2's prefill),
 every attention in the ``flash_attention`` kernel (``nn.attention``);
-the ffn ``mlp``. The rows ``mla``, ``mamba``, ``rwkv``, ``moe`` and
-``cmix`` raise ``NotImplementedError`` when a model is run (ROADMAP
-item 12b); their configs and plans are here, so ``model_plan`` and
-``count_params`` cover every arch. ``loss_fn`` is training (item 12c).
+``mamba`` and ``rwkv`` (``nn.mamba``, ``nn.rwkv``). FFNs: ``mlp``,
+``moe`` (``nn.moe``) and ``cmix`` (RWKV's channel mix). ``forward``
+returns the MoE rows' aux losses summed, as the reference does; decode
+drops them. ``loss_fn`` is training (item 12c).
 
 Not ported: the reference's ``constrain`` hooks (GSPMD sharding
 annotations) and its remat (``remat``, ``jax.checkpoint``), which only a
@@ -40,8 +41,8 @@ from repro_torch.nn.layers import (embed, embedding_plan, layernorm,
 from repro_torch.nn.param import ParamSpec, stack_plan
 
 Row = tuple  # (mixer_kind | None, ffn_kind | None)
-MIXERS = ("attn", "attn_bidir", "xattn")
-FFNS = ("mlp",)
+MIXERS = ("attn", "attn_bidir", "xattn", "mla", "mamba", "rwkv")
+FFNS = ("mlp", "moe", "cmix")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,18 +210,6 @@ def cache_plan(cfg: LMConfig, batch: int, seq: int, mem_len: int = 0,
 
 
 # =============================================================== forward ==
-def check_runnable(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP item 12b for a row
-    whose mixer or ffn the port does not run yet."""
-    rows = cfg.prefix + cfg.superblock + (
-        cfg.encoder.superblock if cfg.encoder is not None else ())
-    for mixer, ffn in rows:
-        if mixer not in MIXERS + (None,) or ffn not in FFNS + (None,):
-            raise NotImplementedError(
-                f"{cfg.name}: the row ({mixer}, {ffn}) is not ported yet; "
-                "mla, mamba, rwkv, moe and cmix wait for ROADMAP item 12b")
-
-
 def _layer(tree: dict, i: int) -> dict:
     """Layer ``i`` of a stacked tree (views)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -240,25 +229,46 @@ def _bidir(cfg: LMConfig) -> A.AttnConfig:
 
 def _apply_row(cfg: LMConfig, row: Row, p: dict, x: torch.Tensor,
                positions: torch.Tensor, mem) -> tuple:
-    """Full-sequence row application. Returns (x, cache)."""
+    """Full-sequence row application. Returns (x, cache, aux)."""
     mixer, ffn = row
     cache = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mixer is not None:
         h = _apply_norm(cfg, p["norm1"], x)
+        pm = p["mixer"]
         if mixer == "attn":
-            y, (k, v) = A.attn_forward(p["mixer"], h, cfg.attn, positions)
+            y, (k, v) = A.attn_forward(pm, h, cfg.attn, positions)
             cache = {"k": k, "v": v}
         elif mixer == "attn_bidir":
-            y, _ = A.attn_forward(p["mixer"], h, _bidir(cfg), positions)
-        else:                                   # xattn
-            mk, mv = A.xattn_kv(p["mixer"], mem, cfg.attn)
-            y = A.xattn_forward(p["mixer"], h, (mk, mv), cfg.attn)
+            y, _ = A.attn_forward(pm, h, _bidir(cfg), positions)
+        elif mixer == "xattn":
+            mk, mv = A.xattn_kv(pm, mem, cfg.attn)
+            y = A.xattn_forward(pm, h, (mk, mv), cfg.attn)
             cache = {"mk": mk, "mv": mv}
+        elif mixer == "mla":
+            y, c = A.mla_forward(pm, h, cfg.mla, positions)
+            cache = {"c": c}
+        elif mixer == "mamba":
+            y, (conv, ssm) = M.mamba_forward(pm, h, cfg.mamba)
+            cache = {"conv": conv, "ssm": ssm}
+        elif mixer == "rwkv":
+            y, (state, last) = R.time_mix_forward(pm, h, cfg.rwkv)
+            cache = {"state": state, "tm_last": last}
+        else:
+            raise ValueError(mixer)
         x = x + y
     if ffn is not None:
-        x = x + mlp(p["ffn"], _apply_norm(cfg, p["norm2"], x),
-                    cfg.activation)
-    return x, cache
+        h = _apply_norm(cfg, p["norm2"], x)
+        if ffn == "mlp":
+            y = mlp(p["ffn"], h, cfg.activation)
+        elif ffn == "moe":
+            y, aux = MOE.moe_forward(p["ffn"], h, cfg.moe)
+        elif ffn == "cmix":
+            y, cache["cm_last"] = R.channel_mix_forward(p["ffn"], h)
+        else:
+            raise ValueError(ffn)
+        x = x + y
+    return x, cache, aux
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -274,7 +284,7 @@ def _run_encoder(params: dict, cfg: LMConfig,
     for layer in range(cfg.encoder.repeat):
         p = _layer(enc["blocks"], layer)
         for i, row in enumerate(cfg.encoder.superblock):
-            x, _ = _apply_row(cfg, row, p[f"r{i}"], x, positions, None)
+            x, _, _ = _apply_row(cfg, row, p[f"r{i}"], x, positions, None)
     return _apply_norm(cfg, enc["final_norm"], x)
 
 
@@ -282,9 +292,9 @@ def forward(params: dict, cfg: LMConfig, ids: torch.Tensor, mem=None, *,
             collect_caches: bool = False) -> tuple:
     """ids: (B, S) tokens (positions ``arange(S)``). mem: frontend
     embeddings (vlm patches (B, num_mem_tokens, mem_dim) / audio frames
-    (B, T, d_model)). Returns (hidden, caches | None, aux_loss): aux is
-    0, as the reference's is without MoE rows."""
-    check_runnable(cfg)
+    (B, T, d_model)). Returns (hidden, caches | None, aux_loss): aux sums
+    the MoE rows' load-balancing losses in the reference's order (0
+    without MoE rows)."""
     b, s = ids.shape
     positions = _positions(b, s, ids.device)
     x = embed(params["embed"], ids)
@@ -294,47 +304,73 @@ def forward(params: dict, cfg: LMConfig, ids: torch.Tensor, mem=None, *,
         mem = linear(params["mem_proj"], mem.to(cfg.dtype))
 
     caches: dict = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.prefix:
         caches["prefix"] = {}
         for i, row in enumerate(cfg.prefix):
-            x, c = _apply_row(cfg, row, params["prefix"][f"p{i}"], x,
-                              positions, mem)
+            x, c, aux = _apply_row(cfg, row, params["prefix"][f"p{i}"], x,
+                                   positions, mem)
             caches["prefix"][f"p{i}"] = c
+            aux_total = aux_total + aux
     layers = []
     for layer in range(cfg.repeat):
         p = _layer(params["blocks"], layer)
         row_caches = {}
         for i, row in enumerate(cfg.superblock):
-            x, row_caches[f"r{i}"] = _apply_row(cfg, row, p[f"r{i}"], x,
-                                                positions, mem)
+            x, row_caches[f"r{i}"], aux = _apply_row(cfg, row, p[f"r{i}"],
+                                                     x, positions, mem)
+            aux_total = aux_total + aux
         layers.append(row_caches)
     if collect_caches:
         caches["blocks"] = _stack(layers)
     x = _apply_norm(cfg, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, (caches if collect_caches else None), aux
+    return x, (caches if collect_caches else None), aux_total
 
 
 # ================================================================ decode ==
 def _decode_row(cfg: LMConfig, row: Row, p: dict, x: torch.Tensor,
                 cache: dict, pos: int) -> torch.Tensor:
-    """One row at one token; an ``attn`` row writes its k/v into
-    ``cache`` at ``pos`` in place."""
+    """One row at one token. The row's caches are updated in place: an
+    ``attn`` row's k/v and an ``mla`` row's latent at ``pos``, the
+    recurrent states (``conv``, ``ssm``, ``state``, ``tm_last``,
+    ``cm_last``) whole."""
     mixer, ffn = row
     if mixer is not None:
         h = _apply_norm(cfg, p["norm1"], x)
+        pm = p["mixer"]
         if mixer == "attn":
-            y, _, _ = A.attn_decode(p["mixer"], h, cache["k"], cache["v"],
-                                    pos, cfg.attn)
+            y, _, _ = A.attn_decode(pm, h, cache["k"], cache["v"], pos,
+                                    cfg.attn)
         elif mixer == "xattn":
-            y = A.xattn_forward(p["mixer"], h, (cache["mk"], cache["mv"]),
-                                cfg.attn)
+            y = A.xattn_forward(pm, h, (cache["mk"], cache["mv"]), cfg.attn)
+        elif mixer == "mla":
+            y, _ = A.mla_decode(pm, h, cache["c"], pos, cfg.mla)
+        elif mixer == "mamba":
+            y, (conv, ssm) = M.mamba_decode(pm, h, cache["conv"],
+                                            cache["ssm"], cfg.mamba)
+            cache["conv"].copy_(conv)
+            cache["ssm"].copy_(ssm)
+        elif mixer == "rwkv":
+            y, (state, last) = R.time_mix_forward(
+                pm, h, cfg.rwkv, state=cache["state"],
+                x_last=cache["tm_last"])
+            cache["state"].copy_(state)
+            cache["tm_last"].copy_(last)
         else:
             raise ValueError(f"{mixer} has no decode step")
         x = x + y
     if ffn is not None:
-        x = x + mlp(p["ffn"], _apply_norm(cfg, p["norm2"], x),
-                    cfg.activation)
+        h = _apply_norm(cfg, p["norm2"], x)
+        if ffn == "mlp":
+            y = mlp(p["ffn"], h, cfg.activation)
+        elif ffn == "moe":
+            y, _ = MOE.moe_forward(p["ffn"], h, cfg.moe)
+        elif ffn == "cmix":
+            y, last = R.channel_mix_forward(p["ffn"], h, cache["cm_last"])
+            cache["cm_last"].copy_(last)
+        else:
+            raise ValueError(ffn)
+        x = x + y
     return x
 
 
@@ -343,7 +379,6 @@ def decode_step(params: dict, cfg: LMConfig, caches: dict,
     """One serving step: ids (B, 1) new tokens at position ``pos``.
     Returns (logits (B, 1, vocab), caches): the cache buffers are
     updated in place and returned."""
-    check_runnable(cfg)
     pos = int(pos)
     x = embed(params["embed"], ids)
     if cfg.prefix:

@@ -22,11 +22,21 @@ kept as data and changes nothing here.
   gives the keys past ``pos`` a score of -1e30, weight exactly 0: the
   same function.
 
+MLA (deepseek-v2): prefill concatenates q = [q_nope ; q_rope] and k =
+[k_nope ; k_rope] (k_rope broadcast over the heads), so one causal
+``flash_attention`` call at D = nope + rope (192 at full width) with Dv
+= v_head_dim is the reference's attention, whose scale (nope +
+rope)^-0.5 is the kernel's D^-0.5. Decode is the reference's absorbed
+form in fp32 over the compressed cache [c_kv ; k_rope] (``q_nope ·
+W_uk`` scored against c_kv, plus q_rope against k_rope, softmax, then
+``· W_uv``), plain PyTorch as the reference's decode calls no kernel
+(its D would be 576). It scores the valid prefix ``cache[:, :pos+1]``
+where the reference masks the whole cache past ``pos`` to weight 0: the
+same function. The cache updates in place at ``pos``.
+
 Not ported: the reference's ``constrain`` hooks (GSPMD sharding
 annotations, with no counterpart on one card) and the remat of its scan
-(a backward pass only). MLA keeps its config (``MLAConfig``, which
-deepseek-v2's config needs) and its plan (parameter counts); its forward
-and decode wait for ROADMAP item 12b.
+(a backward pass only).
 """
 from __future__ import annotations
 
@@ -250,3 +260,71 @@ def mla_plan(cfg: MLAConfig, dtype: torch.dtype = torch.bfloat16) -> dict:
         "wo": linear_plan(h * cfg.v_head_dim, d, in_axis="heads",
                           out_axis="embed", dtype=dtype),
     }
+
+
+def _mla_q(params: dict, x: torch.Tensor, cfg: MLAConfig,
+           positions: torch.Tensor) -> tuple:
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) rotated)."""
+    b, s, _ = x.shape
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    q = linear(params["wq"], x).reshape(b, s, cfg.num_heads, qd)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = rope(q_rope.transpose(1, 2), positions[:, None, :],
+                  cfg.rope_theta).transpose(1, 2)
+    return q_nope, q_rope
+
+
+def _mla_latent(params: dict, x: torch.Tensor, cfg: MLAConfig,
+                positions: torch.Tensor) -> tuple:
+    """(c_kv (B, S, kv_lora) normed, k_rope (B, S, rope) rotated)."""
+    c_kv = rmsnorm(params["kv_norm"], linear(params["w_dkv"], x))
+    k_rope = rope(linear(params["w_kr"], x), positions, cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_forward(params: dict, x: torch.Tensor, cfg: MLAConfig,
+                positions: torch.Tensor) -> tuple:
+    """Prefill MLA: one causal ``flash_attention`` call at D = nope +
+    rope, Dv = v_head_dim. Returns (y, cache (B, S, kv_lora + rope) =
+    [c_kv ; k_rope])."""
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(params, x, cfg, positions)
+    k_nope = torch.einsum("bsc,chd->bshd", c_kv, params["w_uk"])
+    v = torch.einsum("bsc,chd->bshd", c_kv, params["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1).transpose(1, 2)
+    out = online_attention(q, k, v.transpose(1, 2), causal=True)
+    y = out.transpose(1, 2).reshape(b, s, h * cfg.v_head_dim)
+    return linear(params["wo"], y), torch.cat([c_kv, k_rope], dim=-1)
+
+
+def mla_decode(params: dict, x: torch.Tensor, c_cache: torch.Tensor,
+               pos: int, cfg: MLAConfig) -> tuple:
+    """Absorbed-matmul decode of one token. x: (B, 1, d); c_cache (B, S,
+    kv_lora + rope), written at ``pos`` in place. Returns (y, c_cache)."""
+    b = x.shape[0]
+    pos = int(pos)
+    h = cfg.num_heads
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(params, x, cfg, positions)
+    c_cache[:, pos] = torch.cat([c_kv, k_rope], dim=-1)[:, 0].to(
+        c_cache.dtype)
+    valid = c_cache[:, :pos + 1].to(torch.float32)
+    cc, cr = valid[..., :cfg.kv_lora], valid[..., cfg.kv_lora:]
+    # W_uk absorbed into q: q'[b, h, c] = sum_n q_nope[b, h, n] W_uk[c, h, n]
+    q_abs = torch.einsum("bhn,chn->bhc", q_nope[:, 0].to(torch.float32),
+                         params["w_uk"].to(torch.float32))
+    scores = (torch.einsum("bhc,bsc->bhs", q_abs, cc)
+              + torch.einsum("bhr,bsr->bhs",
+                             q_rope[:, 0].to(torch.float32), cr))
+    scores = scores * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    w = torch.softmax(scores, dim=-1)
+    out_c = torch.einsum("bhs,bsc->bhc", w, cc)
+    out = torch.einsum("bhc,chv->bhv", out_c,
+                       params["w_uv"].to(torch.float32))
+    y = out.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
+    return linear(params["wo"], y), c_cache

@@ -20,7 +20,17 @@ and the card's bf16 products are the CPU plain path's bit for bit
 (cuBLAS and the CPU's BLAS sum a bf16 product in orders of their own).
 
 ``rmsnorm`` and ``layernorm`` compute in fp32 and cast back to the
-input's dtype, as the reference does. ``chunked_softmax_xent`` is a
+input's dtype, as the reference does.
+
+The LM's activations (``lm_act``: ``mlp``, the MoE experts, Mamba,
+RWKV) take ``silu`` and ``sigmoid`` in the order XLA evaluates the
+reference's ``jax.nn.silu`` / ``jax.nn.sigmoid``: logistic(x) = 1 / (1
++ exp(-x)), each step rounded to x's dtype, then x · logistic(x). In
+bf16 that is the reference's value bit for bit (compiled with every
+cast rounding), where ``F.silu`` rounds once and lands one bf16 step
+away now and then; such a step before a MoE router can flip a near-tie
+route. ``act`` keeps ``F.silu`` for the GNN side, whose kernels hold
+it. ``chunked_softmax_xent`` is a
 training loss and waits for the training slice (ROADMAP item 12c).
 """
 from __future__ import annotations
@@ -50,6 +60,22 @@ ACTIVATIONS = {
 
 def act(name: str):
     return ACTIVATIONS[name]
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), each step in x's dtype."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x · logistic(x), each step in x's dtype."""
+    return x * logistic(x)
+
+
+def lm_act(name: str):
+    """The LM's activation ``name``: ``silu`` and ``sigmoid`` stepwise
+    (``logistic``), the rest as ``act``."""
+    return {"silu": silu, "sigmoid": logistic}.get(name) or act(name)
 
 
 def linear_plan(d_in: int, d_out: int, *, in_axis=None, out_axis=None,
@@ -151,7 +177,7 @@ def mlp(params: dict, x: torch.Tensor,
         activation: str = "silu") -> torch.Tensor:
     h = linear(params["up"], x)
     if "gate" in params:
-        h = h * act(activation)(linear(params["gate"], x))
+        h = h * lm_act(activation)(linear(params["gate"], x))
     else:
-        h = act(activation)(h)
+        h = lm_act(activation)(h)
     return linear(params["down"], h)

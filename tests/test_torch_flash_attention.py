@@ -12,8 +12,8 @@ zero rows the non-causal kernel does not mask, so each padded key adds
 logit 0 to the softmax (0.1 away from the reference at S = 100). The
 port masks every key past Skv inside the kernel.
 
-The bf16 calls with D and Dv multiples of 16 up to 128 take the
-kernel's tensor-core body (``kernel.body_for``). A plain mirror of that
+The bf16 calls with D and Dv multiples of 16, D up to 192 and Dv up to
+128, take the kernel's tensor-core body (``kernel.body_for``). A plain mirror of that
 body's arithmetic (128-key tiles, the scale on the fp32 scores, masked
 keys at weight exactly 0, the softmax weights P fed to P V as two bf16
 terms, l summed from the fp32 weights) is held here against the fp32
@@ -244,9 +244,15 @@ def test_body_for_phase8_shapes():
         assert K.body_for(bf16, d, d) == "wgmma"
         assert K.body_for(f32, d, d) == "simt"
         assert K.body_for(bf16, d, d, 0, 256, 4096) == "wgmma"
-    for d, dv in ((8, 8), (16, 24), (40, 40), (144, 64), (64, 8)):
+    for d, dv in ((8, 8), (16, 24), (40, 40), (208, 64), (64, 8),
+                  (192, 144), (200, 128)):
         assert K.body_for(bf16, d, dv) == "simt"
     assert K.body_for(bf16, 16, 128) == "wgmma"
+    # MLA's prefill (D = nope + rope = 192, Dv = 128) and D = 144
+    for d, dv in ((192, 128), (192, 64), (144, 128)):
+        assert K.body_for(bf16, d, dv) == "wgmma"
+        assert K.body_for(f32, d, dv) == "simt"
+    assert K.MAX_HEAD == {"wgmma": (192, 128), "simt": (128, 128)}
     assert K.body_for(bf16, 64, 64, 0, 8, 0) == "simt"     # unaligned k
     for shape in ((4, 128, 32), (2, 33, 128), (1, 5, 8)):
         assert K.body_for(f32, shape[2], shape[2]) == "simt"

@@ -1,18 +1,23 @@
 """The port's LM (``repro_torch.models.lm``) against the JAX package's,
-for the six attention-only archs at ``reduced()``.
+for all ten archs at ``reduced()``: the six attention-only ones and
+deepseek-v2 (MLA, MoE), llama4-scout (MoE), jamba (Mamba, MoE,
+attention) and rwkv6 (RWKV time and channel mix).
 
 The JAX parameters (``repro.nn.param.materialize(plan, key(0))``) carry
 over with ``params_from_jax``; the ``xattn`` gates, which initialize to
 0 and would hide cross-attention, are set to 0.5 in both trees; a vlm's
 image patches and an audio model's frames are random normals (numpy
-seed). Compared: ``forward``'s hidden state, ``prefill``'s logits and
-caches, then 4 ``decode_step``s (the tokens the reference picks) from
+seed). Compared: ``forward``'s hidden state and aux loss (the MoE
+rows' load-balancing losses summed; 0 elsewhere), ``prefill``'s logits
+and caches, then 4 ``decode_step``s (the tokens the reference picks) from
 caches padded to the prompt plus 4 (``pad_caches``), their logits and
 the caches after them. The JAX side is jitted.
 
 - fp32 (both configs at ``dtype=float32``, the reference's
-  ``online_attention`` at a chunk of 3 keys, so that an 8-token prompt
-  folds in three chunks, the last one padded): within 1e-4 of each
+  ``online_attention`` at a chunk of 3 keys, in ``attn`` and in
+  ``mla``, so that an 8-token prompt folds in three chunks, the last
+  one padded; Mamba's chunk at 4 in both, so that the prompt runs two
+  chunks and carries the state across): within 1e-4 of each
   output's scale (max |err| <= 1e-4 · max |reference|). The port's
   attention is the full fp32 softmax; the two sum in another order.
 - bf16 (the configs' own dtype; the JAX side compiled with every bf16
@@ -24,6 +29,10 @@ the caches after them. The JAX side is jitted.
   projection, and the decode steps add the cache's. The six archs read
   2-5 steps of 2^-8 at their worst output (llama-3.2-vision's decode
   logits, through its cross-attention rows, the most).
+
+The MoE combine adds each token's expert rows in the reference's order
+(expert by expert), and routing breaks ties as ``jax.lax.top_k`` does
+(``nn.moe._top_k``), so the same tokens are kept and summed alike.
 
 ``test_prefill_then_decode_consistent`` mirrors the reference's own
 test (``tests/test_models.py``): the greedy token of the prefill equals
@@ -55,6 +64,9 @@ torch.set_num_threads(1)
 
 ATTN_ARCHS = ("qwen3-8b", "internlm2-20b", "minitron-4b",
               "deepseek-coder-33b", "llama-3.2-vision-11b", "whisper-base")
+MIXER_ARCHS = ("deepseek-v2-236b", "llama4-scout-17b-a16e",
+               "jamba-1.5-large-398b", "rwkv6-1.6b")
+ARCHS = ATTN_ARCHS + MIXER_ARCHS
 FP32_TOL = 1e-4
 BF16_TOL = 2.0 ** -5
 B, S, STEPS, FRAMES = 2, 8, 4, 12
@@ -64,10 +76,24 @@ GATE = 0.5
 def configs(arch: str, precision: str) -> tuple:
     jc, tc = JR.get_config(arch, True), TR.get_config(arch, True)
     if precision == "fp32":
-        jc = dataclasses.replace(jc, dtype=jnp.float32, attn=dataclasses.
-                                 replace(jc.attn, chunk=3))
+        jc = dataclasses.replace(jc, dtype=jnp.float32, **chunks(jc, 3))
         tc = dataclasses.replace(tc, dtype=torch.float32)
+        if tc.mamba is not None:       # the port keeps the chunk loop too
+            jc = dataclasses.replace(jc, mamba=dataclasses.replace(
+                jc.mamba, chunk=MAMBA_CHUNK))
+            tc = dataclasses.replace(tc, mamba=dataclasses.replace(
+                tc.mamba, chunk=MAMBA_CHUNK))
     return jc, tc
+
+
+MAMBA_CHUNK = 4
+
+
+def chunks(cfg, chunk: int) -> dict:
+    """The reference's attention configs (``attn``, ``mla``) at a KV
+    chunk of ``chunk``, the ones the config has."""
+    return {name: dataclasses.replace(getattr(cfg, name), chunk=chunk)
+            for name in ("attn", "mla") if getattr(cfg, name) is not None}
 
 
 def params(jc, tc) -> tuple:
@@ -139,8 +165,10 @@ def run_jax(jc, jp, ids, mem, precision):
         lambda fn, *a: jax.jit(fn)(*a))
 
     def pre(p, i, m):
-        return JL.forward(p, jc, i, m)[0], JL.prefill(p, jc, i, m)
-    hidden, (logits, caches) = compile_(pre, jp, jnp.asarray(ids), jmem)
+        hidden, _, aux = JL.forward(p, jc, i, m)
+        return hidden, aux, JL.prefill(p, jc, i, m)
+    hidden, aux, (logits, caches) = compile_(pre, jp, jnp.asarray(ids),
+                                             jmem)
     cplan = JL.cache_plan(jc, B, S + STEPS, mem_len=mem_len(jc))
     full = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype),
                                   JP.abstract(cplan))
@@ -159,24 +187,26 @@ def run_jax(jc, jp, ids, mem, precision):
         lg, full = step(*args)
         steps.append((np.asarray(tok), lg))
         tok = jnp.argmax(lg[:, 0], axis=-1)[:, None].astype(jnp.int32)
-    return hidden, logits, caches, steps, full
+    return (hidden, aux), logits, caches, steps, full
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_reference(arch, precision):
     jc, tc = configs(arch, precision)
     jp, tp = params(jc, tc)
     ids, mem = inputs(jc)
     tol = FP32_TOL if precision == "fp32" else BF16_TOL
-    hidden, logits, caches, steps, full = run_jax(jc, jp, ids, mem,
-                                                  precision)
+    (hidden, aux), logits, caches, steps, full = run_jax(jc, jp, ids, mem,
+                                                         precision)
     tids = torch.from_numpy(ids).long()
     tmem = None if mem is None else torch.from_numpy(mem)
     with torch.inference_mode():
-        t_hidden = TL.forward(tp, tc, tids, tmem)[0]
+        t_hidden, _, t_aux = TL.forward(tp, tc, tids, tmem)
         t_logits, t_caches = TL.prefill(tp, tc, tids, tmem)
         close("hidden", t_hidden, hidden, tol)
+        close("aux", t_aux, aux, tol)
+        assert (float(aux) > 0) == (tc.moe is not None)
         close("prefill logits", t_logits, logits, tol)
         close_trees("prefill caches", t_caches, caches, tol)
         t_full = TS.pad_caches(t_caches, TP.abstract(
@@ -188,7 +218,7 @@ def test_forward_prefill_decode_match_reference(arch, precision):
         close_trees("decoded caches", t_full, full, tol)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_consistent(arch):
     """Greedy token from prefill == decode-step replay of the prompt
     (the reference's test, on the port at the config's bf16)."""

@@ -4,11 +4,12 @@
 GNN ids through the port's ``configs.gnn``; ``get_config`` gives the same
 numbers for every arch, full and reduced; ``count_params`` of each
 ``model_plan`` equals the reference's (counts only: no parameter is
-drawn); for the six attention-only archs the plans' leaf paths, shapes,
-dtypes and logical axes equal the reference's ``abstract`` /
-``logical_axes`` trees, and the decode-cache plans too; the four archs
-whose rows wait for ROADMAP item 12b raise ``NotImplementedError``
-naming it when run, not when built.
+drawn); for every arch the plans' leaf paths, shapes, dtypes and
+logical axes equal the reference's ``abstract`` / ``logical_axes``
+trees, and the decode-cache plans too; every row kind of every arch is
+one the port's LM runs (``lm.MIXERS``, ``lm.FFNS``), and the four archs
+of the other mixers (MLA, MoE, Mamba, RWKV) serve through ``serve
+--arch --reduced --device cpu``.
 """
 import dataclasses
 
@@ -87,7 +88,7 @@ def flat(tree, prefix=()) -> dict:
 
 
 @pytest.mark.parametrize("reduced", [False, True])
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS + LATER_ARCHS)
 def test_plans_match_reference(arch, reduced):
     jc, tc = JR.get_config(arch, reduced), TR.get_config(arch, reduced)
     for jplan, tplan in (
@@ -108,22 +109,37 @@ def test_plans_match_reference(arch, reduced):
                 is_leaf=JP.is_spec))[key], key
 
 
+@pytest.mark.parametrize("arch", list(TR.ARCHS))
+def test_every_row_kind_runs(arch):
+    for reduced in (False, True):
+        cfg = TR.get_config(arch, reduced)
+        rows = cfg.prefix + cfg.superblock + (
+            cfg.encoder.superblock if cfg.encoder is not None else ())
+        for mixer, ffn in rows:
+            assert mixer in TL.MIXERS + (None,), (arch, mixer)
+            assert ffn in TL.FFNS + (None,), (arch, ffn)
+
+
 @pytest.mark.parametrize("arch", LATER_ARCHS)
-def test_later_archs_raise_when_run(arch):
-    cfg = TR.get_config(arch, reduced=True)          # builds
-    plan = TL.model_plan(cfg)
-    assert TP.count_params(plan) > 0
-    params = TP.materialize(plan, torch.Generator().manual_seed(0), "cpu")
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="12b"):
-        TL.forward(params, cfg, ids)
-    with pytest.raises(NotImplementedError, match="12b"):
-        TL.prefill(params, cfg, ids)
-    caches = TP.abstract(TL.cache_plan(cfg, 1, 4), "cpu")
-    with pytest.raises(NotImplementedError, match="12b"):
-        TL.decode_step(params, cfg, caches, ids[:, :1], 0)
-    with pytest.raises(NotImplementedError, match="12b"):
-        TS.main(["--arch", arch, "--reduced", "--device", "cpu"])
+def test_mixer_archs_serve_on_the_cpu(arch, capsys):
+    """``serve --arch`` at the reduced config on the CPU: greedy tokens in
+    range, every logit finite, the recurrent and latent caches filled."""
+    out = TS.main(["--arch", arch, "--reduced", "--device", "cpu",
+                   "--batch", "2", "--prompt-len", "16", "--gen", "3"])
+    cfg = out["cfg"]
+    toks = out["tokens"]
+    assert tuple(toks.shape) == (2, 4)
+    assert 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size
+    assert all(bool(torch.isfinite(lg.float()).all()) for lg in out["logits"])
+    keys = {k for row in out["caches"]["blocks"].values() for k in row}
+    want = {"deepseek-v2-236b": {"c"}, "llama4-scout-17b-a16e": {"k", "v"},
+            "jamba-1.5-large-398b": {"conv", "ssm", "k", "v"},
+            "rwkv6-1.6b": {"state", "tm_last", "cm_last"}}[arch]
+    assert keys == want
+    for row in out["caches"]["blocks"].values():
+        for name, buf in row.items():
+            assert bool(buf.float().abs().sum() > 0), (arch, name)
+    assert f"arch={cfg.name} on cpu" in capsys.readouterr().out
 
 
 def test_params_from_jax_checks_lm_dtypes():

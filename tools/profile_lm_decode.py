@@ -50,7 +50,6 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     cfg = registry.get_config(args.arch)
-    lm.check_runnable(cfg)
     generator = torch.Generator(device=dev).manual_seed(serve.WEIGHT_SEED)
     params = materialize(lm.model_plan(cfg), generator, dev)
     b, plen = args.batch, args.prompt_len
