@@ -309,7 +309,32 @@ Phases, in order; any failure exits non-zero with no result line:
    cuts' least gap between a token's k-th and (k+1)-th router
    probability printed, the host's free memory printed before the jamba
    cut. (d) The depth cuts and the phase's wall time against
-   ``LM_TARGET_S``.
+   ``LM_TARGET_S``;
+13. LM training. (a) The ``flash_attention`` backward
+   (``csrc/flash_attention_bwd.cu``: the row statistics, dK/dV and dQ
+   launches) at ``BWD_SHAPES`` (qwen3-8b's training call, deepseek-v2's
+   MLA at D 192 / Dv 128, whisper-base's encoder and cross-attention,
+   an fp32 call, ragged key lengths) against ``attention_bwd_ref`` in
+   fp32 on the same inputs within ``BWD_TOL`` (dQ, dK and dV each), a
+   second launch bit for bit, timed beside its plain version,
+   ``scaled_dot_product_attention``'s forward + backward and its bound
+   (``attention_bwd_work``). (b) qwen3-8b at full width cut to 2 of 36
+   layers (bf16, remat "full", fp32 AdamW moments): its first step's
+   loss and global gradient norm against the CPU plain path (B 1, S 64)
+   within ``TRAIN_TOL``, then 20 steps of ``token_batch`` (B 8, S 512)
+   through ``launch.train.run`` (the ``Trainer``; no checkpoint) with
+   the kernel counts set to 0 just before and read just after: the loss
+   falls (the mean of the last 5 below the first 5's), ms a step (first
+   and median), tok/s, peak memory, and the forward and backward
+   ``flash_attention`` launches a step held to
+   ``train_attention_launches`` (remat runs each layer's forward
+   twice). (c) reduced qwen3-8b under
+   ``torch.use_deterministic_algorithms(True)`` (cuBLAS's workspace
+   fixed by ``CUBLAS_WORKSPACE_CONFIG``, set before torch starts): a
+   run that fails at step 13 and resumes from its checkpoint ends bit for
+   bit the uninterrupted run's state. (d) The other nine archs at
+   reduced(), one train step each on the card against the CPU plain
+   path, loss and grad norm within ``TRAIN_TOL``, launches counted.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -322,7 +347,12 @@ serving run and (c)'s card runs); ``flash_attention``'s also
 ``lm_launches_by_body`` ((a)'s), ``lm_cut_launches`` ((c)'s by arch),
 ``lm_calls`` (phase 12 (b)'s rows), ``lm_serving`` and
 ``lm_serving_rwkv6`` (tok/s, ms/step, the first and the median step,
-prefill ms of (a) and (a')).
+prefill ms of (a) and (a')). Every entry carries
+``launches_by_phase["13"]``: ``flash_attention``'s forward launches on
+the training path ((b) and (d), remat's recomputations included). The
+last entry, ``flash_attention_backward``, sums phase 13 (a)'s calls and
+counts the backward launches of (b) and (d); its ``training`` key holds
+(b)'s, (c)'s and (d)'s readings.
 """
 from __future__ import annotations
 
@@ -340,6 +370,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only
+# with a fixed workspace, read when it first runs (phase 13 (c)); this is
+# the size torch takes on Hopper by default
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -4244,6 +4278,491 @@ def lm_phase(dev, errs: dict) -> dict:
             "cut_launches": cut_launches, "wall_s": wall}
 
 
+# ---------------------------------------------------------- phase 13 --
+# LM training. (a) the flash_attention backward (csrc/flash_attention_bwd
+# .cu) against its plain version, attention_bwd_ref in fp32 on the same
+# inputs, at (label, BH, Sq, Skv, D, Dv, causal, dtype): qwen3-8b's
+# training call (B 8 x 32 heads, S 512); deepseek-v2's MLA at D 192, Dv
+# 128 (B 1 x 128 heads); whisper-base's encoder (B 4 x 8 heads over 1500
+# frames, non-causal) and its cross-attention (the decoder's 375 tokens
+# over the 1500 frames); one fp32 call; ragged key lengths (333, not a
+# multiple of the 64-key tile, causal with Sq != Skv, and D 30 / Dv 18,
+# whose rows take 4-byte copies)
+BWD_SHAPES = (("qwen3-8b train", 8 * 32, 512, 512, 128, 128, True, "bf16"),
+              ("deepseek-v2 MLA", 128, 512, 512, 192, 128, True, "bf16"),
+              ("whisper-base encoder", 4 * 8, 1500, 1500, 64, 64, False,
+               "bf16"),
+              ("whisper-base cross-attention", 4 * 8, 375, 1500, 64, 64,
+               False, "bf16"),
+              ("qwen3-8b head, fp32", 32, 512, 512, 128, 128, True, "fp32"),
+              ("ragged Skv", 8, 300, 333, 128, 128, True, "bf16"),
+              ("ragged Skv, D 30 / Dv 18, fp32", 6, 77, 333, 30, 18, False,
+               "fp32"))
+# max |err| <= tol * max |plain| for each of dQ, dK and dV: fp32 sums the
+# same products in another order (1e-4 of the scale, as the forward's
+# ATTN_TOL); bf16 outputs are the fp32 result rounded once, against the
+# plain version's unrounded fp32: half a bf16 step (2^-9 of a value) plus
+# the order, held at one step of the largest value, 2^-8 ... doubled
+BWD_TOL = {"fp32": 1e-4, "bf16": 2.0 ** -7}
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def bwd_launch(q, k, v, o, do, causal: bool) -> tuple:
+    """The three backward launches, outside the wrapper's count."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        attention_dkdv_cuda, attention_dq_cuda, attention_stats_cuda)
+    lse2, delta = attention_stats_cuda(q, k, o, do, causal=causal)
+    dk, dv = attention_dkdv_cuda(q, k, v, do, lse2, delta, causal=causal)
+    return attention_dq_cuda(q, k, v, do, lse2, delta, causal=causal), dk, dv
+
+
+def sdpa_fwd_bwd_ms(q, k, v, do, causal: bool):
+    """ms of scaled_dot_product_attention's forward and backward on the
+    same inputs (the library yardstick), or (None, why)."""
+    qq, kk, vv = (t[None].detach().requires_grad_() for t in (q, k, v))
+    dd = do[None]
+
+    def run():
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=causal)
+        torch.autograd.grad(out, (qq, kk, vv), dd)
+    try:
+        return cuda_ms(run, reps=10, inner=3), None
+    except RuntimeError as e:
+        return None, f"scaled_dot_product_attention: {e}"
+
+
+def attention_bwd_phase(dev, errs: dict) -> list:
+    """(a) Each ``BWD_SHAPES`` call: normal q, k, v and dO drawn on the
+    card from a seeded generator, the forward kernel's output, the
+    backward's dQ, dK and dV against ``attention_bwd_ref`` in fp32
+    within ``BWD_TOL``, a second launch bit for bit the first (no
+    atomics), then the backward timed beside
+    its plain version, SDPA's forward + backward and its bound
+    (``attention_bwd_work``; operations at the tensor cores' rate for
+    bf16 inputs, the least time the card could take, though this
+    kernel's products run on the SIMT cores; the fp32 rate for fp32)."""
+    from repro_torch.kernels._cost import attention_bwd_work
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    rows = []
+    for label, bh, sq, skv, d, dv, causal, dt in BWD_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(sq * 7 + skv + d)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(
+            DTYPES[dt]) for shape in (
+                (bh, sq, d), (bh, skv, d), (bh, skv, dv), (bh, sq, dv)))
+        with torch.no_grad():
+            o = flash_attention_cuda(q, k, v, causal=causal)
+        got = bwd_launch(q, k, v, o, do, causal)
+        again = bwd_launch(q, k, v, o, do, causal)
+        want = attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
+                                 causal=causal)
+        shape = (f"{label}: BH={bh} Sq={sq} Skv={skv} D={d} Dv={dv} "
+                 f"{'causal' if causal else 'non-causal'} {dt}")
+        err = {}
+        for name, g, w, g2 in zip(("dQ", "dK", "dV"), got, want, again):
+            check(g.dtype == q.dtype and g.shape == w.shape,
+                  f"[13] (a) {shape}: {name} {g.dtype}{tuple(g.shape)}")
+            check(torch.equal(g, g2), f"[13] (a) {shape}: {name} of a "
+                                      "second launch has other bits")
+            gf = g.float()
+            check(bool(torch.isfinite(gf).all()),
+                  f"[13] (a) {shape}: {name} not finite")
+            err[name] = float((gf - w).abs().max())
+            bound = BWD_TOL[dt] * float(w.abs().max())
+            check(err[name] <= bound, f"[13] (a) {shape}: {name} max |err| "
+                                      f"{err[name]} > {bound}")
+        worst = max(err.values())
+        errs["flash_attention_backward"] = max(
+            errs.get("flash_attention_backward", 0.0), worst)
+        moved, ops = attention_bwd_work(q, k, v, o, do, causal=causal)
+        bound, by = bound_ms(moved, ops, product_rate(q.dtype))
+        ms = cuda_ms(lambda: bwd_launch(q, k, v, o, do, causal), reps=10,
+                     inner=3)
+        plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do,
+                                                     causal=causal),
+                           reps=3, inner=1, device_only=False)
+        lib, note = sdpa_fwd_bwd_ms(q, k, v, do, causal)
+        row = dict(shape=shape, max_abs_err=worst, errs=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=lib)
+        if note:
+            row["library_note"] = note
+        rows.append(row)
+        lib_s = f"{lib:.6f} ms" if lib is not None else f"null ({note})"
+        print(f"[13] (a) flash_attention backward {shape}: max |err| dQ "
+              f"{err['dQ']:.3e} dK {err['dK']:.3e} dV {err['dV']:.3e} "
+              f"against attention_bwd_ref (fp32; tol {BWD_TOL[dt]} of each "
+              f"scale), a second launch bit for bit; backward {ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms, SDPA forward + backward {lib_s}, "
+              f"bound {bound:.6f} ms ({by})")
+        del q, k, v, o, do, got, again, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# (b) qwen3-8b at full width (configs/qwen3_8b.py), cut to 2 of its 36
+# layers as phase 12 cuts it: bf16, remat "full", fp32 AdamW moments,
+# 20 steps of token_batch at B 8, S 512 through launch.train.run (the
+# Trainer), with no checkpoint (its state is ~20 GB); its first step held
+# against the CPU plain path at B 1, S 64 from the same weights
+TRAIN_ARCH, TRAIN_LAYERS = "qwen3-8b", 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 20
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
+TRAIN_CHECK_SEQ = 64
+# card against the CPU plain path, relative to the CPU's value: the loss
+# and the global gradient norm within phase 12's bf16 bound (2^-5): each
+# row's bf16 sums land a bf16 step or two (2^-8) apart in cuBLAS's and
+# the CPU's orders, compounding over the layers (tools/lm_divergence.py
+# reads 3.2e-3 to 9.6e-3 of the stream's scale a row), and the backward
+# adds its own; in fp32 the CPU tests' 1e-4
+TRAIN_TOL = {"bf16": LM_BF16_TOL, "fp32": 1e-4}
+# (c) the fault path at reduced(): a run that fails at FAULT_AT and
+# resumes from its checkpoint against an uninterrupted one
+FAULT_ARCH, FAULT_STEPS, FAULT_AT, FAULT_EVERY = "qwen3-8b", 24, 13, 8
+FAULT_DIR = ROOT / "build" / "chip_smoke_train"
+# (d) the other nine archs at reduced(): one train step each, card
+# against the CPU plain path
+TRAIN_OTHER_BATCH, TRAIN_OTHER_SEQ = 4, 32
+TRAIN_TARGET_S = 75.0       # the phase's wall-time target, printed
+
+
+def attention_counts() -> tuple:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return flash_attention.launches, flash_attention.backward_launches
+
+
+def zero_attention_counts() -> None:
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    flash_attention.launches = flash_attention.backward_launches = 0
+    flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+
+
+def train_attention_launches(cfg, with_mem: bool) -> tuple:
+    """(forward, backward) ``flash_attention`` launches of one train step
+    of ``cfg``: one a call, each ``attn``, ``attn_bidir``, ``xattn`` and
+    ``mla`` row (the encoder's given the memory) a call a microbatch;
+    under remat the layers of the stack (and of the encoder) run their
+    forward again in the backward pass, the unrepeated prefix rows not."""
+    def calls(rows):
+        return sum(m in ("attn", "attn_bidir", "xattn", "mla")
+                   for m, _ in rows)
+    pre = calls(cfg.prefix)
+    stack = calls(cfg.superblock) * cfg.repeat
+    if cfg.encoder is not None and with_mem:
+        stack += calls(cfg.encoder.superblock) * cfg.encoder.repeat
+    again = stack if cfg.remat != "none" else 0
+    accum = max(1, cfg.grad_accum)
+    return accum * (pre + stack + again), accum * (pre + stack)
+
+
+def grads_on(cfg, params: dict, batch: dict, device) -> tuple:
+    """(loss, global gradient norm) of ``lm.loss_fn`` (sync_grads) on
+    ``device`` with ``params`` and ``batch`` (numpy) moved there."""
+    from repro_torch.launch.steps import to_device, value_and_grad
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import global_norm
+    p = params if next(iter(params["embed"].values())).device == device \
+        else tree_to(params, device)
+    b = to_device(batch, device)
+    loss, grads = value_and_grad(lambda q: lm.loss_fn(q, cfg, b,
+                                                      sync_grads=True), p)
+    return float(loss), float(global_norm(grads))
+
+
+def card_vs_plain(label: str, dev, cfg, params: dict, batch: dict,
+                  dtype: str) -> dict:
+    """The loss and global gradient norm of one batch on the card (``dev``)
+    and on the CPU plain path with the same parameters, within
+    ``TRAIN_TOL``."""
+    card = grads_on(cfg, params, batch, dev)
+    host = grads_on(cfg, params, batch, torch.device("cpu"))
+    out = {}
+    for name, got, want in zip(("loss", "grad_norm"), card, host):
+        rel = abs(got - want) / abs(want)
+        check(np.isfinite(got) and rel <= TRAIN_TOL[dtype],
+              f"{label}: {name} {got} on the card against {want} on the CPU "
+              f"({rel:.3e} of it; bound {TRAIN_TOL[dtype]})")
+        out[name] = dict(card=got, cpu=want, rel=rel)
+    return out
+
+
+def train_full_width_phase(dev) -> dict:
+    """(b) qwen3-8b at full width and ``TRAIN_LAYERS`` layers: the first
+    step against the CPU plain path, then ``TRAIN_STEPS`` steps through
+    ``launch.train.run`` with the kernel counts set to 0 just before and
+    read just after."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.nn.param import count_params
+    cfg = lm_config(TRAIN_ARCH, repeat=TRAIN_LAYERS)
+    full = lm_config(TRAIN_ARCH)
+    check(cfg.d_model == 4096 and cfg.attn.num_heads == 32
+          and cfg.attn.num_kv_heads == 8 and cfg.d_ff == 12288
+          and cfg.vocab_size == 151936 and cfg.dtype == torch.bfloat16
+          and cfg.remat == "full", f"[13] (b) {cfg}")
+    params, opt_state = train.init_state(cfg, dev)
+    check(opt_state["m"]["out"]["w"].dtype == torch.float32,
+          "[13] (b) AdamW moments are not fp32")
+    first = train.build_batch_fn(cfg, TRAIN_CHECK_SEQ, 1)(0)
+    t0 = time.perf_counter()
+    vs = card_vs_plain("[13] (b) first step", dev, cfg, params, first,
+                       "bf16")
+    check_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_attention_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train.run(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                    ckpt_dir=str(FAULT_DIR / "full_width"), ckpt_every=0,
+                    device=dev, params=params, opt_state=opt_state,
+                    log=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = attention_counts()
+    by_body = dict(flash_attention.launches_by_body)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want_fwd, want_bwd = train_attention_launches(cfg, False)
+    check(fwd == TRAIN_STEPS * want_fwd and bwd == TRAIN_STEPS * want_bwd,
+          f"[13] (b) flash_attention launches {fwd} forward, {bwd} backward "
+          f"over {TRAIN_STEPS} steps; expected {want_fwd} and {want_bwd} a "
+          "step")
+    losses = out["losses"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"[13] (b) losses {losses}")
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(tail < head, f"[13] (b) the loss did not fall: mean of the first "
+                       f"5 {head}, of the last 5 {tail}")
+    step_ms = [s * 1e3 for s in out["trainer"].step_s]
+    median = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = dict(
+        arch=cfg.name, layers=f"{cfg.repeat} of {full.repeat}",
+        params=count_params(lm.model_plan(cfg)), batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, loss_first=losses[0],
+        loss_last=losses[-1], loss_first5=head, loss_last5=tail,
+        first_step_ms=step_ms[0], median_step_ms=median,
+        tok_s=tokens / median * 1e3,
+        tok_s_with_first=TRAIN_STEPS * tokens / sum(step_ms) * 1e3,
+        peak_gib=peak / 2 ** 30, forward_launches_per_step=want_fwd,
+        backward_launches_per_step=want_bwd, launches_by_body=by_body,
+        first_step_vs_cpu=vs, wall_s=wall)
+    print(f"[13] (b) {cfg.name} at full width (d {cfg.d_model}, "
+          f"{cfg.attn.num_heads}/{cfg.attn.num_kv_heads} heads of "
+          f"{cfg.attn.head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
+          f"remat {cfg.remat}), {res['layers']} layers, {res['params']:.4e} "
+          f"parameters, fp32 AdamW moments: first step at B 1, S "
+          f"{TRAIN_CHECK_SEQ} against the CPU plain path: loss "
+          f"{vs['loss']['card']:.6f} / {vs['loss']['cpu']:.6f} "
+          f"({vs['loss']['rel']:.3e}), grad norm "
+          f"{vs['grad_norm']['card']:.6f} / {vs['grad_norm']['cpu']:.6f} "
+          f"({vs['grad_norm']['rel']:.3e}; bound {TRAIN_TOL['bf16']} each, "
+          f"{check_s:.1f} s); {TRAIN_STEPS} steps at B {TRAIN_BATCH}, S "
+          f"{TRAIN_SEQ} through the Trainer: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of the first 5 {head:.4f}, of the last 5 "
+          f"{tail:.4f}), first step {step_ms[0]:.1f} ms, median of the rest "
+          f"{median:.2f} ms ({res['tok_s']:.1f} tok/s; "
+          f"{res['tok_s_with_first']:.1f} with the first step), peak memory "
+          f"{res['peak_gib']:.2f} GiB; flash_attention {want_fwd} forward "
+          f"launches a step (each layer's twice: remat recomputes it in the "
+          f"backward pass) and {want_bwd} backward (3 kernels each), by body "
+          f"{by_body}; {wall:.1f} s")
+    del params, opt_state, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def same_state(a: dict, b: dict) -> tuple:
+    """(bitwise equal, the largest |a - b| over every leaf) of two
+    trainer states."""
+    equal, gap = True, 0.0
+    for k, x in a.items():
+        y = b[k]
+        if isinstance(x, dict):
+            e, g = same_state(x, y)
+            equal, gap = equal and e, max(gap, g)
+            continue
+        equal = equal and x.dtype == y.dtype and torch.equal(
+            x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+            y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+        if x.is_floating_point():
+            gap = max(gap, float((x.float() - y.float()).abs().max()))
+    return equal, gap
+
+
+def train_fault_phase(dev) -> dict:
+    """(c) ``FAULT_ARCH`` at reduced() on the card under
+    ``torch.use_deterministic_algorithms(True)``: an uninterrupted run of
+    ``FAULT_STEPS`` steps, and a run that fails at ``FAULT_AT`` and is
+    restarted from its checkpoint; the two end states bit for bit."""
+    import shutil
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import SimulatedFailure
+    cfg = lm_config(FAULT_ARCH, reduced=True)
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run(name, fail_at=None):
+            return train.run(cfg, steps=FAULT_STEPS, batch=8, seq=64,
+                             lr=3e-3, warmup=4,
+                             ckpt_dir=str(FAULT_DIR / name),
+                             ckpt_every=FAULT_EVERY, fail_at=fail_at,
+                             device=dev, log=None)
+        ref = run("ref")
+        try:
+            run("fault", fail_at=FAULT_AT)
+            raise PhaseError("[13] (c) the injected failure did not fire")
+        except SimulatedFailure:
+            pass
+        resumed = run("fault")
+    finally:
+        torch.use_deterministic_algorithms(was)
+    resumed_from = FAULT_STEPS - len(resumed["losses"])
+    t_ref, t_res = ref["trainer"], resumed["trainer"]
+    equal, gap = same_state({"p": t_ref.params, "o": t_ref.opt_state},
+                            {"p": t_res.params, "o": t_res.opt_state})
+    losses_equal = ref["losses"][resumed_from:] == resumed["losses"]
+    check(equal and losses_equal,
+          f"[13] (c) the resumed run's end state is not the uninterrupted "
+          f"run's bit for bit: largest gap {gap}, losses equal "
+          f"{losses_equal}")
+    print(f"[13] (c) {cfg.name} (reduced) on the card under "
+          f"torch.use_deterministic_algorithms(True): failed at step "
+          f"{FAULT_AT}, resumed from the checkpoint of step {resumed_from} "
+          f"(every {FAULT_EVERY}), ran to {FAULT_STEPS}: end state (params, "
+          f"AdamW m, v, step) bit for bit the uninterrupted run's, and its "
+          f"losses after the resume too (loss {ref['losses'][0]:.4f} -> "
+          f"{ref['losses'][-1]:.4f})")
+    shutil.rmtree(FAULT_DIR, ignore_errors=True)
+    return dict(arch=cfg.name, steps=FAULT_STEPS, fail_at=FAULT_AT,
+                resumed_from=resumed_from, bitwise=True)
+
+
+def train_other_archs_phase(dev) -> dict:
+    """(d) One train step (``launch.steps.make_train_step``) of each
+    other arch at reduced() on the card against the same step on the CPU
+    plain path from the same state: loss and grad norm within
+    ``TRAIN_TOL``; the card's flash_attention launches held to
+    ``train_attention_launches``. Returns the launches by arch."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+    out = {}
+    for arch in ARCHS:
+        if arch == TRAIN_ARCH:
+            continue
+        cfg = lm_config(arch, reduced=True)
+        params, opt_state = train.init_state(cfg, dev)
+        batch = train.build_batch_fn(cfg, TRAIN_OTHER_SEQ,
+                                     TRAIN_OTHER_BATCH)(0)
+        # copies: the card's step updates its state in place
+        host = tuple(adamw.tree_map(lambda t: t.to("cpu", copy=True), tree)
+                     for tree in (params, opt_state))
+        zero_attention_counts()
+        card = steps.make_train_step(cfg, seq=TRAIN_OTHER_SEQ,
+                                     batch=TRAIN_OTHER_BATCH, device=dev)
+        _, _, m = card.fn(params, opt_state, batch)
+        got = {k: float(v) for k, v in m.items()}
+        fwd, bwd = attention_counts()
+        plain = steps.make_train_step(cfg, seq=TRAIN_OTHER_SEQ,
+                                      batch=TRAIN_OTHER_BATCH, device="cpu")
+        _, _, m = plain.fn(*host, batch)
+        want = {k: float(v) for k, v in m.items()}
+        gaps = {}
+        for k in ("loss", "grad_norm"):
+            gaps[k] = abs(got[k] - want[k]) / abs(want[k])
+            check(np.isfinite(got[k]) and gaps[k] <= TRAIN_TOL["bf16"],
+                  f"[13] (d) {cfg.name}: {k} {got[k]} on the card, "
+                  f"{want[k]} on the CPU ({gaps[k]:.3e} of it)")
+        want_fwd, want_bwd = train_attention_launches(cfg, "mem" in batch)
+        check((fwd, bwd) == (want_fwd, want_bwd),
+              f"[13] (d) {cfg.name}: flash_attention {fwd} forward, {bwd} "
+              f"backward launches; expected {want_fwd}, {want_bwd}")
+        out[arch] = dict(loss=got["loss"], grad_norm=got["grad_norm"],
+                         rel=gaps, forward_launches=fwd,
+                         backward_launches=bwd)
+        print(f"[13] (d) {cfg.name}: one train step on the card (B "
+              f"{TRAIN_OTHER_BATCH}, S {TRAIN_OTHER_SEQ}"
+              f"{', memory' if 'mem' in batch else ''}): loss "
+              f"{got['loss']:.6f} ({gaps['loss']:.3e} of the CPU's), grad "
+              f"norm {got['grad_norm']:.6f} ({gaps['grad_norm']:.3e}); "
+              f"flash_attention {fwd} forward, {bwd} backward launches")
+        del params, opt_state, host
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(dev, errs: dict) -> dict:
+    """Phase 13: LM training. (a) the backward kernel against its plain
+    version and timed; (b) qwen3-8b at full width; (c) the fault path;
+    (d) the other archs. Returns the rows of (a), the launches of (b),
+    (c) and (d) and their readings."""
+    t0 = time.perf_counter()
+    rows = attention_bwd_phase(dev, errs)
+    ta = time.perf_counter() - t0
+    launches = {"forward": 0, "backward": 0}
+    tb = time.perf_counter()
+    full = train_full_width_phase(dev)
+    launches["forward"] += full["forward_launches_per_step"] * TRAIN_STEPS
+    launches["backward"] += full["backward_launches_per_step"] * TRAIN_STEPS
+    tb = time.perf_counter() - tb
+    tc = time.perf_counter()
+    fault = train_fault_phase(dev)
+    tc = time.perf_counter() - tc
+    td = time.perf_counter()
+    others = train_other_archs_phase(dev)
+    for v in others.values():
+        launches["forward"] += v["forward_launches"]
+        launches["backward"] += v["backward_launches"]
+    td = time.perf_counter() - td
+    wall = time.perf_counter() - t0
+    print(f"[13] phase 13 took {wall:.1f} s ((a) {ta:.1f}, (b) {tb:.1f}, "
+          f"(c) {tc:.1f}, (d) {td:.1f}; target {TRAIN_TARGET_S:.0f} s); "
+          f"flash_attention launches on the training path ((b) and (d)): "
+          f"{launches['forward']} forward (remat's recomputations "
+          f"included), {launches['backward']} backward")
+    return dict(rows=rows, launches=launches, full_width=full, fault=fault,
+                others=others, wall_s=wall)
+
+
+def summarize_backward(train: dict, errs: dict) -> dict:
+    """The backward kernel's entry: (a)'s calls summed, the launches of
+    the training path."""
+    rows = train["rows"]
+    libs = [r for r in rows if r["library_ms"] is not None]
+    entry = {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:57",
+        "replaces_note": "none: the JAX package differentiates its jnp "
+                         "attention and has no Pallas backward; this is "
+                         "the gradient of the port's forward kernel, the "
+                         "row statistics, dK/dV and dQ launches",
+        "launches": train["launches"]["backward"],
+        "launches_by_phase": {"13": train["launches"]["backward"]},
+        "max_abs_err": errs["flash_attention_backward"],
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in libs) if libs else None,
+        "library_note": "scaled_dot_product_attention forward + backward",
+        "shapes": "phase 13 (a): " + "; ".join(r["shape"] for r in rows),
+        "calls": rows,
+        "training": {k: train[k] for k in ("full_width", "fault", "others")},
+    }
+    if len(libs) < len(rows):
+        entry["library_calls"] = len(libs)
+        entry["ms_on_library_calls"] = sum(r["ms"] for r in libs)
+    return entry
+
+
 def summarize(rows, errs, launches, by_precision) -> dict:
     """One entry per kernel: per-batch sums over its launches at the
     largest serving shape (1024 graphs per batch), for GCN's batch
@@ -4453,6 +4972,7 @@ def main() -> int:
     print(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s")
     dse_launches = dse_phase(dev)
     lm = lm_phase(dev, entry_errs)
+    train = train_phase(dev, entry_errs)
     summary = summarize(rows, errs, launches, by_precision)
     summary["kernels"] += summarize_entries(entry_rows, entry_errs,
                                             entry_launches)
@@ -4483,6 +5003,14 @@ def main() -> int:
                 "tok_s", "ms_per_step", "first_step_ms", "median_step_ms",
                 "prefill_ms")}
             k["lm_serving_rwkv6"] = lm["rwkv_serving"]
+    # the LM training path (phase 13): the forward launches of (b) and (d)
+    # (remat's recomputations included), and the backward kernel's entry
+    for k in summary["kernels"]:
+        n = train["launches"]["forward"] \
+            if k["name"] == "flash_attention" else 0
+        k["launches_by_phase"]["13"] = n
+        k["launches"] += n
+    summary["kernels"].append(summarize_backward(train, entry_errs))
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "

@@ -1,6 +1,11 @@
-"""Synthetic molecular graphs and the packed GraphBatch format (numpy).
+"""Synthetic token batches, molecular graphs and the packed GraphBatch
+format (numpy).
 
-A copy of the GNN half of ``repro.data.pipeline``: the same generator,
+``token_batch`` is ``repro.data.pipeline.token_batch``: a pure function
+of (seed, step), so a restarted trainer resumes mid-stream with nothing
+but its step counter, and the same (seed, step) gives the reference's
+batch bit for bit. The rest is a copy of the GNN half of
+``repro.data.pipeline``: the same generator,
 budgets and greedy packer, the same shard waves (``shard_pack``,
 ``pack_dataset(..., num_shards=)``) and the same intra-graph partition
 (``partition_graph``), so the same ``GraphDataConfig`` yields
@@ -14,6 +19,32 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenDataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+
+def token_batch(cfg: TokenDataConfig, step: int) -> dict:
+    """Synthetic LM batch with a learnable structure (affine-lag
+    sequences, so the loss falls measurably in a short run): tokens,
+    labels (the tokens shifted by one) and an all-ones mask."""
+    rng = np.random.default_rng(
+        np.random.SeedSequence([cfg.seed, step, 0xD47A]))
+    b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab_size
+    base = rng.integers(0, v, size=(b, s), dtype=np.int32)
+    # inject short-range structure: token[t] often = f(token[t-1])
+    mult = 31 % v or 1
+    lag = (base[:, :-1] * mult + 7) % v
+    mask = rng.random((b, s - 1)) < 0.7
+    base[:, 1:] = np.where(mask, lag, base[:, 1:])
+    labels = np.concatenate([base[:, 1:], base[:, :1]], axis=1)
+    return {"tokens": base, "labels": labels,
+            "mask": np.ones((b, s), np.float32)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -201,18 +201,18 @@ def runs_plain(t: torch.Tensor) -> bool:
 
 
 def refuse_grad(name: str, *tensors) -> None:
-    """The CUDA branch of a public wrapper: the kernels have no backward,
-    so a launch on an input that requires grad in grad mode would hand
-    back an output with no autograd history and silently lose its
-    gradients. Raise instead."""
+    """The CUDA branch of a public wrapper whose kernel has no backward
+    (every one but ``flash_attention``'s): a launch on an input that
+    requires grad in grad mode would hand back an output with no
+    autograd history and silently lose its gradients. Raise instead."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but the CUDA kernel has no "
-            "backward yet (ROADMAP item 12, backward kernels): its output "
-            "would carry no gradient. Call it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors, whose plain "
-            "version is differentiable")
+            "backward yet (ROADMAP item 12c-ii, the GNN backward kernels): "
+            "its output would carry no gradient. Call it under "
+            "torch.no_grad() or torch.inference_mode(), or on CPU tensors, "
+            "whose plain version is differentiable")
 
 
 def pointer(t: torch.Tensor | None) -> ctypes.c_void_p:

@@ -224,3 +224,18 @@ def attention_work(q, k, v, causal: bool = True, **_) -> tuple:
     pairs = attention_pairs(q.shape[-2], k.shape[-2], causal) * heads
     out = heads * q.shape[-2] * dv * q.element_size()
     return nbytes(q, k, v) + out, pairs * (2.0 * d + 2.0 * dv + 4.0)
+
+
+def attention_bwd_work(q, k, v, o, do, causal: bool = True, **_) -> tuple:
+    """Attention backward (``ops.attention_backward``, 3-D or 4-D): q, k,
+    v, o and dO read once, dQ, dK and dV written once in q's dtype, and
+    the rows' fp32 log-sum-exp; per (query, key) pair the mask allows,
+    2 (3 D + 2 Dv) operations: the score and dP (2 D + 2 Dv), dV, dQ and
+    dK's products (2 Dv + 4 D). The statistics pass's recomputed scores
+    and the elementwise steps are not counted."""
+    d, dv = q.shape[-1], v.shape[-1]
+    rows = q.numel() // d
+    heads = rows // q.shape[-2]
+    pairs = attention_pairs(q.shape[-2], k.shape[-2], causal) * heads
+    return (2 * nbytes(q, k, v) + nbytes(o, do) + 4 * rows,
+            pairs * 2.0 * (3 * d + 2 * dv))

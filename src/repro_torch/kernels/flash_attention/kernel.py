@@ -19,6 +19,14 @@ head sizes alone (never by a failed launch):
 
 Both bodies' tiles are their own: ``block_q``/``block_k`` are checked
 (ints from 1 to 128) and do not change either launch.
+
+The backward (``csrc/flash_attention_bwd.cu``, the port's own: the JAX
+package differentiates its ``jnp`` attention) is three launches:
+``attention_stats_cuda`` (the row log-sum-exp, in the log2 domain of
+the kernel's scores, and delta = dO . o), ``attention_dkdv_cuda`` and
+``attention_dq_cuda``. fp32 or bf16, D up to ``MAX_BWD_HEAD[0]`` and Dv
+up to ``MAX_BWD_HEAD[1]``, on either forward body's output; SIMT tiles
+of 64 rows with fp32 FMAs, no atomics.
 """
 from __future__ import annotations
 
@@ -33,11 +41,17 @@ BODIES = ("wgmma", "simt")
 MAX_TILE = 128      # block_q and block_k
 # the head sizes each body takes: (D, Dv) at most
 MAX_HEAD = {"wgmma": (192, 128), "simt": (128, 128)}
+# the head sizes (D, Dv) the backward takes at most
+MAX_BWD_HEAD = (192, 128)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+_STATS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float] + [ctypes.c_void_p] * 3
+_GRADS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float] + [ctypes.c_void_p] * 4
 _WGMMA_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -122,3 +136,107 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if by_body is not None:
         by_body[body] += 1
     return out
+
+
+# ------------------------------------------------------------ backward --
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
+               **rows) -> tuple:
+    """(bh, sq, skv, d, dv) of a backward call: q (BH, Sq, D), k (BH, Skv,
+    D), v (BH, Skv, Dv) (None: Dv from the rows) and the (BH, Sq, Dv)
+    tensors in ``rows`` (o, dO), contiguous CUDA tensors of one dtype of
+    ``DTYPES`` on one device, D and Dv within ``MAX_BWD_HEAD``."""
+    tensors = {"q": q, "k": k, **({} if v is None else {"v": v}), **rows}
+    for name, t in tensors.items():
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be 3-D (BH, S, D)")
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous CUDA tensor")
+        if t.dtype != q.dtype or t.dtype not in DTYPES:
+            raise ValueError(f"{name} is {t.dtype}; q, k, v, o and dO must "
+                             f"share a dtype of {DTYPES}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, expected {q.device}")
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    dv = (v if v is not None else next(iter(rows.values()))).shape[2]
+    want_v = None if v is None else (bh, skv, dv)
+    if k.shape != (bh, skv, d) or (v is not None and v.shape != want_v) \
+            or any(t.shape != (bh, sq, dv) for t in rows.values()):
+        raise ValueError("shapes do not match: " + ", ".join(
+            f"{n} {tuple(t.shape)}" for n, t in tensors.items()))
+    if min(bh, sq, skv, d, dv) < 1 or d > MAX_BWD_HEAD[0] \
+            or dv > MAX_BWD_HEAD[1]:
+        raise ValueError(f"sizes (BH, Sq, Skv, D, Dv) = ({bh}, {sq}, {skv}, "
+                         f"{d}, {dv}): all >= 1, D and Dv at most "
+                         f"{MAX_BWD_HEAD}")
+    return bh, sq, skv, d, dv
+
+
+def _check_stats(q: torch.Tensor, lse2: torch.Tensor,
+                 delta: torch.Tensor) -> None:
+    for name, t in (("lse2", lse2), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != q.shape[:2] \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 "
+                             f"{tuple(q.shape[:2])} tensor on {q.device}")
+
+
+def attention_stats_cuda(q: torch.Tensor, k: torch.Tensor, o: torch.Tensor,
+                         do: torch.Tensor, *, causal: bool) -> tuple:
+    """The backward's row statistics: (lse2, delta), each (BH, Sq) fp32.
+    lse2 is the log-sum-exp of the row's scores in the log2 domain the
+    kernels use ((q . k) D^-0.5 log2(e)); delta = dO . o. o and dO are
+    (BH, Sq, Dv); launches on the current stream."""
+    bh, sq, skv, d, dv = _check_bwd(q, k, None, o=o, do=do)
+    dev = q.device
+    with torch.cuda.device(dev):
+        lse2 = torch.empty((bh, sq), dtype=torch.float32, device=dev)
+        delta = torch.empty_like(lse2)
+        status = _build.function("repro_flash_attention_bwd_stats",
+                                 _STATS_ARGTYPES)(
+            _build.pointer(q), _build.pointer(k), _build.pointer(o),
+            _build.pointer(do), _build.DTYPE_CODES[q.dtype], bh, sq, skv, d,
+            dv, int(bool(causal)), ctypes.c_float(d ** -0.5),
+            _build.pointer(lse2), _build.pointer(delta),
+            _build.stream_pointer(dev))
+    _build.check(status, "flash_attention backward (stats)")
+    return lse2, delta
+
+
+def _grads(q, k, v, do, lse2, delta, causal, outs) -> None:
+    bh, sq, skv, d, dv = _check_bwd(q, k, v, do=do)
+    _check_stats(q, lse2, delta)
+    dq, dk, dv_out = outs
+    dev = q.device
+    with torch.cuda.device(dev):
+        status = _build.function("repro_flash_attention_bwd_grads",
+                                 _GRADS_ARGTYPES)(
+            _build.pointer(q), _build.pointer(k), _build.pointer(v),
+            _build.pointer(do), _build.pointer(lse2), _build.pointer(delta),
+            _build.DTYPE_CODES[q.dtype], bh, sq, skv, d, dv,
+            int(bool(causal)), ctypes.c_float(d ** -0.5), _build.pointer(dq),
+            _build.pointer(dk), _build.pointer(dv_out),
+            _build.stream_pointer(dev))
+    _build.check(status, "flash_attention backward ("
+                 + ("dq" if dq is not None else "dk/dv") + ")")
+
+
+def attention_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, lse2: torch.Tensor,
+                        delta: torch.Tensor, *, causal: bool) -> tuple:
+    """(dK (BH, Skv, D), dV (BH, Skv, Dv)) in q's dtype from the row
+    statistics of ``attention_stats_cuda``: one block a (bh, key tile)."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _grads(q, k, v, do, lse2, delta, causal, (None, dk, dv))
+    return dk, dv
+
+
+def attention_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse2: torch.Tensor,
+                      delta: torch.Tensor, *, causal: bool) -> torch.Tensor:
+    """dQ (BH, Sq, D) in q's dtype from the row statistics: one block a
+    (bh, q tile)."""
+    dq = torch.empty_like(q)
+    _grads(q, k, v, do, lse2, delta, causal, (dq, None, None))
+    return dq

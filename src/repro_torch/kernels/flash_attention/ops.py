@@ -1,11 +1,20 @@
 """Public wrapper of the flash attention kernel: dispatch by device.
 
-A CPU tensor takes the plain version (``ref.py``); any other tensor
-launches the CUDA kernel (``kernel.py``), which raises on what it does
-not take. ``flash_attention.launches`` counts kernel launches and
-``flash_attention.launches_by_body`` splits them by the body that ran
-(``"wgmma"`` or ``"simt"``, as the launch records the body
-``kernel.body_for`` chose).
+A CPU tensor takes the plain version (``ref.py``), differentiable by
+autograd; any other tensor launches the CUDA kernel (``kernel.py``),
+which raises on what it does not take. On a CUDA tensor in grad mode,
+with an input that requires grad, the call is an autograd function: its
+forward launches the same kernel and saves q, k, v and the output, and
+its backward launches the hand-written backward kernels
+(``csrc/flash_attention_bwd.cu``: the row statistics, dK/dV, dQ), never
+autograd of the plain version.
+
+``flash_attention.launches`` counts forward kernel launches (twice a
+call under a recomputing checkpoint, which runs the forward again in
+the backward pass), ``flash_attention.launches_by_body`` splits them by
+the body that ran (``"wgmma"`` or ``"simt"``, as the launch records the
+body ``kernel.body_for`` chose), and ``flash_attention.
+backward_launches`` counts backward calls, each the three launches.
 """
 from __future__ import annotations
 
@@ -13,9 +22,47 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._cost import attention_work, priced
-from repro_torch.kernels.flash_attention.kernel import (BODIES, check_tiles,
-                                                        flash_attention_cuda)
+from repro_torch.kernels.flash_attention.kernel import (
+    BODIES, attention_dkdv_cuda, attention_dq_cuda, attention_stats_cuda,
+    check_tiles, flash_attention_cuda)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+def _forward(q, k, v, causal: bool, block_q: int, block_k: int):
+    out = flash_attention_cuda(
+        q, k, v, causal=causal, block_q=min(block_q, q.shape[1]),
+        block_k=min(block_k, k.shape[1]),
+        by_body=flash_attention.launches_by_body)
+    flash_attention.launches += 1
+    return out
+
+
+def attention_backward(q, k, v, o, do, *, causal: bool) -> tuple:
+    """(dQ, dK, dV) on the card: the statistics, dK/dV and dQ launches
+    (3-D contiguous CUDA tensors of one dtype)."""
+    lse2, delta = attention_stats_cuda(q, k, o, do, causal=causal)
+    dk, dv = attention_dkdv_cuda(q, k, v, do, lse2, delta, causal=causal)
+    dq = attention_dq_cuda(q, k, v, do, lse2, delta, causal=causal)
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel with its backward (3-D contiguous CUDA inputs)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        out = _forward(q, k, v, causal, block_q, block_k)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, out, do.contiguous(),
+                                        causal=ctx.causal)
+        return dq, dk, dv, None, None, None
 
 
 @priced(attention_work)
@@ -38,15 +85,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _build.runs_plain(q):
         out = attention_ref(q, k, v, causal=causal)
     else:
-        _build.refuse_grad("flash_attention", q, k, v)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out = flash_attention_cuda(
-            q, k, v, causal=causal, block_q=min(block_q, q.shape[1]),
-            block_k=min(block_k, k.shape[1]),
-            by_body=flash_attention.launches_by_body)
-        flash_attention.launches += 1
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            out = _FlashAttention.apply(q, k, v, causal, block_q, block_k)
+        else:
+            out = _forward(q, k, v, causal, block_q, block_k)
     return out.reshape(b, h, *out.shape[1:]) if four_d else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+flash_attention.backward_launches = 0

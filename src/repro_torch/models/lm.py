@@ -1,5 +1,5 @@
-"""Generic block-program LM; the port of ``repro.models.lm`` for
-inference: forward, prefill and decode.
+"""Generic block-program LM; the port of ``repro.models.lm``: forward,
+prefill, decode and the training loss.
 
 A model is a *superblock*, a tuple of (mixer, ffn) rows, repeated
 ``repeat`` times (plus optional unrepeated ``prefix`` rows). Parameters
@@ -7,21 +7,38 @@ keep the reference's stacked layout: every leaf under ``blocks`` has a
 leading axis of ``repeat`` layers, and the decode caches likewise
 (``cache_plan``), so that trees carry across leaf by leaf
 (``nn.param.params_from_jax``). Where the reference scans over that
-axis, the port indexes layer ``i`` in a Python loop.
+axis, the port runs layer ``i`` in a Python loop: ``forward`` unbinds
+the stacked leaves once (``torch.unbind``, whose backward stacks the
+layers' gradients once; indexing layer by layer would make every
+layer's backward allocate a zero tensor the size of the whole stack),
+decode indexes views.
 
 Every row of the reference runs here. Mixers: ``attn`` (causal),
 ``attn_bidir`` (the encoder's), ``xattn`` (cross-attention over image
 patches or the encoder's output) and ``mla`` (deepseek-v2's prefill),
-every attention in the ``flash_attention`` kernel (``nn.attention``);
-``mamba`` and ``rwkv`` (``nn.mamba``, ``nn.rwkv``). FFNs: ``mlp``,
-``moe`` (``nn.moe``) and ``cmix`` (RWKV's channel mix). ``forward``
-returns the MoE rows' aux losses summed, as the reference does; decode
-drops them. ``loss_fn`` is training (item 12c).
+every attention in the ``flash_attention`` kernel (``nn.attention``;
+on the card in grad mode with its backward kernel); ``mamba`` and
+``rwkv`` (``nn.mamba``, ``nn.rwkv``). FFNs: ``mlp``, ``moe``
+(``nn.moe``) and ``cmix`` (RWKV's channel mix). ``forward`` returns the
+MoE rows' aux losses summed, as the reference does; decode drops them.
+
+Training: ``loss_fn`` is the reference's (the chunked cross-entropy,
+``nn.layers.chunked_softmax_xent``, plus ``aux_loss_weight`` times the
+aux loss), and ``forward(..., sync_grads=True)`` wraps the parameters
+with ``nn.gradsync.grad_sync`` as the reference does (the top-level
+groups once, each layer's slice inside the layer loop). ``remat``:
+``"full"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, one checkpoint a layer of the stack, in
+grad mode only); ``"dots"``, the reference's policy that saves the
+matmul outputs, runs as ``"full"`` (a deliberate divergence: the same
+values, more recomputation); ``"none"`` saves everything. The
+reference's nested remat of each mixer and FFN inside a layer is not
+repeated: a layer's recomputation holds that layer's intermediates.
+``grad_accum`` and ``xent_chunk`` are read by ``launch.steps`` and
+``loss_fn``.
 
 Not ported: the reference's ``constrain`` hooks (GSPMD sharding
-annotations) and its remat (``remat``, ``jax.checkpoint``), which only a
-backward pass needs; ``remat``, ``grad_accum``, ``xent_chunk`` and
-``aux_loss_weight`` stay in ``LMConfig`` as data. The decode caches are
+annotations, with no counterpart on one card). The decode caches are
 updated in place: the reference's serving loop donates them.
 """
 from __future__ import annotations
@@ -30,14 +47,17 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.nn import attention as A
 from repro_torch.nn import mamba as M
 from repro_torch.nn import moe as MOE
 from repro_torch.nn import rwkv as R
-from repro_torch.nn.layers import (embed, embedding_plan, layernorm,
-                                   layernorm_plan, linear, linear_plan, mlp,
-                                   mlp_plan, rmsnorm, rmsnorm_plan)
+from repro_torch.nn.gradsync import grad_sync, sync_tree
+from repro_torch.nn.layers import (chunked_softmax_xent, embed,
+                                   embedding_plan, layernorm, layernorm_plan,
+                                   linear, linear_plan, mlp, mlp_plan,
+                                   rmsnorm, rmsnorm_plan)
 from repro_torch.nn.param import ParamSpec, stack_plan
 
 Row = tuple  # (mixer_kind | None, ffn_kind | None)
@@ -216,6 +236,15 @@ def _layer(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
+def _unbind(tree: dict, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf unbound once."""
+    if n == 0:
+        return []
+    parts = {k: _unbind(v, n) if isinstance(v, dict)
+             else torch.unbind(v) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _stack(trees: list) -> dict:
     """The per-layer trees stacked on a leading axis."""
     return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
@@ -275,26 +304,49 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def _remat(cfg: LMConfig, fn):
+    """``fn`` recomputed in the backward pass under ``remat`` "full" (and
+    "dots", which runs as "full") when autograd records; else ``fn``."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return run
+
+
 def _run_encoder(params: dict, cfg: LMConfig,
                  frames: torch.Tensor) -> torch.Tensor:
     enc = params["encoder"]
     b, s, _ = frames.shape
     positions = _positions(b, s, frames.device)
-    x = frames.to(cfg.dtype)
-    for layer in range(cfg.encoder.repeat):
-        p = _layer(enc["blocks"], layer)
+
+    def body(x, p):
         for i, row in enumerate(cfg.encoder.superblock):
             x, _, _ = _apply_row(cfg, row, p[f"r{i}"], x, positions, None)
+        return x
+
+    x = frames.to(cfg.dtype)
+    for p in _unbind(enc["blocks"], cfg.encoder.repeat):
+        x = _remat(cfg, body)(x, p)
     return _apply_norm(cfg, enc["final_norm"], x)
 
 
 def forward(params: dict, cfg: LMConfig, ids: torch.Tensor, mem=None, *,
-            collect_caches: bool = False) -> tuple:
+            collect_caches: bool = False, sync_grads: bool = False) -> tuple:
     """ids: (B, S) tokens (positions ``arange(S)``). mem: frontend
     embeddings (vlm patches (B, num_mem_tokens, mem_dim) / audio frames
     (B, T, d_model)). Returns (hidden, caches | None, aux_loss): aux sums
     the MoE rows' load-balancing losses in the reference's order (0
-    without MoE rows)."""
+    without MoE rows). ``sync_grads`` wraps the parameters with
+    ``grad_sync`` (each layer's slice inside the layer loop)."""
+    if sync_grads:
+        params = dict(params)
+        for key in ("embed", "final_norm", "mem_proj", "encoder",
+                    "prefix"):
+            if key in params:
+                params[key] = sync_tree(params[key])
     b, s = ids.shape
     positions = _positions(b, s, ids.device)
     x = embed(params["embed"], ids)
@@ -312,19 +364,44 @@ def forward(params: dict, cfg: LMConfig, ids: torch.Tensor, mem=None, *,
                                    positions, mem)
             caches["prefix"][f"p{i}"] = c
             aux_total = aux_total + aux
-    layers = []
-    for layer in range(cfg.repeat):
-        p = _layer(params["blocks"], layer)
+
+    def body(x, aux_sum, p):
+        if sync_grads:
+            p = sync_tree(p)
         row_caches = {}
         for i, row in enumerate(cfg.superblock):
             x, row_caches[f"r{i}"], aux = _apply_row(cfg, row, p[f"r{i}"],
                                                      x, positions, mem)
-            aux_total = aux_total + aux
-        layers.append(row_caches)
+            aux_sum = aux_sum + aux
+        return x, aux_sum, row_caches
+
+    layers = []
+    for p in _unbind(params["blocks"], cfg.repeat):
+        if collect_caches:
+            x, aux_total, row_caches = body(x, aux_total, p)
+            layers.append(row_caches)
+        else:
+            x, aux_total = _remat(cfg, lambda x, a, p: body(x, a, p)[:2])(
+                x, aux_total, p)
     if collect_caches:
         caches["blocks"] = _stack(layers)
     x = _apply_norm(cfg, params["final_norm"], x)
     return x, (caches if collect_caches else None), aux_total
+
+
+def loss_fn(params: dict, cfg: LMConfig, batch: dict, *,
+            sync_grads: bool = False) -> torch.Tensor:
+    """batch: {tokens (B, S), labels (B, S), [mask], [mem]} -> the scalar
+    loss: the chunked cross-entropy plus ``aux_loss_weight`` times the
+    MoE aux loss."""
+    x, _, aux = forward(params, cfg, batch["tokens"], batch.get("mem"),
+                        sync_grads=sync_grads)
+    loss, _ = chunked_softmax_xent(
+        x, params["out"]["w"], batch["labels"],
+        chunk=min(cfg.xent_chunk, x.shape[1]),
+        label_mask=batch.get("mask"),
+        table_grad_sync=grad_sync if sync_grads else None)
+    return loss + cfg.aux_loss_weight * aux
 
 
 # ================================================================ decode ==

@@ -34,9 +34,14 @@ W_uk`` scored against c_kv, plus q_rope against k_rope, softmax, then
 where the reference masks the whole cache past ``pos`` to weight 0: the
 same function. The cache updates in place at ``pos``.
 
+In training (grad mode, an input that requires grad) every one of these
+calls on the card runs the kernel's backward too (``flash_attention``'s
+autograd function); GQA needs nothing of it: autograd of
+``_expand_kv``'s ``repeat_interleave`` sums dK and dV over each group.
+Decode runs under ``torch.inference_mode``.
+
 Not ported: the reference's ``constrain`` hooks (GSPMD sharding
-annotations, with no counterpart on one card) and the remat of its scan
-(a backward pass only).
+annotations, with no counterpart on one card).
 """
 from __future__ import annotations
 

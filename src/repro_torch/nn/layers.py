@@ -30,8 +30,15 @@ bf16 that is the reference's value bit for bit (compiled with every
 cast rounding), where ``F.silu`` rounds once and lands one bf16 step
 away now and then; such a step before a MoE router can flip a near-tie
 route. ``act`` keeps ``F.silu`` for the GNN side, whose kernels hold
-it. ``chunked_softmax_xent`` is a
-training loss and waits for the training slice (ROADMAP item 12c).
+it.
+
+``chunked_softmax_xent`` is the training loss with the vocabulary
+projection taken a sequence chunk at a time. The reference bounds the
+logits' working set with ``jax.checkpoint`` inside a ``scan``; here each
+chunk is an autograd function that saves only its inputs and recomputes
+its (B, chunk, vocab) fp32 logits in the backward pass, so one chunk's
+logits are alive at a time, forward or backward (at qwen3-8b's vocab of
+151936, B 8 and a chunk of 512, one chunk is 2.49 GB).
 """
 from __future__ import annotations
 
@@ -181,3 +188,65 @@ def mlp(params: dict, x: torch.Tensor,
     else:
         h = lm_act(activation)(h)
     return linear(params["down"], h)
+
+
+# ------------------------------------------------- chunked cross-entropy --
+def _chunk_logits(xb: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return matmul(xb, table).to(torch.float32)
+
+
+class _ChunkXent(torch.autograd.Function):
+    """sum over a chunk's tokens of mask * (logsumexp(logits) - the gold
+    logit), logits = (xb @ table) in fp32; the backward recomputes the
+    logits and gives d logits = g mask (softmax - onehot(gold)), cast to
+    the product's dtype as the reference's ``astype`` transposes."""
+
+    @staticmethod
+    def forward(ctx, xb, table, yb, mb):
+        logits = _chunk_logits(xb, table)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yb[..., None])[..., 0]
+        ctx.save_for_backward(xb, table, yb, mb)
+        return ((logz - gold) * mb).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, table, yb, mb = ctx.saved_tensors
+        dl = _chunk_logits(xb, table)
+        dl = dl.sub_(torch.logsumexp(dl, dim=-1, keepdim=True)).exp_()
+        dl.scatter_add_(-1, yb[..., None],
+                        torch.full(yb.shape + (1,), -1.0, device=dl.device))
+        dl.mul_((g * mb)[..., None])
+        dl = dl.to(torch.promote_types(xb.dtype, table.dtype))
+        d = xb.shape[-1]
+        dx = matmul(dl, table.to(dl.dtype).t()).to(xb.dtype)
+        dt = matmul(xb.reshape(-1, d).to(dl.dtype).t(),
+                    dl.reshape(-1, dl.shape[-1])).to(table.dtype)
+        return dx, dt, None, None
+
+
+def chunked_softmax_xent(x: torch.Tensor, out_table: torch.Tensor,
+                         labels: torch.Tensor, *, chunk: int = 1024,
+                         label_mask=None, table_grad_sync=None) -> tuple:
+    """Cross-entropy with the final projection computed in sequence
+    chunks. x (B, S, d), out_table (d, vocab), labels (B, S) int.
+    ``table_grad_sync`` (``nn.gradsync.grad_sync``) wraps the table
+    inside each chunk, as the reference applies it inside its scan body.
+    Returns (mean loss over the mask's weight, total weight)."""
+    b, s, _ = x.shape
+    n = max(s // chunk, 1)
+    chunk = s // n
+    assert n * chunk == s, f"seq {s} not divisible by xent chunk {chunk}"
+    if label_mask is None:
+        label_mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    mask = label_mask.to(torch.float32)
+    labels = labels.long()
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        table = table_grad_sync(out_table) if table_grad_sync else out_table
+        loss_sum = loss_sum + _ChunkXent.apply(x[:, sl], table, labels[:, sl],
+                                               mask[:, sl])
+        w_sum = w_sum + mask[:, sl].sum()
+    return loss_sum / torch.clamp(w_sum, min=1.0), w_sum

@@ -149,7 +149,10 @@ def materialize_numpy(plan, seed: int) -> dict:
 def _to_tensor(arr: np.ndarray, dtype: torch.dtype, name: str):
     """A numpy leaf as a tensor of the plan's dtype. A leaf of a float
     width other than the plan's raises; bf16 arrays (the JAX package's
-    ``ml_dtypes.bfloat16``) carry over bit for bit."""
+    ``ml_dtypes.bfloat16``) carry over bit for bit, and integer arrays
+    into an integer plan dtype (AdamW's int32 ``step``) exactly."""
+    if arr.dtype.kind in "iu" and not dtype.is_floating_point:
+        return torch.from_numpy(np.array(arr)).to(dtype)
     if arr.dtype.name == "bfloat16":
         if dtype != torch.bfloat16:
             raise ValueError(f"{name}: dtype bfloat16 != plan dtype {dtype}")

@@ -7,9 +7,12 @@
 largest (data, model) grid buildable from the surviving ranks of a
 group, keeping the model axis where the survivor count allows and
 degrading it to a divisor otherwise, and a new group over the ranks it
-keeps (``launch.mesh.sub_mesh``). The reference's ``recover``, which
-restores a checkpoint resharded onto that grid, waits for the port's
-checkpoint manager (ROADMAP queue 1, item 12).
+keeps (``launch.mesh.sub_mesh``). ``recover`` is the reference's full
+recovery path: that grid, then the latest checkpoint restored onto it.
+The checkpoint format knows no topology (``checkpoint.manager``) and the
+port's ranks hold replicated parameters, so each rank of the new group
+restores the whole tree onto its own device, where the reference
+places the arrays sharded under the new mesh's shardings.
 """
 from __future__ import annotations
 
@@ -66,3 +69,17 @@ def replan(mesh, survivors, model_pref: int = 16) -> Replan:
     keep = [int(r) for r in survivors][:int(np.prod(shape))]
     return Replan(tuple(shape), tuple(axes),
                   np.asarray(keep).reshape(shape), sub_mesh(mesh, keep))
+
+
+def recover(ckpt_manager, template, mesh, survivors,
+            model_pref: int = 16) -> tuple:
+    """Full recovery path: the grid of ``replan`` over ``survivors``,
+    then the latest checkpoint of ``ckpt_manager`` restored into
+    ``template``'s structure on this rank's device. Every rank of
+    ``mesh``'s world calls it. Returns (the ``Replan``, the restored tree
+    (None on a rank the grid leaves out), the checkpoint's meta)."""
+    plan = replan(mesh, survivors, model_pref)
+    if plan.mesh is None:
+        return plan, None, None
+    tree, meta = ckpt_manager.restore(template, device=plan.mesh.device)
+    return plan, tree, meta

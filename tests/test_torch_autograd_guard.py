@@ -1,12 +1,14 @@
-"""The CUDA branch of every public kernel wrapper refuses grad mode.
+"""The CUDA branch of every public kernel wrapper in grad mode.
 
-The port's CUDA kernels have no backward yet (ROADMAP item 12): a
-launch hands back a fresh tensor with no autograd history. So each of
-the nine wrappers in ``kernels/*/ops.py`` raises, before it launches,
-when grad mode is on and an input requires grad; under
-``torch.no_grad()`` or ``torch.inference_mode()`` (serving, ``Project``)
-it launches as before. On the CPU the plain version runs and stays
-differentiable.
+``flash_attention`` has a backward kernel: in grad mode, with an input
+that requires grad, its CUDA branch is an autograd function whose
+backward launches the statistics, dK/dV and dQ kernels, so the gradient
+flows. The other eight wrappers in ``kernels/*/ops.py`` have no backward
+yet (ROADMAP item 12c-ii): a launch hands back a fresh tensor with no
+autograd history, so each raises, before it launches, when grad mode is
+on and an input requires grad. Under ``torch.no_grad()`` or
+``torch.inference_mode()`` (serving, ``Project``) every wrapper launches
+as before. On the CPU the plain version runs and stays differentiable.
 
 The CUDA branch is reached here without a card: ``_build.runs_plain``
 (the wrappers' device check) is patched to say "not the CPU" and each
@@ -147,12 +149,63 @@ def cuda_branch(request, monkeypatch):
     return name, wrapper, inputs(), calls
 
 
+# the wrappers whose kernels have a backward
+WITH_BACKWARD = ("flash_attention",)
+
+
+@pytest.mark.parametrize("cuda_branch", sorted(set(WRAPPERS)
+                                              - set(WITH_BACKWARD)),
+                         indirect=True)
 def test_cuda_branch_refuses_an_input_that_requires_grad(cuda_branch):
     name, wrapper, (args, kwargs, _), calls = cuda_branch
     assert torch.is_grad_enabled()
     with pytest.raises(RuntimeError, match=f"{name}: .*ROADMAP item 12"):
         wrapper(*args, **kwargs)
     assert calls == [] and wrapper.launches == 0
+
+
+def test_cuda_branch_flash_attention_gradient_flows(monkeypatch):
+    """The case the refusal test had for ``flash_attention``: in grad
+    mode its CUDA branch launches the forward (a recorder) and, on the
+    backward pass, the three backward launches (recorders), and the
+    gradient reaches q, k and v."""
+    from repro_torch.kernels.flash_attention import ref
+    args, kwargs, _ = attention_inputs()
+    calls = []
+
+    def forward(q, k, v, *, causal, block_q, block_k, by_body):
+        calls.append("forward")
+        return torch.zeros(q.shape[:2] + v.shape[2:])
+
+    def stats(q, k, o, do, *, causal):
+        calls.append("stats")
+        return ref.attention_stats_ref(q, k, o, do, causal=causal)
+
+    def dkdv(q, k, v, do, lse2, delta, *, causal):
+        calls.append("dkdv")
+        return torch.ones_like(k), torch.full_like(v, 2.0)
+
+    def dq(q, k, v, do, lse2, delta, *, causal):
+        calls.append("dq")
+        return torch.full_like(q, 3.0)
+
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    for name, fn in (("flash_attention_cuda", forward),
+                     ("attention_stats_cuda", stats),
+                     ("attention_dkdv_cuda", dkdv),
+                     ("attention_dq_cuda", dq)):
+        monkeypatch.setattr(attention_ops, name, fn)
+    wrapper = attention_ops.flash_attention
+    monkeypatch.setattr(wrapper, "launches", 0)
+    monkeypatch.setattr(wrapper, "backward_launches", 0)
+    out = wrapper(*args, **kwargs)
+    assert out.requires_grad and calls == ["forward"]
+    out.sum().backward()
+    assert calls == ["forward", "stats", "dkdv", "dq"]
+    assert wrapper.launches == 1 and wrapper.backward_launches == 1
+    q, k, v = args
+    for t, fill in ((q, 3.0), (k, 1.0), (v, 2.0)):
+        assert torch.equal(t.grad, torch.full_like(t, fill))
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])

@@ -63,6 +63,11 @@ def test_every_port_module_imports_without_a_gpu():
     assert "repro_torch.launch.mesh" in names
     assert {"repro_torch.core.perf_model", "repro_torch.core.dse"} \
         <= set(names)
+    # training
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.nn.gradsync", "repro_torch.launch.steps",
+            "repro_torch.launch.train", "repro_torch.runtime.trainer",
+            "repro_torch.checkpoint.manager"} <= set(names)
     for name in names:
         importlib.import_module(name)
 

@@ -271,6 +271,7 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
 def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"flash_attention.cu",
+                                      "flash_attention_bwd.cu",
                                       "fused_gather_aggregate.cu",
                                       "fused_gather_onehot.cu",
                                       "fused_layer_stack.cu",
