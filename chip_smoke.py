@@ -46,8 +46,9 @@ Phases, in order; any failure exits non-zero with no result line:
    at the path's shapes (both full-width layers, K = 2, at 32, 256 and
    1024 graphs/batch, at the model's widths 11 -> 128 -> 64, there also
    against the kernel without widths) and on the edge cases (a
-   3000-edge hub row, bad ids on each stream, N = 1001, F = 96 and 160,
-   K = 1 and 4, no edges; ragged ``EDGE_WIDTHS``), then every
+   1200-edge hub row, past two of the kernel's 512-edge chunks, bad ids
+   on each stream, N = 1001, F = 96 and 160, K = 1 and 4, no edges;
+   ragged ``EDGE_WIDTHS``), then every
    activation; to ``STACK_TOL`` on the output scale, each bf16 and int8
    output differing from the fp32 one. The streaming form
    (``aggregations.aggregate_stream``, a loop of updates on the card)
@@ -335,6 +336,37 @@ Phases, in order; any failure exits non-zero with no result line:
    bit the uninterrupted run's state. (d) The other nine archs at
    reduced(), one train step each on the card against the CPU plain
    path, loss and grad norm within ``TRAIN_TOL``, launches counted.
+14. GNN training (``gnn_train_phase``). (a) The backward launches of
+   ``mse_loss_packed``'s gradient at ``GNN_PACKED_GRAPHS`` packed qm9
+   graphs (GCN, GAT, PNA at ``benchmark_config``), captured and launched
+   again: row 1's kernel over the source CSR (dx), the scale gradient
+   (``csrc/fused_gather_aggregate_bwd.cu``), the segment aggregation's
+   (``csrc/segment_aggregate_bwd.cu``: the pooling set, PNA's towers)
+   and the softmax's (``csrc/segment_softmax_bwd.cu``), each against its
+   plain version on the same inputs (``SEGMENT_TOL``; bit for bit
+   expected and printed), a second launch bit for bit the first, timed
+   beside the plain version, its bound (``kernels/_cost.py``) and a
+   library call (``torch.sparse.mm`` of the transposed adjacency for dx,
+   ``torch.sparse.sampled_addmm`` for the scale's; none for the other
+   two). (b) GCN at ``benchmark_config`` (fp32): its first step's loss,
+   gradient norm and every gradient leaf at ``GNN_CHECK_BATCH`` padded
+   graphs against the CPU plain path within ``GNN_TRAIN_TOL``, then
+   ``GNN_TRAIN_STEPS`` steps of ``make_gnn_train_step`` at
+   ``GNN_TRAIN_BATCH`` padded graphs of ``graph_batch`` through the
+   ``Trainer``, the counts set to 0 just before: the loss falls (the mean
+   of the last 5 below the first 5's), each step's launches are
+   ``GCN_STEP_LAUNCHES``; ms a step, graphs/s, the host's batch build and
+   the step's stream apart, peak memory, then ``GNN_PROFILE_STEPS``
+   steps traced (device busy, idle share, top items). (c) Every conv at
+   ``benchmark_config``: one train step at ``GNN_STEP_BATCH`` padded
+   graphs and ``mse_loss_packed``'s gradient at ``GNN_PACKED_GRAPHS``
+   packed graphs, each against the CPU plain path within
+   ``GNN_TRAIN_TOL``. (d) GAT and PNA at reduced() under
+   ``torch.use_deterministic_algorithms(True)``: a ``Trainer`` run that
+   fails at step ``GNN_FAULT_AT`` and resumes ends bit for bit the
+   uninterrupted run's state. The counts are read after (d): every one
+   of rows 1-3 (and row 1's dx), row 8b and the three backward kernels
+   launched on the training path.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -350,9 +382,15 @@ serving run and (c)'s card runs); ``flash_attention``'s also
 prefill ms of (a) and (a')). Every entry carries
 ``launches_by_phase["13"]``: ``flash_attention``'s forward launches on
 the training path ((b) and (d), remat's recomputations included). The
-last entry, ``flash_attention_backward``, sums phase 13 (a)'s calls and
-counts the backward launches of (b) and (d); its ``training`` key holds
-(b)'s, (c)'s and (d)'s readings.
+last entry but three, ``flash_attention_backward``, sums phase 13 (a)'s
+calls and counts the backward launches of (b) and (d); its ``training``
+key holds (b)'s, (c)'s and (d)'s readings. Every entry carries
+``launches_by_phase["14"]``: the GNN training path's launches of rows
+1-3 and 8b (row 1's with its dx launches, whose (a) readings are its
+``backward_dx``; its ``gnn_training`` holds phase 14's (b)-(d)
+readings); the last three entries, ``gather_scale_backward``,
+``segment_aggregate_backward`` and ``segment_softmax_backward``, sum
+phase 14 (a)'s calls and count their launches on that path.
 """
 from __future__ import annotations
 
@@ -924,17 +962,20 @@ def compare_stack(label: str, mode: str, got: torch.Tensor,
 
 
 def stack_edge_cases(dev, rng):
-    """(label, args, K) synthetic stacks: a hub row with 3000 in-edges,
-    -1 / out-of-range / negative ids on each stream, N = 1001 (not a
-    multiple of the 32-row tile), widths 96 and 160 (a partial column
-    pass), 1 and 4 layers, and an edgeless stack."""
+    """(label, args, K) synthetic stacks: a hub row with 1200 in-edges
+    (past two of the kernel's ``kEdgeCap`` = 512-edge chunks; the plain
+    version folds it edge by edge, and the stack's plain calls took most
+    of phase 3 with 3000), -1 /
+    out-of-range / negative ids on each stream, N = 1001 (not a multiple
+    of the 32-row tile), widths 96 and 160 (a partial column pass), 1
+    and 4 layers, and an edgeless stack."""
     from repro_torch.core import aggregations as A
     n, e = 1001, 5000
     src = rng.integers(0, n, e)
     dst = rng.integers(0, n, e)
     src[:4] = [-1, n, n + 7, -3]
     dst[4:8] = [-1, n, n + 2, -9]
-    dst[rng.choice(np.arange(8, e), 3000, replace=False)] = 5     # hub
+    dst[rng.choice(np.arange(8, e), 1200, replace=False)] = 5     # hub
     cases = []
     for f, k, edges in ((96, 1, True), (160, 4, True), (128, 2, False)):
         s = src if edges else np.full(e, -1)
@@ -956,7 +997,7 @@ def stack_edge_cases(dev, rng):
                 t(k, f, f, scale=f ** -0.5), t(k, f, f, scale=f ** -0.5),
                 t(k, f, f, scale=f ** -0.5), t(k, f, scale=0.1),
                 torch.zeros((k, 4), device=dev))
-        tag = "hub of 3000, bad ids" if edges else "no edges"
+        tag = "hub of 1200, bad ids" if edges else "no edges"
         cases.append((f"{tag}, N={n} F={f} K={k}", args, k))
     return cases
 
@@ -4730,6 +4771,671 @@ def train_phase(dev, errs: dict) -> dict:
                 others=others, wall_s=wall)
 
 
+# ------------------------------------------------- phase 14: GNN training --
+GNN_TRAIN_CONV = "gcn"
+GNN_TRAIN_BATCH = 2048      # make_gnn_train_step's default batch
+GNN_TRAIN_STEPS = 20
+GNN_TRAIN_OPT = dict(peak_lr=1e-3, warmup_steps=2, decay_steps=GNN_TRAIN_STEPS)
+GNN_CHECK_BATCH = 16        # (b)'s first step against the CPU plain path
+GNN_STEP_BATCH = 64         # (c) every conv's one step (PNA's post input at
+#                             2048 frames alone would be 8.2 GB)
+GNN_PACKED_GRAPHS = 1024    # (a)'s shapes and (c)'s packed loss
+GNN_PROFILE_STEPS = 3       # (b)'s traced window
+# (d) the fault path at reduced(): a run that fails at GNN_FAULT_AT and
+# resumes from its checkpoint against an uninterrupted one
+GNN_FAULT_CONVS = ("gat", "pna")
+GNN_FAULT_STEPS, GNN_FAULT_AT, GNN_FAULT_EVERY = 24, 13, 8
+GNN_FAULT_BATCH = 8
+GNN_DIR = ROOT / "build" / "chip_smoke_gnn"
+# card against the CPU plain path, relative: the loss and the global
+# gradient norm, and each leaf of the packed gradient against its scale.
+# The kernels' forward and backward folds are the plain versions' bit for
+# bit; the fp32 products differ in the last place (the card's FMA chain
+# against the CPU's rounded multiply and add in the row-stable products;
+# cuBLAS against the CPU's BLAS in torch.matmul's gradients): the CPU
+# tests' 1e-4 against the JAX package
+GNN_TRAIN_TOL = 1e-4
+# (b)'s launches a GCN step at benchmark_config: a gather a layer; dx once
+# (layer 0 gathers the input features, which need no gradient); the
+# row-stable products of the two layers (W, the skip projection) and the
+# head's four layers; the products' gradients are torch.matmul's
+GCN_STEP_LAUNCHES = {"fused_gather_aggregate": 2,
+                     "fused_gather_aggregate dx": 1, "tiled_matmul": 8}
+GNN_TARGET_S = 45.0         # the phase's wall-time target, printed
+
+
+def gnn_wrappers() -> dict:
+    """Each count phase 14 reads: (the wrapper, its counter's name)."""
+    from repro_torch.kernels.fused_gather_aggregate import ops as GO
+    from repro_torch.kernels.segment_aggregate import ops as SO
+    from repro_torch.kernels.segment_softmax import ops as XO
+    from repro_torch.kernels.tiled_linear.ops import tiled_matmul
+    return {
+        "fused_gather_aggregate": (GO.fused_gather_aggregate, "launches"),
+        "fused_gather_aggregate dx": (GO.fused_gather_aggregate,
+                                      "backward_launches"),
+        "gather_scale_backward": (GO.gather_scale_backward, "launches"),
+        "segment_aggregate": (SO.segment_aggregate, "launches"),
+        "segment_aggregate_backward": (SO.segment_aggregate_backward,
+                                       "launches"),
+        "segment_softmax": (XO.segment_softmax, "launches"),
+        "segment_softmax_backward": (XO.segment_softmax_backward,
+                                     "launches"),
+        "tiled_matmul": (tiled_matmul, "launches"),
+    }
+
+
+def gnn_counts() -> dict:
+    return {k: getattr(w, a) for k, (w, a) in gnn_wrappers().items()}
+
+
+def zero_gnn_counts() -> None:
+    for w, a in gnn_wrappers().values():
+        setattr(w, a, 0)
+
+
+def gnn_flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(gnn_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def gnn_loss_grads(cfg, loss: str, params: dict, batch: dict,
+                   device) -> tuple:
+    """(loss, global gradient norm, gradient tree) of ``gnn_model.<loss>``
+    on ``device``, from copies of ``params`` and the numpy ``batch``."""
+    from repro_torch.core import gnn_model as G
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.optim.adamw import global_norm, tree_map
+    p = tree_map(lambda t: t.to(device, copy=True), params)
+    b = {k: torch.as_tensor(np.asarray(v), device=device)
+         for k, v in batch.items()}
+    value, grads = value_and_grad(lambda q: getattr(G, loss)(q, cfg, b), p)
+    return float(value), float(global_norm(grads)), grads
+
+
+def gnn_card_vs_plain(label: str, dev, cfg, loss: str, params: dict,
+                      batch: dict) -> dict:
+    """The loss, the global gradient norm and every gradient leaf of one
+    batch on the card and on the CPU plain path from the same parameters,
+    within ``GNN_TRAIN_TOL``."""
+    card = gnn_loss_grads(cfg, loss, params, batch, dev)
+    host = gnn_loss_grads(cfg, loss, params, batch, torch.device("cpu"))
+    out = {}
+    for i, name in enumerate(("loss", "grad_norm")):
+        got, want = card[i], host[i]
+        rel = abs(got - want) / abs(want)
+        check(np.isfinite(got) and rel <= GNN_TRAIN_TOL,
+              f"{label}: {name} {got} on the card against {want} on the CPU "
+              f"({rel:.3e} of it; bound {GNN_TRAIN_TOL})")
+        out[name] = dict(card=got, cpu=want, rel=rel)
+    G, H = gnn_flat(card[2]), gnn_flat(host[2])
+    worst = 0.0
+    for k, want in H.items():
+        got = G[k].cpu()
+        gap = float((got - want).abs().max()) / max(
+            float(want.abs().max()), 1e-30)
+        check(bool(torch.isfinite(got).all()) and gap <= GNN_TRAIN_TOL,
+              f"{label}: gradient {k} {gap:.3e} of its scale off the CPU's")
+        worst = max(worst, gap)
+    out["worst_leaf"] = worst
+    return out
+
+
+@contextlib.contextmanager
+def captured_gnn_backward():
+    """The backward launches of the model's gradients, recorded: {kernel:
+    [(args, kwargs)]} (inputs cloned), each call still made."""
+    from repro_torch.kernels.fused_gather_aggregate import ops as GO
+    from repro_torch.kernels.segment_aggregate import ops as SO
+    from repro_torch.kernels.segment_softmax import ops as XO
+    spots = {"fused_gather_aggregate dx": (GO, "_gather_dx"),
+             "gather_scale_backward": (GO, "gather_scale_backward"),
+             "segment_aggregate_backward": (SO,
+                                            "segment_aggregate_backward"),
+             "segment_softmax_backward": (XO, "segment_softmax_backward")}
+    store = {k: [] for k in spots}
+    saved = {k: getattr(m, a) for k, (m, a) in spots.items()}
+
+    class Spy:
+        """Records each call; its attributes (the launch counts, which
+        the wrapper updates through its module's name) are the
+        wrapper's."""
+
+        def __init__(self, name, fn):
+            object.__setattr__(self, "name", name)
+            object.__setattr__(self, "fn", fn)
+
+        def __call__(self, *args, **kwargs):
+            store[self.name].append((tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args), dict(kwargs)))
+            return self.fn(*args, **kwargs)
+
+        def __getattr__(self, attr):
+            return getattr(self.fn, attr)
+
+        def __setattr__(self, attr, value):
+            setattr(self.fn, attr, value)
+    for k, (m, a) in spots.items():
+        setattr(m, a, Spy(k, saved[k]))
+    try:
+        yield store
+    finally:
+        for k, (m, a) in spots.items():
+            setattr(m, a, saved[k])
+
+
+def gnn_backward_library(name: str, args: tuple):
+    """(ms, note) of one PyTorch call computing the same function, or
+    (None, why)."""
+    if name == "fused_gather_aggregate dx":
+        dout, dst, coef, s_perm, s_off = args
+        n, s = s_off.numel() - 1, dout.shape[0]
+        counts = (s_off[1:] - s_off[:-1]).long()
+        edges = s_perm[:int(s_off[-1])].long()
+        rows = torch.repeat_interleave(torch.arange(n, device=dout.device),
+                                       counts)
+        vals = coef[edges] if coef is not None else torch.ones_like(
+            rows, dtype=torch.float32)
+        at = torch.sparse_coo_tensor(torch.stack([rows, dst[edges].long()]),
+                                     vals, (n, s)).coalesce().to_sparse_csr()
+        return (cuda_ms(lambda: torch.sparse.mm(at, dout)),
+                "torch.sparse.mm of the transposed (N, S) adjacency")
+    if name == "gather_scale_backward":
+        dout, x, src, dst, weight = args
+        ok = (dst >= 0) & (src >= 0)
+        pattern = torch.sparse_coo_tensor(
+            torch.stack([dst[ok], src[ok]]).long(),
+            torch.ones(int(ok.sum()), device=x.device),
+            (dout.shape[0], x.shape[0])).coalesce().to_sparse_csr()
+        xt = x.t().contiguous()
+        try:
+            return (cuda_ms(lambda: torch.sparse.sampled_addmm(
+                pattern, dout, xt, beta=0.0)),
+                "torch.sparse.sampled_addmm of dout @ x^T at the edges")
+        except RuntimeError as e:
+            return None, f"torch.sparse.sampled_addmm: {e}"
+    if name == "segment_aggregate_backward":
+        return None, ("no single PyTorch call computes the gradient of a "
+                      "segment min/max/std set with ties split equally")
+    return None, ("no single PyTorch call computes a segment softmax's "
+                  "gradient")
+
+
+def gnn_backward_kernels_phase(dev, batch) -> list:
+    """(a) The model's backward launches captured from ``mse_loss_packed``'s
+    gradient on the card at ``GNN_PACKED_GRAPHS`` graphs (GCN: dx and the
+    pooling set; GAT: dx, dscale, the softmax and the pooling set; PNA:
+    the towers and the pooling set), each distinct call launched again
+    against its plain version on the same inputs (bit for bit expected,
+    held at ``SEGMENT_TOL``), a second launch bit for bit the first, then
+    timed beside the plain version, its bound and the library call."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.kernels import _cost
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+    from repro_torch.kernels.fused_gather_aggregate import ref as GR
+    from repro_torch.kernels.segment_aggregate import kernel as SK
+    from repro_torch.kernels.segment_aggregate import ref as SR
+    from repro_torch.kernels.segment_softmax import kernel as XK
+    from repro_torch.kernels.segment_softmax import ref as XR
+    from repro_torch.nn.param import init_params
+    table = {
+        "fused_gather_aggregate dx": (GK.fused_gather_aggregate_cuda,
+                                      GR.fused_gather_aggregate_ref,
+                                      _cost.gather_work),
+        "gather_scale_backward": (GK.gather_scale_backward_cuda,
+                                  GR.gather_scale_backward_ref,
+                                  _cost.gather_scale_work),
+        "segment_aggregate_backward": (SK.segment_aggregate_backward_cuda,
+                                       SR.segment_aggregate_backward_ref,
+                                       _cost.segment_bwd_work),
+        "segment_softmax_backward": (XK.segment_softmax_backward_cuda,
+                                     XR.segment_softmax_backward_ref,
+                                     _cost.softmax_bwd_work),
+    }
+    calls = {}
+    for conv in ("gcn", "gat", "pna"):
+        cfg = benchmark_config(conv)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        with captured_gnn_backward() as store:
+            gnn_loss_grads(cfg, "mse_loss_packed", params, batch, dev)
+        for name, got in store.items():
+            for args, kwargs in got:
+                key = (name, tuple(tuple(a.shape) if isinstance(
+                    a, torch.Tensor) else a for a in args),
+                    tuple(sorted(kwargs.items())))
+                calls.setdefault(key, (conv, args, kwargs))
+    rows = []
+    for (name, shapes, _), (conv, args, kwargs) in calls.items():
+        launch, plain, work = table[name]
+        got = launch(*args, **kwargs)
+        again = launch(*args, **kwargs)
+        want = plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        label = (f"[14] (a) {name} ({conv}, "
+                 f"{'; '.join(str(s) for s in shapes if s not in ((), None))}"
+                 f"{', ' + str(kwargs['agg']) if 'agg' in kwargs else ''})")
+        check(err <= SEGMENT_TOL["rtol"] * scale + SEGMENT_TOL["atol"],
+              f"{label}: max |err| {err} against the plain version")
+        check(same_bits(again, got), f"{label}: a second launch differs")
+        moved, ops = work(*args, **kwargs)
+        b_ms, by = bound_ms(moved, ops)
+        ms = cuda_ms(lambda: launch(*args, **kwargs))
+        plain_ms = cuda_ms(lambda: plain(*args, **kwargs), **PLAIN_TIMING)
+        lib_ms, lib_note = gnn_backward_library(name, args)
+        rows.append(dict(kernel=name, conv=conv, shape=label[9:],
+                         max_abs_err=err, bitwise=same_bits(got, want),
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, library_ms=lib_ms,
+                         library_note=lib_note))
+        print(f"{label}: max |err| {err:.3e} against the plain version "
+              f"(bit for bit: {rows[-1]['bitwise']}), {ms:.6f} ms [bound "
+              f"{b_ms:.6f}, {by}], plain {plain_ms:.6f} ms, library "
+              f"{'null' if lib_ms is None else f'{lib_ms:.6f} ms'} "
+              f"({lib_note})")
+    for name in table:
+        check(any(r["kernel"] == name for r in rows),
+              f"[14] (a) {name} was never launched by a model's gradient")
+    return rows
+
+
+def gnn_train_full_width_phase(dev) -> dict:
+    """(b) GCN at ``benchmark_config`` (11 -> 128 -> 64, projection skips,
+    add/mean/max pooling, MLP 192 -> 64 x 3 -> 1, fp32): its first step
+    at ``GNN_CHECK_BATCH`` graphs against the CPU plain path, then
+    ``GNN_TRAIN_STEPS`` steps of ``make_gnn_train_step`` at
+    ``GNN_TRAIN_BATCH`` padded graphs of ``graph_batch`` through the
+    ``Trainer`` (no checkpoint), the counts set to 0 just before and read
+    just after; then ``GNN_PROFILE_STEPS`` more steps traced."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch.steps import make_gnn_train_step
+    from repro_torch.nn.param import count_params, init_params, materialize
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = benchmark_config(GNN_TRAIN_CONV)
+    check(G.layer_dims(cfg) == [(11, 128), (128, 64)]
+          and cfg.gnn_skip_connection
+          and cfg.global_pooling == ("add", "mean", "max")
+          and cfg.mlp_head.in_dim == 192 and cfg.mlp_head.hidden_dim == 64
+          and cfg.mlp_head.hidden_layers == 3
+          and cfg.mlp_head.out_dim == 1 and cfg.gnn_precision == "fp32",
+          f"[14] (b) {cfg}")
+    ds = DATASETS["qm9"]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    t0 = time.perf_counter()
+    vs = gnn_card_vs_plain("[14] (b) first step", dev, cfg, "mse_loss",
+                           params, P.graph_batch(ds, 0, GNN_CHECK_BATCH))
+    check_s = time.perf_counter() - t0
+    bundle = make_gnn_train_step(cfg, batch=GNN_TRAIN_BATCH,
+                                 opt_cfg=adamw.OptConfig(**GNN_TRAIN_OPT),
+                                 device=dev)
+    opt = materialize(bundle.abstract_args[1], None, dev)
+    batch_s, device_ms, events = [], [], []
+
+    def batch_fn(step):
+        t = time.perf_counter()
+        b = P.graph_batch(ds, step, GNN_TRAIN_BATCH)
+        batch_s.append(time.perf_counter() - t)
+        return b
+
+    def step_fn(p, o, b):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = bundle.fn(p, o, b)
+        end.record()
+        events.append((start, end))
+        return out
+    trainer = Trainer(TrainerConfig(total_steps=GNN_TRAIN_STEPS, ckpt_every=0,
+                                    ckpt_dir=str(GNN_DIR / "full_width"),
+                                    log_every=1000),
+                      step_fn, batch_fn, params, opt, log=None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_gnn_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = gnn_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    device_ms = [s.elapsed_time(e) for s, e in events]
+    for k, n in GCN_STEP_LAUNCHES.items():
+        check(counts[k] == n * GNN_TRAIN_STEPS,
+              f"[14] (b) {k}: {counts[k]} launches over {GNN_TRAIN_STEPS} "
+              f"steps, expected {n} a step")
+    others = {k: v for k, v in counts.items() if k not in GCN_STEP_LAUNCHES}
+    check(not any(others.values()),
+          f"[14] (b) a GCN step launched {others}")
+    losses = out["losses"]
+    check(len(losses) == GNN_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"[14] (b) losses {losses}")
+    head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(tail < head, f"[14] (b) the loss did not fall: mean of the first "
+                       f"5 {head}, of the last 5 {tail}")
+    step_ms = [s * 1e3 for s in trainer.step_s]
+    median = statistics.median(step_ms[1:])
+    batch_ms = statistics.median(s * 1e3 for s in batch_s[1:])
+    dev_ms = statistics.median(device_ms[1:])
+    trace = gnn_profile(bundle, trainer, batch_fn)
+    res = dict(
+        conv=GNN_TRAIN_CONV, params=count_params(G.model_plan(cfg)),
+        batch=GNN_TRAIN_BATCH, steps=GNN_TRAIN_STEPS, loss_first=losses[0],
+        loss_last=losses[-1], loss_first5=head, loss_last5=tail,
+        first_step_ms=step_ms[0], median_step_ms=median,
+        graphs_s=GNN_TRAIN_BATCH / median * 1e3,
+        median_batch_build_ms=batch_ms, median_step_stream_ms=dev_ms,
+        peak_gib=peak / 2 ** 30, launches_per_step=GCN_STEP_LAUNCHES,
+        first_step_vs_cpu=vs, trace=trace, wall_s=wall)
+    print(f"[14] (b) {GNN_TRAIN_CONV} at benchmark_config (11 -> 128 -> 64, "
+          f"projection skips, add/mean/max pooling, MLP 192 -> 64 x 3 -> 1, "
+          f"fp32, {res['params']} parameters): first step at "
+          f"{GNN_CHECK_BATCH} graphs against the CPU plain path: loss "
+          f"{vs['loss']['card']:.7f} / {vs['loss']['cpu']:.7f} "
+          f"({vs['loss']['rel']:.3e}), grad norm "
+          f"{vs['grad_norm']['card']:.6f} / {vs['grad_norm']['cpu']:.6f} "
+          f"({vs['grad_norm']['rel']:.3e}), worst leaf "
+          f"{vs['worst_leaf']:.3e} (bound {GNN_TRAIN_TOL}; {check_s:.1f} s); "
+          f"{GNN_TRAIN_STEPS} steps of {GNN_TRAIN_BATCH} padded graphs "
+          f"(graph_batch, 600-node frames) through the Trainer: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} (mean of the first 5 "
+          f"{head:.5f}, of the last 5 {tail:.5f}), first step "
+          f"{step_ms[0]:.1f} ms, median of the rest {median:.2f} ms "
+          f"({res['graphs_s']:.1f} graphs/s): the host's graph_batch "
+          f"{batch_ms:.2f} ms, the step's stream (copy in, forward, "
+          f"backward, AdamW) {dev_ms:.2f} ms; peak memory "
+          f"{res['peak_gib']:.2f} GiB; launches a step {GCN_STEP_LAUNCHES}; "
+          f"{wall:.1f} s")
+    del params, opt, out, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def gnn_profile(bundle, trainer, batch_fn) -> dict:
+    """``GNN_PROFILE_STEPS`` more steps of (b) under ``torch.profiler``:
+    wall, device busy (the sum of the kernels' and copies' device time),
+    and the top device items."""
+    from torch.profiler import ProfilerActivity, profile
+    batches = [batch_fn(GNN_TRAIN_STEPS + i) for i in range(
+        GNN_PROFILE_STEPS)]
+    p, o = trainer.params, trainer.opt_state
+    p, o, _ = bundle.fn(p, o, batches[0])     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            p, o, _ = bundle.fn(p, o, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / GNN_PROFILE_STEPS
+    from torch.autograd import DeviceType
+
+    def device_us(e) -> float:
+        if e.device_type != DeviceType.CUDA:
+            return 0.0
+        for name in ("device_time_total", "cuda_time_total"):
+            v = getattr(e, name, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+    rows = [(e.key, device_us(e) / 1e3 / GNN_PROFILE_STEPS,
+             e.count // GNN_PROFILE_STEPS)
+            for e in prof.key_averages() if device_us(e) > 0]
+    busy = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    out = dict(step_wall_ms=wall, device_busy_ms=busy,
+               idle_share=1.0 - busy / wall if busy else None,
+               events_per_step=sum(r[2] for r in rows),
+               top=[dict(name=k[:80], ms=ms, calls=c)
+                    for k, ms, c in rows[:8]])
+    print(f"[14] (b) traced {GNN_PROFILE_STEPS} steps (the batches built "
+          f"before the window): {wall:.2f} ms a step, device busy "
+          f"{busy:.3f} ms ({out['events_per_step']} device events a step)"
+          + (f", idle share {out['idle_share']:.4f}" if busy else
+             ": no device time recorded (not measured)")
+          + "; top: " + "; ".join(f"{r['name']} {r['ms']:.3f} ms x{r['calls']}"
+                                  for r in out["top"]))
+    return out
+
+
+def gnn_every_conv_phase(dev, packed: dict) -> dict:
+    """(c) Every conv at ``benchmark_config``: one ``make_gnn_train_step``
+    step at ``GNN_STEP_BATCH`` padded graphs on the card against the same
+    step on the CPU plain path from the same state (loss, grad norm), and ``mse_loss_packed``'s gradient at
+    ``GNN_PACKED_GRAPHS`` packed graphs against the CPU's (loss, grad norm
+    and every leaf)."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core.convs import CONV_TYPES
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch.steps import make_gnn_train_step
+    from repro_torch.nn.param import init_params, materialize
+    from repro_torch.optim import adamw
+    ds = DATASETS["qm9"]
+    batch = P.graph_batch(ds, 0, GNN_STEP_BATCH)
+    out = {}
+    for conv in CONV_TYPES:
+        cfg = benchmark_config(conv)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+        metrics = []        # the card's, then the CPU's
+        for d in (dev, torch.device("cpu")):
+            bundle = make_gnn_train_step(cfg, batch=GNN_STEP_BATCH,
+                                         device=d)
+            p = adamw.tree_map(lambda t: t.to(d, copy=True), params)
+            o = materialize(bundle.abstract_args[1], None, d)
+            p, o, m = bundle.fn(p, o, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        gaps = {}
+        for k in ("loss", "grad_norm"):
+            got, want = metrics[0][k], metrics[1][k]
+            gaps[k] = abs(got - want) / abs(want)
+            check(np.isfinite(got) and gaps[k] <= GNN_TRAIN_TOL,
+                  f"[14] (c) {conv} step: {k} {got} on the card, {want} on "
+                  f"the CPU ({gaps[k]:.3e} of it)")
+        packed_vs = gnn_card_vs_plain(f"[14] (c) {conv} packed", dev, cfg,
+                                      "mse_loss_packed", params, packed)
+        out[conv] = dict(step=dict(metrics[0], rel=gaps),
+                         packed=packed_vs)
+        print(f"[14] (c) {conv} at benchmark_config: one step at "
+              f"{GNN_STEP_BATCH} padded graphs, loss "
+              f"{metrics[0]['loss']:.6f} ({gaps['loss']:.3e} of the "
+              f"CPU's), grad norm {metrics[0]['grad_norm']:.6f} "
+              f"({gaps['grad_norm']:.3e}); mse_loss_packed at "
+              f"{GNN_PACKED_GRAPHS} graphs: "
+              f"loss {packed_vs['loss']['rel']:.3e}, grad norm "
+              f"{packed_vs['grad_norm']['rel']:.3e}, worst leaf "
+              f"{packed_vs['worst_leaf']:.3e} of the CPU's")
+        del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_fault_phase(dev) -> dict:
+    """(d) ``GNN_FAULT_CONVS`` at reduced() on the card under
+    ``torch.use_deterministic_algorithms(True)``: an uninterrupted
+    ``Trainer`` run of the GNN step and one that fails at
+    ``GNN_FAULT_AT`` and resumes from its checkpoint; the end states bit
+    for bit (GAT and PNA gather rows by index, whose gradient is an
+    accumulating index_put on the card)."""
+    import shutil
+    from repro_torch.configs.gnn import DATASETS, config
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch.steps import make_gnn_train_step
+    from repro_torch.nn.param import init_params, materialize
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import (SimulatedFailure, Trainer,
+                                             TrainerConfig)
+    ds = DATASETS["qm9"]
+    shutil.rmtree(GNN_DIR, ignore_errors=True)
+    out = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for conv in GNN_FAULT_CONVS:
+            cfg = config(conv, reduced=True)
+            bundle = make_gnn_train_step(
+                cfg, batch=GNN_FAULT_BATCH, device=dev,
+                opt_cfg=adamw.OptConfig(peak_lr=3e-3, warmup_steps=4,
+                                        decay_steps=GNN_FAULT_STEPS))
+
+            def run(name, fail_at=None):
+                params = init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev)
+                opt = materialize(bundle.abstract_args[1], None, dev)
+                t = Trainer(TrainerConfig(
+                    total_steps=GNN_FAULT_STEPS, ckpt_every=GNN_FAULT_EVERY,
+                    ckpt_dir=str(GNN_DIR / f"{conv}_{name}"), log_every=1000),
+                    bundle.fn,
+                    lambda step: P.graph_batch(ds, step, GNN_FAULT_BATCH),
+                    params, opt, fail_at_step=fail_at, log=None)
+                return t, t.run()
+            ref, ref_out = run("ref")
+            try:
+                run("fault", fail_at=GNN_FAULT_AT)
+                raise PhaseError("[14] (d) the injected failure did not fire")
+            except SimulatedFailure:
+                pass
+            res, res_out = run("fault")
+            resumed_from = GNN_FAULT_STEPS - len(res_out["losses"])
+            equal, gap = same_state({"p": ref.params, "o": ref.opt_state},
+                                    {"p": res.params, "o": res.opt_state})
+            losses_equal = ref_out["losses"][resumed_from:] \
+                == res_out["losses"]
+            check(equal and losses_equal,
+                  f"[14] (d) {conv}: the resumed run's end state is not the "
+                  f"uninterrupted run's bit for bit: largest gap {gap}, "
+                  f"losses equal {losses_equal}")
+            out[conv] = dict(steps=GNN_FAULT_STEPS, fail_at=GNN_FAULT_AT,
+                             resumed_from=resumed_from, bitwise=True,
+                             loss_first=ref_out["losses"][0],
+                             loss_last=ref_out["losses"][-1])
+            print(f"[14] (d) {conv} (reduced) on the card under "
+                  f"torch.use_deterministic_algorithms(True), "
+                  f"{GNN_FAULT_BATCH} graphs a step: failed at step "
+                  f"{GNN_FAULT_AT}, resumed from the checkpoint of step "
+                  f"{resumed_from}, ran to {GNN_FAULT_STEPS}: end state "
+                  f"(params, AdamW m, v, step) and the losses after the "
+                  f"resume bit for bit the uninterrupted run's (loss "
+                  f"{ref_out['losses'][0]:.4f} -> "
+                  f"{ref_out['losses'][-1]:.4f})")
+    finally:
+        torch.use_deterministic_algorithms(was)
+    shutil.rmtree(GNN_DIR, ignore_errors=True)
+    return out
+
+
+def gnn_train_phase(dev) -> dict:
+    """Phase 14: GNN training. (a) the backward kernels against their
+    plain versions and timed; (b) GCN at full width through the Trainer;
+    (c) every conv's step and packed gradient against the CPU; (d) the
+    fault path. The kernel counts are set to 0 before (b) and read after
+    (d): the launches of the training path."""
+    from repro_torch.configs.gnn import DATASETS
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    ds = DATASETS["qm9"]
+    nb, eb = serve.budgets(GNN_PACKED_GRAPHS, ds)
+    graphs = [P.make_graph(ds, i) for i in range(GNN_PACKED_GRAPHS)]
+    packed, _ = P.pack_graphs(graphs, nb, eb, GNN_PACKED_GRAPHS)
+    rows = gnn_backward_kernels_phase(dev, packed)
+    ta = time.perf_counter() - t0
+    zero_gnn_counts()
+    tb = time.perf_counter()
+    full = gnn_train_full_width_phase(dev)
+    tb = time.perf_counter() - tb
+    tc = time.perf_counter()
+    every = gnn_every_conv_phase(dev, packed)
+    tc = time.perf_counter() - tc
+    td = time.perf_counter()
+    fault = gnn_fault_phase(dev)
+    td = time.perf_counter() - td
+    launches = gnn_counts()
+    for k, n in launches.items():
+        check(n > 0, f"[14] {k} was never launched on the training path")
+    wall = time.perf_counter() - t0
+    print(f"[14] phase 14 took {wall:.1f} s ((a) {ta:.1f}, (b) {tb:.1f}, "
+          f"(c) {tc:.1f}, (d) {td:.1f}; target {GNN_TARGET_S:.0f} s); "
+          f"launches on the training path ((b), (c), (d)): {launches}")
+    return dict(rows=rows, launches=launches, full_width=full,
+                every_conv=every, fault=fault, wall_s=wall)
+
+
+def summarize_gnn_backward(gnn: dict) -> list:
+    """The three backward kernels' entries: (a)'s calls summed, the
+    launches of phase 14's training path."""
+    meta = {
+        "gather_scale_backward": (
+            "src/repro_torch/csrc/fused_gather_aggregate_bwd.cu",
+            "src/repro/kernels/fused_gather_aggregate/kernel.py:259"),
+        "segment_aggregate_backward": (
+            "src/repro_torch/csrc/segment_aggregate_bwd.cu",
+            "src/repro/kernels/segment_aggregate/kernel.py:271"),
+        "segment_softmax_backward": (
+            "src/repro_torch/csrc/segment_softmax_bwd.cu",
+            "src/repro/kernels/segment_softmax/kernel.py:139"),
+    }
+    out = []
+    for name, (source, replaces) in meta.items():
+        rows = [r for r in gnn["rows"] if r["kernel"] == name]
+        libs = [r for r in rows if r["library_ms"] is not None]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "replaces_note": "none: the JAX package differentiates its XLA "
+                             "form and its Pallas kernel has no VJP; this "
+                             "is the gradient of the port's forward kernel",
+            "launches": gnn["launches"][name],
+            "launches_by_phase": {"14": gnn["launches"][name]},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "bitwise": all(r["bitwise"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": sum(r["library_ms"] for r in libs)
+            if len(libs) == len(rows) else None,
+            "library_note": rows[0]["library_note"],
+            "shapes": "phase 14 (a): " + "; ".join(r["shape"] for r in rows),
+            "calls": rows,
+        }
+        out.append(entry)
+    return out
+
+
+def gnn_dx_entry(gnn: dict) -> dict:
+    """Row 1's gradient dx: the gather kernel over the source CSR, (a)'s
+    calls summed and its launches on the training path."""
+    rows = [r for r in gnn["rows"]
+            if r["kernel"] == "fused_gather_aggregate dx"]
+    libs = [r for r in rows if r["library_ms"] is not None]
+    return {
+        "launches": gnn["launches"]["fused_gather_aggregate dx"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "bitwise": all(r["bitwise"] for r in rows),
+        **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms",
+                                                "bound_ms")},
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in libs)
+        if len(libs) == len(rows) else None,
+        "library_note": rows[0]["library_note"],
+        "shapes": "; ".join(r["shape"] for r in rows),
+    }
+
+
 def summarize_backward(train: dict, errs: dict) -> dict:
     """The backward kernel's entry: (a)'s calls summed, the launches of
     the training path."""
@@ -4973,6 +5679,7 @@ def main() -> int:
     dse_launches = dse_phase(dev)
     lm = lm_phase(dev, entry_errs)
     train = train_phase(dev, entry_errs)
+    gnn = gnn_train_phase(dev)
     summary = summarize(rows, errs, launches, by_precision)
     summary["kernels"] += summarize_entries(entry_rows, entry_errs,
                                             entry_launches)
@@ -5011,6 +5718,19 @@ def main() -> int:
         k["launches_by_phase"]["13"] = n
         k["launches"] += n
     summary["kernels"].append(summarize_backward(train, entry_errs))
+    # the GNN training path (phase 14): rows 1-3's forward launches (row
+    # 1's dx over the source CSR beside them) and row 8b's products, and
+    # the three backward kernels' entries
+    for k in summary["kernels"]:
+        n = gnn["launches"].get(k["name"], 0)
+        if k["name"] == "fused_gather_aggregate":
+            n += gnn["launches"]["fused_gather_aggregate dx"]
+            k["backward_dx"] = gnn_dx_entry(gnn)
+            k["gnn_training"] = {key: gnn[key] for key in (
+                "full_width", "every_conv", "fault", "wall_s")}
+        k["launches_by_phase"]["14"] = n
+        k["launches"] += n
+    summary["kernels"] += summarize_gnn_backward(gnn)
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "

@@ -22,6 +22,17 @@ path does: bf16 tables, or real int8 tables on the layer's activation
 grid whose power-of-two resolution ``s`` is undone in fp32: folded into
 the gather's per-edge scale, or multiplied onto the segment output (by
 ``s``, and by ``s^2`` for var). Accumulation is fp32 at every precision.
+In grad mode, with a table that requires grad, int8 storage takes the
+reference's XLA form on the CPU, the fake-quant fp32 grid with its
+straight-through gradient (the same values as the int8 table times
+``s``); bf16 and int8 storage have no backward on the card and raise
+there.
+
+Gradients: in grad mode the sum/mean gather, the segment aggregation
+and the softmax are autograd functions whose backwards are the kernels'
+own (``kernels/*/ops.py``). A gather's gradient walks the source side of
+its CSR, which ``gather_csr(..., transpose=True)`` builds once beside
+the destination CSR (``SegmentCSR.transpose``).
 
 ``aggregation_scope`` carries the JAX package's gather kernel generation
 and tile knobs (``repro.core.aggregations.backend_scope`` without the
@@ -46,8 +57,9 @@ import dataclasses
 import torch
 
 from repro_torch.core import quantization as Q
+from repro_torch.kernels import _build
 from repro_torch.kernels._build import check_tiles
-from repro_torch.kernels._csr_ref import stable_csr
+from repro_torch.kernels._csr_ref import stable_csr, transposed_csr
 from repro_torch.kernels.fused_gather_aggregate.ops import (
     fused_gather_aggregate, fused_gather_onehot)
 from repro_torch.kernels.segment_aggregate.ops import (
@@ -118,9 +130,12 @@ class SegmentCSR:
 
     ``perm`` (E,) int32 lists the valid element ids by segment (the
     invalid ones follow at its end); segment s's elements are
-    ``perm[offsets[s]:offsets[s + 1]]``, ``offsets`` (S + 1,) int32."""
+    ``perm[offsets[s]:offsets[s + 1]]``, ``offsets`` (S + 1,) int32.
+    ``transpose``: for a gather's CSR, the source side its gradient walks
+    (``_csr_ref.transposed_csr``), or None."""
     perm: torch.Tensor
     offsets: torch.Tensor
+    transpose: tuple | None = None
 
 
 def build_csr(seg_ids: torch.Tensor, num_segments: int,
@@ -132,15 +147,21 @@ def build_csr(seg_ids: torch.Tensor, num_segments: int,
 
 
 def gather_csr(src: torch.Tensor, dst: torch.Tensor, n_src: int,
-               num_segments: int,
-               valid: torch.Tensor | None = None) -> SegmentCSR:
+               num_segments: int, valid: torch.Tensor | None = None, *,
+               transpose: bool = False) -> SegmentCSR:
     """Destination CSR of an edge stream for ``gather_aggregate``: an
-    out-of-range id on either stream drops the edge."""
-    src = src.long()
-    ok = (src >= 0) & (src < n_src)
+    out-of-range id on either stream drops the edge. ``transpose``: also
+    the source CSR of the same edges, which the gather's gradient walks
+    (each source's edges in stream order)."""
+    s = src.long()
+    ok = (s >= 0) & (s < n_src)
     if valid is not None:
         ok = ok & valid
-    return build_csr(dst, num_segments, ok)
+    csr = build_csr(dst, num_segments, ok)
+    if not transpose:
+        return csr
+    return SegmentCSR(csr.perm, csr.offsets, transposed_csr(
+        src.to(torch.int32), n_src, csr.perm, csr.offsets))
 
 
 def _active(precision) -> Q.LayerPrecision | None:
@@ -150,13 +171,20 @@ def _active(precision) -> Q.LayerPrecision | None:
     return precision
 
 
-def _stored(table: torch.Tensor, lp) -> tuple:
+def _stored(table: torch.Tensor, lp, name: str) -> tuple:
     """``table`` at the layer's storage width, and the int8 grid's
-    resolution (None unless int8)."""
+    resolution (None unless an int8 table). A table that must carry a
+    gradient: int8 takes the fake-quant grid on the CPU (module
+    docstring); on the card bf16 and int8 raise."""
     if lp is None:
         return table, None
+    if _build.trains(table) and not _build.runs_plain(table):
+        _build.refuse_grad(name, table, why=f"{lp.compute} storage has no "
+                                            "backward on the card")
     if lp.compute == "bf16":
         return table.to(torch.bfloat16), None
+    if _build.trains(table):
+        return Q.quantize(table, lp.act_fpx), None
     return Q.quantize_int8(table, lp.act_fpx), lp.act_fpx.resolution
 
 
@@ -208,7 +236,7 @@ def _aggregate_set(aggs: tuple, messages: torch.Tensor,
     for agg in aggs:
         if agg not in AGGREGATIONS:
             raise ValueError(agg)
-    stored, s = _stored(messages, _active(precision))
+    stored, s = _stored(messages, _active(precision), "segment_aggregate")
     stored = stored.contiguous()
     knobs = _KNOBS.get()
     if knobs.gather_mode == "onehot":
@@ -257,7 +285,7 @@ def gather_aggregate(agg: str, x: torch.Tensor, src: torch.Tensor,
     if agg not in GATHER_AGGREGATIONS:
         raise ValueError(f"gather_aggregate takes {GATHER_AGGREGATIONS}, "
                          f"got {agg!r}")
-    x, s = _stored(x, _active(precision))
+    x, s = _stored(x, _active(precision), "gather_aggregate")
     if s is not None:
         scale = torch.full(src.shape, s, dtype=torch.float32,
                            device=x.device) if scale is None \
@@ -274,7 +302,8 @@ def gather_aggregate(agg: str, x: torch.Tensor, src: torch.Tensor,
         csr = gather_csr(src, dst, x.shape[0], num_segments, valid)
     return fused_gather_aggregate(x.contiguous(),
                                   src.to(torch.int32).contiguous(), scale,
-                                  csr.perm, csr.offsets, agg=agg)
+                                  csr.perm, csr.offsets, agg=agg,
+                                  transpose=csr.transpose)
 
 
 def segment_softmax(logits: torch.Tensor, seg_ids: torch.Tensor,

@@ -6,7 +6,10 @@ Three forwards over a parameter tree with the JAX package's keys:
 ``apply`` (one padded graph, the per-graph oracle), ``apply_packed`` (a
 packed GraphBatch, layer by layer) and ``apply_packed_resident`` (the
 same batch with consecutive GCN/SAGE layers fused into one launch of the
-resident layer-stack kernel). ``GNNModel`` wraps the tree as an
+resident layer-stack kernel); ``apply_batch`` runs ``apply`` over a
+stack of padded graphs at once, and ``mse_loss`` / ``mse_loss_packed``
+are the training losses over the two batch formats, differentiable on
+the card through the kernels' backwards. ``GNNModel`` wraps the tree as an
 ``nn.Module`` whose parameter names follow the tree's paths
 (``convs.c0.w.w``). Over a group of ranks (``launch.mesh``), the sharded
 program (``make_sharded_apply``) runs ``apply_packed`` on each rank's
@@ -163,7 +166,8 @@ def _edge_inputs(edge_index: torch.Tensor, n: int, indeg=None,
                  outdeg=None) -> dict:
     """What the conv stack derives from the edge stream alone, once per
     graph or batch: degrees (unless given), the GCN scales and the
-    destination CSR every layer walks."""
+    destination CSR every layer walks; in grad mode also its source side,
+    which every gather's gradient walks."""
     valid_e = edge_index[:, 0] >= 0
     if indeg is None or outdeg is None:
         d_in, d_out = degrees(edge_index, n, valid_e)
@@ -174,7 +178,8 @@ def _edge_inputs(edge_index: torch.Tensor, n: int, indeg=None,
             "out_deg": outdeg, "gcn_edge_scale": edge_scale,
             "gcn_self_scale": self_scale,
             "edge_csr": gather_csr(edge_index[:, 0], edge_index[:, 1], n, n,
-                                   valid_e)}
+                                   valid_e,
+                                   transpose=torch.is_grad_enabled())}
 
 
 def graph_inputs(batch_el: dict) -> tuple:
@@ -377,6 +382,62 @@ def apply_packed(params: dict, cfg: GNNModelConfig, batch: dict,
         return x
     return _packed_tail(params, cfg, batch, x, node_mask, graph_id, quant,
                         pol)
+
+
+def apply_batch(params: dict, cfg: GNNModelConfig, batch: dict,
+                quant: Q.FPX | None = None, policy=None) -> torch.Tensor:
+    """``apply`` over a stack of B padded graphs (tensors: node_feat (B,
+    N_max, F), edge_index (B, E_max, 2), edge_feat, num_nodes (B,); a
+    ``y`` is ignored) -> (B, out_dim): the reference's ``vmap(apply)``.
+    One disjoint union of the B frames runs through the conv stack: node
+    ids offset by frame (an id outside its frame is padding, -1), the
+    edge streams concatenated in frame order, so every destination's
+    edges keep their order; the products are row stable, as ``apply``'s
+    are, and the pooling reduces each frame over a (B, N_max, F) view. So
+    row b is ``apply`` of graph b."""
+    params = cast_for_policy(params, cfg, policy)
+    pol = None if params.policy.is_fp32 else params.policy
+    x = batch["node_feat"]
+    b, n_max = x.shape[:2]
+    ei = batch["edge_index"].long()
+    base = (torch.arange(b, device=x.device) * n_max)[:, None, None]
+    inside = (ei >= 0) & (ei < n_max)
+    ei = torch.where(inside, ei + base, torch.full_like(ei, -1))
+    node_mask = torch.arange(n_max, device=x.device) \
+        < batch["num_nodes"][:, None]
+    g = _edge_inputs(ei.reshape(-1, 2).to(torch.int32), b * n_max)
+    ef = batch.get("edge_feat")
+    g["edge_feat"] = None if ef is None else ef.reshape(-1, ef.shape[-1])
+    x = x.reshape(b * n_max, -1)
+    if quant is not None:
+        x = Q.quantize(x, quant)
+    with row_stable_products():
+        x = _backbone(params, cfg, g, x, node_mask.reshape(-1), quant, pol)
+        x = x.reshape(b, n_max, -1)
+        if cfg.task == "node":
+            return x
+        return _head(params, cfg, global_pooling(cfg.global_pooling, x,
+                                                 node_mask), quant, pol)
+
+
+def mse_loss(params: dict, cfg: GNNModelConfig,
+             batch: dict) -> torch.Tensor:
+    """Mean squared error of ``apply_batch`` against the batch's ``y``
+    (B, out_dim): the reference's training loss."""
+    pred = apply_batch(params, cfg, batch)
+    return torch.mean(torch.square(pred - batch["y"]))
+
+
+def mse_loss_packed(params: dict, cfg: GNNModelConfig,
+                    batch: dict) -> torch.Tensor:
+    """Mean squared error over the valid graphs of a packed batch
+    (``apply_packed``; padding rows masked), the reference's packed
+    loss."""
+    pred = apply_packed(params, cfg, batch)
+    w = batch["graph_valid"].to(pred.dtype)[:, None]
+    se = torch.square(pred - batch["y"]) * w
+    denom = torch.clamp(torch.sum(w) * pred.shape[-1], min=1.0)
+    return torch.sum(se) / denom
 
 
 def _qp_row(lp: Q.LayerPrecision | None) -> list:

@@ -3,7 +3,10 @@ combine by concatenation, in two forms matching the two execution
 formats:
 
 * ``global_pool(ing)``: one padded graph, a masked dense reduction ->
-  (F,) (the padded per-graph oracle, ``gnn_model.apply``);
+  (F,) (the padded per-graph oracle, ``gnn_model.apply``), or a stack of
+  them, (B, N, F) -> (B, F) (``gnn_model.apply_batch``); the max is
+  ``amax``, whose gradient splits equally among tied rows, as JAX's
+  ``max`` does;
 * ``segment_global_pool(ing)``: a packed batch, segment aggregation
   keyed by the per-node graph id -> (num_graphs, F); the methods of a
   ``segment_global_pooling`` are one aggregation that reads the nodes
@@ -23,24 +26,25 @@ _SEGMENT_AGG = {"add": "sum", "sum": "sum", "mean": "mean", "max": "max"}
 
 def global_pool(kind: str, x: torch.Tensor,
                 node_mask: torch.Tensor) -> torch.Tensor:
-    """x: (N, F); node_mask: (N,) bool -> (F,) float32."""
-    m = node_mask[:, None].to(torch.float32)
+    """x: (..., N, F); node_mask: (..., N) bool -> (..., F) float32, the
+    reduction over the node axis."""
+    m = node_mask[..., None].to(torch.float32)
     xf = x.to(torch.float32)
     if kind in ("add", "sum"):
-        return (xf * m).sum(0)
+        return (xf * m).sum(-2)
     if kind == "mean":
-        return (xf * m).sum(0) / torch.clamp(m.sum(), min=1.0)
+        return (xf * m).sum(-2) / torch.clamp(m.sum(-2), min=1.0)
     if kind == "max":
-        out = torch.where(node_mask[:, None], xf,
-                          torch.full_like(xf, float("-inf"))).amax(0)
+        out = torch.where(node_mask[..., None], xf,
+                          torch.full_like(xf, float("-inf"))).amax(-2)
         return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
     raise ValueError(kind)
 
 
 def global_pooling(kinds, x: torch.Tensor,
                    node_mask: torch.Tensor) -> torch.Tensor:
-    """Concatenation of pooling methods -> (len(kinds) * F,)."""
-    return torch.cat([global_pool(k, x, node_mask) for k in kinds])
+    """Concatenation of pooling methods -> (..., len(kinds) * F)."""
+    return torch.cat([global_pool(k, x, node_mask) for k in kinds], dim=-1)
 
 
 def segment_global_pool(kind: str, x: torch.Tensor, graph_id: torch.Tensor,

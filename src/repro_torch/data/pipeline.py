@@ -574,6 +574,26 @@ def partition_graph(g: Graph, num_parts: int, node_budget: int,
         halo_budget=halo_budget, padded_nodes=int(g.node_feat.shape[0]))
 
 
+def graph_batch_packed(cfg: GraphDataConfig, step: int, node_budget: int,
+                       edge_budget: int, max_graphs: int) -> dict:
+    """Deterministic step-indexed packed batch: the candidate window is
+    the ``max_graphs`` dataset indices starting at step * max_graphs
+    (mod dataset size), packed greedily until a budget binds. Pure in
+    (cfg.seed, step): a restarted worker rebuilds the identical batch.
+
+    When a budget binds before the window is exhausted, the tail graphs
+    of that window are skipped for this step. The start index rotates by
+    one extra slot per epoch, so window boundaries shift across epochs
+    and a skipped tail is packed on a later pass: no graph is
+    permanently excluded, even when max_graphs divides num_graphs."""
+    epoch = (step * max_graphs) // cfg.num_graphs
+    idx0 = (step * max_graphs + epoch) % cfg.num_graphs
+    graphs = [make_graph(cfg, (idx0 + i) % cfg.num_graphs)
+              for i in range(max_graphs)]
+    batch, _ = pack_graphs(graphs, node_budget, edge_budget, max_graphs)
+    return batch
+
+
 def compute_average_nodes_and_edges(dataset, round_val: bool = True):
     """Paper API: gnnb.compute_average_nodes_and_edges."""
     n = float(np.mean([g.num_nodes for g in dataset]))

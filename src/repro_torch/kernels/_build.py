@@ -200,19 +200,27 @@ def runs_plain(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """The CUDA branch of a public wrapper whose kernel has no backward
-    (every one but ``flash_attention``'s): a launch on an input that
-    requires grad in grad mode would hand back an output with no
-    autograd history and silently lose its gradients. Raise instead."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+def trains(*tensors) -> bool:
+    """Whether a call on these inputs must carry a gradient: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, *tensors, why: str = "the CUDA kernel has no "
+                "backward") -> None:
+    """The CUDA branch of a public wrapper that cannot carry a gradient
+    for this call (the one-hot pair, the resident stack, the padded-table
+    aggregation; min/max gathers; bf16 or int8 storage): a launch on an
+    input that requires grad in grad mode would hand back an output with
+    no autograd history and silently lose its gradients. Raise instead."""
+    if trains(*tensors):
         raise RuntimeError(
-            f"{name}: an input requires grad, but the CUDA kernel has no "
-            "backward yet (ROADMAP item 12c-ii, the GNN backward kernels): "
-            "its output would carry no gradient. Call it under "
-            "torch.no_grad() or torch.inference_mode(), or on CPU tensors, "
-            "whose plain version is differentiable")
+            f"{name}: an input requires grad, but {why} (ROADMAP item 12e, "
+            "what GNN training on the card leaves): its output would carry "
+            "no gradient. Call it under torch.no_grad() or "
+            "torch.inference_mode(), or on CPU tensors, whose plain "
+            "version is differentiable")
 
 
 def pointer(t: torch.Tensor | None) -> ctypes.c_void_p:

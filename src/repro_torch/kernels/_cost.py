@@ -144,6 +144,58 @@ def softmax_work(logits, perm, offsets, **_) -> tuple:
             8.0 * n_valid)
 
 
+def gather_scale_work(dout, x, src, dst, weight=None, **_) -> tuple:
+    """The gather's scale gradient (``ops.gather_scale_backward``): per
+    edge with both ids in range its two ids (and weight) and the dout
+    and x rows of the distinct destinations and sources, per other edge
+    its destination id; the (E,) output; 2 F operations (a multiply and
+    an add per column) per valid edge."""
+    (s, f), n = dout.shape, x.shape[0]
+    ok = (dst >= 0) & (dst < s) & (src >= 0) & (src < n)
+    d, r = dst[ok], src[ok]
+    n_valid = int(d.numel())
+    rows = (int(torch.unique(d).numel()) * dout.element_size()
+            + int(torch.unique(r).numel()) * x.element_size()) * f
+    moved = (rows + (12 if weight is not None else 8) * n_valid
+             + 4 * (src.numel() - n_valid) + 4 * src.numel())
+    return moved, 2.0 * n_valid * f
+
+
+# operations a valid element and column of each agg's gradient term (the
+# first pass's sum and tie compares counted apart)
+_BWD_TERM_OPS = {"sum": 1, "mean": 2, "min": 3, "max": 3, "var": 5,
+                 "std": 5}
+
+
+def segment_bwd_work(messages, perm, offsets, out, dout, agg="sum",
+                     **_) -> tuple:
+    """The segment aggregation's gradient (``ops.
+    segment_aggregate_backward``): the valid rows with their 4-byte id,
+    the offsets, the forward's output and its gradient read once, every
+    row of the (E, F) gradient written once; per valid element and
+    column the first pass's sum (and a compare per min/max) and each
+    agg's term added."""
+    aggs = (agg,) if isinstance(agg, str) else tuple(agg)
+    e, f = messages.shape
+    n_valid = _valid_count(offsets)
+    moved = (n_valid * (f * messages.element_size() + 4) + nbytes(offsets)
+             + nbytes(out, dout) + 4 * e * f)
+    first = 1 + ("min" in aggs) + ("max" in aggs)
+    ops = (first + sum(_BWD_TERM_OPS[a] + 1 for a in aggs)) * n_valid * f
+    return moved, float(ops)
+
+
+def softmax_bwd_work(w, dw, perm, offsets, **_) -> tuple:
+    """The segment softmax's gradient (``ops.segment_softmax_backward``):
+    per valid edge its perm entry, w and dw read and dz written (16 B),
+    per other edge its perm entry and its zero dz (8 B), the offsets;
+    four operations per valid edge (the product, its sum, the difference
+    and the scale)."""
+    n_valid = _valid_count(offsets)
+    return (16 * n_valid + 8 * (w.numel() - n_valid) + nbytes(offsets),
+            4.0 * n_valid)
+
+
 def stack_work(args, kind: str, has_skip: bool, dims=None) -> tuple:
     """(bytes, operations) the resident stack's function needs on these
     inputs at the layer widths ``dims`` [(in, out), ...] (default: the

@@ -33,6 +33,40 @@ def stable_csr(seg_ids: torch.Tensor, num_segments: int,
     return order.to(torch.int32), offsets.to(torch.int32)
 
 
+def csr_owner(perm: torch.Tensor, offsets: torch.Tensor,
+              num_rows: int) -> torch.Tensor:
+    """(num_rows,) int32: the segment of the CSR (perm, offsets) each
+    element of the stream lies in, -1 for an element in none (the CSR's
+    tail, or not listed). Index preparation on the CSR's device, with no
+    host synchronisation."""
+    num_segments = offsets.numel() - 1
+    pos = torch.arange(perm.numel(), dtype=offsets.dtype,
+                       device=perm.device)
+    seg = torch.searchsorted(offsets[1:].contiguous(), pos, right=True)
+    seg = torch.where(seg < num_segments, seg, torch.full_like(seg, -1))
+    rows = perm.long()
+    ok = (rows >= 0) & (rows < num_rows)
+    # an out-of-range entry writes the extra slot past the end
+    owner = torch.full((num_rows + 1,), -1, dtype=torch.int32,
+                       device=perm.device)
+    owner[torch.where(ok, rows, torch.full_like(rows, num_rows))] = \
+        seg.to(torch.int32)
+    return owner[:num_rows]
+
+
+def transposed_csr(src: torch.Tensor, n_src: int, perm: torch.Tensor,
+                   offsets: torch.Tensor) -> tuple:
+    """The source side of a gather's destination CSR (perm, offsets) over
+    the edge stream ``src``: (dst (E,) int32, each edge's destination in
+    the CSR and -1 for an edge in none; perm, offsets of the source CSR
+    over ``n_src`` sources), the CSR's edges stably sorted by source, so
+    each source's edges keep their stream order. The gradient of a
+    gather walks it (``kernels/fused_gather_aggregate``)."""
+    dst = csr_owner(perm, offsets, src.numel())
+    s_perm, s_offsets = stable_csr(src, n_src, dst >= 0)
+    return dst, s_perm, s_offsets
+
+
 def csr_slots(perm: torch.Tensor, offsets: torch.Tensor, num_rows: int):
     """Yield (active (S,) bool, row (S,) int64) for every slot j: the
     j-th element of each segment, ``active`` where the segment has one

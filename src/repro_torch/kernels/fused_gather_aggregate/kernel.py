@@ -20,6 +20,13 @@ the ports of the two Pallas TPU kernels of
   tile, ``edge_block`` edges per chunk), then one warp per destination
   folds its edges in stream order; the sort's scratch is sized by
   ``_onehot.scratch_layout`` and allocated here.
+* ``gather_scale_backward_cuda`` (``csrc/fused_gather_aggregate_bwd.cu``)
+  is the port's own, the per-edge scale's gradient of the CSR gather
+  (the JAX package differentiates its XLA gather; no Pallas kernel has
+  a backward): one warp an edge, the dot of its destination's output
+  gradient with its source's row in fp32. The other half of the
+  gather's gradient, dx, is ``fused_gather_aggregate_cuda`` itself over
+  the source CSR (``ops.py``).
 
 The sources carry the design notes.
 """
@@ -179,4 +186,45 @@ def fused_gather_onehot_cuda(x: torch.Tensor, src: torch.Tensor,
                     _build.pointer(scratch), layout.total,
                     _build.pointer(out), _build.stream_pointer(dev))
     _build.check(status, "fused_gather_onehot")
+    return out
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p]
+
+
+def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
+                               src: torch.Tensor, dst: torch.Tensor,
+                               weight: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """dout: (S, F) fp32 output gradient; x: (N, F) fp32 node table;
+    src/dst: (E,) int32 each edge's source and destination (-1 for an
+    edge in no segment); weight: optional (E,) fp32. Returns (E,) float32
+    ``w_e * dot(dout[dst_e], x[src_e])``, 0 where an id is out of range
+    (``ref.gather_scale_backward_ref``). Launches on the current
+    stream."""
+    _build.check_table("dout", dout)
+    _build.check_table("x", x)
+    dev = dout.device
+    if dout.dtype != torch.float32 or x.dtype != torch.float32 \
+            or x.device != dev or x.shape[1] != dout.shape[1]:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} and x "
+                         f"{tuple(x.shape)} {x.dtype} must be fp32 tables "
+                         "of one width on one device")
+    e = src.numel()
+    _build.check_vector("src", src, torch.int32, dev)
+    _build.check_vector("dst", dst, torch.int32, dev, e)
+    if weight is not None:
+        _build.check_vector("weight", weight, torch.float32, dev, e)
+    (s, f), n = dout.shape, x.shape[0]
+    out = torch.empty((e,), dtype=torch.float32, device=dev)
+    fn = _build.function("repro_gather_scale_backward", _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(_build.pointer(dout), s, f, _build.pointer(x), n,
+                    _build.pointer(src), _build.pointer(dst),
+                    _build.pointer(weight), e, _build.pointer(out),
+                    _build.stream_pointer(dev))
+    _build.check(status, "gather_scale_backward")
     return out

@@ -5,6 +5,18 @@ destination CSR) and ``kernel.fused_gather_onehot_cuda`` (over the raw
 src/dst streams), and the same fold as both: each destination's edges in
 stream order, fp32 accumulate of ``x[src] * scale``. The CPU path of the
 port runs them, and the kernels are held against them on the card.
+
+The gradient of the CSR gather (sum and mean) has two parts, each an
+explicit formula, not autograd of the forward:
+
+* ``dx[s] = sum over the edges e out of s of c_e * dout[dst_e]``, the
+  forward's own fold over the source CSR (``_csr_ref.transposed_csr``)
+  with the destination stream gathered and ``c_e`` from
+  ``backward_coefficients``: ``fused_gather_aggregate_ref(dout, dst, c,
+  s_perm, s_offsets)``;
+* ``dscale_e = w_e * sum_f dout[dst_e, f] * x[src_e, f]``
+  (``gather_scale_backward_ref``), summed in the order of the kernel
+  ``csrc/fused_gather_aggregate_bwd.cu``.
 """
 from __future__ import annotations
 
@@ -49,3 +61,49 @@ def fused_gather_onehot_ref(x: torch.Tensor, src: torch.Tensor,
     perm, offsets = stable_csr(dst, num_segments,
                                (s >= 0) & (s < x.shape[0]))
     return fused_gather_aggregate_ref(x, src, scale, perm, offsets, agg=agg)
+
+
+def backward_coefficients(agg: str, scale: torch.Tensor | None,
+                          dst: torch.Tensor, offsets: torch.Tensor) -> tuple:
+    """(c, w) of the gather's gradient: per edge the coefficient ``c_e``
+    of dx (``scale_e``; divided by max(cnt, 1) for mean, cnt the valid
+    edges into the edge's destination, the CSR's segment length) and the
+    weight ``w_e`` of dscale (None for sum, 1 / max(cnt, 1) for mean).
+    ``dst``: each edge's destination in the CSR, -1 for an edge in none
+    (its coefficient is never read). None where the factor is 1."""
+    if agg == "sum":
+        return scale, None
+    cnt = (offsets[1:] - offsets[:-1]).clamp(min=1).to(torch.float32)
+    w = (1.0 / cnt)[dst.long().clamp(0, max(cnt.numel() - 1, 0))]
+    return (w if scale is None else scale.to(torch.float32) * w), w
+
+
+def gather_scale_backward_ref(dout: torch.Tensor, x: torch.Tensor,
+                              src: torch.Tensor, dst: torch.Tensor,
+                              weight: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """(E,) float32: ``w_e * sum_f dout[dst_e, f] * x[src_e, f]`` for an
+    edge whose destination lies in [0, S) (``dst`` -1 for an edge in no
+    segment) and whose source lies in [0, N), 0 for every other edge.
+    Summed as the kernel sums: lane l of the edge's warp adds the
+    products of columns l, l + 32, ... in order, then the 32 lanes fold
+    in a butterfly (offsets 16, 8, 4, 2, 1)."""
+    e = src.numel()
+    s, f = dout.shape
+    n = x.shape[0]
+    d, r = dst.long(), src.long()
+    ok = (d >= 0) & (d < s) & (r >= 0) & (r < n)
+    lanes = -(-f // 32) * 32
+    p = torch.zeros((e, lanes), dtype=torch.float32, device=dout.device)
+    p[:, :f] = dout[d.clamp(0, max(s - 1, 0))].to(torch.float32) \
+        * x[r.clamp(0, max(n - 1, 0))].to(torch.float32)
+    p = p.view(e, lanes // 32, 32)
+    acc = torch.zeros((e, 32), dtype=torch.float32, device=dout.device)
+    for t in range(p.shape[1]):
+        acc = acc + p[:, t]
+    for o in (16, 8, 4, 2, 1):
+        acc = acc[:, :o] + acc[:, o:2 * o]
+    out = acc[:, 0]
+    if weight is not None:
+        out = out * weight
+    return torch.where(ok, out, torch.zeros_like(out))

@@ -20,6 +20,12 @@ ports of the two Pallas TPU kernels of
   per tile, ``edge_block`` rows per chunk), then one warp per segment
   folds its rows in stream order; the sort's scratch is sized by
   ``_onehot.scratch_layout`` and allocated here.
+* ``segment_aggregate_backward_cuda`` (``csrc/segment_aggregate_bwd.cu``)
+  is the port's own, the gradient of a ``segment_aggregate_cuda`` call
+  (the JAX package differentiates its XLA ``segment_*``; no Pallas
+  kernel has a backward): one warp a segment, two passes over its rows
+  in stream order (the sums and ties, then each row's gradient), one
+  launch for a whole agg set.
 
 The sources carry the design notes.
 """
@@ -176,3 +182,60 @@ def segment_aggregate_onehot_cuda(messages: torch.Tensor,
                     _build.pointer(out), _build.stream_pointer(dev))
     _build.check(status, "segment_aggregate_onehot")
     return out
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def agg_codes(aggs: tuple) -> int:
+    """The backward's agg set: 4 bits per output slot, slot i holding the
+    agg code (``_build.AGG_CODES``) of ``aggs[i]``."""
+    packed = 0
+    for i, name in enumerate(aggs):
+        packed |= _build.AGG_CODES[name] << (4 * i)
+    return packed
+
+
+def segment_aggregate_backward_cuda(messages: torch.Tensor,
+                                    perm: torch.Tensor, offsets: torch.Tensor,
+                                    out: torch.Tensor, dout: torch.Tensor, *,
+                                    agg="sum") -> torch.Tensor:
+    """The gradient of ``segment_aggregate_cuda(messages, perm, offsets,
+    agg=agg)``: messages (E, F) fp32; perm/offsets the segment CSR over S
+    >= 1 segments with every one of the E rows in ``perm`` (the rows past
+    ``offsets[S]`` get 0); out and dout (S, len(aggs) * F) fp32, the
+    forward's output and its gradient. Returns (E, F) float32
+    (``ref.segment_aggregate_backward_ref``). Launches on the current
+    stream."""
+    aggs = agg_set(agg)
+    _build.check_table("messages", messages)
+    dev = messages.device
+    if messages.dtype != torch.float32:
+        raise ValueError(f"messages must be fp32, got {messages.dtype}")
+    e, f = messages.shape
+    _build.check_vector("perm", perm, torch.int32, dev, e)
+    _build.check_vector("offsets", offsets, torch.int32, dev)
+    num_segments = offsets.numel() - 1
+    width = len(aggs) * f
+    for name, t in (("out", out), ("dout", dout)):
+        _build.check_table(name, t)
+        if t.dtype != torch.float32 or t.device != dev \
+                or tuple(t.shape) != (num_segments, width):
+            raise ValueError(f"{name} must be fp32 ({num_segments}, "
+                             f"{width}) on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if num_segments < 1:
+        raise ValueError("the CSR has no segment")
+    dmsg = torch.empty((e, f), dtype=torch.float32, device=dev)
+    fn = _build.function("repro_segment_aggregate_backward", _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(_build.pointer(messages), e, f, _build.pointer(perm),
+                    _build.pointer(offsets), num_segments, len(aggs),
+                    agg_codes(aggs), _build.pointer(out),
+                    _build.pointer(dout), _build.pointer(dmsg),
+                    _build.stream_pointer(dev))
+    _build.check(status, "segment_aggregate_backward")
+    return dmsg

@@ -12,6 +12,15 @@ merge in part order (``m' = max(m, m_j)``, ``l' = l·exp(m − m') +
 l_j·exp(m_j − m')``). The split depends on the segment's own edge list
 alone. The CPU path of the port runs it, and the kernel is held against
 it on the card.
+
+``segment_softmax_backward_ref`` is the gradient, an explicit formula in
+the order of the kernel ``csrc/segment_softmax_bwd.cu``: ``dz_e = w_e
+(dw_e - t_s)`` for each edge e of segment s, ``t_s`` the sum of ``w_e'
+dw_e'`` over the segment's edges in stream order (a hub's in the
+forward's 32 parts, each in stream order, merged in part order), and 0
+for every edge in no segment. The reference's gradient also flows
+through its segment max, which the softmax does not depend on: the two
+agree to fp32 rounding.
 """
 from __future__ import annotations
 
@@ -80,4 +89,34 @@ def segment_softmax_ref(logits: torch.Tensor, perm: torch.Tensor,
     for active, e in csr_slots(perm, offsets, e_total):
         w = torch.exp(z_all[e] - m) / denom
         out[torch.where(active, e, torch.full_like(e, e_total))] = w
+    return out[:e_total]
+
+
+def segment_softmax_backward_ref(w: torch.Tensor, dw: torch.Tensor,
+                                 perm: torch.Tensor,
+                                 offsets: torch.Tensor) -> torch.Tensor:
+    """(E,) float32 dz of ``segment_softmax_ref`` given its weights ``w``
+    and their gradient ``dw``."""
+    e_total = w.numel()
+    num_segments = offsets.numel() - 1
+    dev = w.device
+    prod = w.to(torch.float32) * dw.to(torch.float32)
+    long = (offsets[1:] - offsets[:-1]) > LONG
+    zero = torch.zeros((num_segments,), dtype=torch.float32, device=dev)
+    total, parts = zero, [zero] * PARTS
+    for j, (active, e) in enumerate(csr_slots(perm, offsets, e_total)):
+        p = prod[e]
+        short = active & ~long
+        total = torch.where(short, total + p, total)
+        part = (j // RUN) % PARTS
+        parts[part] = torch.where(active & long, parts[part] + p,
+                                  parts[part])
+    hub = zero
+    for pj in parts:
+        hub = hub + pj
+    total = torch.where(long, hub, total)
+    out = torch.zeros((e_total + 1,), dtype=torch.float32, device=dev)
+    for active, e in csr_slots(perm, offsets, e_total):
+        dz = w[e] * (dw[e] - total)
+        out[torch.where(active, e, torch.full_like(e, e_total))] = dz
     return out[:e_total]

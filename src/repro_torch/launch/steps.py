@@ -10,10 +10,11 @@ deliberate divergence). The train step takes its parameters and
 optimizer state as the reference's jit donates them: the update writes
 into the given tensors (``optim.adamw.apply_updates(donate=True)``).
 
-Batches come in as numpy arrays (``data.pipeline.token_batch``) or
-tensors, and go to the bundle's device. ``make_gnn_train_step``
-(reference ``steps.py:197``) waits for GNN training (ROADMAP item
-12c-ii) and is not here.
+Batches come in as numpy arrays (``data.pipeline.token_batch``,
+``graph_batch``) or tensors, and go to the bundle's device.
+``make_gnn_train_step`` (reference ``steps.py:197``) trains a GNN on
+stacked padded graphs through ``gnn_model.mse_loss``; on the card its
+gradients run in the aggregation kernels' own backwards.
 """
 from __future__ import annotations
 
@@ -148,6 +149,45 @@ def make_train_step(cfg: lm.LMConfig, opt_cfg: adamw.OptConfig | None = None,
     return StepBundle(name=f"{cfg.name}:train", fn=train_step,
                       abstract_args=(plan, oplan,
                                      _batch_plan(cfg, seq, batch)))
+
+
+def make_gnn_train_step(cfg, batch: int = 2048,
+                        opt_cfg: adamw.OptConfig | None = None,
+                        device="cuda") -> StepBundle:
+    """The GNN train step ``fn(params, opt_state, batch) -> (params,
+    opt_state, metrics)`` over ``batch`` stacked padded graphs
+    (``data.pipeline.graph_batch``; 600-node, 600-edge frames): the loss
+    and gradients of ``gnn_model.mse_loss``, then one AdamW update
+    written into the given trees. Metrics: lr, grad_norm, loss. The
+    reference shards the graphs over the mesh's batch axes; here they run
+    on one device."""
+    from repro_torch.core import gnn_model as G
+    dev = resolve_device(device)
+    opt_cfg = opt_cfg or adamw.OptConfig()
+    plan = G.model_plan(cfg)
+    oplan = adamw.opt_plan(plan, opt_cfg)
+    n, e = 600, 600
+    tgt = cfg.mlp_head.out_dim if cfg.mlp_head else 1
+
+    def train_step(params, opt_state, batch_data):
+        batch_data = to_device(batch_data, dev)
+        loss, grads = value_and_grad(
+            lambda p: G.mse_loss(p, cfg, batch_data), params)
+        new_params, new_state, metrics = adamw.apply_updates(
+            opt_cfg, params, grads, opt_state, donate=True)
+        return new_params, new_state, dict(metrics, loss=loss)
+
+    def spec(*shape, dtype=torch.float32):
+        return ParamSpec((batch,) + shape, dtype, init="zeros")
+    batch_plan = {
+        "node_feat": spec(n, cfg.graph_input_feature_dim),
+        "edge_index": spec(e, 2, dtype=torch.int32),
+        "edge_feat": spec(e, cfg.graph_input_edge_dim),
+        "num_nodes": spec(dtype=torch.int32),
+        "y": spec(tgt),
+    }
+    return StepBundle(name=f"gnn:{cfg.gnn_conv}:train", fn=train_step,
+                      abstract_args=(plan, oplan, batch_plan))
 
 
 def make_prefill_step(cfg: lm.LMConfig, seq: int = 32768, batch: int = 32,

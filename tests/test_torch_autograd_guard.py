@@ -1,14 +1,20 @@
 """The CUDA branch of every public kernel wrapper in grad mode.
 
-``flash_attention`` has a backward kernel: in grad mode, with an input
-that requires grad, its CUDA branch is an autograd function whose
-backward launches the statistics, dK/dV and dQ kernels, so the gradient
-flows. The other eight wrappers in ``kernels/*/ops.py`` have no backward
-yet (ROADMAP item 12c-ii): a launch hands back a fresh tensor with no
-autograd history, so each raises, before it launches, when grad mode is
-on and an input requires grad. Under ``torch.no_grad()`` or
-``torch.inference_mode()`` (serving, ``Project``) every wrapper launches
-as before. On the CPU the plain version runs and stays differentiable.
+Five wrappers carry a gradient on the card. In grad mode, with an input
+that requires grad, each CUDA branch is an autograd function:
+``flash_attention``'s backward launches the statistics, dK/dV and dQ
+kernels; the CSR gather's (sum, mean) launches the gather itself over
+the source CSR for dx and the scale-gradient kernel for dscale; the
+segment aggregation's and the segment softmax's launch their backward
+kernels; ``tiled_matmul``'s takes ``torch.matmul`` for dX and dW. The
+other four wrappers in ``kernels/*/ops.py`` (the one-hot pair, the
+resident stack, the padded-table aggregation) have no backward (ROADMAP
+item 12e): a launch hands back a fresh tensor with no autograd history,
+so each raises, before it launches, when grad mode is on and an input
+requires grad; so do a min or max gather and bf16 or int8 storage on
+the card. Under ``torch.no_grad()`` or ``torch.inference_mode()``
+(serving, ``Project``) every wrapper launches as before. On the CPU the
+plain version runs and stays differentiable.
 
 The CUDA branch is reached here without a card: ``_build.runs_plain``
 (the wrappers' device check) is patched to say "not the CPU" and each
@@ -150,7 +156,8 @@ def cuda_branch(request, monkeypatch):
 
 
 # the wrappers whose kernels have a backward
-WITH_BACKWARD = ("flash_attention",)
+WITH_BACKWARD = ("flash_attention", "fused_gather_aggregate",
+                 "segment_aggregate", "segment_softmax", "tiled_matmul")
 
 
 @pytest.mark.parametrize("cuda_branch", sorted(set(WRAPPERS)
@@ -206,6 +213,168 @@ def test_cuda_branch_flash_attention_gradient_flows(monkeypatch):
     q, k, v = args
     for t, fill in ((q, 3.0), (k, 1.0), (v, 2.0)):
         assert torch.equal(t.grad, torch.full_like(t, fill))
+
+
+def _flows_gather(monkeypatch, calls):
+    """The gather with x and the scale requiring grad: the forward
+    launch, then dx (the same launch over the source CSR) and dscale."""
+    args, kwargs, x = gather_inputs(False)
+    scale = args[2].clone().requires_grad_()
+    args = (args[0], args[1], scale) + args[3:]
+
+    def launch(table, ids, sc, perm, offsets, *, agg="sum"):
+        calls.append("forward" if table is x else "dx")
+        return torch.zeros((offsets.numel() - 1, table.shape[1])) \
+            if table is x else torch.full((N, F), 3.0)
+
+    def dscale(dout, table, src, dst, weight=None):
+        calls.append("dscale")
+        return torch.full((E,), 2.0)
+    monkeypatch.setattr(gather_ops, "fused_gather_aggregate_cuda", launch)
+    monkeypatch.setattr(gather_ops, "gather_scale_backward_cuda", dscale)
+    return args, kwargs, ((x, 3.0), (scale, 2.0)), \
+        ["forward"], ["forward", "dx", "dscale"]
+
+
+def _flows_segment(monkeypatch, calls):
+    args, kwargs, msg = segment_inputs(False)
+
+    def launch(messages, perm, offsets, *, agg="sum"):
+        calls.append("forward")
+        return torch.zeros((S, F))
+
+    def backward(messages, perm, offsets, out, dout, *, agg="sum"):
+        calls.append("backward")
+        return torch.full((E, F), 3.0)
+    monkeypatch.setattr(segment_ops, "segment_aggregate_cuda", launch)
+    monkeypatch.setattr(segment_ops, "segment_aggregate_backward_cuda",
+                        backward)
+    return args, kwargs, ((msg, 3.0),), ["forward"], ["forward", "backward"]
+
+
+def _flows_softmax(monkeypatch, calls):
+    args, kwargs, z = softmax_inputs()
+
+    def launch(logits, perm, offsets):
+        calls.append("forward")
+        return torch.zeros((E,))
+
+    def backward(w, dw, perm, offsets):
+        calls.append("backward")
+        return torch.full((E,), 3.0)
+    monkeypatch.setattr(softmax_ops, "segment_softmax_cuda", launch)
+    monkeypatch.setattr(softmax_ops, "segment_softmax_backward_cuda",
+                        backward)
+    return args, kwargs, ((z, 3.0),), ["forward"], ["forward", "backward"]
+
+
+def _flows_matmul(monkeypatch, calls):
+    """The product's backward is torch.matmul: dW = X^T dY with dY ones."""
+    args, kwargs, w = matmul_inputs()
+
+    def launch(x, w, *, block_m, block_n, block_k, by_body):
+        calls.append("forward")
+        return torch.zeros((x.shape[0], w.shape[1]))
+    monkeypatch.setattr(matmul_ops, "tiled_matmul_cuda", launch)
+    want = args[0].t() @ torch.ones((N, 5))
+    return args, kwargs, ((w, want),), ["forward"], ["forward"]
+
+
+FLOWS = {"fused_gather_aggregate": _flows_gather,
+         "segment_aggregate": _flows_segment,
+         "segment_softmax": _flows_softmax, "tiled_matmul": _flows_matmul}
+
+
+@pytest.mark.parametrize("name", sorted(FLOWS))
+def test_cuda_branch_gradient_flows(monkeypatch, name):
+    """In grad mode the CUDA branch launches the forward (a recorder) and,
+    on the backward pass, the backward launches (recorders), whose
+    results reach the inputs as their gradients; one forward launch is
+    counted."""
+    module = WRAPPERS[name][0]
+    wrapper = getattr(module, name)
+    calls = []
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(wrapper, "launches", 0)
+    args, kwargs, leaves, after_forward, after_backward = \
+        FLOWS[name](monkeypatch, calls)
+    out = wrapper(*args, **kwargs)
+    assert out.requires_grad and calls == after_forward
+    out.sum().backward()
+    assert calls == after_backward and wrapper.launches == 1
+    for leaf, want in leaves:
+        want = want if isinstance(want, torch.Tensor) \
+            else torch.full_like(leaf, want)
+        assert torch.equal(leaf.grad, want)
+
+
+def test_gather_backward_launches_are_counted(monkeypatch):
+    calls = []
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    wrapper = gather_ops.fused_gather_aggregate
+    for name in ("launches", "backward_launches"):
+        monkeypatch.setattr(wrapper, name, 0)
+    monkeypatch.setattr(gather_ops.gather_scale_backward, "launches", 0)
+    args, kwargs, *_ = _flows_gather(monkeypatch, calls)
+    wrapper(*args, **kwargs).sum().backward()
+    assert (wrapper.launches, wrapper.backward_launches,
+            gather_ops.gather_scale_backward.launches) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("agg", ["min", "max"])
+def test_cuda_branch_refuses_a_min_max_gather(monkeypatch, agg):
+    """No backward kernel for a min or max gather: it raises in grad
+    mode on the card, before it launches."""
+    calls = []
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(gather_ops, "fused_gather_aggregate_cuda",
+                        lambda *a, **k: calls.append(1))
+    args, _, _ = gather_inputs(False)
+    with pytest.raises(RuntimeError, match=f"{agg} gather.*ROADMAP item 12"):
+        gather_ops.fused_gather_aggregate(*args, agg=agg)
+    assert calls == []
+
+
+@pytest.mark.parametrize("name", ["fused_gather_aggregate",
+                                  "segment_aggregate"])
+def test_cuda_branch_refuses_low_precision_storage(monkeypatch, name):
+    """A bf16 table that requires grad has no backward on the card."""
+    module, launch, inputs = WRAPPERS[name]
+    calls = []
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    monkeypatch.setattr(module, launch, lambda *a, **k: calls.append(1))
+    args, kwargs, leaf = inputs()
+    table = leaf.to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="bfloat16 storage.*ROADMAP"):
+        getattr(module, name)(table, *args[1:], **kwargs)
+    assert calls == []
+
+
+@pytest.mark.parametrize("compute", ["bf16", "int8"])
+@pytest.mark.parametrize("kind", ["gather", "segment"])
+def test_aggregations_refuse_low_precision_training_on_the_card(
+        monkeypatch, compute, kind):
+    """``core.aggregations`` at a bf16 or int8 layer precision: a table
+    that requires grad raises on the card (the int8 table would drop its
+    gradient); on the CPU it trains (int8 through the fake-quant grid)."""
+    from repro_torch.core import aggregations as A
+    from repro_torch.core import quantization as Q
+    rng = _rng()
+    x = _t(rng.standard_normal((N, F)), grad=True)
+    src, dst = _ids(rng, N, E), _ids(rng, S, E)
+    lp = Q.LayerPrecision(compute=compute, act_fpx=Q.FPX(8, 3))
+
+    def call():
+        if kind == "gather":
+            return A.gather_aggregate("sum", x, src, dst, S, precision=lp)
+        return A.segment_aggregate("sum", x[src.long()], dst, S,
+                                   precision=lp)
+    out = call()
+    out.sum().backward()
+    assert x.grad is not None and x.grad.abs().sum() > 0
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    with pytest.raises(RuntimeError, match=f"{compute} storage.*ROADMAP"):
+        call()
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])

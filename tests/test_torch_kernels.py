@@ -273,12 +273,15 @@ def test_build_is_keyed_by_the_sources():
     assert {p.name for p in srcs} == {"flash_attention.cu",
                                       "flash_attention_bwd.cu",
                                       "fused_gather_aggregate.cu",
+                                      "fused_gather_aggregate_bwd.cu",
                                       "fused_gather_onehot.cu",
                                       "fused_layer_stack.cu",
                                       "gnn_aggregate.cu",
                                       "segment_aggregate.cu",
+                                      "segment_aggregate_bwd.cu",
                                       "segment_aggregate_onehot.cu",
                                       "segment_softmax.cu",
+                                      "segment_softmax_bwd.cu",
                                       "tiled_matmul.cu"}
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 16
