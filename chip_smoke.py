@@ -172,7 +172,10 @@ Phases, in order; any failure exits non-zero with no result line:
    wgmma body does not take run the SIMT body and are held too: the
    matmul at N = 70 and K = 11, attention at D = 40 and at Dv = 24.
    Each kernel-vs-plain call's body is the one its launch records, and
-   must be wgmma for bf16 at the shapes it takes and simt otherwise. Then the
+   must be wgmma for bf16 at the shapes it takes and simt otherwise.
+   Each attention call is launched again asking for lse2 (a training
+   forward): the output's bits must not change, and lse2 is held to
+   ``attention_lse2_ref`` within ``LSE_TOL`` of its scale. Then the
    path once through the entry points at full width, the counts set to 0
    just before and read just after (one launch per call, each output
    against its plain version): the 1024-graph qm9 batch as one padded
@@ -311,15 +314,20 @@ Phases, in order; any failure exits non-zero with no result line:
    probability printed, the host's free memory printed before the jamba
    cut. (d) The depth cuts and the phase's wall time against
    ``LM_TARGET_S``;
-13. LM training. (a) The ``flash_attention`` backward
-   (``csrc/flash_attention_bwd.cu``: the row statistics, dK/dV and dQ
-   launches) at ``BWD_SHAPES`` (qwen3-8b's training call, deepseek-v2's
-   MLA at D 192 / Dv 128, whisper-base's encoder and cross-attention,
-   an fp32 call, ragged key lengths) against ``attention_bwd_ref`` in
-   fp32 on the same inputs within ``BWD_TOL`` (dQ, dK and dV each), a
-   second launch bit for bit, timed beside its plain version,
+13. LM training. (a) The ``flash_attention`` backward (the delta
+   launch of ``csrc/flash_attention_bwd.cu``, then dK/dV and dQ by the
+   body ``bwd_body_for`` picks: ``csrc/flash_attention_bwd_wgmma.cu``
+   or the SIMT body of ``flash_attention_bwd.cu``), from the forward's
+   own lse2 (held against ``attention_stats_ref`` within ``LSE_TOL``),
+   at ``BWD_SHAPES`` (qwen3-8b's training call, deepseek-v2's MLA at D
+   192 / Dv 128, whisper-base's encoder and cross-attention, an fp32
+   call, ragged key lengths) against ``attention_bwd_ref`` in fp32 on
+   the same inputs within ``BWD_TOL`` (dQ, dK and dV each), a second
+   launch bit for bit, the body each ran printed (qwen3-8b's call on
+   the wgmma body), timed beside its plain version,
    ``scaled_dot_product_attention``'s forward + backward and its bound
-   (``attention_bwd_work``). (b) qwen3-8b at full width cut to 2 of 36
+   (``attention_bwd_work``); at qwen3-8b's call the SIMT body too,
+   held to the same bound and timed in turns with the wgmma body. (b) qwen3-8b at full width cut to 2 of 36
    layers (bf16, remat "full", fp32 AdamW moments): its first step's
    loss and global gradient norm against the CPU plain path (B 1, S 64)
    within ``TRAIN_TOL``, then 20 steps of ``token_batch`` (B 8, S 512)
@@ -382,9 +390,12 @@ serving run and (c)'s card runs); ``flash_attention``'s also
 prefill ms of (a) and (a')). Every entry carries
 ``launches_by_phase["13"]``: ``flash_attention``'s forward launches on
 the training path ((b) and (d), remat's recomputations included). The
-last entry but three, ``flash_attention_backward``, sums phase 13 (a)'s
-calls and counts the backward launches of (b) and (d); its ``training``
-key holds (b)'s, (c)'s and (d)'s readings. Every entry carries
+entries ``flash_attention_backward`` (the delta launch and the SIMT
+body) and ``flash_attention_backward_wgmma`` (the tensor-core body)
+sum phase 13 (a)'s calls of their body and count their body's dK/dV
+and dQ launches in (b) and (d) (the first also ``delta_launches``, one
+a backward call); the first's ``training`` key holds (b)'s, (c)'s and
+(d)'s readings. Every entry carries
 ``launches_by_phase["14"]``: the GNN training path's launches of rows
 1-3 and 8b (row 1's with its dx launches, whose (a) readings are its
 ``backward_dx``; its ``gnn_training`` holds phase 14's (b)-(d)
@@ -2412,7 +2423,8 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
     attention causal and not in fp32 and bf16 with ragged S."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_lse2_ref, attention_ref)
     from repro_torch.kernels.gnn_aggregate.kernel import (gnn_aggregate_cuda,
                                                           launch_geometry)
     from repro_torch.kernels.gnn_aggregate.ref import AGGS, gnn_aggregate_ref
@@ -2525,6 +2537,15 @@ def entry_kernels_vs_plain(dev, tables) -> dict:
                          attention_ref(q, k, v, causal=causal),
                          ATTN_TOL[dt], errs)
                 by_body[body] += 1
+                # a training forward: the same output bits, and lse2
+                same, lse2 = flash_attention_cuda(
+                    q, k, v, causal=causal, block_q=bq, block_k=bk,
+                    with_lse2=True)
+                check(same_bits(same, got), f"flash_attention {label} "
+                      f"{body}: the forward asked for lse2 has other bits")
+                close_to("flash_attention lse2", f"{label} {body}", lse2,
+                         attention_lse2_ref(q, k, causal=causal),
+                         dict(rtol=LSE_TOL, atol=0.0), errs, on_scale=True)
     # D above the SIMT body's 128 runs only on the wgmma body: fp32, and
     # bf16 at a pointer TMA cannot take, raise naming the limits
     def wide(dv, dt, offset=0):      # contiguous, ``offset`` elements in
@@ -4320,15 +4341,18 @@ def lm_phase(dev, errs: dict) -> dict:
 
 
 # ---------------------------------------------------------- phase 13 --
-# LM training. (a) the flash_attention backward (csrc/flash_attention_bwd
+# LM training. (a) the flash_attention backward (the delta launch, then
+# dK/dV and dQ by the body kernel.bwd_body_for picks: "wgmma",
+# csrc/flash_attention_bwd_wgmma.cu, or "simt", csrc/flash_attention_bwd
 # .cu) against its plain version, attention_bwd_ref in fp32 on the same
-# inputs, at (label, BH, Sq, Skv, D, Dv, causal, dtype): qwen3-8b's
-# training call (B 8 x 32 heads, S 512); deepseek-v2's MLA at D 192, Dv
-# 128 (B 1 x 128 heads); whisper-base's encoder (B 4 x 8 heads over 1500
-# frames, non-causal) and its cross-attention (the decoder's 375 tokens
-# over the 1500 frames); one fp32 call; ragged key lengths (333, not a
-# multiple of the 64-key tile, causal with Sq != Skv, and D 30 / Dv 18,
-# whose rows take 4-byte copies)
+# inputs, from the forward's own lse2, at (label, BH, Sq, Skv, D, Dv,
+# causal, dtype): qwen3-8b's training call (B 8 x 32 heads, S 512);
+# deepseek-v2's MLA at D 192, Dv 128 (B 1 x 128 heads); whisper-base's
+# encoder (B 4 x 8 heads over 1500 frames, non-causal) and its
+# cross-attention (the decoder's 375 tokens over the 1500 frames); one
+# fp32 call; ragged key lengths (333, not a multiple of any tile, causal
+# with Sq != Skv, and D 30 / Dv 18, whose rows take 4-byte copies and
+# the SIMT body in bf16 too)
 BWD_SHAPES = (("qwen3-8b train", 8 * 32, 512, 512, 128, 128, True, "bf16"),
               ("deepseek-v2 MLA", 128, 512, 512, 192, 128, True, "bf16"),
               ("whisper-base encoder", 4 * 8, 1500, 1500, 64, 64, False,
@@ -4338,23 +4362,39 @@ BWD_SHAPES = (("qwen3-8b train", 8 * 32, 512, 512, 128, 128, True, "bf16"),
               ("qwen3-8b head, fp32", 32, 512, 512, 128, 128, True, "fp32"),
               ("ragged Skv", 8, 300, 333, 128, 128, True, "bf16"),
               ("ragged Skv, D 30 / Dv 18, fp32", 6, 77, 333, 30, 18, False,
-               "fp32"))
+               "fp32"),
+              ("ragged Skv, D 30 / Dv 18, bf16", 6, 77, 333, 30, 18, False,
+               "bf16"))
+# the shape whose SIMT body is timed beside its wgmma body, in turns
+BWD_TURNS = "qwen3-8b train"
 # max |err| <= tol * max |plain| for each of dQ, dK and dV: fp32 sums the
 # same products in another order (1e-4 of the scale, as the forward's
 # ATTN_TOL); bf16 outputs are the fp32 result rounded once, against the
 # plain version's unrounded fp32: half a bf16 step (2^-9 of a value) plus
-# the order, held at one step of the largest value, 2^-8 ... doubled
+# the order, held at one step of the largest value, 2^-8 ... doubled (the
+# wgmma body also rounds P and dS to bf16 once, as its products' inputs)
 BWD_TOL = {"fp32": 1e-4, "bf16": 2.0 ** -7}
+# the forward's lse2 against attention_stats_ref's (logsumexp of the fp32
+# scores times log2(e)): max |err| <= LSE_TOL * max |lse2|. The kernel
+# sums the same products in another order and takes exp2f / log2f; an
+# error of 1e-4 of a scale of ~10 moves P by ~7e-4 of itself, under the
+# 2^-9 that rounding P to bf16 costs
+LSE_TOL = 1e-4
 DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
-def bwd_launch(q, k, v, o, do, causal: bool) -> tuple:
-    """The three backward launches, outside the wrapper's count."""
+def bwd_launch(q, k, v, o, do, lse2, causal: bool, by_body=None,
+               body=None) -> tuple:
+    """The three backward launches from the forward's ``lse2``, outside
+    the wrapper's count: (dQ, dK, dV). ``body`` forces one (None: the
+    body ``bwd_body_for`` picks)."""
     from repro_torch.kernels.flash_attention.kernel import (
-        attention_dkdv_cuda, attention_dq_cuda, attention_stats_cuda)
-    lse2, delta = attention_stats_cuda(q, k, o, do, causal=causal)
-    dk, dv = attention_dkdv_cuda(q, k, v, do, lse2, delta, causal=causal)
-    return attention_dq_cuda(q, k, v, do, lse2, delta, causal=causal), dk, dv
+        attention_delta_cuda, attention_dkdv_cuda, attention_dq_cuda)
+    delta = attention_delta_cuda(o, do)
+    dk, dv = attention_dkdv_cuda(q, k, v, do, lse2, delta, causal=causal,
+                                 by_body=by_body, body=body)
+    return attention_dq_cuda(q, k, v, do, lse2, delta, causal=causal,
+                             by_body=by_body, body=body), dk, dv
 
 
 def sdpa_fwd_bwd_ms(q, k, v, do, causal: bool):
@@ -4375,18 +4415,22 @@ def sdpa_fwd_bwd_ms(q, k, v, do, causal: bool):
 
 def attention_bwd_phase(dev, errs: dict) -> list:
     """(a) Each ``BWD_SHAPES`` call: normal q, k, v and dO drawn on the
-    card from a seeded generator, the forward kernel's output, the
+    card from a seeded generator, the forward kernel's output and lse2
+    (lse2 held against ``attention_stats_ref`` within ``LSE_TOL``), the
     backward's dQ, dK and dV against ``attention_bwd_ref`` in fp32
     within ``BWD_TOL``, a second launch bit for bit the first (no
-    atomics), then the backward timed beside
-    its plain version, SDPA's forward + backward and its bound
+    atomics), the body that ran (as the launches record it; the
+    qwen3-8b training call must run "wgmma"), then the backward timed
+    beside its plain version, SDPA's forward + backward and its bound
     (``attention_bwd_work``; operations at the tensor cores' rate for
-    bf16 inputs, the least time the card could take, though this
-    kernel's products run on the SIMT cores; the fp32 rate for fp32)."""
+    bf16 inputs, the fp32 rate for fp32). At ``BWD_TURNS`` the SIMT
+    body is also held to the plain version and timed beside the wgmma
+    body, in turns (simt, wgmma, wgmma, simt)."""
     from repro_torch.kernels._cost import attention_bwd_work
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_cuda)
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+        bwd_body_for, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_stats_ref)
     rows = []
     for label, bh, sq, skv, d, dv, causal, dt in BWD_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(sq * 7 + skv + d)
@@ -4394,51 +4438,100 @@ def attention_bwd_phase(dev, errs: dict) -> list:
             DTYPES[dt]) for shape in (
                 (bh, sq, d), (bh, skv, d), (bh, skv, dv), (bh, sq, dv)))
         with torch.no_grad():
-            o = flash_attention_cuda(q, k, v, causal=causal)
-        got = bwd_launch(q, k, v, o, do, causal)
-        again = bwd_launch(q, k, v, o, do, causal)
-        want = attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
-                                 causal=causal)
+            o, lse2 = flash_attention_cuda(q, k, v, causal=causal,
+                                           with_lse2=True)
         shape = (f"{label}: BH={bh} Sq={sq} Skv={skv} D={d} Dv={dv} "
                  f"{'causal' if causal else 'non-causal'} {dt}")
-        err = {}
-        for name, g, w, g2 in zip(("dQ", "dK", "dV"), got, want, again):
-            check(g.dtype == q.dtype and g.shape == w.shape,
-                  f"[13] (a) {shape}: {name} {g.dtype}{tuple(g.shape)}")
-            check(torch.equal(g, g2), f"[13] (a) {shape}: {name} of a "
-                                      "second launch has other bits")
-            gf = g.float()
-            check(bool(torch.isfinite(gf).all()),
-                  f"[13] (a) {shape}: {name} not finite")
-            err[name] = float((gf - w).abs().max())
-            bound = BWD_TOL[dt] * float(w.abs().max())
-            check(err[name] <= bound, f"[13] (a) {shape}: {name} max |err| "
-                                      f"{err[name]} > {bound}")
-        worst = max(err.values())
-        errs["flash_attention_backward"] = max(
-            errs.get("flash_attention_backward", 0.0), worst)
+        want_lse2, _ = attention_stats_ref(q, k, o, do, causal=causal)
+        lse_err = float((lse2 - want_lse2).abs().max())
+        lse_bound = LSE_TOL * float(want_lse2.abs().max())
+        check(bool(torch.isfinite(lse2).all()) and lse_err <= lse_bound,
+              f"[13] (a) {shape}: the forward's lse2 max |err| {lse_err} "
+              f"> {lse_bound}")
+        errs["flash_attention lse2"] = max(
+            errs.get("flash_attention lse2", 0.0), lse_err)
+        body = bwd_body_for(q.dtype, d, dv, *(t.data_ptr() for t in (
+            q, k, v, do)))
+        want = attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
+                                 causal=causal)
+        bodies = (body, "simt") if label == BWD_TURNS else (body,)
+        check(label != BWD_TURNS or body == "wgmma",
+              f"[13] (a) {shape}: bwd_body_for picks {body}, not wgmma")
+        for b in bodies:
+            counts = dict.fromkeys(BODIES, 0)
+            got = bwd_launch(q, k, v, o, do, lse2, causal, counts,
+                             body=None if b == body else b)
+            again = bwd_launch(q, k, v, o, do, lse2, causal,
+                               body=None if b == body else b)
+            check(counts == {**dict.fromkeys(BODIES, 0), b: 2},
+                  f"[13] (a) {shape}: ran {counts}, expected the {b} body's "
+                  "dK/dV and dQ launches")
+            err, share = {}, {}
+            for name, g, w, g2 in zip(("dQ", "dK", "dV"), got, want, again):
+                check(g.dtype == q.dtype and g.shape == w.shape,
+                      f"[13] (a) {shape} {b}: {name} "
+                      f"{g.dtype}{tuple(g.shape)}")
+                check(torch.equal(g, g2), f"[13] (a) {shape} {b}: {name} of "
+                                          "a second launch has other bits")
+                gf = g.float()
+                check(bool(torch.isfinite(gf).all()),
+                      f"[13] (a) {shape} {b}: {name} not finite")
+                err[name] = float((gf - w).abs().max())
+                bound = BWD_TOL[dt] * float(w.abs().max())
+                share[name] = err[name] / bound
+                check(err[name] <= bound, f"[13] (a) {shape} {b}: {name} "
+                                          f"max |err| {err[name]} > {bound}")
+            worst = max(err.values())
+            key = f"flash_attention_backward {b}"
+            errs[key] = max(errs.get(key, 0.0), worst)
+            print(f"[13] (a) flash_attention backward {shape}, {b} body"
+                  f"{'' if b == body else ' (forced)'}: max |err| dQ "
+                  f"{err['dQ']:.3e} dK {err['dK']:.3e} dV {err['dV']:.3e} "
+                  f"against attention_bwd_ref (fp32; tol {BWD_TOL[dt]} of "
+                  f"each scale: " + " / ".join(f"{share[n]:.3f}" for n in
+                                                share)
+                  + " of it), a second launch bit for bit; the forward's "
+                  f"lse2 max |err| {lse_err:.3e} against attention_stats_ref")
+            rows.append(dict(shape=shape, body=b, forced=b != body,
+                             max_abs_err=worst, errs=err,
+                             share_of_tol=share))
+            del got, again
         moved, ops = attention_bwd_work(q, k, v, o, do, causal=causal)
         bound, by = bound_ms(moved, ops, product_rate(q.dtype))
-        ms = cuda_ms(lambda: bwd_launch(q, k, v, o, do, causal), reps=10,
-                     inner=3)
+        picked = [r for r in rows[-len(bodies):] if not r["forced"]][0]
+        if len(bodies) == 2:
+            # in turns on the same inputs: simt, wgmma, wgmma, simt
+            turns = {b: [] for b in bodies}
+            for b in ("simt", body, body, "simt"):
+                turns[b].append(cuda_ms(
+                    lambda b=b: bwd_launch(q, k, v, o, do, lse2, causal,
+                                           body=None if b == body else b),
+                    reps=10, inner=3))
+            for r in rows[-2:]:
+                r["turns_ms"] = turns[r["body"]]
+                r["ms"] = statistics.mean(turns[r["body"]])
+        else:
+            picked["ms"] = cuda_ms(lambda: bwd_launch(q, k, v, o, do, lse2,
+                                                      causal),
+                                   reps=10, inner=3)
         plain_ms = cuda_ms(lambda: attention_bwd_ref(q, k, v, o, do,
                                                      causal=causal),
                            reps=3, inner=1, device_only=False)
         lib, note = sdpa_fwd_bwd_ms(q, k, v, do, causal)
-        row = dict(shape=shape, max_abs_err=worst, errs=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   library_ms=lib)
-        if note:
-            row["library_note"] = note
-        rows.append(row)
-        lib_s = f"{lib:.6f} ms" if lib is not None else f"null ({note})"
-        print(f"[13] (a) flash_attention backward {shape}: max |err| dQ "
-              f"{err['dQ']:.3e} dK {err['dK']:.3e} dV {err['dV']:.3e} "
-              f"against attention_bwd_ref (fp32; tol {BWD_TOL[dt]} of each "
-              f"scale), a second launch bit for bit; backward {ms:.6f} ms, "
-              f"plain {plain_ms:.6f} ms, SDPA forward + backward {lib_s}, "
-              f"bound {bound:.6f} ms ({by})")
-        del q, k, v, o, do, got, again, want
+        for r in rows[-len(bodies):]:
+            r.update(plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                     library_ms=lib)
+            if note:
+                r["library_note"] = note
+            lib_s = f"{lib:.6f} ms" if lib is not None else f"null ({note})"
+            turns_s = (" (turns " + ", ".join(f"{t:.6f}" for t in
+                                              r["turns_ms"]) + ")"
+                       if "turns_ms" in r else "")
+            print(f"[13] (a) flash_attention backward {shape}, {r['body']} "
+                  f"body: {r['ms']:.6f} ms{turns_s}, plain {plain_ms:.6f} "
+                  f"ms, SDPA forward + backward {lib_s}, bound "
+                  f"{bound:.6f} ms ({by}); {card_line()}")
+        del q, k, v, o, do, lse2, want
     torch.cuda.empty_cache()
     return rows
 
@@ -4474,10 +4567,18 @@ def attention_counts() -> tuple:
     return flash_attention.launches, flash_attention.backward_launches
 
 
+def backward_bodies() -> dict:
+    """The backward's dK/dV and dQ launches by body since the counts
+    were zeroed (two a backward call)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    return dict(flash_attention.backward_launches_by_body)
+
+
 def zero_attention_counts() -> None:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     flash_attention.launches = flash_attention.backward_launches = 0
     flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+    flash_attention.backward_launches_by_body = dict.fromkeys(BODIES, 0)
 
 
 def train_attention_launches(cfg, with_mem: bool) -> tuple:
@@ -4566,12 +4667,16 @@ def train_full_width_phase(dev) -> dict:
     wall = time.perf_counter() - t0
     fwd, bwd = attention_counts()
     by_body = dict(flash_attention.launches_by_body)
+    bwd_by_body = backward_bodies()
     peak = torch.cuda.max_memory_allocated(dev)
     want_fwd, want_bwd = train_attention_launches(cfg, False)
     check(fwd == TRAIN_STEPS * want_fwd and bwd == TRAIN_STEPS * want_bwd,
           f"[13] (b) flash_attention launches {fwd} forward, {bwd} backward "
           f"over {TRAIN_STEPS} steps; expected {want_fwd} and {want_bwd} a "
           "step")
+    check(bwd_by_body == {**dict.fromkeys(BODIES, 0), "wgmma": 2 * bwd},
+          f"[13] (b) the backward's dK/dV and dQ launches by body "
+          f"{bwd_by_body}; expected all {2 * bwd} on the wgmma body")
     losses = out["losses"]
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"[13] (b) losses {losses}")
@@ -4591,7 +4696,8 @@ def train_full_width_phase(dev) -> dict:
         tok_s_with_first=TRAIN_STEPS * tokens / sum(step_ms) * 1e3,
         peak_gib=peak / 2 ** 30, forward_launches_per_step=want_fwd,
         backward_launches_per_step=want_bwd, launches_by_body=by_body,
-        first_step_vs_cpu=vs, wall_s=wall)
+        backward_launches_by_body=bwd_by_body, first_step_vs_cpu=vs,
+        wall_s=wall)
     print(f"[13] (b) {cfg.name} at full width (d {cfg.d_model}, "
           f"{cfg.attn.num_heads}/{cfg.attn.num_kv_heads} heads of "
           f"{cfg.attn.head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
@@ -4611,7 +4717,8 @@ def train_full_width_phase(dev) -> dict:
           f"{res['peak_gib']:.2f} GiB; flash_attention {want_fwd} forward "
           f"launches a step (each layer's twice: remat recomputes it in the "
           f"backward pass) and {want_bwd} backward (3 kernels each), by body "
-          f"{by_body}; {wall:.1f} s")
+          f"{by_body}, the backward's dK/dV and dQ by body {bwd_by_body}; "
+          f"{wall:.1f} s")
     del params, opt_state, out
     torch.cuda.empty_cache()
     return res
@@ -4710,6 +4817,7 @@ def train_other_archs_phase(dev) -> dict:
         _, _, m = card.fn(params, opt_state, batch)
         got = {k: float(v) for k, v in m.items()}
         fwd, bwd = attention_counts()
+        bwd_by_body = backward_bodies()
         plain = steps.make_train_step(cfg, seq=TRAIN_OTHER_SEQ,
                                       batch=TRAIN_OTHER_BATCH, device="cpu")
         _, _, m = plain.fn(*host, batch)
@@ -4724,15 +4832,20 @@ def train_other_archs_phase(dev) -> dict:
         check((fwd, bwd) == (want_fwd, want_bwd),
               f"[13] (d) {cfg.name}: flash_attention {fwd} forward, {bwd} "
               f"backward launches; expected {want_fwd}, {want_bwd}")
+        check(sum(bwd_by_body.values()) == 2 * bwd,
+              f"[13] (d) {cfg.name}: the backward's launches by body "
+              f"{bwd_by_body} for {bwd} calls")
         out[arch] = dict(loss=got["loss"], grad_norm=got["grad_norm"],
                          rel=gaps, forward_launches=fwd,
-                         backward_launches=bwd)
+                         backward_launches=bwd,
+                         backward_launches_by_body=bwd_by_body)
         print(f"[13] (d) {cfg.name}: one train step on the card (B "
               f"{TRAIN_OTHER_BATCH}, S {TRAIN_OTHER_SEQ}"
               f"{', memory' if 'mem' in batch else ''}): loss "
               f"{got['loss']:.6f} ({gaps['loss']:.3e} of the CPU's), grad "
               f"norm {got['grad_norm']:.6f} ({gaps['grad_norm']:.3e}); "
-              f"flash_attention {fwd} forward, {bwd} backward launches")
+              f"flash_attention {fwd} forward, {bwd} backward launches "
+              f"(dK/dV and dQ by body {bwd_by_body})")
         del params, opt_state, host
     torch.cuda.empty_cache()
     return out
@@ -4746,11 +4859,13 @@ def train_phase(dev, errs: dict) -> dict:
     t0 = time.perf_counter()
     rows = attention_bwd_phase(dev, errs)
     ta = time.perf_counter() - t0
-    launches = {"forward": 0, "backward": 0}
+    launches = {"forward": 0, "backward": 0, **dict.fromkeys(BODIES, 0)}
     tb = time.perf_counter()
     full = train_full_width_phase(dev)
     launches["forward"] += full["forward_launches_per_step"] * TRAIN_STEPS
     launches["backward"] += full["backward_launches_per_step"] * TRAIN_STEPS
+    for b, n in full["backward_launches_by_body"].items():
+        launches[b] += n
     tb = time.perf_counter() - tb
     tc = time.perf_counter()
     fault = train_fault_phase(dev)
@@ -4760,13 +4875,16 @@ def train_phase(dev, errs: dict) -> dict:
     for v in others.values():
         launches["forward"] += v["forward_launches"]
         launches["backward"] += v["backward_launches"]
+        for b, n in v["backward_launches_by_body"].items():
+            launches[b] += n
     td = time.perf_counter() - td
     wall = time.perf_counter() - t0
     print(f"[13] phase 13 took {wall:.1f} s ((a) {ta:.1f}, (b) {tb:.1f}, "
           f"(c) {tc:.1f}, (d) {td:.1f}; target {TRAIN_TARGET_S:.0f} s); "
           f"flash_attention launches on the training path ((b) and (d)): "
           f"{launches['forward']} forward (remat's recomputations "
-          f"included), {launches['backward']} backward")
+          f"included), {launches['backward']} backward (dK/dV and dQ: "
+          f"{launches['wgmma']} wgmma, {launches['simt']} simt)")
     return dict(rows=rows, launches=launches, full_width=full, fault=fault,
                 others=others, wall_s=wall)
 
@@ -5436,37 +5554,59 @@ def gnn_dx_entry(gnn: dict) -> dict:
     }
 
 
-def summarize_backward(train: dict, errs: dict) -> dict:
-    """The backward kernel's entry: (a)'s calls summed, the launches of
-    the training path."""
-    rows = train["rows"]
-    libs = [r for r in rows if r["library_ms"] is not None]
-    entry = {
-        "name": "flash_attention_backward", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:57",
-        "replaces_note": "none: the JAX package differentiates its jnp "
-                         "attention and has no Pallas backward; this is "
-                         "the gradient of the port's forward kernel, the "
-                         "row statistics, dK/dV and dQ launches",
-        "launches": train["launches"]["backward"],
-        "launches_by_phase": {"13": train["launches"]["backward"]},
-        "max_abs_err": errs["flash_attention_backward"],
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-        else "operations",
-        "library_ms": sum(r["library_ms"] for r in libs) if libs else None,
-        "library_note": "scaled_dot_product_attention forward + backward",
-        "shapes": "phase 13 (a): " + "; ".join(r["shape"] for r in rows),
-        "calls": rows,
-        "training": {k: train[k] for k in ("full_width", "fault", "others")},
+def summarize_backward(train: dict, errs: dict) -> list:
+    """The backward's entries, one a body: (a)'s calls of that body
+    summed (each the three launches: delta, dK/dV, dQ), and the body's
+    dK/dV and dQ launches on the training path ((b) and (d)); the delta
+    launch, in the SIMT body's source, counts one a backward call."""
+    meta = {
+        "simt": ("flash_attention_backward",
+                 "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "the delta launch and the SIMT body's dK/dV and dQ "
+                 "launches"),
+        "wgmma": ("flash_attention_backward_wgmma",
+                  "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
+                  "the tensor-core body's dK/dV and dQ launches, after "
+                  "the delta launch of flash_attention_bwd.cu"),
     }
-    if len(libs) < len(rows):
-        entry["library_calls"] = len(libs)
-        entry["ms_on_library_calls"] = sum(r["ms"] for r in libs)
-    return entry
+    out = []
+    for body, (name, source, what) in meta.items():
+        rows = [r for r in train["rows"] if r["body"] == body]
+        libs = [r for r in rows if r["library_ms"] is not None]
+        n = train["launches"][body]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:57",
+            "replaces_note": "none: the JAX package differentiates its jnp "
+                             "attention and has no Pallas backward; this is "
+                             "the gradient of the port's forward kernel, "
+                             + what,
+            "launches": n,
+            "launches_by_phase": {"13": n},
+            "max_abs_err": errs[f"flash_attention_backward {body}"],
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": sum(r["library_ms"] for r in libs) if libs
+            else None,
+            "library_note": "scaled_dot_product_attention forward + "
+                            "backward",
+            "shapes": "phase 13 (a): " + "; ".join(
+                r["shape"] + (" (forced)" if r["forced"] else "")
+                for r in rows),
+            "calls": rows,
+        }
+        if body == "simt":
+            entry["delta_launches"] = train["launches"]["backward"]
+            entry["training"] = {k: train[k] for k in (
+                "full_width", "fault", "others")}
+        if len(libs) < len(rows):
+            entry["library_calls"] = len(libs)
+            entry["ms_on_library_calls"] = sum(r["ms"] for r in libs)
+        out.append(entry)
+    return out
 
 
 def summarize(rows, errs, launches, by_precision) -> dict:
@@ -5717,7 +5857,7 @@ def main() -> int:
             if k["name"] == "flash_attention" else 0
         k["launches_by_phase"]["13"] = n
         k["launches"] += n
-    summary["kernels"].append(summarize_backward(train, entry_errs))
+    summary["kernels"] += summarize_backward(train, entry_errs)
     # the GNN training path (phase 14): rows 1-3's forward launches (row
     # 1's dx over the source CSR beside them) and row 8b's products, and
     # the three backward kernels' entries

@@ -5,7 +5,12 @@
 // over the keys j the mask allows: every j < Skv, and under `causal` the
 // top-left mask j <= i. q, k, v are fp32 or bf16, scale = D^-0.5, the
 // running max m, denominator l and accumulator are fp32, the result is
-// acc / max(l, 1e-30) in q's dtype.
+// acc / max(l, 1e-30) in q's dtype. Asked for (a training forward), each
+// body also writes the row log-sum-exp lse2 = m + log2(l), fp32, in its
+// own log2 domain (the scores times D^-0.5 log2(e)): the backward
+// (flash_attention_bwd.cu) recomputes P from it instead of walking the
+// keys again. Not asked for, nothing else is written and the output's
+// bits are the same.
 //
 // Replaces the Pallas TPU kernel
 //   src/repro/kernels/flash_attention/kernel.py,
@@ -151,7 +156,7 @@ template <typename T, int E>
 __global__ void __launch_bounds__(kThreads, Tile<E>::kBlocksPerSm)
 attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
-                      Shape s) {
+                      float* __restrict__ lse2, Shape s) {
   using L = Tile<E>;
   constexpr int kCols = E / kTX;   // output columns a thread
   extern __shared__ float4 smem4[];
@@ -299,6 +304,10 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int off = 1; off < kTX; off <<= 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    // the row log-sum-exp for the backward, in the log2 domain
+    if (lse2 != nullptr && tx == 0 && r0 + i < rows)
+      lse2[static_cast<size_t>(bh) * s.sq + q0 + r0 + i] =
+          m[i] + log2f(l[i]);
   }
   T* ob = out + (static_cast<size_t>(bh) * s.sq + q0) * s.dv;
 #pragma unroll
@@ -320,7 +329,7 @@ attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int E>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const Shape& s, cudaStream_t stream) {
+                   float* lse2, const Shape& s, cudaStream_t stream) {
   auto kernel = attention_simt_kernel<T, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -331,7 +340,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), kThreads, Tile<E>::kSmem,
            stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<T*>(out), s);
+                     static_cast<const T*>(v), static_cast<T*>(out), lse2,
+                     s);
   return cudaGetLastError();
 }
 
@@ -349,14 +359,15 @@ size_t smem_bytes(int d, int dv) {
 
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         void* out, const Shape& s, cudaStream_t stream) {
+                         void* out, float* lse2, const Shape& s,
+                         cudaStream_t stream) {
   switch (padded_width(s.d, s.dv)) {
     case 32:
-      return launch<T, 32>(q, k, v, out, s, stream);
+      return launch<T, 32>(q, k, v, out, lse2, s, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, s, stream);
+      return launch<T, 64>(q, k, v, out, lse2, s, stream);
     default:
-      return launch<T, 128>(q, k, v, out, s, stream);
+      return launch<T, 128>(q, k, v, out, lse2, s, stream);
   }
 }
 
@@ -404,7 +415,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap, WShape s,
-                       __nv_bfloat16* __restrict__ out) {
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse2) {
   using T = Tile<DP, DVP>;
   extern __shared__ uint8_t raw[];
   uint8_t* q_s = align_atom(raw);
@@ -556,6 +568,7 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(o);
       if (lane == 0) mbar_arrive(&ring->empty[pos.stage]);
     }
+    const size_t head = static_cast<size_t>(bh) * s.sq;
     float denom[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -563,8 +576,11 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       denom[h] = fmaxf(l, 1e-30f);
+      // the row log-sum-exp for the backward, in the log2 domain
+      const int row = row0 + 8 * h;
+      if (lse2 != nullptr && lane % 4 == 0 && row < s.sq)
+        lse2[head + row] = m_run[h] + log2f(l);
     }
-    const size_t head = static_cast<size_t>(bh) * s.sq;
 #pragma unroll
     for (int i = 0; i < DVP / 2; i += 2) {
       const int h = (i >> 1) & 1;
@@ -582,8 +598,8 @@ attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int DP, int DVP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int bh, int sq, int skv, int d, int dv, int causal,
-                   float scale, cudaStream_t stream) {
+                   float* lse2, int bh, int sq, int skv, int d, int dv,
+                   int causal, float scale, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   const uint32_t qbox[3] = {kBoxCols, kBQ, 1};
   const uint32_t kvbox[3] = {kBoxCols, kBKV, 1};
@@ -617,7 +633,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const WShape s{bh, sq, skv, dv, causal ? 1 : 0, scale * kLog2e};
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      qmap, kmap, vmap, s, static_cast<__nv_bfloat16*>(out));
+      qmap, kmap, vmap, s, static_cast<__nv_bfloat16*>(out), lse2);
   return cudaGetLastError();
 }
 
@@ -641,12 +657,12 @@ size_t smem_bytes(int d, int dv) {
 
 template <int DP>
 cudaError_t launch_for(int dvp, const void* q, const void* k, const void* v,
-                       void* out, int bh, int sq, int skv, int d, int dv,
-                       int causal, float scale, cudaStream_t stream) {
+                       void* out, float* lse2, int bh, int sq, int skv, int d,
+                       int dv, int causal, float scale, cudaStream_t stream) {
   return dvp == 64
-             ? launch<DP, 64>(q, k, v, out, bh, sq, skv, d, dv, causal, scale,
-                              stream)
-             : launch<DP, 128>(q, k, v, out, bh, sq, skv, d, dv, causal,
+             ? launch<DP, 64>(q, k, v, out, lse2, bh, sq, skv, d, dv, causal,
+                              scale, stream)
+             : launch<DP, 128>(q, k, v, out, lse2, bh, sq, skv, d, dv, causal,
                                scale, stream);
 }
 
@@ -669,7 +685,10 @@ int smem_optin_limit() {
 // The SIMT body: q (bh, sq, d), k (bh, skv, d), v (bh, skv, dv), out
 // (bh, sq, dv), all contiguous in the storage type `dtype` (fp32 or
 // bf16), d and dv at most 128; block_q/block_k (1 to 128) are checked
-// and do not change the launch. Returns cudaGetLastError() after the
+// and do not change the launch. lse2, null or (bh, sq) fp32, takes each
+// row's log-sum-exp m + log2(l) in the log2 domain of the scores times
+// scale log2(e), for the backward; null writes nothing else and leaves
+// the output's bits as they are. Returns cudaGetLastError() after the
 // launch (0 = launched), or cudaErrorInvalidValue for another dtype, a
 // size out of range, more blocks than a grid holds, or more shared
 // memory than the device's opt-in limit.
@@ -677,7 +696,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, int dtype, int bh, int sq,
                                      int skv, int d, int dv, int block_q,
                                      int block_k, int causal, float scale,
-                                     void* out, void* stream) {
+                                     void* out, void* lse2, void* stream) {
   using namespace repro;
   if (bh < 1 || sq < 1 || skv < 1 || d < 1 || dv < 1 || d > 128 ||
       dv > 128 || block_q < 1 || block_k < 1 || block_q > 128 ||
@@ -695,13 +714,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   const sm::Shape s{bh, sq, skv, d, dv, causal ? 1 : 0, vec,
                     scale * kLog2e};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse2);
   switch (dtype) {
     case kF32:
       return static_cast<int>(
-          sm::launch_typed<float>(q, k, v, out, s, st));
+          sm::launch_typed<float>(q, k, v, out, l, s, st));
     case kBF16:
       return static_cast<int>(
-          sm::launch_typed<__nv_bfloat16>(q, k, v, out, s, st));
+          sm::launch_typed<__nv_bfloat16>(q, k, v, out, l, s, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -709,7 +729,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 
 // The tensor-core body: q (bh, sq, d), k (bh, skv, d), v (bh, skv, dv),
 // out (bh, sq, dv), contiguous bf16, 16-byte aligned, d and dv
-// multiples of 16, d at most 192 and dv at most 128. Returns
+// multiples of 16, d at most 192 and dv at most 128; lse2 as the SIMT
+// body's. Returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for what it does not take (a size or alignment,
 // more blocks than a grid holds, or more shared memory than the device's
@@ -718,7 +739,8 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, int bh, int sq,
                                            int skv, int d, int dv,
                                            int causal, float scale,
-                                           void* out, void* stream) {
+                                           void* out, void* lse2,
+                                           void* stream) {
   using namespace repro::wg;
   if (bh < 1 || sq < 1 || skv < 1 || d < 16 || dv < 16 || d > kMaxD ||
       dv > kMaxDv || d % 16 != 0 || dv % 16 != 0 ||
@@ -731,16 +753,17 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
   if (smem_bytes(d, dv) > static_cast<size_t>(limit))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse2);
   const int dp = padded_d(d), dvp = padded_dv(dv);
   cudaError_t err;
   if (dp == 64)
-    err = launch_for<64>(dvp, q, k, v, out, bh, sq, skv, d, dv, causal, scale,
-                         st);
+    err = launch_for<64>(dvp, q, k, v, out, l, bh, sq, skv, d, dv, causal,
+                         scale, st);
   else if (dp == 128)
-    err = launch_for<128>(dvp, q, k, v, out, bh, sq, skv, d, dv, causal,
+    err = launch_for<128>(dvp, q, k, v, out, l, bh, sq, skv, d, dv, causal,
                           scale, st);
   else
-    err = launch_for<192>(dvp, q, k, v, out, bh, sq, skv, d, dv, causal,
+    err = launch_for<192>(dvp, q, k, v, out, l, bh, sq, skv, d, dv, causal,
                           scale, st);
   return static_cast<int>(err);
 }

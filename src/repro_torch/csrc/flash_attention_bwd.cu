@@ -11,18 +11,24 @@
 //
 // The JAX package differentiates its jnp attention (online_attention, a
 // scan over KV chunks) and has no Pallas backward: this is the port's own
-// kernel, the gradient of its forward kernel. Three launches, each a
-// 256-thread block per tile of 64 rows (q rows or keys), every tile
-// staged in shared memory in fp32 by cp.async (simt.cuh; bf16 converted
-// on the way) and every product a plain fp32 FMA on the SIMT cores:
+// kernel, the gradient of its forward kernel. The row log-sum-exp comes
+// from the forward (flash_attention.cu writes it when asked: lse2[i] =
+// m2 + log2(l) in the log2 domain of the scores x = (q . k) * scale
+// log2(e)), so P = exp2(x - lse2) needs no second walk over the keys.
+// Three launches:
 //
-//   1. stats, one block per (bh, q tile): the row log-sum-exp, walking
-//      the key tiles with the forward's online max and sum, stored in
-//      the log2 domain as lse2[i] = m2 + log2(l) with the scores taken as
-//      x = (q . k) * scale log2(e), the forward's own definition; and
-//      delta[i] = dO[i] . o[i] in fp32 from the saved output. The forward
-//      kernel is unchanged, so it recomputes the statistics it does not
-//      write.
+//   1. delta, four lanes a row: delta[i] = dO[i] . o[i] in fp32 from the
+//      saved output, one pass over o and dO (16-byte loads where the rows
+//      allow), bound by their bytes.
+//
+// then the gradients, by one of two bodies the wrapper picks from dtype,
+// head sizes and alignment alone (kernels/flash_attention/kernel.py,
+// bwd_body_for): "wgmma" (bf16, D and Dv multiples of 16:
+// flash_attention_bwd_wgmma.cu) or "simt", here: a 256-thread block per
+// tile of 64 rows (q rows or keys), every tile staged in shared memory in
+// fp32 by cp.async (simt.cuh; bf16 converted on the way) and every
+// product a plain fp32 FMA on the SIMT cores:
+//
 //   2. dK and dV, one block per (bh, key tile): K and V stay in shared
 //      memory, and the block walks the q tiles (under `causal` only those
 //      at or after the key tile), recomputing P = exp2(x - lse2) and dP
@@ -53,8 +59,8 @@
 //
 // Bound on this card: operations, 2 (3 D + 2 Dv) flops a (row, key)
 // pair the mask allows for the gradients (kernels/_cost.py,
-// attention_bwd_work), at the fp32 SIMT rate; the statistics pass adds
-// 2 D a pair more, which the bound does not count.
+// attention_bwd_work), at the fp32 SIMT rate; the delta pass by its
+// bytes.
 
 #include "common.cuh"
 #include "simt.cuh"
@@ -62,12 +68,7 @@
 namespace repro {
 namespace {
 
-constexpr float kNegInf = -1e30f;         // the empty max (NEG_INF)
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (b > a || is_nan(b)) ? b : a;
-}
 
 namespace bwd {
 
@@ -88,7 +89,6 @@ struct Tile {
   static constexpr int kQ = kB * kQPitch;
   static constexpr int kV = kB * kVPitch;
   static constexpr int kS = kB * kSPitch;
-  static constexpr size_t kSmemStats = sizeof(float) * 2 * kQ;
   // K, V, q, dO, P, dS, lse2, delta
   static constexpr size_t kSmemKV =
       sizeof(float) * (2 * kQ + 2 * kV + 2 * kS + 2 * kB);
@@ -183,92 +183,38 @@ __device__ __forceinline__ void store_rows(T* out, size_t first_row,
   }
 }
 
-// 1. lse2 and delta of one (bh, q tile)
-template <typename T, int DP>
+// 1. delta of 64 rows: four neighbouring lanes a row, each summing a
+// strided share of Dv (VEC elements a load) in a fixed order, then two
+// xor shuffles
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ o, const T* __restrict__ dout,
-             float* __restrict__ lse2, float* __restrict__ delta, Shape s) {
-  constexpr int P = DP + 4;
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + kB * P;
-
-  const int q_tiles = (s.sq + kB - 1) / kB;
-  const int qt = q_tiles - 1 - static_cast<int>(blockIdx.x / s.bh);
-  const int bh = static_cast<int>(blockIdx.x % s.bh);
-  const int q0 = qt * kB;
-  const int rows = min(kB, s.sq - q0);
-  const int kv_end = s.causal ? min(s.skv, q0 + rows) : s.skv;
-  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
-  const bool vec = s.vec != 0;
-  const size_t row0 = static_cast<size_t>(bh) * s.sq + q0;
-
-  stage_tile<kB, DP, kThreads>(qs, P, q + row0 * s.d, s.d, rows, s.d, vec,
-                               tid);
-
-  // delta: four neighbouring lanes a row, each a strided share of Dv
-  {
-    const int r = tid / 4, part = tid % 4;
-    float acc = 0.0f;
-    if (r < rows) {
-      const T* a = o + (row0 + r) * s.dv;
-      const T* b = dout + (row0 + r) * s.dv;
-      for (int c = part; c < s.dv; c += 4)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+             float* __restrict__ delta, long long rows, int dv) {
+  const long long r = static_cast<long long>(blockIdx.x) * (kThreads / 4) +
+                      threadIdx.x / 4;
+  const int part = threadIdx.x % 4;
+  float acc = 0.0f;
+  if (r < rows) {
+    const T* a = o + r * dv;
+    const T* b = dout + r * dv;
+    for (int c = part * VEC; c < dv; c += 4 * VEC) {
+      if constexpr (VEC == 1) {
         acc = fmaf(to_float(a[c]), to_float(b[c]), acc);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (r < rows && part == 0) delta[row0 + r] = acc;
-  }
-
-  float m[kRows], l[kRows];
+      } else {
+        // 16 bytes of each row: VEC elements of T
+        const uint4 x = *reinterpret_cast<const uint4*>(a + c);
+        const uint4 y = *reinterpret_cast<const uint4*>(b + c);
+        const T* xs = reinterpret_cast<const T*>(&x);
+        const T* ys = reinterpret_cast<const T*>(&y);
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-  }
-  const T* kb = k + static_cast<size_t>(bh) * s.skv * s.d;
-  for (int k0 = 0; k0 < kv_end; k0 += kB) {
-    __syncthreads();    // every thread is done with the previous K tile
-    stage_tile<kB, DP, kThreads>(ks, P, kb + static_cast<size_t>(k0) * s.d,
-                                 s.d, s.skv - k0, s.d, vec, tid);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float sc[kRows][kKeys];
-    tile_dot<DP, P>(qs, ks, ty, tx, sc);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int key = k0 + tx + kTX * j;
-        const float x = allowed(s, row, key) ? sc[i][j] * s.scale_log2
-                                             : -pos_inf();
-        sc[i][j] = x;
-        mx = max_nan(mx, x);
+        for (int e = 0; e < VEC; ++e)
+          acc = fmaf(to_float(xs[e]), to_float(ys[e]), acc);
       }
-#pragma unroll
-      for (int off = 1; off < kTX; off <<= 1)
-        mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float corr = exp2f(m[i] - mx);
-      m[i] = mx;
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) sum += exp2f(sc[i][j] - mx);
-      l[i] = fmaf(l[i], corr, sum);
     }
   }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-    for (int off = 1; off < kTX; off <<= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    const int r = 4 * ty + i;
-    if (tx == 0 && r < rows) lse2[row0 + r] = m[i] + log2f(l[i]);
-  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  if (r < rows && part == 0) delta[r] = acc;
 }
 
 // P and dS of the pairs (4 ty + i, tx + 16 j) of a (q tile, key tile)
@@ -477,18 +423,14 @@ long long key_blocks(const Shape& s) {
   return static_cast<long long>(s.bh) * ((s.skv + kB - 1) / kB);
 }
 
-template <typename T, int DP>
-cudaError_t launch_stats(const void* q, const void* k, const void* o,
-                         const void* dout, void* lse2, void* delta,
-                         const Shape& s, cudaStream_t st) {
-  auto kernel = stats_kernel<T, DP>;
-  const size_t smem = Tile<DP, 64>::kSmemStats;
-  cudaError_t err = prepare(kernel, smem, q_blocks(s));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned>(q_blocks(s)), kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+template <typename T, int VEC>
+cudaError_t launch_delta(const void* o, const void* dout, void* delta,
+                         long long rows, int dv, cudaStream_t st) {
+  const long long blocks = (rows + kThreads / 4 - 1) / (kThreads / 4);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  delta_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<float*>(lse2), static_cast<float*>(delta), s);
+      static_cast<float*>(delta), rows, dv);
   return cudaGetLastError();
 }
 
@@ -552,21 +494,7 @@ cudaError_t grads_typed(const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T>
-cudaError_t stats_typed(const void* q, const void* k, const void* o,
-                        const void* dout, void* lse2, void* delta,
-                        const Shape& s, cudaStream_t st) {
-  switch (padded_d(s.d)) {
-    case 64:
-      return launch_stats<T, 64>(q, k, o, dout, lse2, delta, s, st);
-    case 128:
-      return launch_stats<T, 128>(q, k, o, dout, lse2, delta, s, st);
-    default:
-      return launch_stats<T, 192>(q, k, o, dout, lse2, delta, s, st);
-  }
-}
-
-// The shape checks shared by the three entries, the device's opt-in
+// The shape checks of the gradients' entry, the device's opt-in
 // shared-memory limit against the largest block (dK/dV's), and the
 // launch parameters; 0 or a CUDA error code.
 int shape_for(const void* const* ptrs, int n_ptrs, int dtype, int bh, int sq,
@@ -598,35 +526,39 @@ int shape_for(const void* const* ptrs, int n_ptrs, int dtype, int bh, int sq,
 }  // namespace
 }  // namespace repro
 
-// 1. The row statistics: q (bh, sq, d), k (bh, skv, d), o and dout (bh,
-// sq, dv), contiguous in the storage type `dtype` (fp32 or bf16), d at
-// most 192 and dv at most 128 -> lse2 and delta (bh, sq) fp32 (lse2 in
-// the log2 domain of the scores times scale log2(e)). Returns
-// cudaGetLastError() after the launch (0 = launched), or
+// 1. delta: o and dout (rows, dv), contiguous in the storage type
+// `dtype` (fp32 or bf16) -> delta (rows) fp32, delta[r] = dout[r] . o[r].
+// Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for what it does not take.
-extern "C" int repro_flash_attention_bwd_stats(
-    const void* q, const void* k, const void* o, const void* dout, int dtype,
-    int bh, int sq, int skv, int d, int dv, int causal, float scale,
-    void* lse2, void* delta, void* stream) {
+extern "C" int repro_flash_attention_bwd_delta(const void* o,
+                                               const void* dout, int dtype,
+                                               long long rows, int dv,
+                                               void* delta, void* stream) {
   using namespace repro;
   using namespace repro::bwd;
-  const void* ptrs[] = {q, k, o, dout};
-  Shape s;
-  const int bad = shape_for(ptrs, 4, dtype, bh, sq, skv, d, dv, causal,
-                            scale, &s);
-  if (bad != 0) return bad;
+  if (rows < 1 || dv < 1 || (dtype != kF32 && dtype != kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per = dtype == kF32 ? 4 : 8;      // elements in 16 bytes
+  const bool vec = dv % per == 0 &&
+                   reinterpret_cast<uintptr_t>(o) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dout) % 16 == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      dtype == kF32
-          ? stats_typed<float>(q, k, o, dout, lse2, delta, s, st)
-          : stats_typed<__nv_bfloat16>(q, k, o, dout, lse2, delta, s, st));
+  cudaError_t err;
+  if (dtype == kF32)
+    err = vec ? launch_delta<float, 4>(o, dout, delta, rows, dv, st)
+              : launch_delta<float, 1>(o, dout, delta, rows, dv, st);
+  else
+    err = vec ? launch_delta<__nv_bfloat16, 8>(o, dout, delta, rows, dv, st)
+              : launch_delta<__nv_bfloat16, 1>(o, dout, delta, rows, dv, st);
+  return static_cast<int>(err);
 }
 
-// 2. and 3. The gradients from the statistics: q (bh, sq, d), k (bh,
-// skv, d), v (bh, skv, dv), dout (bh, sq, dv), lse2 and delta (bh, sq)
-// fp32, all contiguous. With dq null, launches dK/dV into dk (bh, skv,
+// 2. and 3. The SIMT body's gradients: q (bh, sq, d), k (bh, skv, d), v
+// (bh, skv, dv), dout (bh, sq, dv), all contiguous in `dtype` (fp32 or
+// bf16), d at most 192 and dv at most 128; lse2 (the forward's) and
+// delta (bh, sq) fp32. With dq null, launches dK/dV into dk (bh, skv,
 // d) and dv_out (bh, skv, dv); with dq given, launches dQ into dq (bh,
-// sq, d); outputs in `dtype`. Returns as the statistics' entry.
+// sq, d); outputs in `dtype`. Returns as the delta entry.
 extern "C" int repro_flash_attention_bwd_grads(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse2, const void* delta, int dtype, int bh, int sq, int skv,

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core bodies of
-// tiled_matmul.cu and flash_attention.cu: TMA tensor maps and loads, the
-// mbarrier ring that hands tiles from a producer warp to the consumer
-// warpgroups, wgmma shared-memory descriptors, fences and the
-// mma_async wrappers, and the setmaxnreg register hand-over.
+// tiled_matmul.cu, flash_attention.cu and flash_attention_bwd_wgmma.cu:
+// TMA tensor maps and loads, the mbarrier ring that hands tiles from a
+// producer warp to the consumer warpgroups, wgmma shared-memory
+// descriptors, fences and the mma_async wrappers, and the setmaxnreg
+// register hand-over.
 //
 // Every tile in shared memory is written by TMA with the 128-byte
 // swizzle: a box whose inner dimension is 64 bf16 (128 bytes) lands as
@@ -152,10 +153,11 @@ struct Ring {
   uint64_t full[Stages];
   uint64_t empty[Stages];
 
-  // one thread, before the block's __syncthreads()
-  __device__ void init(uint32_t consumer_warps) {
+  // one thread, before the block's __syncthreads(); `producers` threads
+  // arrive on a full barrier (one of them with the TMA byte count)
+  __device__ void init(uint32_t consumer_warps, uint32_t producers = 1) {
     for (int s = 0; s < Stages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], producers);
       mbar_init(&empty[s], consumer_warps);
     }
     fence_barrier_init();
@@ -256,6 +258,38 @@ __device__ __forceinline__ int acc_row(int i, int lane, int warp) {
 }
 __device__ __forceinline__ int acc_col(int i, int lane) {
   return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+}
+
+// D (m64 x n32, fp32) += A (smem) * B (smem), both bf16
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, 1, 1, 1, 0, %18;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "n"(TransB));
+}
+
+// D (m64 x n64, fp32) += A (smem) * B (smem), both bf16
+template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, 1, 1, 1, 0, %34;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "n"(TransB));
 }
 
 // D (m64 x n128, fp32) += A (smem) * B (smem), both bf16

@@ -283,7 +283,7 @@ def attention_bwd_work(q, k, v, o, do, causal: bool = True, **_) -> tuple:
     v, o and dO read once, dQ, dK and dV written once in q's dtype, and
     the rows' fp32 log-sum-exp; per (query, key) pair the mask allows,
     2 (3 D + 2 Dv) operations: the score and dP (2 D + 2 Dv), dV, dQ and
-    dK's products (2 Dv + 4 D). The statistics pass's recomputed scores
+    dK's products (2 Dv + 4 D). The dQ launch's recomputed score and dP
     and the elementwise steps are not counted."""
     d, dv = q.shape[-1], v.shape[-1]
     rows = q.numel() // d

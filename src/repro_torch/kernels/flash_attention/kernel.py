@@ -20,13 +20,26 @@ head sizes alone (never by a failed launch):
 Both bodies' tiles are their own: ``block_q``/``block_k`` are checked
 (ints from 1 to 128) and do not change either launch.
 
-The backward (``csrc/flash_attention_bwd.cu``, the port's own: the JAX
-package differentiates its ``jnp`` attention) is three launches:
-``attention_stats_cuda`` (the row log-sum-exp, in the log2 domain of
-the kernel's scores, and delta = dO . o), ``attention_dkdv_cuda`` and
-``attention_dq_cuda``. fp32 or bf16, D up to ``MAX_BWD_HEAD[0]`` and Dv
-up to ``MAX_BWD_HEAD[1]``, on either forward body's output; SIMT tiles
-of 64 rows with fp32 FMAs, no atomics.
+Asked with ``with_lse2=True`` (a training forward), either body also
+writes each row's log-sum-exp ``lse2`` (BH, Sq) fp32, in the log2 domain
+of its scores (times D^-0.5 log2(e)); the output's bits do not change.
+
+The backward (the port's own: the JAX package differentiates its
+``jnp`` attention) is three launches from the forward's lse2:
+``attention_delta_cuda`` (delta = dO . o, ``csrc/flash_attention_bwd.cu``),
+``attention_dkdv_cuda`` and ``attention_dq_cuda``, each of the two by the
+body ``bwd_body_for`` picks from dtype, head sizes and alignment alone:
+
+- ``"wgmma"`` (bf16, D and Dv multiples of 16, D up to 192 and Dv up to
+  128; ``csrc/flash_attention_bwd_wgmma.cu``): TMA-fed wgmma tiles, P
+  and dS formed in registers and fed to the next products as bf16
+  register operands.
+- ``"simt"`` (fp32 and the other bf16 head sizes; ``csrc/
+  flash_attention_bwd.cu``): tiles of 64 rows staged in fp32, fp32 FMAs.
+
+D up to ``MAX_BWD_HEAD[0]`` and Dv up to ``MAX_BWD_HEAD[1]``, on either
+forward body's output; no atomics, so a second launch is bit for bit
+the first.
 """
 from __future__ import annotations
 
@@ -41,21 +54,27 @@ BODIES = ("wgmma", "simt")
 MAX_TILE = 128      # block_q and block_k
 # the head sizes each body takes: (D, Dv) at most
 MAX_HEAD = {"wgmma": (192, 128), "simt": (128, 128)}
-# the head sizes (D, Dv) the backward takes at most
+# the head sizes (D, Dv) the backward takes at most (either body)
 MAX_BWD_HEAD = (192, 128)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-_STATS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float] + [ctypes.c_void_p] * 3
-_GRADS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float] + [ctypes.c_void_p] * 4
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p]
 _WGMMA_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_DELTA_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+# the gradients' entries: the SIMT one takes the dtype code after the six
+# input pointers, the wgmma one (bf16 only) does not
+_GRADS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float] + [ctypes.c_void_p] * 4
+_BWD_WGMMA_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    + [ctypes.c_float] + [ctypes.c_void_p] * 4
 
 
 def body_for(dtype: torch.dtype, d: int, dv: int, *pointers: int) -> str:
@@ -72,6 +91,17 @@ def body_for(dtype: torch.dtype, d: int, dv: int, *pointers: int) -> str:
     return "simt"
 
 
+def bwd_body_for(dtype: torch.dtype, d: int, dv: int, *pointers: int) -> str:
+    """The body a backward call with head sizes ``d`` and ``dv`` runs
+    (``attention_dkdv_cuda``, ``attention_dq_cuda``): the forward's rule,
+    ``"wgmma"`` for bf16 when D and Dv are multiples of 16 (a k16 step)
+    within ``MAX_HEAD["wgmma"]`` (D = 192 with Dv = 128, MLA's, included:
+    its dK/dV stage takes 32 q rows, so the accumulators fit the
+    registers) and every base pointer given is 16-byte aligned (TMA),
+    else ``"simt"``, which takes every call within ``MAX_BWD_HEAD``."""
+    return body_for(dtype, d, dv, *pointers)
+
+
 def check_tiles(block_q: int, block_k: int) -> None:
     for name, val in (("block_q", block_q), ("block_k", block_k)):
         if not isinstance(val, int) or isinstance(val, bool) or val < 1:
@@ -80,11 +110,13 @@ def check_tiles(block_q: int, block_k: int) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, block_q: int = 128,
-                         block_k: int = 128,
-                         by_body: dict | None = None) -> torch.Tensor:
+                         block_k: int = 128, by_body: dict | None = None,
+                         with_lse2: bool = False):
     """q (BH, Sq, D); k (BH, Skv, D); v (BH, Skv, Dv), contiguous, all fp32
     or all bf16, D and Dv within ``MAX_HEAD`` of the body ``body_for``
-    picks -> (BH, Sq, Dv) in q's dtype.
+    picks -> (BH, Sq, Dv) in q's dtype, and with ``with_lse2`` also the
+    rows' log-sum-exp (BH, Sq) fp32 in the log2 domain (the backward's
+    input): ``(out, lse2)``.
     ``block_q``/``block_k`` (at most 128) are checked and do not change
     the launch. Launches the body ``body_for`` names on the current
     stream and, given a ``by_body`` dict, adds one to its entry for that
@@ -121,9 +153,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     with torch.cuda.device(dev):
         out = torch.empty((bh, sq, dv), dtype=q.dtype, device=dev)
+        lse2 = torch.empty((bh, sq), dtype=torch.float32, device=dev) \
+            if with_lse2 else None
         args = (_build.pointer(q), _build.pointer(k), _build.pointer(v))
         tail = (int(bool(causal)), ctypes.c_float(d ** -0.5),
-                _build.pointer(out), _build.stream_pointer(dev))
+                _build.pointer(out), _build.pointer(lse2),
+                _build.stream_pointer(dev))
         if body == "wgmma":
             status = _build.function("repro_flash_attention_wgmma",
                                      _WGMMA_ARGTYPES)(
@@ -135,7 +170,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(status, f"flash_attention ({body})")
     if by_body is not None:
         by_body[body] += 1
-    return out
+    return (out, lse2) if with_lse2 else out
 
 
 # ------------------------------------------------------------ backward --
@@ -173,7 +208,7 @@ def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
 
 
 def _check_stats(q: torch.Tensor, lse2: torch.Tensor,
-                 delta: torch.Tensor) -> None:
+                delta: torch.Tensor) -> None:
     for name, t in (("lse2", lse2), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != q.shape[:2] \
                 or t.device != q.device or not t.is_contiguous():
@@ -181,62 +216,91 @@ def _check_stats(q: torch.Tensor, lse2: torch.Tensor,
                              f"{tuple(q.shape[:2])} tensor on {q.device}")
 
 
-def attention_stats_cuda(q: torch.Tensor, k: torch.Tensor, o: torch.Tensor,
-                         do: torch.Tensor, *, causal: bool) -> tuple:
-    """The backward's row statistics: (lse2, delta), each (BH, Sq) fp32.
-    lse2 is the log-sum-exp of the row's scores in the log2 domain the
-    kernels use ((q . k) D^-0.5 log2(e)); delta = dO . o. o and dO are
-    (BH, Sq, Dv); launches on the current stream."""
-    bh, sq, skv, d, dv = _check_bwd(q, k, None, o=o, do=do)
-    dev = q.device
+def attention_delta_cuda(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The backward's first launch: delta = dO . o, (BH, Sq) fp32, from
+    the forward's output o and its gradient dO, (BH, Sq, Dv) contiguous
+    CUDA tensors of one dtype of ``DTYPES``; on the current stream."""
+    for name, t in (("o", o), ("dO", do)):
+        if t.dim() != 3 or t.device.type != "cuda" \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 3-D CUDA tensor")
+    if do.shape != o.shape or do.dtype != o.dtype \
+            or o.dtype not in DTYPES or do.device != o.device:
+        raise ValueError(f"o {o.dtype}{tuple(o.shape)} on {o.device} and dO "
+                         f"{do.dtype}{tuple(do.shape)} on {do.device} must "
+                         f"match, in a dtype of {DTYPES}")
+    bh, sq, dv = o.shape
+    if min(bh, sq, dv) < 1:
+        raise ValueError(f"o {tuple(o.shape)}: every size >= 1")
+    dev = o.device
     with torch.cuda.device(dev):
-        lse2 = torch.empty((bh, sq), dtype=torch.float32, device=dev)
-        delta = torch.empty_like(lse2)
-        status = _build.function("repro_flash_attention_bwd_stats",
-                                 _STATS_ARGTYPES)(
-            _build.pointer(q), _build.pointer(k), _build.pointer(o),
-            _build.pointer(do), _build.DTYPE_CODES[q.dtype], bh, sq, skv, d,
-            dv, int(bool(causal)), ctypes.c_float(d ** -0.5),
-            _build.pointer(lse2), _build.pointer(delta),
+        delta = torch.empty((bh, sq), dtype=torch.float32, device=dev)
+        status = _build.function("repro_flash_attention_bwd_delta",
+                                 _DELTA_ARGTYPES)(
+            _build.pointer(o), _build.pointer(do),
+            _build.DTYPE_CODES[o.dtype], bh * sq, dv, _build.pointer(delta),
             _build.stream_pointer(dev))
-    _build.check(status, "flash_attention backward (stats)")
-    return lse2, delta
+    _build.check(status, "flash_attention backward (delta)")
+    return delta
 
 
-def _grads(q, k, v, do, lse2, delta, causal, outs) -> None:
+def _grads(q, k, v, do, lse2, delta, causal, outs, by_body, body) -> None:
     bh, sq, skv, d, dv = _check_bwd(q, k, v, do=do)
     _check_stats(q, lse2, delta)
     dq, dk, dv_out = outs
+    picked = bwd_body_for(q.dtype, d, dv, *(t.data_ptr() for t in (
+        q, k, v, do, *(t for t in outs if t is not None))))
+    if body is None:
+        body = picked
+    elif body not in BODIES or (body == "wgmma" and picked != "wgmma"):
+        raise ValueError(f"body {body!r}: this call takes "
+                         f"{sorted({picked, 'simt'})}")
     dev = q.device
-    with torch.cuda.device(dev):
-        status = _build.function("repro_flash_attention_bwd_grads",
-                                 _GRADS_ARGTYPES)(
-            _build.pointer(q), _build.pointer(k), _build.pointer(v),
-            _build.pointer(do), _build.pointer(lse2), _build.pointer(delta),
-            _build.DTYPE_CODES[q.dtype], bh, sq, skv, d, dv,
-            int(bool(causal)), ctypes.c_float(d ** -0.5), _build.pointer(dq),
+    ptrs = (_build.pointer(q), _build.pointer(k), _build.pointer(v),
+            _build.pointer(do), _build.pointer(lse2), _build.pointer(delta))
+    tail = (bh, sq, skv, d, dv, int(bool(causal)),
+            ctypes.c_float(d ** -0.5), _build.pointer(dq),
             _build.pointer(dk), _build.pointer(dv_out),
             _build.stream_pointer(dev))
-    _build.check(status, "flash_attention backward ("
+    with torch.cuda.device(dev):
+        if body == "wgmma":
+            status = _build.function("repro_flash_attention_bwd_wgmma",
+                                     _BWD_WGMMA_ARGTYPES)(*ptrs, *tail)
+        else:
+            status = _build.function("repro_flash_attention_bwd_grads",
+                                     _GRADS_ARGTYPES)(
+                *ptrs, _build.DTYPE_CODES[q.dtype], *tail)
+    _build.check(status, f"flash_attention backward ({body}, "
                  + ("dq" if dq is not None else "dk/dv") + ")")
+    if by_body is not None:
+        by_body[body] += 1
 
 
 def attention_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse2: torch.Tensor,
-                        delta: torch.Tensor, *, causal: bool) -> tuple:
-    """(dK (BH, Skv, D), dV (BH, Skv, Dv)) in q's dtype from the row
-    statistics of ``attention_stats_cuda``: one block a (bh, key tile)."""
+                        delta: torch.Tensor, *, causal: bool,
+                        by_body: dict | None = None,
+                        body: str | None = None) -> tuple:
+    """(dK (BH, Skv, D), dV (BH, Skv, Dv)) in q's dtype from the
+    forward's lse2 and ``attention_delta_cuda``'s delta: one block a (bh,
+    key tile), by the body ``bwd_body_for`` picks (``body="simt"`` forces
+    the SIMT body, which takes every call, for a measurement beside the
+    other); given a ``by_body`` dict, adds one to that body's entry."""
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _grads(q, k, v, do, lse2, delta, causal, (None, dk, dv))
+    _grads(q, k, v, do, lse2, delta, causal, (None, dk, dv), by_body, body)
     return dk, dv
 
 
 def attention_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lse2: torch.Tensor,
-                      delta: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """dQ (BH, Sq, D) in q's dtype from the row statistics: one block a
-    (bh, q tile)."""
+                      delta: torch.Tensor, *, causal: bool,
+                      by_body: dict | None = None,
+                      body: str | None = None) -> torch.Tensor:
+    """dQ (BH, Sq, D) in q's dtype from lse2 and delta: one block a (bh,
+    q tile), by the body ``bwd_body_for`` picks (``by_body`` and
+    ``body`` as ``attention_dkdv_cuda``'s)."""
     dq = torch.empty_like(q)
-    _grads(q, k, v, do, lse2, delta, causal, (dq, None, None))
+    _grads(q, k, v, do, lse2, delta, causal, (dq, None, None), by_body,
+           body)
     return dq

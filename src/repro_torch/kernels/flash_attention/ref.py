@@ -10,8 +10,11 @@ runs it, and the kernel is held against it on the card.
 formulas step by step in fp32 (P from the scores, dV = P^T dO, dP = dO
 V^T, delta = dO · o from the saved output, dS = P (dP - delta), dQ =
 scale dS K, dK = scale dS^T q), cast to q's dtype. ``attention_stats_ref``
-is its first launch's: the row log-sum-exp in the kernels' log2 domain
-and delta."""
+gives what its launches read, the rows' log-sum-exp in the kernels' log2
+domain (as ``torch.logsumexp``) and delta. ``attention_lse2_ref`` is the
+forward kernels' lse2 output's plain version (their way: the row max,
+then the log2 of the sum of exp2), ``attention_delta_ref`` the delta
+launch's."""
 from __future__ import annotations
 
 import math
@@ -48,13 +51,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         v.to(torch.float32)).to(q.dtype)
 
 
+def attention_lse2_ref(q: torch.Tensor, k: torch.Tensor, *,
+                       causal: bool = True) -> torch.Tensor:
+    """The forward kernels' lse2 output, (BH, Sq) fp32: the scores times
+    log2(e) (masked keys at NEG_INF times log2(e)), their row max m2,
+    and m2 + log2(sum exp2(x - m2))."""
+    x = _scores(q, k, causal) * LOG2E
+    m2 = x.amax(-1, keepdim=True)
+    return (m2 + torch.log2(torch.exp2(x - m2).sum(-1, keepdim=True))) \
+        .squeeze(-1)
+
+
+def attention_delta_ref(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = dO · o, (BH, Sq) fp32, the backward's first launch."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+
+
 def attention_stats_ref(q: torch.Tensor, k: torch.Tensor, o: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True) -> tuple:
     """(lse2, delta), each (BH, Sq) fp32: the log-sum-exp of a row's
     scores times log2(e) (the kernels' log2 domain) and dO · o."""
     lse2 = torch.logsumexp(_scores(q, k, causal), dim=-1) * LOG2E
-    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
-    return lse2, delta
+    return lse2, attention_delta_ref(o, do)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,8 +2,8 @@
 
 Five wrappers carry a gradient on the card. In grad mode, with an input
 that requires grad, each CUDA branch is an autograd function:
-``flash_attention``'s backward launches the statistics, dK/dV and dQ
-kernels; the CSR gather's (sum, mean) launches the gather itself over
+``flash_attention``'s backward launches the delta, dK/dV and dQ
+kernels from the forward's lse2; the CSR gather's (sum, mean) launches the gather itself over
 the source CSR for dx and the scale-gradient kernel for dscale; the
 segment aggregation's and the segment softmax's launch their backward
 kernels; ``tiled_matmul``'s takes ``torch.matmul`` for dX and dW. The
@@ -173,32 +173,37 @@ def test_cuda_branch_refuses_an_input_that_requires_grad(cuda_branch):
 
 def test_cuda_branch_flash_attention_gradient_flows(monkeypatch):
     """The case the refusal test had for ``flash_attention``: in grad
-    mode its CUDA branch launches the forward (a recorder) and, on the
-    backward pass, the three backward launches (recorders), and the
-    gradient reaches q, k and v."""
+    mode its CUDA branch launches the forward (a recorder) asking for
+    lse2 and, on the backward pass, the three backward launches
+    (recorders) with that lse2, and the gradient reaches q, k and v."""
     from repro_torch.kernels.flash_attention import ref
     args, kwargs, _ = attention_inputs()
     calls = []
+    lse2 = torch.zeros(args[0].shape[:2])
 
-    def forward(q, k, v, *, causal, block_q, block_k, by_body):
+    def forward(q, k, v, *, causal, block_q, block_k, by_body,
+                with_lse2=False):
         calls.append("forward")
-        return torch.zeros(q.shape[:2] + v.shape[2:])
+        assert with_lse2
+        return torch.zeros(q.shape[:2] + v.shape[2:]), lse2
 
-    def stats(q, k, o, do, *, causal):
-        calls.append("stats")
-        return ref.attention_stats_ref(q, k, o, do, causal=causal)
+    def delta(o, do):
+        calls.append("delta")
+        return ref.attention_delta_ref(o, do)
 
-    def dkdv(q, k, v, do, lse2, delta, *, causal):
+    def dkdv(q, k, v, do, lse2_in, delta, *, causal, by_body):
         calls.append("dkdv")
+        assert lse2_in is lse2
         return torch.ones_like(k), torch.full_like(v, 2.0)
 
-    def dq(q, k, v, do, lse2, delta, *, causal):
+    def dq(q, k, v, do, lse2_in, delta, *, causal, by_body):
         calls.append("dq")
+        assert lse2_in is lse2
         return torch.full_like(q, 3.0)
 
     monkeypatch.setattr(_build, "runs_plain", lambda t: False)
     for name, fn in (("flash_attention_cuda", forward),
-                     ("attention_stats_cuda", stats),
+                     ("attention_delta_cuda", delta),
                      ("attention_dkdv_cuda", dkdv),
                      ("attention_dq_cuda", dq)):
         monkeypatch.setattr(attention_ops, name, fn)
@@ -208,7 +213,7 @@ def test_cuda_branch_flash_attention_gradient_flows(monkeypatch):
     out = wrapper(*args, **kwargs)
     assert out.requires_grad and calls == ["forward"]
     out.sum().backward()
-    assert calls == ["forward", "stats", "dkdv", "dq"]
+    assert calls == ["forward", "delta", "dkdv", "dq"]
     assert wrapper.launches == 1 and wrapper.backward_launches == 1
     q, k, v = args
     for t, fill in ((q, 3.0), (k, 1.0), (v, 2.0)):

@@ -345,10 +345,11 @@ def test_one_bf16_term_for_p_misses_the_tolerance():
 
 
 def test_wgmma_entry_declares_every_pointer():
-    """q, k, v, out and the stream are c_void_p, the scale a c_float."""
+    """q, k, v, out, lse2 and the stream are c_void_p, the scale a
+    c_float."""
     import ctypes
     assert [i for i, t in enumerate(K._WGMMA_ARGTYPES)
-            if t is ctypes.c_void_p] == [0, 1, 2, 10, 11]
+            if t is ctypes.c_void_p] == [0, 1, 2, 10, 11, 12]
     assert K._WGMMA_ARGTYPES[9] is ctypes.c_float
 
 

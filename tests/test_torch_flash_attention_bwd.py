@@ -13,17 +13,25 @@ is held to the gradient of the attention itself:
   and dV over each group). Tolerance 1e-5 of each gradient's scale
   (max |err| <= 1e-5 max |want|): the same fp32 products summed in
   another order.
+- The forward's lse2 output's plain version (``attention_lse2_ref``:
+  the row max, then log2 of the sum of exp2) against
+  ``attention_stats_ref``'s (``torch.logsumexp`` times log2(e)) within
+  1e-5 of the scale, and the delta launch's (``attention_delta_ref``).
 - The CUDA branch of ``ops.flash_attention`` reached without a card
   (``_build.runs_plain`` patched to "not the CPU", the forward launch
   and the three backward launches replaced by recorders around the
   plain versions): in grad mode the call is an autograd function whose
-  backward calls the statistics, dK/dV and dQ launches in that order
-  with the right shapes and dtypes, and the gradient reaches q, k and
-  v, equal to autograd of the plain version.
+  forward asks for lse2 and whose backward calls the delta, dK/dV and
+  dQ launches in that order with the right shapes and dtypes and the
+  forward's own lse2, and the gradient reaches q, k and v, equal to
+  autograd of the plain version.
+- ``kernel.bwd_body_for`` picks the backward's body from dtype, head
+  sizes and alignment alone.
 - ``_cost.attention_bwd_work`` counts the least work of the backward.
 
-The CUDA launch test needs a card and skips without one; on the card
-it holds the kernel against ``attention_bwd_ref``.
+The CUDA launch tests need a card and skip without one; on the card
+they hold each body against ``attention_bwd_ref`` (the wgmma body at
+``chip_smoke.BWD_TOL``'s 2^-7, a second launch bit for bit).
 """
 import jax
 import jax.numpy as jnp
@@ -33,6 +41,7 @@ import torch
 
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels import _build, _cost
+from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops as O
 from repro_torch.kernels.flash_attention import ref as R
 from repro_torch.nn.attention import _expand_kv
@@ -133,49 +142,93 @@ def test_stats_ref_is_the_log2_log_sum_exp():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_forward_lse2_plain_version_is_the_stats_ref(case, causal):
+    """The forward kernels write lse2 their way (the row max m2, then m2
+    + log2 of the sum of exp2 of the scores times log2(e) less m2); its
+    plain version equals ``attention_stats_ref``'s logsumexp within
+    1e-5 of the scale, and delta is dO . o."""
+    q, k, v, do = (torch.from_numpy(a) for a in inputs(*case, seed=7))
+    got = R.attention_lse2_ref(q, k, causal=causal)
+    o = R.attention_ref(q, k, v, causal=causal)
+    want, delta = R.attention_stats_ref(q, k, o, do, causal=causal)
+    assert got.dtype == torch.float32 and got.shape == case[:2]
+    assert_close(got.numpy(), want.numpy())
+    assert torch.equal(R.attention_delta_ref(o, do), delta)
+    assert_close(delta.numpy(), (do.numpy() * o.numpy()).sum(-1))
+
+
+# ------------------------------------------------- the backward's body --
+@pytest.mark.parametrize("dtype, d, dv, pointers, want", [
+    (torch.bfloat16, 128, 128, (0, 256, 4096), "wgmma"),   # qwen3-8b
+    (torch.bfloat16, 192, 128, (0, 512), "wgmma"),         # MLA's prefill
+    (torch.bfloat16, 64, 64, (), "wgmma"),                 # whisper
+    (torch.float32, 128, 128, (0, 256), "simt"),           # fp32
+    (torch.bfloat16, 30, 18, (0, 256), "simt"),            # not k16 steps
+    (torch.bfloat16, 8, 8, (), "simt"),                    # reduced configs
+    (torch.bfloat16, 128, 128, (0, 256, 2), "simt"),       # misaligned
+    (torch.bfloat16, 256, 128, (), "simt"),                # D past 192
+], ids=["qwen3", "mla", "whisper", "fp32", "d30-dv18", "d8", "misaligned",
+        "d256"])
+def test_bwd_body_for(dtype, d, dv, pointers, want):
+    assert K.bwd_body_for(dtype, d, dv, *pointers) == want
+
+
 # ------------------------------------------ the CUDA branch, no card --
 @pytest.fixture
 def cuda_branch(monkeypatch):
     """The CUDA branch of ``ops.flash_attention`` on CPU tensors: the
     forward launch and the three backward launches recorded and
-    computed by the plain versions."""
-    calls = []
+    computed by the plain versions; the forward's lse2 is kept in
+    ``calls.lse2`` to follow it into the backward."""
+    class Calls(list):
+        lse2 = None
+    calls = Calls()
 
-    def forward(q, k, v, *, causal, block_q, block_k, by_body):
-        calls.append(("forward", q.shape, k.shape, v.shape, q.dtype))
+    def forward(q, k, v, *, causal, block_q, block_k, by_body,
+                with_lse2=False):
+        calls.append(("forward", q.shape, k.shape, v.shape, q.dtype,
+                      with_lse2))
         by_body["simt"] += 1
         with torch.no_grad():
-            return R.attention_ref(q, k, v, causal=causal)
+            out = R.attention_ref(q, k, v, causal=causal)
+            if not with_lse2:
+                return out
+            calls.lse2 = R.attention_lse2_ref(q, k, causal=causal)
+            return out, calls.lse2
 
-    def stats(q, k, o, do, *, causal):
-        calls.append(("stats", q.shape, k.shape, o.shape, do.shape,
-                      q.dtype, o.dtype, do.dtype))
-        assert all(t.is_contiguous() for t in (q, k, o, do))
-        return R.attention_stats_ref(q, k, o, do, causal=causal)
+    def delta(o, do):
+        calls.append(("delta", o.shape, do.shape, o.dtype, do.dtype))
+        assert all(t.is_contiguous() for t in (o, do))
+        return R.attention_delta_ref(o, do)
 
-    def dkdv(q, k, v, do, lse2, delta, *, causal):
+    def dkdv(q, k, v, do, lse2, delta, *, causal, by_body):
         calls.append(("dkdv", lse2.shape, lse2.dtype, delta.shape,
-                      delta.dtype, v.shape, do.dtype))
+                      delta.dtype, v.shape, do.dtype, lse2 is calls.lse2))
+        by_body["simt"] += 1
         _, dk, dv = R.attention_bwd_ref(
             q, k, v, R.attention_ref(q, k, v, causal=causal), do,
             causal=causal)
         return dk, dv
 
-    def dq(q, k, v, do, lse2, delta, *, causal):
-        calls.append(("dq", q.shape, lse2.shape))
+    def dq(q, k, v, do, lse2, delta, *, causal, by_body):
+        calls.append(("dq", q.shape, lse2.shape, lse2 is calls.lse2))
+        by_body["simt"] += 1
         return R.attention_bwd_ref(
             q, k, v, R.attention_ref(q, k, v, causal=causal), do,
             causal=causal)[0]
 
     monkeypatch.setattr(_build, "runs_plain", lambda t: False)
     monkeypatch.setattr(O, "flash_attention_cuda", forward)
-    monkeypatch.setattr(O, "attention_stats_cuda", stats)
+    monkeypatch.setattr(O, "attention_delta_cuda", delta)
     monkeypatch.setattr(O, "attention_dkdv_cuda", dkdv)
     monkeypatch.setattr(O, "attention_dq_cuda", dq)
     for name in ("launches", "backward_launches"):
         monkeypatch.setattr(O.flash_attention, name, 0)
-    monkeypatch.setattr(O.flash_attention, "launches_by_body",
-                        {"wgmma": 0, "simt": 0})
+    for name in ("launches_by_body", "backward_launches_by_body"):
+        monkeypatch.setattr(O.flash_attention, name,
+                            {"wgmma": 0, "simt": 0})
     return calls
 
 
@@ -193,15 +246,18 @@ def test_cuda_branch_backward_launches_the_three_kernels(cuda_branch, dtype,
     out = O.flash_attention(tq, tk, tv, causal=True)
     assert out.requires_grad and out.shape == tdo.shape
     grads = torch.autograd.grad(out, (tq, tk, tv), tdo)
-    assert [c[0] for c in cuda_branch] == ["forward", "stats", "dkdv", "dq"]
+    assert [c[0] for c in cuda_branch] == ["forward", "delta", "dkdv", "dq"]
     three = (bh, sq, d), (bh, skv, d), (bh, skv, dv), (bh, sq, dv)
-    assert cuda_branch[1] == ("stats", three[0], three[1], three[3],
-                              three[3], dtype, dtype, dtype)
+    assert cuda_branch[0] == ("forward", *three[:3], dtype, True)
+    assert cuda_branch[1] == ("delta", three[3], three[3], dtype, dtype)
+    # the forward's own lse2 (saved, not recomputed) reaches both launches
     assert cuda_branch[2] == ("dkdv", (bh, sq), torch.float32, (bh, sq),
-                              torch.float32, three[2], dtype)
-    assert cuda_branch[3] == ("dq", three[0], (bh, sq))
+                              torch.float32, three[2], dtype, True)
+    assert cuda_branch[3] == ("dq", three[0], (bh, sq), True)
     assert O.flash_attention.launches == 1
     assert O.flash_attention.backward_launches == 1
+    assert O.flash_attention.backward_launches_by_body == {"wgmma": 0,
+                                                           "simt": 2}
     # the same gradients as autograd of the plain version
     pq, pk, pv = (t.detach().requires_grad_() for t in (tq, tk, tv))
     want = torch.autograd.grad(
@@ -222,6 +278,8 @@ def test_cuda_branch_without_grad_saves_nothing(cuda_branch):
     with torch.no_grad():
         O.flash_attention(q.requires_grad_(), k, v, causal=False)
     assert [c[0] for c in cuda_branch] == ["forward", "forward"]
+    # inference never asks the forward for lse2
+    assert [c[-1] for c in cuda_branch] == [False, False]
 
 
 # ---------------------------------------------------------- the bound --
@@ -257,6 +315,45 @@ def cuda_device():
         pytest.skip("needs a CUDA device: the flash attention backward is "
                     "CUDA C++ with no CPU mode")
     return torch.device("cuda")
+
+
+# the wgmma body's bound, chip_smoke.BWD_TOL["bf16"] (the file imports
+# JAX, so the script's constant is restated here)
+WGMMA_BWD_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", [(4, 256, 256, 128, 128),
+                                  (2, 130, 300, 64, 64),
+                                  (2, 300, 130, 64, 128),
+                                  (1, 70, 70, 192, 128)], ids=str)
+def test_cuda_wgmma_backward_matches_plain(cuda_device, case, causal):
+    """The wgmma body from the forward's own lse2, by the launches
+    (``bwd_body_for`` picks it: bf16, D and Dv multiples of 16): dQ, dK
+    and dV within 2^-7 of each gradient's scale of ``attention_bwd_ref``
+    in fp32, and a second launch bit for bit the first."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                   for a in inputs(*case, seed=11))
+    o, lse2 = K.flash_attention_cuda(q, k, v, causal=causal, with_lse2=True)
+    assert_close(lse2.cpu().numpy(), R.attention_stats_ref(
+        q, k, o, do, causal=causal)[0].cpu().numpy(), tol=1e-4)
+
+    def launch(by_body=None):
+        delta = K.attention_delta_cuda(o, do)
+        dk, dv = K.attention_dkdv_cuda(q, k, v, do, lse2, delta,
+                                       causal=causal, by_body=by_body)
+        return (K.attention_dq_cuda(q, k, v, do, lse2, delta, causal=causal,
+                                    by_body=by_body), dk, dv)
+    by_body = {"wgmma": 0, "simt": 0}
+    got, again = launch(by_body), launch()
+    assert by_body == {"wgmma": 2, "simt": 0}
+    want = R.attention_bwd_ref(*(t.float() for t in (q, k, v, o, do)),
+                               causal=causal)
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert_close(g.float().cpu().numpy(), w.cpu().numpy(),
+                     WGMMA_BWD_TOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

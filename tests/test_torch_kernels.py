@@ -272,6 +272,7 @@ def test_build_is_keyed_by_the_sources():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {"flash_attention.cu",
                                       "flash_attention_bwd.cu",
+                                      "flash_attention_bwd_wgmma.cu",
                                       "fused_gather_aggregate.cu",
                                       "fused_gather_aggregate_bwd.cu",
                                       "fused_gather_onehot.cu",
@@ -296,10 +297,19 @@ def test_build_is_keyed_by_the_sources():
                                (SK._ONEHOT_ARGTYPES, (0, 4, 9, 11, 12)),
                                (PK._ARGTYPES, (0, 4, 13, 14)),
                                (TK._ARGTYPES, (0, 1, 6, 7)),
-                               (FK._ARGTYPES, (0, 1, 2, 13, 14))):
+                               (FK._ARGTYPES, (0, 1, 2, 13, 14, 15)),
+                               (FK._DELTA_ARGTYPES, (0, 1, 5, 6)),
+                               (FK._GRADS_ARGTYPES,
+                                (0, 1, 2, 3, 4, 5, 14, 15, 16, 17)),
+                               (FK._BWD_WGMMA_ARGTYPES,
+                                (0, 1, 2, 3, 4, 5, 13, 14, 15, 16))):
         assert [i for i, t in enumerate(argtypes)
                 if t is ctypes.c_void_p] == list(pointers)
     assert FK._ARGTYPES[12] is ctypes.c_float       # the softmax scale
+    assert FK._GRADS_ARGTYPES[13] is ctypes.c_float
+    assert FK._BWD_WGMMA_ARGTYPES[12] is ctypes.c_float
+    # the delta launch's row count is a 64-bit count
+    assert FK._DELTA_ARGTYPES[3] is ctypes.c_longlong
     # the one-hot kernels' scratch length is a 64-bit count
     assert GK._ONEHOT_ARGTYPES[13] is ctypes.c_longlong
     assert SK._ONEHOT_ARGTYPES[10] is ctypes.c_longlong
