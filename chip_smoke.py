@@ -4920,6 +4920,8 @@ GNN_TRAIN_TOL = 1e-4
 GCN_STEP_LAUNCHES = {"fused_gather_aggregate": 2,
                      "fused_gather_aggregate dx": 1, "tiled_matmul": 8}
 GNN_TARGET_S = 45.0         # the phase's wall-time target, printed
+# (a)'s kernels held bit for bit to their plain versions
+BITWISE_BACKWARDS = ("segment_aggregate_backward", "segment_softmax_backward")
 
 
 def gnn_wrappers() -> dict:
@@ -5084,13 +5086,37 @@ def gnn_backward_library(name: str, args: tuple):
                   "gradient")
 
 
+def backward_geometries(name: str, args: tuple, kwargs: dict) -> list:
+    """(label, launch) of every other launch geometry of a segment
+    gradient call: each columns-a-lane cap on the card's SMs and on 8."""
+    from repro_torch.kernels.segment_aggregate import kernel as SK
+    from repro_torch.kernels.segment_aggregate.ref import agg_set
+    if name != "segment_aggregate_backward":
+        return []
+    messages, perm, offsets = args[:3]
+    sms = torch.cuda.get_device_properties(
+        messages.device).multi_processor_count
+    out = []
+    for card in (sms, 8):
+        for cap in (1, 2, 4):
+            g = SK.segment_backward_geometry(
+                offsets.numel() - 1, messages.shape[1], perm.numel(), card,
+                len(agg_set(kwargs.get("agg", "sum"))), max_cols=cap)
+            out.append((str(g), lambda g=g: SK.
+                        segment_aggregate_backward_cuda(*args, **kwargs,
+                                                        geometry=g)))
+    return out
+
+
 def gnn_backward_kernels_phase(dev, batch) -> list:
     """(a) The model's backward launches captured from ``mse_loss_packed``'s
     gradient on the card at ``GNN_PACKED_GRAPHS`` graphs (GCN: dx and the
     pooling set; GAT: dx, dscale, the softmax and the pooling set; PNA:
     the towers and the pooling set), each distinct call launched again
     against its plain version on the same inputs (bit for bit expected,
-    held at ``SEGMENT_TOL``), a second launch bit for bit the first, then
+    held at ``SEGMENT_TOL``; ``BITWISE_BACKWARDS`` bit for bit, the
+    segment gradient at every launch geometry), a second launch bit for
+    bit the first, then
     timed beside the plain version, its bound and the library call."""
     from repro_torch.configs.gnn import benchmark_config
     from repro_torch.kernels import _cost
@@ -5143,6 +5169,12 @@ def gnn_backward_kernels_phase(dev, batch) -> list:
         check(err <= SEGMENT_TOL["rtol"] * scale + SEGMENT_TOL["atol"],
               f"{label}: max |err| {err} against the plain version")
         check(same_bits(again, got), f"{label}: a second launch differs")
+        variants = backward_geometries(name, args, kwargs)
+        if name in BITWISE_BACKWARDS:
+            check(same_bits(got, want),
+                  f"{label}: not bit for bit the plain version")
+        for geo, fn in variants:
+            check(same_bits(fn(), got), f"{label}: {geo} gives other bits")
         moved, ops = work(*args, **kwargs)
         b_ms, by = bound_ms(moved, ops)
         ms = cuda_ms(lambda: launch(*args, **kwargs))
@@ -5150,6 +5182,7 @@ def gnn_backward_kernels_phase(dev, batch) -> list:
         lib_ms, lib_note = gnn_backward_library(name, args)
         rows.append(dict(kernel=name, conv=conv, shape=label[9:],
                          max_abs_err=err, bitwise=same_bits(got, want),
+                         geometries=len(variants),
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=by, library_ms=lib_ms,
                          library_note=lib_note))
@@ -5157,7 +5190,8 @@ def gnn_backward_kernels_phase(dev, batch) -> list:
               f"(bit for bit: {rows[-1]['bitwise']}), {ms:.6f} ms [bound "
               f"{b_ms:.6f}, {by}], plain {plain_ms:.6f} ms, library "
               f"{'null' if lib_ms is None else f'{lib_ms:.6f} ms'} "
-              f"({lib_note})")
+              f"({lib_note}); {len(variants)} other geometries bit for "
+              "bit")
     for name in table:
         check(any(r["kernel"] == name for r in rows),
               f"[14] (a) {name} was never launched by a model's gradient")

@@ -155,11 +155,16 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
 
 
+def check_cuda(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on a CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+
+
 def check_table(name: str, t: torch.Tensor) -> None:
     """A (rows, F) table the kernels stream: CUDA, 2-D, contiguous, of a
     storage type they take."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    check_cuda(name, t)
     if t.dim() != 2 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 2-D tensor, got "
                          f"shape {tuple(t.shape)}")

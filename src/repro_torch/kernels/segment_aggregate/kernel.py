@@ -23,9 +23,13 @@ ports of the two Pallas TPU kernels of
 * ``segment_aggregate_backward_cuda`` (``csrc/segment_aggregate_bwd.cu``)
   is the port's own, the gradient of a ``segment_aggregate_cuda`` call
   (the JAX package differentiates its XLA ``segment_*``; no Pallas
-  kernel has a backward): one warp a segment, two passes over its rows
-  in stream order (the sums and ties, then each row's gradient), one
-  launch for a whole agg set.
+  kernel has a backward), one launch for a whole agg set, on the
+  forward's geometry (``segment_backward_geometry``): each lane walks its
+  segment's CSR slice once for its columns, folds what the set needs
+  (count, extremes and ties, the stream-order sum for var/std), then
+  writes each row's gradient from the rows still in registers.
+  ``backward_coverage`` replays its stores, so that the CPU tests can
+  hold every geometry to writing each gradient once.
 
 The sources carry the design notes.
 """
@@ -33,12 +37,14 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._geometry import (  # noqa: F401 (re-exported)
-    MIN_WARPS_PER_SM, SHALLOW_BATCH, Geometry, aligned_cols, check_cols,
-    coverage, lane_geometry, pow2_at_most, rows_in_flight)
+    MIN_WARPS_PER_SM, SHALLOW_BATCH, WARP, WARPS_PER_BLOCK, Geometry,
+    aligned_cols, check_cols, coverage, lane_geometry, pow2_at_most,
+    rows_in_flight)
 from repro_torch.kernels._onehot import scratch_layout
 from repro_torch.kernels.segment_aggregate.ref import AGGS, agg_set
 
@@ -86,6 +92,81 @@ def segment_geometry(num_segments: int, f: int, rows: int, elem_bytes: int,
     cols = min(16 // elem_bytes, MAX_COLS_PER_LANE, max_cols)
     return lane_geometry(num_segments, f, sms, pow2_at_most(cols),
                          more_warps)
+
+
+# columns a lane of the backward: one 16-byte load of fp32
+MAX_BWD_COLS_PER_LANE = 4
+# the floats of each row's dout a lane of the backward keeps, over the
+# set's aggs: more, and the launch falls to 2 blocks a SM (PNA's four
+# towers at 4 columns a lane: 100 registers)
+BWD_TERMS_PER_LANE = 8
+
+
+def segment_backward_geometry(num_segments: int, f: int, rows: int,
+                              sms: int, aggs: int = 1,
+                              max_cols: int = MAX_BWD_COLS_PER_LANE
+                              ) -> Geometry:
+    """The backward's launch for S segments of F fp32 columns over a CSR
+    of ``rows`` entries, for a set of ``aggs`` aggs, on a card of ``sms``
+    SMs: the forward's rule (``segment_geometry``) for fp32 rows. A lane
+    owns up to 4 columns (one 16-byte load) and at most
+    ``BWD_TERMS_PER_LANE`` columns of the set's dout (PNA's four towers:
+    2), halved until the launch has ``MIN_WARPS_PER_SM`` warps a SM and a
+    segment's mean length fits the rows a lane keeps in flight
+    (``rows_in_flight``: pooling's ~27 node slots a graph, at one column
+    a lane, are read once and kept for the second pass). The kernel's
+    columns a lane are 1, 2 or 4. ``max_cols`` caps them (the wrapper
+    passes the alignment of the rows, the output and its gradient, in
+    elements)."""
+    if aggs < 1:
+        raise ValueError(f"no geometry for a set of {aggs} aggs")
+    cap = min(max_cols, MAX_BWD_COLS_PER_LANE,
+              pow2_at_most(max(1, BWD_TERMS_PER_LANE // aggs)))
+    return segment_geometry(num_segments, f, rows, 4, sms, cap)
+
+
+def backward_coverage(g: Geometry, perm, offsets, num_rows: int, f: int,
+                      deep: bool) -> np.ndarray:
+    """(num_rows, F) count of the stores the backward kernel makes to
+    each element of the gradient under ``g``: the kernel's schedule
+    replayed in numpy. A lane's (segment, columns) come from the
+    forward's index arithmetic (``coverage``); it writes its segment's
+    rows in batches of ``rows_in_flight`` (``deep``) or
+    ``SHALLOW_BATCH`` rows, the last batch of its first pass from
+    registers, then the batches before it re-read; a row whose id lies
+    outside [0, num_rows) is skipped. The CSR's tail (entries past
+    ``offsets[S]``) is zeroed by the whole grid, item t of (tail rows) x
+    (F / vec) by thread t mod threads, vec the widest of 4, 2, 1 that
+    divides F. Every entry is 1 where ``perm`` lists each row once."""
+    perm = np.asarray(perm, np.int64)
+    off = np.asarray(offsets, np.int64)
+    s = off.size - 1
+    lanes = coverage(g, s, f)                     # (S, F)
+    batch = rows_in_flight(g.cols_per_lane, 4) if deep else SHALLOW_BATCH
+    counts = np.zeros((num_rows, f), np.int64)
+    lens = np.maximum(off[1:] - off[:-1], 0)
+    seg = np.repeat(np.arange(s), lens)
+    pos = np.arange(seg.size) - np.repeat(np.cumsum(lens) - lens, lens)
+    last = (lens[seg] - 1) // batch * batch       # the batch kept
+    # pass 2: the kept batch once, then each batch before it once
+    writes = (pos >= last).astype(np.int64) + (pos < last)
+    rows = perm[off[seg] + pos]
+    ok = (rows >= 0) & (rows < num_rows)
+    np.add.at(counts, rows[ok], lanes[seg[ok]] * writes[ok, None])
+    vec = 4 if f % 4 == 0 else 2 if f % 2 == 0 else 1
+    vecs = f // vec
+    threads = g.blocks * WARP * WARPS_PER_BLOCK
+    n_items = max(perm.size - off[s], 0) * vecs
+    # thread t's grid-stride loop: items t, t + threads, ...
+    item = (np.arange(threads)[:, None]
+            + threads * np.arange(-(-n_items // threads))[None, :])
+    item = item[item < n_items]
+    trow = perm[off[s] + item // vecs]
+    tcol = vec * (item % vecs)
+    ok = (trow >= 0) & (trow < num_rows)
+    for q in range(vec):
+        np.add.at(counts, (trow[ok], tcol[ok] + q), 1)
+    return counts
 
 
 def agg_slots(aggs: tuple) -> int:
@@ -186,8 +267,10 @@ def segment_aggregate_onehot_cuda(messages: torch.Tensor,
 
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p]
 
 
 def agg_codes(aggs: tuple) -> int:
@@ -199,16 +282,27 @@ def agg_codes(aggs: tuple) -> int:
     return packed
 
 
+def backward_deep(g: Geometry, rows: int, num_segments: int) -> bool:
+    """Whether the backward keeps 32 registers of rows in flight a lane
+    (long segments) rather than ``SHALLOW_BATCH`` rows."""
+    depth = -(-rows // num_segments)
+    return rows_in_flight(g.cols_per_lane, 4, depth) > SHALLOW_BATCH
+
+
 def segment_aggregate_backward_cuda(messages: torch.Tensor,
                                     perm: torch.Tensor, offsets: torch.Tensor,
                                     out: torch.Tensor, dout: torch.Tensor, *,
-                                    agg="sum") -> torch.Tensor:
+                                    agg="sum",
+                                    geometry: Geometry | None = None
+                                    ) -> torch.Tensor:
     """The gradient of ``segment_aggregate_cuda(messages, perm, offsets,
     agg=agg)``: messages (E, F) fp32; perm/offsets the segment CSR over S
     >= 1 segments with every one of the E rows in ``perm`` (the rows past
     ``offsets[S]`` get 0); out and dout (S, len(aggs) * F) fp32, the
     forward's output and its gradient. Returns (E, F) float32
-    (``ref.segment_aggregate_backward_ref``). Launches on the current
+    (``ref.segment_aggregate_backward_ref``). ``geometry``: by default
+    ``segment_backward_geometry`` for this shape and the device's SM
+    count; every geometry gives the same bits. Launches on the current
     stream."""
     aggs = agg_set(agg)
     _build.check_table("messages", messages)
@@ -229,13 +323,23 @@ def segment_aggregate_backward_cuda(messages: torch.Tensor,
                              f"{tuple(t.shape)}")
     if num_segments < 1:
         raise ValueError("the CSR has no segment")
+    ptrs = [t.data_ptr() for t in (messages, out, dout)]
+    cap = min(aligned_cols(p, 4, MAX_BWD_COLS_PER_LANE) for p in ptrs)
+    g = geometry or segment_backward_geometry(
+        num_segments, f, e,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        len(aggs), max_cols=cap)
+    for p in ptrs:
+        check_cols(g.cols_per_lane, f, 4, p, MAX_BWD_COLS_PER_LANE)
     dmsg = torch.empty((e, f), dtype=torch.float32, device=dev)
     fn = _build.function("repro_segment_aggregate_backward", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(_build.pointer(messages), e, f, _build.pointer(perm),
                     _build.pointer(offsets), num_segments, len(aggs),
-                    agg_codes(aggs), _build.pointer(out),
-                    _build.pointer(dout), _build.pointer(dmsg),
-                    _build.stream_pointer(dev))
+                    agg_codes(aggs), g.cols_per_lane, g.lanes_per_row,
+                    g.col_groups, g.passes, g.warps,
+                    int(backward_deep(g, e, num_segments)),
+                    _build.pointer(out), _build.pointer(dout),
+                    _build.pointer(dmsg), _build.stream_pointer(dev))
     _build.check(status, "segment_aggregate_backward")
     return dmsg

@@ -5,6 +5,7 @@ yardsticks, and hold their bits against another checkout's.
     python3 tools/profile_segment.py [--src DIR] [--dump FILE]
                                      [--against FILE] [--geometries]
                                      [--only agg|softmax] [--unchecked]
+                                     [--backward]
 
 At the serving path's shapes on qm9 batches of 32, 256 and 1024 graphs:
 the pooling (rows = the batch's nodes, S = its graphs, F = 64) for sum,
@@ -42,11 +43,30 @@ kernels (the build's ``-Xptxas -v`` log). ``--src DIR`` imports
 unpacked by ``git archive``), which builds that checkout's kernels into
 its own ``build/``; a call its wrappers do not take (a set of aggs) is
 left out. Needs a CUDA device.
+
+``--backward`` times the two backward kernels instead, the port's own
+(``PERF.md`` rows 2c and 3c), at ``chip_smoke.py`` phase 14 (a)'s
+shapes on the 1024-graph qm9 batch: the segment aggregation's gradient
+for the pooling set (rows = the batch's nodes, S = its graphs, F = 64),
+all six aggs over the same CSR on rows with ties, PNA's towers over the
+edge messages (S = the nodes, F = 11 and 128) and one 3000-row segment;
+the softmax's gradient over the batch's edge CSR and on
+``chip_smoke.softmax_cases``' edge cases (a 3000-edge hub, padding ids,
+an empty segment). The inputs come from numpy seeds and the forward
+kernels (the same in both checkouts). Each call is held bit for bit to
+its plain version and to a second launch and, where the checkout's
+wrapper takes them, every backward geometry (the columns-a-lane caps 1,
+2, 4 on 132 and on 8 SMs) gives the same bits; ``--dump`` /
+``--against`` hash the gradients. Each row: ms
+a call beside the bound (``_cost.segment_bwd_work`` /
+``softmax_bwd_work``) and the launch floor; ``--geometries`` also times
+every geometry; ptxas' registers and spills of both kernels come first.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import re
 import sys
@@ -54,6 +74,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("segment_aggregate_kernel", "segment_softmax_kernel")
+BWD_KERNELS = ("segment_aggregate_backward_kernel",
+               "segment_softmax_backward_kernel")
+BWD_GRAPHS = 1024           # chip_smoke.GNN_PACKED_GRAPHS
 STORAGE = ("float32", "bfloat16", "int8")
 
 
@@ -90,6 +113,8 @@ def main() -> int:
                     help="time one of the two kernels only")
     ap.add_argument("--unchecked", action="store_true",
                     help="time without the checks (a patched copy)")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the two backward kernels instead")
     args = ap.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
     sys.path.insert(1, str(ROOT))
@@ -124,7 +149,7 @@ def main() -> int:
     print(f"card: {C.card_line()}", flush=True)
     print(f"timing {Path(_build.__file__).parents[1]}", flush=True)
     _build.library()
-    build_report(_build)
+    build_report(_build, BWD_KERNELS if args.backward else KERNELS)
     multi = hasattr(SK, "segment_geometry")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     hashes: dict = {}
@@ -226,6 +251,9 @@ def main() -> int:
 
     row("empty kernel (the launch floor)", lambda: torch.cuda._sleep(0),
         (0, 0.0))
+    if args.backward:
+        backward(args, row, same_as_dump, sms, dev)
+        return finish(args, hashes, want_hashes)
     ds = DATASETS["qm9"]
     queue = [P.make_graph(ds, i) for i in range(1024)]
     for bg in (32, 256, 1024):
@@ -267,6 +295,10 @@ def main() -> int:
                      f"longest segment "
                      f"{int((off[1:] - off[:-1]).max())} edges", z, perm,
                      off)
+    return finish(args, hashes, want_hashes)
+
+
+def finish(args, hashes: dict, want_hashes) -> int:
     if want_hashes is not None:
         held = [k for k in hashes if k in want_hashes]
         print(f"bits: {len(held)} outputs held to {args.against} "
@@ -276,6 +308,127 @@ def main() -> int:
         args.dump.write_text(json.dumps(hashes))
         print(f"wrote {len(hashes)} hashes to {args.dump}", flush=True)
     return 0
+
+
+def backward(args, row, same_as_dump, sms: int, dev) -> None:
+    """The ``--backward`` rows (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.gnn import DATASETS
+    from repro_torch.core import aggregations as A
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.kernels._cost import segment_bwd_work, softmax_bwd_work
+    from repro_torch.kernels.segment_aggregate import kernel as SK
+    from repro_torch.kernels.segment_aggregate.ref import (
+        AGGS, segment_aggregate_backward_ref)
+    from repro_torch.kernels.segment_softmax import kernel as XK
+    from repro_torch.kernels.segment_softmax.ref import (
+        segment_softmax_backward_ref)
+    from repro_torch.launch import serve
+
+    import chip_smoke as C
+
+    # the parent's wrapper takes no geometry
+    geometries = "geometry" in inspect.signature(
+        SK.segment_aggregate_backward_cuda).parameters
+
+    def held(label, got, want, variants):
+        """Bit for bit the plain version, a second launch and every
+        variant; then hashed for the dump."""
+        torch.cuda.synchronize()
+        if not args.unchecked:
+            C.check(C.same_bits(got, want),
+                    f"{label}: not bit for bit the plain version (max "
+                    f"|err| {float((got - want).abs().max()):.3e})")
+            for name, fn in variants:
+                C.check(C.same_bits(fn(), got),
+                        f"{label}: {name} gives other bits")
+        same_as_dump(f"backward {label}", got)
+
+    ds = DATASETS["qm9"]
+    graphs = [P.make_graph(ds, i) for i in range(BWD_GRAPHS)]
+    nb, eb = serve.budgets(BWD_GRAPHS, ds)
+    batch = G.packed_to_device(
+        P.pack_graphs(graphs, nb, eb, BWD_GRAPHS)[0], dev)
+    g, _, node_mask, gid = G.packed_inputs(batch)
+    n, ng = gid.numel(), batch["graph_valid"].shape[0]
+    pcsr = A.build_csr(gid, ng, node_mask)
+    ecsr = g["edge_csr"]
+    e = batch["edge_index"].shape[0]
+    rng = np.random.default_rng(32)
+
+    def rows(shape, ties=False):
+        x = rng.standard_normal(shape).astype(np.float32)
+        if ties:                                 # many rows equal
+            x = np.round(x * 2) / 2
+        return torch.from_numpy(x).to(dev)
+
+    hub_seg = torch.zeros(3000, dtype=torch.int32, device=dev)
+    hub = A.build_csr(hub_seg, 1)
+    cases = (
+        (f"pooling {BWD_GRAPHS} graphs: rows={n} S={ng} F=64",
+         rows((n, 64)), pcsr, C.POOLING_AGGS),
+        (f"all six aggs, ties: rows={n} S={ng} F=64",
+         rows((n, 64), ties=True), pcsr, AGGS),
+        (f"PNA towers: rows={e} S={n} F=11", rows((e, 11)), ecsr,
+         C.PNA_AGGS),
+        (f"PNA towers: rows={e} S={n} F=128", rows((e, 128)), ecsr,
+         C.PNA_AGGS),
+        ("one segment: rows=3000 S=1 F=40", rows((3000, 40), ties=True),
+         hub, AGGS),
+    )
+    for label, x, csr, aggs in cases:
+        perm, off = csr.perm, csr.offsets
+        out = SK.segment_aggregate_cuda(x, perm, off, agg=aggs)
+        dout = rows(tuple(out.shape))
+        s, f = off.numel() - 1, x.shape[1]
+
+        def kern(geometry=None, x=x, perm=perm, off=off, out=out,
+                 dout=dout, aggs=aggs):
+            kw = {"geometry": geometry} if geometry is not None else {}
+            return SK.segment_aggregate_backward_cuda(x, perm, off, out,
+                                                      dout, agg=aggs, **kw)
+        # (SMs, columns-a-lane cap, geometry): the card's own first
+        geos = [(card, cap, SK.segment_backward_geometry(
+                    s, f, perm.numel(), card, len(aggs), max_cols=cap))
+                for card in (sms, 8) for cap in (1, 2, 4)] \
+            if geometries else []
+        variants = [("a second launch", kern)] + [
+            (str(geo), lambda geo=geo: kern(geo)) for _, _, geo in geos]
+        got = kern()
+        held(label, got, segment_aggregate_backward_ref(
+            x, perm, off, out, dout, agg=aggs), variants)
+        work = segment_bwd_work(x, perm, off, out, dout, agg=aggs)
+        row(f"segment backward {label} {'+'.join(aggs)}", kern, work)
+        if geometries:
+            own = SK.segment_backward_geometry(s, f, perm.numel(), sms,
+                                               len(aggs))
+            print(f"segment backward {label}: geometry {own}", flush=True)
+        for card, cap, geo in geos if args.geometries else ():
+            if card == sms:
+                row(f"segment backward {label} at cap {cap}: {geo}",
+                    lambda geo=geo: kern(geo), work)
+    z_rng = np.random.default_rng(40 + BWD_GRAPHS)
+    z = torch.from_numpy((z_rng.standard_normal(e) * 3).astype(
+        np.float32)).to(dev)
+    soft = [(f"GAT {BWD_GRAPHS} graphs: E={e} S={n}", z, ecsr.perm,
+             ecsr.offsets)]
+    soft += [(f"{label}: E={zz.numel()} S={o.numel() - 1}", zz, p, o)
+             for label, zz, p, o in C.softmax_cases(
+                 dev, np.random.default_rng(3), [])]
+    for label, zz, perm, off in soft:
+        w = XK.segment_softmax_cuda(zz, perm, off)
+        dw = rows((zz.numel(),))
+
+        def kern(w=w, dw=dw, perm=perm, off=off):
+            return XK.segment_softmax_backward_cuda(w, dw, perm, off)
+        held(f"softmax {label}", kern(),
+             segment_softmax_backward_ref(w, dw, perm, off),
+             [("a second launch", kern)])
+        row(f"softmax backward {label}", kern,
+            softmax_bwd_work(w, dw, perm, off))
 
 
 if __name__ == "__main__":
