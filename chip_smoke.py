@@ -352,7 +352,11 @@ Phases, in order; any failure exits non-zero with no result line:
    (``csrc/segment_aggregate_bwd.cu``: the pooling set, PNA's towers)
    and the softmax's (``csrc/segment_softmax_bwd.cu``), each against its
    plain version on the same inputs (``SEGMENT_TOL``; bit for bit
-   expected and printed), a second launch bit for bit the first, timed
+   expected and printed, and held for ``BITWISE_BACKWARDS``: the
+   segment's at every launch geometry, the scale's at each run of edges
+   a warp and by its generic body, which ``SCALE_GENERIC_CASES`` also
+   drive at F = 11 and on a misaligned table), a second launch bit for
+   bit the first, timed
    beside the plain version, its bound (``kernels/_cost.py``) and a
    library call (``torch.sparse.mm`` of the transposed adjacency for dx,
    ``torch.sparse.sampled_addmm`` for the scale's; none for the other
@@ -4921,7 +4925,11 @@ GCN_STEP_LAUNCHES = {"fused_gather_aggregate": 2,
                      "fused_gather_aggregate dx": 1, "tiled_matmul": 8}
 GNN_TARGET_S = 45.0         # the phase's wall-time target, printed
 # (a)'s kernels held bit for bit to their plain versions
-BITWISE_BACKWARDS = ("segment_aggregate_backward", "segment_softmax_backward")
+BITWISE_BACKWARDS = ("gather_scale_backward", "segment_aggregate_backward",
+                     "segment_softmax_backward")
+# (a)'s scale gradient by its generic body (F not a multiple of 4, or a
+# table not 16-byte aligned): (edges, F, offset of x in elements)
+SCALE_GENERIC_CASES = ((1001, 11, 0), (1001, 64, 1))
 
 
 def gnn_wrappers() -> dict:
@@ -5087,10 +5095,23 @@ def gnn_backward_library(name: str, args: tuple):
 
 
 def backward_geometries(name: str, args: tuple, kwargs: dict) -> list:
-    """(label, launch) of every other launch geometry of a segment
-    gradient call: each columns-a-lane cap on the card's SMs and on 8."""
+    """(label, launch) of every other launch geometry of a segment or
+    scale gradient call: each columns-a-lane cap on the card's SMs and on
+    8; the scale gradient's vector body at each run of edges a warp, and
+    its generic body."""
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
     from repro_torch.kernels.segment_aggregate import kernel as SK
     from repro_torch.kernels.segment_aggregate.ref import agg_set
+    if name == "gather_scale_backward":
+        e, f = args[2].numel(), args[0].shape[1]
+        sms = torch.cuda.get_device_properties(
+            args[0].device).multi_processor_count
+        aligned = all(t.data_ptr() % 16 == 0 for t in args[:2])
+        geos = [GK.scale_backward_geometry(e, f, sms, run=run)
+                for run in (32, 16, 8, 4) if f % 4 == 0 and aligned]
+        geos.append(GK.scale_backward_geometry(e, f, sms, aligned=False))
+        return [(str(g), lambda g=g: GK.gather_scale_backward_cuda(
+            *args, **kwargs, geometry=g)) for g in geos]
     if name != "segment_aggregate_backward":
         return []
     messages, perm, offsets = args[:3]
@@ -5115,9 +5136,10 @@ def gnn_backward_kernels_phase(dev, batch) -> list:
     the towers and the pooling set), each distinct call launched again
     against its plain version on the same inputs (bit for bit expected,
     held at ``SEGMENT_TOL``; ``BITWISE_BACKWARDS`` bit for bit, the
-    segment gradient at every launch geometry), a second launch bit for
-    bit the first, then
-    timed beside the plain version, its bound and the library call."""
+    segment and scale gradients at every launch geometry,
+    ``backward_geometries``), a second launch bit for bit the first, then
+    timed beside the plain version, its bound and the library call; then
+    the scale gradient's generic body (``scale_generic_check``)."""
     from repro_torch.configs.gnn import benchmark_config
     from repro_torch.kernels import _cost
     from repro_torch.kernels.fused_gather_aggregate import kernel as GK
@@ -5195,7 +5217,42 @@ def gnn_backward_kernels_phase(dev, batch) -> list:
     for name in table:
         check(any(r["kernel"] == name for r in rows),
               f"[14] (a) {name} was never launched by a model's gradient")
+    scale_generic_check(dev)
     return rows
+
+
+def scale_generic_check(dev) -> None:
+    """(a)'s scale gradient by its generic body, which no served call
+    takes: each ``SCALE_GENERIC_CASES`` stream (ids from a seed, some out
+    of range, mean weights) with its geometry chosen by shape, bit for
+    bit the plain version."""
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+    from repro_torch.kernels.fused_gather_aggregate import ref as GR
+    rng = np.random.default_rng(14)
+    for e, f, shift in SCALE_GENERIC_CASES:
+        n = 97
+        src = torch.from_numpy(rng.integers(-2, n + 2, e).astype(
+            np.int32)).to(dev)
+        dst = torch.from_numpy(rng.integers(-1, n, e).astype(np.int32)).to(
+            dev)
+        w = torch.from_numpy(rng.uniform(0.1, 1.0, e).astype(
+            np.float32)).to(dev)
+        dout = torch.from_numpy(rng.standard_normal((n, f)).astype(
+            np.float32)).to(dev)
+        flat = torch.from_numpy(rng.standard_normal(n * f + shift).astype(
+            np.float32)).to(dev)
+        x = flat[shift:].view(n, f)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        g = GK.scale_backward_geometry(e, f, sms, aligned=shift == 0)
+        label = f"[14] (a) gather_scale_backward, generic body: E {e}, F " \
+                f"{f}, x {shift} elements into its buffer"
+        check(g.body == "generic", f"{label}: geometry {g}")
+        got = GK.gather_scale_backward_cuda(dout, x, src, dst, w)
+        want = GR.gather_scale_backward_ref(dout, x, src, dst, w)
+        torch.cuda.synchronize()
+        check(same_bits(got, want), f"{label}: not bit for bit the plain "
+              f"version (max |err| {float((got - want).abs().max())})")
+        print(f"{label}: bit for bit the plain version", flush=True)
 
 
 def gnn_train_full_width_phase(dev) -> dict:

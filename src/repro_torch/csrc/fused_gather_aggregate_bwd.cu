@@ -16,24 +16,121 @@
 // that forward kernel itself over the source CSR
 // (kernels/fused_gather_aggregate/ops.py).
 //
-// Bound on this card: bytes. Per valid edge two rows of F fp32 values
-// (the destination's output gradient, the source's row), its two ids
-// and one output; no reuse worth staging at ~1.3 edges a destination.
-// The design is the simple one: one warp an edge, lane l reading
-// columns l, l + 32, ... of both rows (coalesced), a product and an add
-// a column in registers, then a butterfly over the 32 lanes
-// (__shfl_xor_sync, offsets 16, 8, 4, 2, 1). The warp's edge is
-// uniform over its lanes, so every lane reaches the shuffles.
+// The sum's order (the plain version's, ref.py gather_scale_backward_ref):
+// 32 partials, partial l the products of columns l, l + 32, ... added in
+// order to +0.0; then a butterfly over the partials at offsets 16, 8, 4,
+// 2, 1. Both bodies below keep it, so both give the plain version's bits.
 //
-// Arithmetic: the explicitly rounded intrinsics, which nvcc never
-// contracts into an FMA, so the sum rounds step for step as the plain
-// version (ref.py, gather_scale_backward_ref) does; no atomics.
+// Bound on this card: bytes. Per valid edge two rows of F fp32 values
+// (the destination's output gradient, the source's row), its ids and one
+// output; GAT's 1024-graph batch holds ~55k edge slots over ~28k nodes,
+// both tables (~7 MB each at F 64) in L2, so what limits a launch is
+// the latency of a warp's dependent loads (ids, then rows) and the rate
+// at which L2 feeds the SMs each edge's rows. Two bodies, chosen by shape
+// (kernels/fused_gather_aggregate/kernel.py, scale_backward_geometry),
+// never a fallback:
+//
+// - the vector body (F a multiple of 4, both tables 16-byte aligned): a
+//   warp takes a run of `run` consecutive edges (at most 32). Lane l
+//   loads the ids (and weight) of edge e0 + l, so the run's ids are one
+//   coalesced load each. The warp walks the run 4 edges a step, one edge
+//   to each group of 8 lanes, which take their edge's ids by shuffle.
+//   Lane j of a group loads float4s at columns 4j + 32t of both rows, so
+//   it holds partials 4j .. 4j + 3 in 4 registers, each folded in t
+//   order. The butterfly adds the same pairs, spread over the group's
+//   lanes (group_sum: 6 shuffles a step where a full butterfly on each
+//   register takes 12). Lane j of group g keeps the sum of step j; one
+//   shuffle at the end brings edge e0 + l's sum to lane l, and the run's
+//   outputs are one coalesced store. A lane loads CH float4s of each row
+//   a step (CH = 2 at F 64, 4 at F 128); a row wider than 32 CH columns
+//   is folded in blocks of 32 CH columns, in t order. A warp keeps one
+//   step's rows in flight: the run (16, 8 or 4 edges) is the longest
+//   that still gives each SM 16 warps for each column block, which hide
+//   the loads' latency; loading the next steps' rows before folding this
+//   one's (2 or 4 steps in flight) measured no faster at GAT's calls and
+//   took 60-102 registers a thread (PERF.md, row 1c's design steps);
+// - the generic body (any F, any alignment, and a stream too short to
+//   give each SM 16 warps at 4 edges a warp): one warp an edge, lane l
+//   reading columns l, l + 32, ... of both rows, then the butterfly over
+//   the 32 lanes (__shfl_xor_sync, offsets 16, 8, 4, 2, 1).
+//
+// A warp's edge or run is uniform over its lanes, so every lane reaches
+// the shuffles. Arithmetic: the explicitly rounded intrinsics, which
+// nvcc never contracts into an FMA, so the sum rounds step for step as
+// the plain version does; no atomics.
 
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLanesPerEdge = 8;
+constexpr int kEdgesPerStep = 32 / kLanesPerEdge;
+constexpr int kMaxRun = 32;          // a lane holds one edge's ids
+
+// a step's rows: CH float4s of the destination's dout and of the source's
+// x row, columns col0 + 32 c (zeros past F or for an edge not read)
+template <int CH>
+struct Rows {
+  float4 d[CH], x[CH];
+
+  __device__ __forceinline__ void load(const float* __restrict__ dout,
+                                       const float* __restrict__ xt, int f,
+                                       int dd, int ss, int col0) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      const int col = col0 + 32 * c;
+      if (dd >= 0 && col < f) {
+        d[c] = __ldg(reinterpret_cast<const float4*>(
+            dout + static_cast<size_t>(dd) * f + col));
+        x[c] = __ldg(reinterpret_cast<const float4*>(
+            xt + static_cast<size_t>(ss) * f + col));
+      } else {
+        d[c] = x[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+
+  // a zero product adds +0.0, which leaves a partial unchanged: a partial
+  // that starts at +0.0 is never -0.0 (the plain version adds the zero
+  // padding past F the same way)
+  __device__ __forceinline__ void fold(float (&a)[4]) const {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      a[0] = __fadd_rn(a[0], __fmul_rn(d[c].x, x[c].x));
+      a[1] = __fadd_rn(a[1], __fmul_rn(d[c].y, x[c].y));
+      a[2] = __fadd_rn(a[2], __fmul_rn(d[c].z, x[c].z));
+      a[3] = __fadd_rn(a[3], __fmul_rn(d[c].w, x[c].w));
+    }
+  }
+};
+
+// the sum of an edge's 32 partials in every lane of its group, lane j
+// holding partials 4j .. 4j + 3 in a[0 .. 3]. Every add is one of the
+// plain version's butterfly pairs (offset o: partial l + partial l + o),
+// spread over the group so that no lane adds what another adds too until
+// offset 4: at offset 16 lane j keeps partials 4j, 4j + 1 (j < 4) or
+// 4j - 14, 4j - 13 (j >= 4), at offset 8 one of them; offsets 4, 2 and 1
+// exchange the rest. 6 shuffles and 6 adds a step
+__device__ __forceinline__ float group_sum(const float (&a)[4], int j) {
+  const bool hi4 = j & 4, hi2 = j & 2;
+  // offset 16: lanes j and j ^ 4, each keeping two of the four sums
+  const float r0 = __shfl_xor_sync(kFull, hi4 ? a[0] : a[2], 4);
+  const float r1 = __shfl_xor_sync(kFull, hi4 ? a[1] : a[3], 4);
+  const float b0 = __fadd_rn(hi4 ? a[2] : a[0], r0);
+  const float b1 = __fadd_rn(hi4 ? a[3] : a[1], r1);
+  // offset 8: lanes j and j ^ 2, each keeping one of the two sums
+  const float c = __fadd_rn(hi2 ? b1 : b0,
+                            __shfl_xor_sync(kFull, hi2 ? b0 : b1, 2));
+  // offsets 4, 2, 1: lanes j ^ 1, j ^ 4, j ^ 2
+  const float d = __fadd_rn(c, __shfl_xor_sync(kFull, c, 1));
+  const float e = __fadd_rn(d, __shfl_xor_sync(kFull, d, 4));
+  return __fadd_rn(e, __shfl_xor_sync(kFull, e, 2));
+}
+
+// the vector body (file comment): CH float4s a lane a row a step
+template <int CH>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 gather_scale_backward_kernel(const float* __restrict__ dout,
                              int num_segments, int f,
@@ -41,7 +138,62 @@ gather_scale_backward_kernel(const float* __restrict__ dout,
                              const int32_t* __restrict__ src,
                              const int32_t* __restrict__ dst,
                              const float* __restrict__ weight,
-                             int num_edges, float* __restrict__ out) {
+                             int num_edges, int run,
+                             float* __restrict__ out) {
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const long long e0 = warp * run;
+  if (e0 >= num_edges) return;           // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / kLanesPerEdge;
+  const int j = lane % kLanesPerEdge;
+  const int n = static_cast<int>(
+      min(static_cast<long long>(run), num_edges - e0));
+  int d = -1, s = 0;
+  float w = 1.0f;
+  if (lane < n) {
+    d = __ldg(dst + e0 + lane);
+    s = __ldg(src + e0 + lane);
+    if (weight != nullptr) w = __ldg(weight + e0 + lane);
+  }
+  const bool ok = d >= 0 && d < num_segments && s >= 0 && s < n_src;
+  const int dd = ok ? d : -1;            // -1: the edge's rows not read
+  const int steps = (n + kEdgesPerStep - 1) / kEdgesPerStep;
+  float kept = 0.0f;                     // the sum of step j
+  for (int step = 0; step < steps; ++step) {
+    const int owner = step * kEdgesPerStep + grp;
+    const int de = __shfl_sync(kFull, dd, owner);
+    const int se = __shfl_sync(kFull, s, owner);
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int col0 = 4 * j; col0 < f; col0 += 32 * CH) {
+      Rows<CH> r;
+      r.load(dout, x, f, de, se, col0);
+      r.fold(a);
+    }
+    const float sum = group_sum(a, j);
+    if (j == step) kept = sum;
+  }
+  // edge e0 + l was step l / 4 of group l % 4: its lane (l % 4) * 8 +
+  // l / 4 kept its sum
+  const float mine = __shfl_sync(
+      kFull, kept, (lane % kEdgesPerStep) * kLanesPerEdge +
+                       lane / kEdgesPerStep);
+  if (lane < n) {
+    float v = 0.0f;
+    if (ok) v = weight != nullptr ? __fmul_rn(mine, w) : mine;
+    out[e0 + lane] = v;
+  }
+}
+
+// the generic body (file comment): one warp an edge
+__global__ void __launch_bounds__(kThreadsPerBlock)
+gather_scale_backward_generic_kernel(const float* __restrict__ dout,
+                                     int num_segments, int f,
+                                     const float* __restrict__ x, int n_src,
+                                     const int32_t* __restrict__ src,
+                                     const int32_t* __restrict__ dst,
+                                     const float* __restrict__ weight,
+                                     int num_edges, float* __restrict__ out) {
   const long long warp =
       (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   if (warp >= num_edges) return;          // the whole warp
@@ -59,12 +211,41 @@ gather_scale_backward_kernel(const float* __restrict__ dout,
   }
 #pragma unroll
   for (int o = 16; o >= 1; o >>= 1)
-    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+    acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, o));
   if (lane == 0) {
     float v = 0.0f;
     if (ok) v = weight != nullptr ? __fmul_rn(acc, __ldg(weight + e)) : acc;
     out[e] = v;
   }
+}
+
+// the vector body's instances: CH float4s a lane a row (1-4; a wider row
+// is folded in column blocks of 32 CH, any CH giving the same bits)
+template <int CH>
+void launch_vector(unsigned blocks, cudaStream_t stream, const float* dout,
+                   int num_segments, int f, const float* x, int n_src,
+                   const int32_t* src, const int32_t* dst,
+                   const float* weight, int num_edges, int run, float* out) {
+  gather_scale_backward_kernel<CH><<<blocks, kThreadsPerBlock, 0, stream>>>(
+      dout, num_segments, f, x, n_src, src, dst, weight, num_edges, run, out);
+}
+
+using VectorLaunch = void (*)(unsigned, cudaStream_t, const float*, int, int,
+                              const float*, int, const int32_t*,
+                              const int32_t*, const float*, int, int, float*);
+
+VectorLaunch vector_instance(int chunks) {
+  switch (chunks) {
+    case 1: return launch_vector<1>;
+    case 2: return launch_vector<2>;
+    case 3: return launch_vector<3>;
+    case 4: return launch_vector<4>;
+    default: return nullptr;
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -73,26 +254,44 @@ gather_scale_backward_kernel(const float* __restrict__ dout,
 // dout (num_segments, f) fp32; x (n_src, f) fp32; src / dst
 // (num_edges,) int32, each edge's source and destination (-1 for an edge
 // in no segment); weight (num_edges,) fp32 or null; out (num_edges,)
-// fp32. Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a negative size.
+// fp32. body 0: the generic body, one warp an edge (run and chunks
+// unread); body 1: the vector body, `run` edges a warp (a multiple of 4,
+// at most 32), `chunks` float4s a lane a row (1-4), F a multiple of 4,
+// dout and x 16-byte aligned. Returns cudaGetLastError() after the launch
+// (0 = launched), or cudaErrorInvalidValue for a negative size or a
+// vector launch it does not take.
 extern "C" int repro_gather_scale_backward(const float* dout,
                                            int num_segments, int f,
                                            const float* x, int n_src,
                                            const int32_t* src,
                                            const int32_t* dst,
                                            const float* weight,
-                                           int num_edges, float* out,
+                                           int num_edges, int body, int run,
+                                           int chunks, float* out,
                                            void* stream) {
   using namespace repro;
-  if (num_segments < 0 || f < 0 || n_src < 0 || num_edges < 0)
+  if (num_segments < 0 || f < 0 || n_src < 0 || num_edges < 0 ||
+      (body != 0 && body != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_edges == 0) return 0;
-  const long long blocks =
-      (static_cast<long long>(num_edges) + kWarpsPerBlock - 1) /
-      kWarpsPerBlock;
-  gather_scale_backward_kernel<<<static_cast<unsigned>(blocks),
-                                 kThreadsPerBlock, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      dout, num_segments, f, x, n_src, src, dst, weight, num_edges, out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 0) {
+    const long long blocks =
+        (static_cast<long long>(num_edges) + kWarpsPerBlock - 1) /
+        kWarpsPerBlock;
+    gather_scale_backward_generic_kernel<<<static_cast<unsigned>(blocks),
+                                           kThreadsPerBlock, 0, st>>>(
+        dout, num_segments, f, x, n_src, src, dst, weight, num_edges, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const VectorLaunch launch = vector_instance(chunks);
+  if (launch == nullptr || run < kEdgesPerStep || run > kMaxRun ||
+      run % kEdgesPerStep != 0 || f == 0 || f % 4 != 0 ||
+      !aligned16(dout) || !aligned16(x))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long warps = (static_cast<long long>(num_edges) + run - 1) / run;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  launch(static_cast<unsigned>(blocks), st, dout, num_segments, f, x, n_src,
+         src, dst, weight, num_edges, run, out);
   return static_cast<int>(cudaGetLastError());
 }

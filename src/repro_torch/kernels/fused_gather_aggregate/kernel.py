@@ -23,17 +23,28 @@ the ports of the two Pallas TPU kernels of
 * ``gather_scale_backward_cuda`` (``csrc/fused_gather_aggregate_bwd.cu``)
   is the port's own, the per-edge scale's gradient of the CSR gather
   (the JAX package differentiates its XLA gather; no Pallas kernel has
-  a backward): one warp an edge, the dot of its destination's output
-  gradient with its source's row in fp32. The other half of the
-  gather's gradient, dx, is ``fused_gather_aggregate_cuda`` itself over
-  the source CSR (``ops.py``).
+  a backward): the dot of each edge's destination output gradient with
+  its source's row in fp32, summed in the plain version's order. Two
+  bodies, chosen by ``scale_backward_geometry`` from the shape: the
+  vector body (F a multiple of 4, both tables 16-byte aligned) gives a
+  warp a run of edges whose ids are one coalesced load, 8 lanes an edge
+  and 16-byte row loads, and writes the run in one coalesced store; the
+  generic body (any other F or alignment, or a stream too short to fill
+  the card that way) one warp an edge.
+  ``scale_backward_writes`` replays either body's stores, so that the
+  CPU tests can hold every geometry to writing each edge once. The
+  other half of the gather's gradient, dx, is
+  ``fused_gather_aggregate_cuda`` itself over the source CSR
+  (``ops.py``).
 
 The sources carry the design notes.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -189,22 +200,118 @@ def fused_gather_onehot_cuda(x: torch.Tensor, src: torch.Tensor,
     return out
 
 
+# the scale gradient's vector body (csrc/fused_gather_aggregate_bwd.cu):
+# 8 lanes an edge, so 4 edges a warp step; a warp's run of edges is at
+# most 32 (a lane holds one edge's ids)
+SCALE_LANES_PER_EDGE = 8
+SCALE_EDGES_PER_STEP = 32 // SCALE_LANES_PER_EDGE
+SCALE_MAX_RUN = 32
+# the runs of edges a warp the geometry picks from, longest first, and the
+# warps a SM (for each column block a step folds) the run must give
+SCALE_RUNS = (16, 8, 4)
+SCALE_WARPS_PER_SM = 16
+SCALE_BODIES = {"generic": 0, "vector": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleGeometry:
+    """One launch of the scale gradient: ``body`` "vector" (``run``
+    edges a warp, ``chunks`` 16-byte loads a lane a row a step) or
+    "generic" (one warp an edge; run 1, chunks 0); ``warps`` with work."""
+    body: str
+    run: int
+    chunks: int
+    warps: int
+
+
+def scale_backward_geometry(num_edges: int, f: int, sms: int,
+                            aligned: bool = True, run: int | None = None
+                            ) -> ScaleGeometry:
+    """The launch of the scale gradient for E edges of F fp32 columns on
+    a card of ``sms`` SMs. The vector body where F is a positive
+    multiple of 4 and both tables are 16-byte ``aligned``: ``chunks`` =
+    min(4, ceil(F / 32)) float4s a lane a row (a row of more than 128
+    columns in column blocks of 128) and the longest of ``SCALE_RUNS``
+    that gives ``SCALE_WARPS_PER_SM`` warps a SM for each column block
+    (GAT's 1024-graph batch: 16 edges a warp; 256 graphs: 4). ``run``
+    forces the vector body's run. Else the generic body, a warp an edge:
+    for any other F or alignment, and for a stream too short to give that
+    many warps even at 4 edges a warp (32 graphs), whose few edges it
+    spreads over four times the warps."""
+    if num_edges < 0 or f < 0 or sms < 1:
+        raise ValueError(f"no geometry for E={num_edges}, F={f}, "
+                         f"{sms} SMs")
+    generic = ScaleGeometry("generic", 1, 0, num_edges)
+    if f == 0 or f % 4 or not aligned:
+        return generic
+    chunks = min(4, -(-f // 32))
+    if run is None:
+        want = SCALE_WARPS_PER_SM * -(-f // (32 * chunks)) * sms
+        run = next((r for r in SCALE_RUNS if -(-num_edges // r) >= want),
+                   None)
+        if run is None:
+            return generic
+    if run % SCALE_EDGES_PER_STEP or not 0 < run <= SCALE_MAX_RUN:
+        raise ValueError(f"no vector launch of {run} edges a warp")
+    return ScaleGeometry("vector", run, chunks, -(-num_edges // run))
+
+
+def scale_backward_writes(g: ScaleGeometry, num_edges: int) -> tuple:
+    """The scale gradient's stores under ``g``, its index arithmetic
+    replayed in numpy: (counts, summed), each (num_edges,) int64, counts[e]
+    the stores to dscale[e] and summed[e] the edge whose sum the last of
+    them wrote (-1 for none). The generic body: warp e writes edge e. The
+    vector body: warp w takes edges e0 = w run ... e0 + n - 1 (n = min(run,
+    E - e0)); at step i group q (lanes 8 q ... 8 q + 7) sums edge e0 + 4 i +
+    q, and lane 8 q + i keeps that sum; lane l stores edge e0 + l (l < n)
+    with the sum kept by lane 8 (l % 4) + l // 4. Every count is 1 and
+    summed[e] = e for a launch that covers the edges once."""
+    counts = np.zeros(num_edges, np.int64)
+    summed = np.full(num_edges, -1, np.int64)
+    if g.body == "generic":
+        e = np.arange(min(g.warps, num_edges))
+        counts[e] += 1
+        summed[e] = e
+        return counts, summed
+    e0 = np.arange(g.warps, dtype=np.int64)[:, None] * g.run
+    e0 = e0[e0[:, 0] < num_edges]
+    n = np.minimum(g.run, num_edges - e0)               # (W, 1)
+    lane = np.arange(32)[None, :]
+    q, i = lane // SCALE_LANES_PER_EDGE, lane % SCALE_LANES_PER_EDGE
+    steps = -(-n // SCALE_EDGES_PER_STEP)
+    kept = np.where(i < steps, e0 + SCALE_EDGES_PER_STEP * i + q, -1)
+    src_lane = (lane % SCALE_EDGES_PER_STEP) * SCALE_LANES_PER_EDGE \
+        + lane // SCALE_EDGES_PER_STEP
+    mine = np.take_along_axis(kept, np.broadcast_to(src_lane, kept.shape),
+                              axis=1)
+    store = np.broadcast_to(lane < n, kept.shape)
+    at = np.broadcast_to(e0 + lane, kept.shape)[store]
+    np.add.at(counts, at, 1)
+    summed[at] = mine[store]
+    return counts, summed
+
+
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                 ctypes.c_void_p, ctypes.c_void_p]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p]
 
 
 def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
                                src: torch.Tensor, dst: torch.Tensor,
-                               weight: torch.Tensor | None = None
+                               weight: torch.Tensor | None = None, *,
+                               geometry: ScaleGeometry | None = None
                                ) -> torch.Tensor:
     """dout: (S, F) fp32 output gradient; x: (N, F) fp32 node table;
     src/dst: (E,) int32 each edge's source and destination (-1 for an
     edge in no segment); weight: optional (E,) fp32. Returns (E,) float32
     ``w_e * dot(dout[dst_e], x[src_e])``, 0 where an id is out of range
-    (``ref.gather_scale_backward_ref``). Launches on the current
-    stream."""
+    (``ref.gather_scale_backward_ref``, bit for bit). ``geometry``: by
+    default ``scale_backward_geometry`` for this shape, the device's SM
+    count and the alignment of both tables; a vector geometry the tables
+    do not take raises. Every geometry gives the same bits. Launches on
+    the current stream."""
     _build.check_table("dout", dout)
     _build.check_table("x", x)
     dev = dout.device
@@ -219,12 +326,20 @@ def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
     if weight is not None:
         _build.check_vector("weight", weight, torch.float32, dev, e)
     (s, f), n = dout.shape, x.shape[0]
+    aligned = all(aligned_cols(t.data_ptr(), 4, 4) == 4 for t in (dout, x))
+    g = geometry or scale_backward_geometry(
+        e, f, torch.cuda.get_device_properties(dev).multi_processor_count,
+        aligned)
+    if g.body == "vector" and (not aligned or f == 0 or f % 4):
+        raise ValueError(f"the vector body takes no F={f} rows or a table "
+                         "not 16-byte aligned")
     out = torch.empty((e,), dtype=torch.float32, device=dev)
     fn = _build.function("repro_gather_scale_backward", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(_build.pointer(dout), s, f, _build.pointer(x), n,
                     _build.pointer(src), _build.pointer(dst),
-                    _build.pointer(weight), e, _build.pointer(out),
+                    _build.pointer(weight), e, SCALE_BODIES[g.body], g.run,
+                    g.chunks, _build.pointer(out),
                     _build.stream_pointer(dev))
     _build.check(status, "gather_scale_backward")
     return out

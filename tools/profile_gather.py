@@ -4,7 +4,7 @@ and hold its bits against another checkout's.
 
     python3 tools/profile_gather.py [--src DIR] [--dump FILE]
                                     [--against FILE] [--geometries]
-                                    [--unchecked]
+                                    [--unchecked] [--backward]
 
 At the serving path's calls on qm9 batches of 32, 256 and 1024 graphs
 (N = S = the batch's nodes, the batch's edge CSR): GCN's scaled sums at
@@ -40,10 +40,37 @@ registers and spills of each ``fused_gather_aggregate_kernel`` instance
 from another checkout's ``src`` (e.g. the parent's, unpacked by ``git
 archive``), which builds that checkout's kernels into its own
 ``build/``. Needs a CUDA device.
+
+``--backward`` times the gather's scale gradient instead (``PERF.md``
+row 1c's dscale, ``csrc/fused_gather_aggregate_bwd.cu``) at GAT's calls
+on the 32-, 256- and 1024-graph qm9 batches (the last ``chip_smoke.py``
+phase 14 (a)'s): each batch's edge stream (E = its edge slots, dst the
+CSR's owner of each edge, -1 for padding) at F = 64 and 128, no weight
+(GAT's sum gather); then on hostile streams: a mean gather's weights,
+the hub, a stream of -1
+destinations, sources out of range, fewer edges than a warp's run, a
+ragged last run, F = 11 and a row-offset view (the generic body), F =
+48 and 256 (a row in two column blocks). Tables and weights come from
+numpy seeds, with -0.0 and zero products. Each call is held bit for bit
+to its plain version (``ref.gather_scale_backward_ref``) and to a second
+launch and, where the checkout's wrapper takes a geometry, every
+geometry (the vector body at 32, 16, 8 and 4 edges a warp, and the
+generic body) gives the same bits;
+``--dump`` / ``--against`` hash the gradients. Each row: ms a call
+beside the bound (``_cost.gather_scale_work``), the launch floor and,
+at the 1024-graph calls, ``torch.sparse.sampled_addmm`` of dout x^T at
+the edges (``chip_smoke.gnn_backward_library``), in turns kernel,
+library, kernel; ``--geometries`` also times every geometry at GAT's
+calls.
+ptxas' registers and spills of both bodies come first. The parent has
+no ``--backward`` of its own: run this checkout's tool with ``--src``
+pointing at it (its wrapper takes no geometry, so only its default
+launch is held and timed).
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -52,6 +79,9 @@ from profile_segment import build_report, digest
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNEL = "fused_gather_aggregate_kernel"
+BWD_KERNEL = "gather_scale_backward"   # both bodies' kernels
+BWD_GRAPHS = 1024                      # chip_smoke.GNN_PACKED_GRAPHS
+SMALLER = (32, 256)                    # the serving path's other batches
 STORAGE = ("float32", "bfloat16", "int8")
 INT8_SCALE = 0.03125                  # the folded dequant factor
 
@@ -68,6 +98,8 @@ def main() -> int:
                     help="also time every columns-a-lane cap")
     ap.add_argument("--unchecked", action="store_true",
                     help="time without the checks (a patched copy)")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the scale gradient's kernel instead")
     args = ap.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
     sys.path.insert(1, str(ROOT))
@@ -99,7 +131,7 @@ def main() -> int:
     print(f"card: {C.card_line()}", flush=True)
     print(f"timing {Path(_build.__file__).parents[1]}", flush=True)
     _build.library()
-    build_report(_build, (KERNEL,))
+    build_report(_build, (BWD_KERNEL,) if args.backward else (KERNEL,))
     shaped = hasattr(GK, "gather_geometry")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     hashes: dict = {}
@@ -179,6 +211,9 @@ def main() -> int:
 
     row("empty kernel (the launch floor)", lambda: torch.cuda._sleep(0),
         (0, 0.0))
+    if args.backward:
+        backward(args, row, same_as_dump, sms, dev)
+        return finish(args, hashes, want_hashes)
     ds = DATASETS["qm9"]
     queue = [P.make_graph(ds, i) for i in range(1024)]
     for bg in (32, 256, 1024):
@@ -230,6 +265,148 @@ def main() -> int:
                 "edges, F=37", torch.from_numpy(rng.standard_normal(
                     (n, 37)).astype(np.float32)).to(dev), hsrc, hscale,
                 hcsr, "sum", C.sparse_adj(hei, hok, hscale, n), rng)
+    return finish(args, hashes, want_hashes)
+
+
+def backward(args, row, same_as_dump, sms: int, dev) -> None:
+    """The ``--backward`` rows (module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.gnn import DATASETS
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.kernels._cost import gather_scale_work
+    from repro_torch.kernels._csr_ref import transposed_csr
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+    from repro_torch.kernels.fused_gather_aggregate.ref import (
+        gather_scale_backward_ref)
+    from repro_torch.launch import serve
+
+    import chip_smoke as C
+
+    # the parent's wrapper takes no geometry
+    shaped = "geometry" in inspect.signature(
+        GK.gather_scale_backward_cuda).parameters
+    rng = np.random.default_rng(33)
+
+    def table(rows, f):
+        """Normal rows with zeros and -0.0 sprinkled in."""
+        t = rng.standard_normal((rows, f)).astype(np.float32)
+        t[rng.random(t.shape) < 0.05] = 0.0
+        t[rng.random(t.shape) < 0.05] = -0.0
+        return torch.from_numpy(t).to(dev)
+
+    def geometries(e, f, aligned):
+        """(label, geometry) of every launch the vector body compiles at
+        this shape (none for a table it does not take), then the generic
+        body."""
+        if not shaped:
+            return []
+        out = [(f"run {run}", GK.scale_backward_geometry(e, f, sms,
+                                                         run=run))
+               for run in (32, 16, 8, 4) if f % 4 == 0 and aligned]
+        out.append(("generic", GK.scale_backward_geometry(e, f, sms,
+                                                          aligned=False)))
+        return out
+
+    def call(label, dout, x, src, dst, weight=None, timed=False):
+        """Hold one call bit for bit; time it (with the library in turns
+        where ``timed``)."""
+        args_ = (dout, x, src, dst, weight)
+
+        def kern(g=None):
+            kw = {"geometry": g} if g is not None else {}
+            return GK.gather_scale_backward_cuda(*args_, **kw)
+        got = kern()
+        torch.cuda.synchronize()
+        aligned = all(t.data_ptr() % 16 == 0 for t in (dout, x))
+        geos = geometries(src.numel(), dout.shape[1], aligned)
+        if not args.unchecked:
+            want = gather_scale_backward_ref(*args_)
+            C.check(C.same_bits(got, want),
+                    f"{label}: not bit for bit the plain version (max |err| "
+                    f"{float((got - want).abs().max()):.3e})")
+            C.check(C.same_bits(kern(), got),
+                    f"{label}: a second launch gives other bits")
+            for name, g in geos:
+                C.check(C.same_bits(kern(g), got),
+                        f"{label}: {name} gives other bits")
+        same_as_dump(f"backward {label}", got)
+        own = GK.scale_backward_geometry(src.numel(), dout.shape[1], sms,
+                                         aligned) \
+            if shaped else "one warp an edge"
+        print(f"{label}: bit for bit the plain version, a second launch "
+              f"and {len(geos)} other geometries; geometry {own}",
+              flush=True)
+        work = gather_scale_work(*args_)
+        row(f"scale backward {label} kernel", kern, work)
+        if not timed:
+            for name, g in geos if args.geometries and "GAT" in label \
+                    else ():
+                row(f"scale backward {label} at {name}: {g}",
+                    lambda g=g: kern(g), work)
+            return
+        lib_ms, note = C.gnn_backward_library("gather_scale_backward",
+                                              args_)
+        bound, by = C.bound_ms(*work)
+        print(f"scale backward {label} library: "
+              + (f"{lib_ms:.6f} ms, {bound / lib_ms:.3f} of the {by} bound"
+                 if lib_ms is not None else "null") + f" ({note})",
+              flush=True)
+        row(f"scale backward {label} kernel", kern, work)
+        for name, g in geos if args.geometries else ():
+            row(f"scale backward {label} at {name}: {g}",
+                lambda g=g: kern(g), work)
+
+    ds = DATASETS["qm9"]
+    graphs = [P.make_graph(ds, i) for i in range(BWD_GRAPHS)]
+    for bg in SMALLER + (BWD_GRAPHS,):
+        nb, eb = serve.budgets(bg, ds)
+        batch = G.packed_to_device(P.pack_graphs(graphs[:bg], nb, eb, bg)[0],
+                                   dev)
+        g, _, _, _ = G.packed_inputs(batch)
+        n = batch["node_feat"].shape[0]
+        src = batch["edge_index"][:, 0].contiguous()
+        csr = g["edge_csr"]
+        dst = transposed_csr(src, n, csr.perm, csr.offsets)[0]
+        e = src.numel()
+        shape = f"GAT {bg} graphs: N=S={n} E={e} (valid " \
+                f"{int((dst >= 0).sum())})"
+        for f in (64, 128):
+            call(f"{shape} F={f}", table(n, f), table(n, f), src, dst,
+                 timed=bg == BWD_GRAPHS)
+    cnt = torch.bincount(dst[dst >= 0].long(), minlength=n).clamp(min=1)
+    mean_w = (1.0 / cnt.float())[dst.long().clamp(min=0)]
+    call(f"{shape} F=64, mean weights", table(n, 64), table(n, 64), src,
+         dst, mean_w)
+    hn, hs, hsrc, hdst = C.adversarial_streams("hub",
+                                               np.random.default_rng(3))
+    hsrc, hdst = (torch.as_tensor(a, device=dev) for a in (hsrc, hdst))
+    hw = torch.from_numpy(rng.uniform(-2, 2, hsrc.numel()).astype(
+        np.float32)).to(dev)
+    for f in (64, 37):
+        call(f"hub: N={hn} S={hs} E={hsrc.numel()} F={f}", table(hs, f),
+             table(hn, f), hsrc, hdst, hw)
+    none = torch.full_like(dst, -1)
+    call(f"every dst -1: E={e} F=64", table(n, 64), table(n, 64), src,
+         none)
+    wild = src.clone()
+    wild[::3] = n + 5
+    wild[1::7] = -2
+    call(f"sources out of range: E={e} F=128", table(n, 128),
+         table(n, 128), wild, dst)
+    for k in (3, 13, 1001):
+        call(f"E={k} F=64", table(n, 64), table(n, 64), src[:k], dst[:k],
+             mean_w[:k])
+    for f in (11, 48, 256):
+        call(f"{shape} F={f}", table(n, f), table(n, f), src, dst, mean_w)
+    flat = table(1, n * 64 + 1)[0]
+    call(f"{shape} F=64, x a view one element in", table(n, 64),
+         flat[1:].view(n, 64), src, dst)
+
+
+def finish(args, hashes: dict, want_hashes) -> int:
     if want_hashes is not None:
         held = [k for k in hashes if k in want_hashes]
         print(f"bits: {len(held)} outputs held to {args.against} "
