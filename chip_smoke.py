@@ -433,12 +433,10 @@ import torch  # noqa: E402
 
 from repro_torch.core.convs import PNA_AGGS  # noqa: E402
 from repro_torch.kernels._cost import (  # noqa: E402
+    FP32_FLOPS_PER_S, HBM_BYTES_PER_S, TC_BF16_FLOPS_PER_S,
     gather_onehot_work, gather_work, nbytes, segment_onehot_work,
     segment_work, softmax_work, stack_work)
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
-TC_BF16_FLOPS_PER_S = 989e12    # H100 SXM, bf16 dense on the tensor cores
 SEGMENT_TOL = dict(rtol=1e-5, atol=1e-6)
 SOFTMAX_TOL = dict(rtol=1e-5, atol=1e-7)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)

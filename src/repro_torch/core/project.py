@@ -32,19 +32,13 @@ fixed-point datapath (``float_or_fixed="fixed"``) runs too.
 """
 from __future__ import annotations
 
-import collections
-import contextlib
 import dataclasses
 import json
 import os
 import time
-import weakref
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core import aggregations as A
 from repro_torch.core import convs as Cv
@@ -52,6 +46,7 @@ from repro_torch.core import gnn_model as G
 from repro_torch.core import quantization as Q
 from repro_torch.data import pipeline as P
 from repro_torch.device import l2_cache_bytes, resolve_device
+from repro_torch.distributed.counting import _OpCounter
 from repro_torch.kernels import _cost
 from repro_torch.nn import param as prm
 
@@ -64,11 +59,11 @@ class H100Target:
     analogue, in place of the reference's ``TPUTarget``."""
     name: str = "h100-sxm"
     # fp32 outside the tensor cores, the rate of the port's fp32
-    # datapath (NVIDIA H100 SXM data sheet; chip_smoke.FP32_FLOPS_PER_S)
-    peak_flops: float = 67e12
-    hbm_bw: float = 3.35e12          # B/s, HBM3 (data sheet)
+    # datapath (NVIDIA H100 SXM data sheet, kernels._cost)
+    peak_flops: float = _cost.FP32_FLOPS_PER_S
+    hbm_bw: float = _cost.HBM_BYTES_PER_S    # B/s, HBM3 (data sheet)
     link_bw: float = 450e9           # B/s, NVLink 4, one direction
-    hbm_bytes: float = 80e9          # HBM3 (data sheet)
+    hbm_bytes: float = _cost.HBM_BYTES       # HBM3 (data sheet)
     # L2 (data sheet; L2_cache_size reads 52428800 on the card): the
     # residency budget where no card is present
     l2_bytes: float = 50 * 2 ** 20
@@ -109,83 +104,6 @@ def _zero_params(plan: dict, device: torch.device) -> dict:
     return {k: _zero_params(v, device) if isinstance(v, dict)
             else torch.zeros(v.shape, dtype=torch.float32, device=device)
             for k, v in plan.items()}
-
-
-# matrix-vector products that torch.utils.flop_counter has no formula for
-_VECTOR_PRODUCTS = (torch.ops.aten.mv, torch.ops.aten.dot)
-_COUNTED_TAGS = tuple(getattr(torch.Tag, t) for t in ("pointwise", "reduction")
-                      if hasattr(torch.Tag, t))
-
-
-class _OpCounter(TorchDispatchMode):
-    """The counting pass of ``run_synthesis``: FLOPs, bytes and peak live
-    bytes of every aten operation that runs inside it. FLOPs:
-    ``torch.utils.flop_counter``'s formulas for the matrix products (two
-    per multiply-add for matrix-vector products), the output's element
-    count for pointwise operations and reductions, nothing for index and
-    layout operations. Bytes: inputs plus outputs of every operation that
-    is not a view. A call into a kernel wrapper is priced by its
-    function's work (``kernels._cost``) and its own operations are not
-    counted. Live bytes: the outputs of the counted operations and
-    kernels while they are referenced. ``by_op``: the bytes of each
-    operation (its ATen name; ``kernels`` for the kernel calls)."""
-
-    def __init__(self):
-        super().__init__()
-        self.flops = 0.0
-        self.bytes = 0
-        self.by_op = collections.Counter()
-        self.live = 0
-        self.peak = 0
-        self._paused = 0
-
-    @contextlib.contextmanager
-    def paused(self):
-        self._paused += 1
-        try:
-            yield
-        finally:
-            self._paused -= 1
-
-    def kernel(self, moved: int, ops: float, out) -> None:
-        self.flops += ops
-        self.bytes += moved
-        self.by_op["kernels"] += moved
-        self._track(out)
-
-    def _track(self, t: torch.Tensor) -> None:
-        n = t.numel() * t.element_size()
-        self.live += n
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(t, self._free, n)
-
-    def _free(self, n: int) -> None:
-        self.live -= n
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if self._paused:
-            return out
-        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-        packet = func.overloadpacket
-        if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        elif packet in _VECTOR_PRODUCTS:
-            self.flops += 2.0 * args[0].numel()
-        elif any(tag in func.tags for tag in _COUNTED_TAGS):
-            self.flops += sum(t.numel() for t in outs)
-        if not func.is_view:
-            ins = [t for t in tree_leaves((args, kwargs))
-                   if isinstance(t, torch.Tensor)]
-            moved = _cost.nbytes(*ins, *outs)
-            self.bytes += moved
-            self.by_op[str(packet)] += moved
-            held = {t.untyped_storage().data_ptr() for t in ins}
-            for t in outs:
-                if t.untyped_storage().data_ptr() not in held:
-                    self._track(t)
-        return out
 
 
 class Project:

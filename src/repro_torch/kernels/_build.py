@@ -18,6 +18,7 @@ kept here.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +27,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from repro_torch.kernels import _cost
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -197,6 +200,34 @@ def check_tiles(node_block: int, edge_block: int) -> None:
         if not isinstance(v, int) or isinstance(v, bool) \
                 or not 1 <= v <= _INT_MAX:
             raise ValueError(f"{name} must be an int >= 1, got {v!r}")
+
+
+def launcher(outputs):
+    """Decorate a kernel's launch function (``kernels/*/kernel.py``):
+    under a dry sink (``_cost.dry()``) the call returns ``outputs(*args,
+    **kwargs)``, empty tensors of the kernel's output shapes and dtypes
+    on the inputs' device, and neither checks, builds, loads nor
+    launches anything."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if _cost.dry():
+                return outputs(*args, **kwargs)
+            return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def empty(like: torch.Tensor, *shape: int,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An uninitialised output of ``shape`` on ``like``'s device."""
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def launched() -> int:
+    """What a wrapper adds to its launch count after a launch function
+    returns: 1, or 0 under a dry sink, which launched nothing."""
+    return 0 if _cost.dry() else 1
 
 
 def runs_plain(t: torch.Tensor) -> bool:

@@ -13,7 +13,18 @@ function's work. Outside a ``pricing(sink)`` block that costs one
 context-variable read per call. Inside one, the call runs inside
 ``sink.paused()`` (so a counter of PyTorch operations does not also count
 the plain version's operations or the wrapper's output allocation) and
-then reports ``sink.kernel(bytes, operations, output)``.
+then reports ``sink.kernel(bytes, operations, output, name=)``.
+
+A sink with ``dry = True`` (``distributed.counting._OpCounter(dry=True)``,
+the dry run's) prices kernel calls and never launches one: each wrapper
+takes its card route up to the launch, and the launch function
+(``_build.launcher``) hands back empty outputs of the kernel's shapes on
+the inputs' device. Under it the work functions read shapes only (a
+dry trace's tensors hold no data): a count that depends on the data is
+taken at the frame's capacity (every slot valid, every source row
+distinct), an upper bound, and the sink's ``capacity_priced`` counts
+the figures so taken. Outside a dry sink every work function reads the
+data as before.
 """
 from __future__ import annotations
 
@@ -22,6 +33,13 @@ import contextvars
 import functools
 
 import torch
+
+# the card's rates (NVIDIA H100 SXM data sheet), the one source of the
+# bounds ``chip_smoke.py`` prints and of ``roofline.py``'s terms
+HBM_BYTES_PER_S = 3.35e12       # HBM3
+FP32_FLOPS_PER_S = 67e12        # fp32 outside the tensor cores
+TC_BF16_FLOPS_PER_S = 989e12    # bf16 dense on the tensor cores
+HBM_BYTES = 80e9                # device memory
 
 _SINK: contextvars.ContextVar = contextvars.ContextVar("kernel_cost_sink",
                                                        default=None)
@@ -41,6 +59,29 @@ def pricing(sink):
         _SINK.reset(token)
 
 
+def dry() -> bool:
+    """Whether the calls of this block are priced and never launched."""
+    return getattr(_SINK.get(), "dry", False)
+
+
+def _at_capacity() -> bool:
+    """Whether a data-dependent count must be taken at the frame's
+    capacity (under a dry sink); counts each such figure on the
+    sink."""
+    if not dry():
+        return False
+    _SINK.get().capacity_priced += 1
+    return True
+
+
+def _distinct(ids, n: int, rows: int) -> int:
+    """Distinct ids among ``n`` valid ones (``ids()`` gives them); at
+    capacity every id distinct, at most the table's ``rows``."""
+    if _at_capacity():
+        return min(n, rows)
+    return int(torch.unique(ids()).numel())
+
+
 def priced(work):
     """Decorate a kernel wrapper whose function costs ``work(*args,
     **kwargs) -> (bytes, operations)`` on the wrapper's arguments."""
@@ -53,45 +94,53 @@ def priced(work):
             with sink.paused():
                 out = fn(*args, **kwargs)
                 moved, ops = work(*args, **kwargs)
-            sink.kernel(moved, ops, out)
+            sink.kernel(moved, ops, out, name=fn.__name__)
             return out
         return call
     return wrap
 
 
-def _gather_bytes(x: torch.Tensor, sources: torch.Tensor, scaled: bool,
+def _gather_bytes(x: torch.Tensor, n_edges: int, rows: int, scaled: bool,
                   num_segments: int) -> int:
-    """The x rows of the distinct ``sources`` (one per valid edge), the
-    ids (and scale) of each valid edge, the (S + 1) offsets and the
+    """The x rows of the ``rows`` distinct sources, the ids (and scale)
+    of each of the ``n_edges`` valid edges, the (S + 1) offsets and the
     (S, F) output."""
     f = x.shape[1]
-    rows = int(torch.unique(sources).numel())
-    return (rows * f * x.element_size()
-            + (12 if scaled else 8) * sources.numel()
+    return (rows * f * x.element_size() + (12 if scaled else 8) * n_edges
             + 4 * (num_segments + 1) + 4 * num_segments * f)
 
 
-def _valid_count(offsets: torch.Tensor) -> int:
-    return int(offsets[-1]) if offsets.numel() > 1 else 0
+def _valid_count(offsets: torch.Tensor, capacity: int | None) -> int:
+    """The CSR's valid rows, its last offset; at capacity, all
+    ``capacity`` slots of the frame (None: the frame is not known)."""
+    if offsets.numel() <= 1:
+        return 0
+    if capacity is not None and _at_capacity():
+        return capacity
+    return int(offsets[-1])
 
 
 def gather_work(x, src, scale, perm, offsets, **_) -> tuple:
     """The fused gather over a destination CSR (``ops.
     fused_gather_aggregate``): bytes as ``_gather_bytes`` for the CSR's
     edges, a multiply and a fold per edge and column."""
-    n_valid = _valid_count(offsets)
-    sources = src[perm[:n_valid].long()]
-    return (_gather_bytes(x, sources, scale is not None, offsets.numel() - 1),
+    n_valid = _valid_count(offsets, perm.numel())
+    rows = _distinct(lambda: src[perm[:n_valid].long()], n_valid,
+                     x.shape[0])
+    return (_gather_bytes(x, n_valid, rows, scale is not None,
+                          offsets.numel() - 1),
             2.0 * n_valid * x.shape[1])
 
 
 def gather_onehot_work(x, src, dst, scale, num_segments, **_) -> tuple:
     """The same function on the raw streams (``ops.fused_gather_onehot``):
     the same edges, so the same work as ``gather_work`` on their CSR."""
-    ok = (src >= 0) & (src < x.shape[0]) & (dst >= 0) & (dst < num_segments)
-    sources = src[ok]
-    return (_gather_bytes(x, sources, scale is not None, num_segments),
-            2.0 * sources.numel() * x.shape[1])
+    sources = src if dry() else src[(src >= 0) & (src < x.shape[0])
+                                    & (dst >= 0) & (dst < num_segments)]
+    n_valid = int(sources.numel())
+    rows = _distinct(lambda: sources, n_valid, x.shape[0])
+    return (_gather_bytes(x, n_valid, rows, scale is not None, num_segments),
+            2.0 * n_valid * x.shape[1])
 
 
 def _segment_work(messages, n_valid: int, num_segments: int,
@@ -114,7 +163,7 @@ def segment_multi_work(messages, perm, offsets, aggs: tuple,
     """One launch of several aggs over the same CSR
     (``ops.segment_aggregate`` with a tuple): the rows read once, A
     outputs written."""
-    return _segment_work(messages, _valid_count(offsets),
+    return _segment_work(messages, _valid_count(offsets, perm.numel()),
                          offsets.numel() - 1, tuple(aggs))
 
 
@@ -123,7 +172,7 @@ def segment_work(messages, perm, offsets, agg="sum", **_) -> tuple:
     agg, or a tuple of them (``segment_multi_work``)."""
     if not isinstance(agg, str):
         return segment_multi_work(messages, perm, offsets, agg)
-    return _segment_work(messages, _valid_count(offsets),
+    return _segment_work(messages, _valid_count(offsets, perm.numel()),
                          offsets.numel() - 1, (agg,))
 
 
@@ -131,7 +180,8 @@ def segment_onehot_work(messages, seg_ids, num_segments, agg: str = "sum",
                         **_) -> tuple:
     """The same function on the raw id stream
     (``ops.segment_aggregate_onehot``): the same rows, the same work."""
-    n_valid = int(((seg_ids >= 0) & (seg_ids < num_segments)).sum())
+    n_valid = int(seg_ids.numel()) if _at_capacity() else int(
+        ((seg_ids >= 0) & (seg_ids < num_segments)).sum())
     return _segment_work(messages, n_valid, num_segments, (agg,))
 
 
@@ -139,7 +189,7 @@ def softmax_work(logits, perm, offsets, **_) -> tuple:
     """The segment softmax: per valid edge its logit, its perm entry and
     its weight (12 B), per other edge its perm entry and its zero weight
     (8 B), and the offsets; eight operations per valid edge."""
-    n_valid = _valid_count(offsets)
+    n_valid = _valid_count(offsets, perm.numel())
     return (12 * n_valid + 8 * (logits.numel() - n_valid) + nbytes(offsets),
             8.0 * n_valid)
 
@@ -151,11 +201,14 @@ def gather_scale_work(dout, x, src, dst, weight=None, **_) -> tuple:
     its destination id; the (E,) output; 2 F operations (a multiply and
     an add per column) per valid edge."""
     (s, f), n = dout.shape, x.shape[0]
-    ok = (dst >= 0) & (dst < s) & (src >= 0) & (src < n)
-    d, r = dst[ok], src[ok]
+    if dry():
+        d, r = dst, src
+    else:
+        ok = (dst >= 0) & (dst < s) & (src >= 0) & (src < n)
+        d, r = dst[ok], src[ok]
     n_valid = int(d.numel())
-    rows = (int(torch.unique(d).numel()) * dout.element_size()
-            + int(torch.unique(r).numel()) * x.element_size()) * f
+    rows = (_distinct(lambda: d, n_valid, s) * dout.element_size()
+            + _distinct(lambda: r, n_valid, n) * x.element_size()) * f
     moved = (rows + (12 if weight is not None else 8) * n_valid
              + 4 * (src.numel() - n_valid) + 4 * src.numel())
     return moved, 2.0 * n_valid * f
@@ -177,7 +230,7 @@ def segment_bwd_work(messages, perm, offsets, out, dout, agg="sum",
     agg's term added."""
     aggs = (agg,) if isinstance(agg, str) else tuple(agg)
     e, f = messages.shape
-    n_valid = _valid_count(offsets)
+    n_valid = _valid_count(offsets, perm.numel())
     moved = (n_valid * (f * messages.element_size() + 4) + nbytes(offsets)
              + nbytes(out, dout) + 4 * e * f)
     first = 1 + ("min" in aggs) + ("max" in aggs)
@@ -191,7 +244,7 @@ def softmax_bwd_work(w, dw, perm, offsets, **_) -> tuple:
     per other edge its perm entry and its zero dz (8 B), the offsets;
     four operations per valid edge (the product, its sum, the difference
     and the scale)."""
-    n_valid = _valid_count(offsets)
+    n_valid = _valid_count(offsets, perm.numel())
     return (16 * n_valid + 8 * (w.numel() - n_valid) + nbytes(offsets),
             4.0 * n_valid)
 
@@ -212,8 +265,9 @@ def stack_work(args, kind: str, has_skip: bool, dims=None) -> tuple:
     mean (SAGE: a divide), 2 in out per product, the bias, the skip (a
     product and an add, or the add of the identity), the activation and
     the mask."""
-    x, _, _, _, offsets, self_vec, mask = args[:7]
-    n, e = x.shape[0], _valid_count(offsets)
+    x, _, _, perm, offsets, self_vec, mask = args[:7]
+    n, e = x.shape[0], _valid_count(
+        offsets, None if perm is None else perm.numel())
     if dims is None:
         dims = [(x.shape[1], x.shape[1])] * args[8].shape[0]
     n_mats = 1 if kind == "gcn" else 2
@@ -244,10 +298,11 @@ def padded_agg_work(x, nbr, agg: str = "sum", **_) -> tuple:
     dtype; a fold per valid slot and column (four operations for
     Welford). A slot is valid when its id lies in [0, N)."""
     n, f = x.shape
-    ids = nbr[(nbr >= 0) & (nbr < n)]
-    rows = int(torch.unique(ids).numel())
+    ids = nbr if dry() else nbr[(nbr >= 0) & (nbr < n)]
+    n_valid = int(ids.numel())
+    rows = _distinct(lambda: ids, n_valid, n)
     moved = nbytes(nbr) + (rows + n) * f * x.element_size()
-    return moved, (4.0 if agg in ("var", "std") else 1.0) * ids.numel() * f
+    return moved, (4.0 if agg in ("var", "std") else 1.0) * n_valid * f
 
 
 def matmul_work(x, w, **_) -> tuple:
@@ -278,7 +333,8 @@ def attention_work(q, k, v, causal: bool = True, **_) -> tuple:
     return nbytes(q, k, v) + out, pairs * (2.0 * d + 2.0 * dv + 4.0)
 
 
-def attention_bwd_work(q, k, v, o, do, causal: bool = True, **_) -> tuple:
+def attention_bwd_work(q, k, v, o, do, lse2=None, *, causal: bool = True,
+                       **_) -> tuple:
     """Attention backward (``ops.attention_backward``, 3-D or 4-D): q, k,
     v, o and dO read once, dQ, dK and dV written once in q's dtype, and
     the rows' fp32 log-sum-exp; per (query, key) pair the mask allows,

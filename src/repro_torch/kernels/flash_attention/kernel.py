@@ -108,6 +108,11 @@ def check_tiles(block_q: int, block_k: int) -> None:
             raise ValueError(f"{name} must be an int >= 1, got {val!r}")
 
 
+@_build.launcher(
+    lambda q, k, v, *, with_lse2=False, **_: (
+        (_build.empty(q, *q.shape[:2], v.shape[2], dtype=q.dtype),
+         _build.empty(q, *q.shape[:2])) if with_lse2
+        else _build.empty(q, *q.shape[:2], v.shape[2], dtype=q.dtype)))
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, block_q: int = 128,
                          block_k: int = 128, by_body: dict | None = None,
@@ -216,6 +221,7 @@ def _check_stats(q: torch.Tensor, lse2: torch.Tensor,
                              f"{tuple(q.shape[:2])} tensor on {q.device}")
 
 
+@_build.launcher(lambda o, do: _build.empty(o, *o.shape[:2]))
 def attention_delta_cuda(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """The backward's first launch: delta = dO . o, (BH, Sq) fp32, from
     the forward's output o and its gradient dO, (BH, Sq, Dv) contiguous
@@ -276,6 +282,8 @@ def _grads(q, k, v, do, lse2, delta, causal, outs, by_body, body) -> None:
         by_body[body] += 1
 
 
+@_build.launcher(lambda q, k, v, *_, **__: (torch.empty_like(k),
+                                                    torch.empty_like(v)))
 def attention_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, lse2: torch.Tensor,
                         delta: torch.Tensor, *, causal: bool,
@@ -292,6 +300,7 @@ def attention_dkdv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dk, dv
 
 
+@_build.launcher(lambda q, *_, **__: torch.empty_like(q))
 def attention_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       do: torch.Tensor, lse2: torch.Tensor,
                       delta: torch.Tensor, *, causal: bool,

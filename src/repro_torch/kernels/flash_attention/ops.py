@@ -25,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._cost import attention_work, priced
+from repro_torch.kernels._cost import (attention_bwd_work, attention_work,
+                                       priced)
 from repro_torch.kernels.flash_attention.kernel import (
     BODIES, attention_delta_cuda, attention_dkdv_cuda, attention_dq_cuda,
     check_tiles, flash_attention_cuda)
@@ -40,10 +41,11 @@ def _forward(q, k, v, causal: bool, block_q: int, block_k: int,
         q, k, v, causal=causal, block_q=min(block_q, q.shape[1]),
         block_k=min(block_k, k.shape[1]),
         by_body=flash_attention.launches_by_body, with_lse2=with_lse2)
-    flash_attention.launches += 1
+    flash_attention.launches += _build.launched()
     return res
 
 
+@priced(attention_bwd_work)
 def attention_backward(q, k, v, o, do, lse2, *, causal: bool) -> tuple:
     """(dQ, dK, dV) on the card from the forward's output ``o`` and rows'
     log-sum-exp ``lse2``: the delta, dK/dV and dQ launches (3-D
@@ -54,7 +56,7 @@ def attention_backward(q, k, v, o, do, lse2, *, causal: bool) -> tuple:
                                  by_body=by_body)
     dq = attention_dq_cuda(q, k, v, do, lse2, delta, causal=causal,
                            by_body=by_body)
-    flash_attention.backward_launches += 1
+    flash_attention.backward_launches += _build.launched()
     return dq, dk, dv
 
 

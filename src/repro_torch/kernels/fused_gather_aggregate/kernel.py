@@ -92,6 +92,8 @@ def gather_geometry(num_segments: int, f: int, elem_bytes: int, sms: int,
         lambda cpl, warps: warps < MIN_WARPS_PER_SM * sms)
 
 
+@_build.launcher(lambda x, src, scale, perm, offsets, **_: _build.empty(
+    x, offsets.numel() - 1, x.shape[1]))
 def fused_gather_aggregate_cuda(x: torch.Tensor, src: torch.Tensor,
                                 scale: torch.Tensor | None,
                                 perm: torch.Tensor, offsets: torch.Tensor,
@@ -159,6 +161,8 @@ _ONEHOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p]
 
 
+@_build.launcher(lambda x, src, dst, scale, num_segments, **_: _build.empty(
+    x, num_segments, x.shape[1]))
 def fused_gather_onehot_cuda(x: torch.Tensor, src: torch.Tensor,
                              dst: torch.Tensor, scale: torch.Tensor | None,
                              num_segments: int, *, agg: str = "sum",
@@ -298,6 +302,8 @@ _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p]
 
 
+@_build.launcher(lambda dout, x, src, *_, **__: _build.empty(dout,
+                                                              src.numel()))
 def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
                                src: torch.Tensor, dst: torch.Tensor,
                                weight: torch.Tensor | None = None, *,

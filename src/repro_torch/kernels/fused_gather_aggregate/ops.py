@@ -42,18 +42,20 @@ def _gather(x, src, scale, perm, offsets, agg: str) -> torch.Tensor:
         return fused_gather_aggregate_ref(x, src, scale, perm, offsets,
                                           agg=agg)
     out = fused_gather_aggregate_cuda(x, src, scale, perm, offsets, agg=agg)
-    fused_gather_aggregate.launches += 1
+    fused_gather_aggregate.launches += _build.launched()
     return out
 
 
+@priced(gather_work)
 def _gather_dx(dout, dst, coef, s_perm, s_offsets) -> torch.Tensor:
-    """dx (N, F) float32: the gather's own fold over the source CSR."""
+    """dx (N, F) float32: the gather's own fold over the source CSR,
+    priced as the gather it is."""
     if s_offsets.numel() < 2:
         return dout.new_zeros((0, dout.shape[1]))
     if _build.runs_plain(dout):
         return fused_gather_aggregate_ref(dout, dst, coef, s_perm, s_offsets)
     out = fused_gather_aggregate_cuda(dout, dst, coef, s_perm, s_offsets)
-    fused_gather_aggregate.backward_launches += 1
+    fused_gather_aggregate.backward_launches += _build.launched()
     return out
 
 
@@ -133,7 +135,7 @@ def gather_scale_backward(dout: torch.Tensor, x: torch.Tensor,
     if _build.runs_plain(dout):
         return gather_scale_backward_ref(dout, x, src, dst, weight)
     out = gather_scale_backward_cuda(dout, x, src, dst, weight)
-    gather_scale_backward.launches += 1
+    gather_scale_backward.launches += _build.launched()
     return out
 
 
@@ -162,7 +164,7 @@ def fused_gather_onehot(x: torch.Tensor, src: torch.Tensor,
     out = fused_gather_onehot_cuda(x, src, dst, scale, num_segments, agg=agg,
                                    edge_block=edge_block,
                                    node_block=node_block)
-    fused_gather_onehot.launches += 1
+    fused_gather_onehot.launches += _build.launched()
     return out
 
 

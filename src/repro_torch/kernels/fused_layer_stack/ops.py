@@ -44,7 +44,7 @@ def fused_layer_stack(x: torch.Tensor, src: torch.Tensor,
         return fused_layer_stack_ref(*args, **kw)
     _build.refuse_grad("fused_layer_stack", *args)
     out = fused_layer_stack_cuda(*args, **kw)
-    fused_layer_stack.launches += 1
+    fused_layer_stack.launches += _build.launched()
     return out
 
 

@@ -78,6 +78,7 @@ def check_inputs(x: torch.Tensor, nbr: torch.Tensor, agg: str,
                          f"{block_nodes!r}")
 
 
+@_build.launcher(lambda x, nbr, **_: torch.empty_like(x))
 def gnn_aggregate_cuda(x: torch.Tensor, nbr: torch.Tensor, *,
                        agg: str = "sum", block_nodes: int = 128,
                        geometry: Geometry | None = None) -> torch.Tensor:

@@ -33,7 +33,7 @@ def gnn_aggregate(x: torch.Tensor, nbr: torch.Tensor, *, agg: str = "sum",
         return gnn_aggregate_ref(x, nbr, agg=agg)
     _build.refuse_grad("gnn_aggregate", x)
     out = gnn_aggregate_cuda(x, nbr, agg=agg, block_nodes=block_nodes)
-    gnn_aggregate.launches += 1
+    gnn_aggregate.launches += _build.launched()
     return out
 
 

@@ -178,6 +178,8 @@ def agg_slots(aggs: tuple) -> int:
     return packed
 
 
+@_build.launcher(lambda messages, perm, offsets, *, agg="sum", **_: _build.empty(
+    messages, offsets.numel() - 1, len(agg_set(agg)) * messages.shape[1]))
 def segment_aggregate_cuda(messages: torch.Tensor, perm: torch.Tensor,
                            offsets: torch.Tensor, *, agg="sum",
                            geometry: Geometry | None = None) -> torch.Tensor:
@@ -231,6 +233,8 @@ _ONEHOT_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p]
 
 
+@_build.launcher(lambda messages, seg_ids, num_segments, **_: _build.empty(
+    messages, num_segments, messages.shape[1]))
 def segment_aggregate_onehot_cuda(messages: torch.Tensor,
                                   seg_ids: torch.Tensor, num_segments: int,
                                   *, agg: str = "sum", edge_block: int = 128,
@@ -289,6 +293,8 @@ def backward_deep(g: Geometry, rows: int, num_segments: int) -> bool:
     return rows_in_flight(g.cols_per_lane, 4, depth) > SHALLOW_BATCH
 
 
+@_build.launcher(lambda messages, *_, **__: _build.empty(messages,
+                                                           *messages.shape))
 def segment_aggregate_backward_cuda(messages: torch.Tensor,
                                     perm: torch.Tensor, offsets: torch.Tensor,
                                     out: torch.Tensor, dout: torch.Tensor, *,

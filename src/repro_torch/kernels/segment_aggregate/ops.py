@@ -38,7 +38,7 @@ def _aggregate(messages, perm, offsets, agg) -> torch.Tensor:
     if _build.runs_plain(messages):
         return segment_aggregate_ref(messages, perm, offsets, agg=agg)
     out = segment_aggregate_cuda(messages, perm, offsets, agg=agg)
-    segment_aggregate.launches += 1
+    segment_aggregate.launches += _build.launched()
     return out
 
 
@@ -98,7 +98,7 @@ def segment_aggregate_backward(messages: torch.Tensor, perm: torch.Tensor,
                                               dout, agg=agg)
     dmsg = segment_aggregate_backward_cuda(messages, perm, offsets, out,
                                            dout, agg=agg)
-    segment_aggregate_backward.launches += 1
+    segment_aggregate_backward.launches += _build.launched()
     return dmsg
 
 
@@ -126,7 +126,7 @@ def segment_aggregate_onehot(messages: torch.Tensor, seg_ids: torch.Tensor,
     out = segment_aggregate_onehot_cuda(messages, seg_ids, num_segments,
                                         agg=agg, edge_block=edge_block,
                                         node_block=node_block)
-    segment_aggregate_onehot.launches += 1
+    segment_aggregate_onehot.launches += _build.launched()
     return out
 
 

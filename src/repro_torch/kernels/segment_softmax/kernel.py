@@ -47,6 +47,8 @@ WARPS = 4
 EDGES_PER_LANE = 4
 
 
+@_build.launcher(lambda logits, perm, offsets: _build.empty(logits,
+                                                          logits.numel()))
 def segment_softmax_cuda(logits: torch.Tensor, perm: torch.Tensor,
                          offsets: torch.Tensor) -> torch.Tensor:
     """logits: (E,) float32; perm/offsets: the segment CSR
@@ -75,6 +77,7 @@ def segment_softmax_cuda(logits: torch.Tensor, perm: torch.Tensor,
     return out
 
 
+@_build.launcher(lambda w, dw, perm, offsets: _build.empty(w, w.numel()))
 def segment_softmax_backward_cuda(w: torch.Tensor, dw: torch.Tensor,
                                   perm: torch.Tensor,
                                   offsets: torch.Tensor) -> torch.Tensor:

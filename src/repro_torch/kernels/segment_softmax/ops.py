@@ -27,7 +27,7 @@ def _softmax(logits, perm, offsets) -> torch.Tensor:
     if _build.runs_plain(logits):
         return segment_softmax_ref(logits, perm, offsets)
     out = segment_softmax_cuda(logits, perm, offsets)
-    segment_softmax.launches += 1
+    segment_softmax.launches += _build.launched()
     return out
 
 
@@ -75,7 +75,7 @@ def segment_softmax_backward(w: torch.Tensor, dw: torch.Tensor,
     if _build.runs_plain(w):
         return segment_softmax_backward_ref(w, dw, perm, offsets)
     out = segment_softmax_backward_cuda(w, dw, perm, offsets)
-    segment_softmax_backward.launches += 1
+    segment_softmax_backward.launches += _build.launched()
     return out
 
 

@@ -94,6 +94,8 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor, block_m: int,
                          f"@ {tuple(w.shape)}")
 
 
+@_build.launcher(lambda x, w, **_: _build.empty(x, x.shape[0], w.shape[1],
+                                                dtype=x.dtype))
 def tiled_matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
                       block_m: int = 128, block_n: int = 128,
                       block_k: int = 128,

@@ -69,7 +69,7 @@ class _Product(torch.autograd.Function):
 def _launch(x: torch.Tensor, w: torch.Tensor, **tiles) -> torch.Tensor:
     out = tiled_matmul_cuda(x, w, **tiles,
                             by_body=tiled_matmul.launches_by_body)
-    tiled_matmul.launches += 1
+    tiled_matmul.launches += _build.launched()
     return out
 
 

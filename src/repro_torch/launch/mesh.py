@@ -87,6 +87,17 @@ class DataMesh:
         return f"{self.backend} on {self.device.type}"
 
 
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production meshes as declared shapes
+    (``distributed.sharding.MeshShape``; no devices): one pod 16x16 =
+    256 chips (data, model), two pods 2x16x16 = 512 (pod, data, model).
+    The dry run divides per-device figures by them."""
+    from repro_torch.distributed.sharding import MeshShape
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
 def all_gather(mesh: DataMesh, t: torch.Tensor) -> list:
     """Every rank's ``t`` (same shape and dtype on every rank), in group
     order."""

@@ -9,6 +9,7 @@ the copied ``_edge_stream`` is the reference's bit for bit, and every
 tool refuses a missing card unless asked for the CPU."""
 import copy
 import importlib.util
+import json
 import runpy
 import sys
 import tempfile
@@ -298,7 +299,7 @@ def test_run_harness_rows_on_cpu(tmp_path):
     rows = [ln for ln in lines if not ln.startswith("#")]
     assert [r.split(",")[0] for r in rows] == [
         "perf_model_accuracy_fig4", "dse_speed_fig5",
-        "accelerator_eval_tab4", "resources_fig7"]
+        "accelerator_eval_tab4", "resources_fig7", "roofline"]
     assert [m[0] for m in made] == [r.split(",")[0] for r in rows]
     for r in rows:
         name, us, derived = r.split(",", 2)
@@ -306,10 +307,36 @@ def test_run_harness_rows_on_cpu(tmp_path):
     assert "vs_plain_cpu=" in rows[2] and "vs_jax_cpu" not in rows[2]
     assert "paper=6.33/7.08" in rows[2]
     assert rows[3].endswith("rows=2")
-    assert "roofline" in RUN.LEFT_OUT
+    # the roofline row is made (no dry-run record here: no cells)
+    assert RUN.LEFT_OUT == {}
+    assert rows[4].endswith("cells=0|ok=0")
     for name in ("perf_model_accuracy", "dse_speed", "accelerator_eval",
                  "resources"):
         assert (tmp_path / f"{name}.json").exists()
+
+
+def test_roofline_bench_over_a_dry_run_record(tmp_path):
+    """``tools/roofline_bench.py`` over a record the dry run wrote: its
+    tables and its JSON, whose keys are the reference's ``Cell``'s but
+    for the recorded divergences."""
+    import dataclasses
+
+    from repro.roofline import Cell as RefCell
+    from repro_torch.launch import dryrun
+    RB = load("tools/roofline_bench.py", "port_roofline_bench")
+    rec = dryrun.run_cell("qwen3-8b", "train_4k", reduced=True, seq=32,
+                          batch=2)
+    assert rec["ok"], rec.get("error")
+    dryrun.save(rec, tmp_path / "dryrun")
+    res = RB.run(log=None, out=tmp_path)
+    assert res == {"cells": 1, "ok": 1}
+    cells = json.loads((tmp_path / "roofline_cells.json").read_text())
+    assert len(cells) == 1 and cells[0]["ok"]
+    assert cells[0]["compute_s"] > 0 and cells[0]["collective_s"] is None
+    same_keys(RB, set(cells[0]), {f.name for f in dataclasses.fields(
+        RefCell)})
+    table = (tmp_path / "roofline_1_optimized.md").read_text()
+    assert "| qwen3-8b | train_4k | " in table and "SKIPPED" in table
 
 
 def test_run_harness_sizes_are_the_references():

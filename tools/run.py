@@ -17,9 +17,9 @@ and what it derives:
                              forward and the base design, and measured on
                              ``--device`` over the plain CPU path
   resources_fig7             (Fig. 7)  rows
-
-The reference's last row, ``roofline``, waits for the port of
-``benchmarks/roofline_bench.py`` (ROADMAP item 12d) and is left out.
+  roofline                   (the reference's EXPERIMENTS §Roofline)
+                             cells and ok cells of the dry run's records
+                             in ``DIR/dryrun/`` (``tools/roofline_bench.py``)
 
 Fast defaults (60 designs for Fig. 4, 8 synthesized for Fig. 5, 24
 graphs on qm9/esol/hiv for Table IV), as the reference's;
@@ -47,8 +47,7 @@ FAST = {"designs": 60, "synthesized": 8, "graphs": 24,
 PAPER_SCALE = {"designs": 400, "synthesized": 20, "graphs": 200,
                "datasets": None}
 # the reference's rows this harness leaves out, and why
-LEFT_OUT = {"roofline": "benchmarks/roofline_bench.py is not ported yet "
-                        "(ROADMAP item 12d)"}
+LEFT_OUT: dict = {}
 
 
 def _row(name: str, us: float, derived: str, emit=print) -> tuple:
@@ -59,13 +58,15 @@ def _row(name: str, us: float, derived: str, emit=print) -> tuple:
 def rows(device: str = "cuda", sizes: dict | None = None, seed: int = 0,
          convs=None, out=_bench.RESULTS, emit=print) -> list:
     """Run the four paper tools at ``sizes`` (default: ``FAST``, or the
-    paper scale under ``REPRO_BENCH_FULL=1``) and emit one row each, the
-    tools' own lines as ``#`` comments; ``convs`` narrows Table IV and
-    Fig. 7 (default: their own)."""
+    paper scale under ``REPRO_BENCH_FULL=1``) and the roofline tables of
+    ``out``'s dry-run records, and emit one row each, the tools' own
+    lines as ``#`` comments; ``convs`` narrows Table IV and Fig. 7
+    (default: their own)."""
     import accelerator_eval
     import dse_speed
     import perf_model_accuracy
     import resources
+    import roofline_bench
 
     sizes = sizes or (PAPER_SCALE if FULL else FAST)
     def log(*a):
@@ -105,6 +106,11 @@ def rows(device: str = "cuda", sizes: dict | None = None, seed: int = 0,
     r = resources.run(convs, device=device, out=out, log=log)
     made.append(_row("resources_fig7", (time.time() - t0) * 1e6,
                      f"rows={len(r['rows'])}", emit))
+
+    t0 = time.time()
+    r = roofline_bench.run(log=log, out=out)
+    made.append(_row("roofline", (time.time() - t0) * 1e6,
+                     f"cells={r['cells']}|ok={r.get('ok', 0)}", emit))
     return made
 
 
