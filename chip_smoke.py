@@ -376,9 +376,24 @@ Phases, in order; any failure exits non-zero with no result line:
    ``GNN_TRAIN_TOL``. (d) GAT and PNA at reduced() under
    ``torch.use_deterministic_algorithms(True)``: a ``Trainer`` run that
    fails at step ``GNN_FAULT_AT`` and resumes ends bit for bit the
-   uninterrupted run's state. The counts are read after (d): every one
-   of rows 1-3 (and row 1's dx), row 8b and the three backward kernels
-   launched on the training path.
+   uninterrupted run's state. (e) bf16 and int8 GNN training (ROADMAP
+   item 12e-i): (e-1) the bf16 bodies of rows 2c (bf16 messages) and 1c's
+   dscale (a bf16 table) at the calls of ``mse_loss_packed``'s gradient
+   at bf16 (GIN's edge sum, PNA's towers at F 128 and 11; GAT's attention
+   at F 64 and 128) and on hostile streams (a hub of ``BF16_HUB_EDGES``
+   rows or out-edges, a misaligned F 11 table), each bit for bit its
+   plain version at every geometry and a second launch the first's, the
+   served calls timed beside their bound and the fp32 call of the same
+   shape, in turns; (e-2) every conv at ``benchmark_config`` at bf16 and
+   int8: (c)'s step (at ``GNN_LOW_STEP_BATCH`` padded graphs) and packed
+   gradient against the CPU plain path within ``GNN_TRAIN_TOL`` of the
+   policy; (e-3) GCN at bf16 and int8 through
+   the ``Trainer`` as in (b): the loss falls, ``GCN_STEP_LAUNCHES`` and
+   ``GCN_STEP_GATHERS`` (int8 reads the fp32 fake-quant grid where the
+   gradient flows), beside (b)'s fp32 figures. The counts are set to 0
+   after (e-1) and read after (e-3): every one of rows 1-3 (and row 1's
+   dx), row 8b, the three backward kernels and the bf16 bodies of 1c and
+   2c launched on the training path.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -402,10 +417,13 @@ a backward call); the first's ``training`` key holds (b)'s, (c)'s and
 (d)'s readings. Every entry carries
 ``launches_by_phase["14"]``: the GNN training path's launches of rows
 1-3 and 8b (row 1's with its dx launches, whose (a) readings are its
-``backward_dx``; its ``gnn_training`` holds phase 14's (b)-(d)
+``backward_dx``; its ``gnn_training`` holds phase 14's (b)-(e)
 readings); the last three entries, ``gather_scale_backward``,
 ``segment_aggregate_backward`` and ``segment_softmax_backward``, sum
-phase 14 (a)'s calls and count their launches on that path.
+phase 14 (a)'s calls and count their launches on that path; the first
+two carry ``by_storage["bf16"]``, their bf16 body's (e-1) calls summed
+(with the fp32 calls of the same shapes, timed in turns) and its
+launches on the training path.
 """
 from __future__ import annotations
 
@@ -4907,20 +4925,32 @@ GNN_FAULT_CONVS = ("gat", "pna")
 GNN_FAULT_STEPS, GNN_FAULT_AT, GNN_FAULT_EVERY = 24, 13, 8
 GNN_FAULT_BATCH = 8
 GNN_DIR = ROOT / "build" / "chip_smoke_gnn"
-# card against the CPU plain path, relative: the loss and the global
-# gradient norm, and each leaf of the packed gradient against its scale.
-# The kernels' forward and backward folds are the plain versions' bit for
-# bit; the fp32 products differ in the last place (the card's FMA chain
-# against the CPU's rounded multiply and add in the row-stable products;
-# cuBLAS against the CPU's BLAS in torch.matmul's gradients): the CPU
-# tests' 1e-4 against the JAX package
-GNN_TRAIN_TOL = 1e-4
-# (b)'s launches a GCN step at benchmark_config: a gather a layer; dx once
-# (layer 0 gathers the input features, which need no gradient); the
-# row-stable products of the two layers (W, the skip projection) and the
-# head's four layers; the products' gradients are torch.matmul's
-GCN_STEP_LAUNCHES = {"fused_gather_aggregate": 2,
-                     "fused_gather_aggregate dx": 1, "tiled_matmul": 8}
+# card against the CPU plain path, relative, by policy: the loss and the
+# global gradient norm, and each leaf of the packed gradient against its
+# scale. fp32: the kernels' forward and backward folds are the plain
+# versions' bit for bit; the fp32 products differ in the last place (the
+# card's FMA chain against the CPU's rounded multiply and add in the
+# row-stable products; cuBLAS against the CPU's BLAS in torch.matmul's
+# gradients): the CPU tests' 1e-4 against the JAX package. bf16: a value
+# so moved can round to the neighbouring bf16 value, carried on by the
+# later layers: the LM's TRAIN_TOL for bf16. int8: a value moves by a
+# whole grid step only where the two sides' fp32 inputs straddle a
+# rounding midpoint (rare); held to bf16's bound
+GNN_TRAIN_TOL = {"fp32": 1e-4, "bf16": 2.0 ** -5, "int8": 2.0 ** -5}
+# (b)'s and (e-3)'s launches a GCN step at benchmark_config, by policy: a
+# gather a layer; dx once (layer 0 gathers the input features, which need
+# no gradient); the row-stable products of the two layers (W, the skip
+# projection) and the head's four layers; the products' gradients are
+# torch.matmul's. bf16 and int8 launch the same kernels: the bf16 gathers
+# read bf16 tables (dx folds the fp32 output gradient); int8 training
+# reads the fp32 fake-quant grid where the gradient flows (layer 1's
+# gather and its dx) and the int8 table where none does (layer 0's input)
+GCN_STEP_LAUNCHES = {p: {"fused_gather_aggregate": 2,
+                         "fused_gather_aggregate dx": 1, "tiled_matmul": 8}
+                     for p in PRECISIONS}
+# the gathers of a GCN step by the table's storage, by policy
+GCN_STEP_GATHERS = {"fp32": {"fp32": 2}, "bf16": {"bf16": 2},
+                    "int8": {"int8": 1, "fp32": 1}}
 GNN_TARGET_S = 45.0         # the phase's wall-time target, printed
 # (a)'s kernels held bit for bit to their plain versions
 BITWISE_BACKWARDS = ("gather_scale_backward", "segment_aggregate_backward",
@@ -4928,10 +4958,26 @@ BITWISE_BACKWARDS = ("gather_scale_backward", "segment_aggregate_backward",
 # (a)'s scale gradient by its generic body (F not a multiple of 4, or a
 # table not 16-byte aligned): (edges, F, offset of x in elements)
 SCALE_GENERIC_CASES = ((1001, 11, 0), (1001, 64, 1))
+# (e) bf16 and int8 GNN training (ROADMAP item 12e-i). (e-1): the bf16
+# bodies of rows 2c and 1c, at the calls of mse_loss_packed's gradient at
+# bf16 of these convs (GIN's edge sum and PNA's towers: 2c; GAT's
+# attention: 1c's dscale), and on hostile streams: a hub of
+# BF16_HUB_EDGES rows (a segment; a source's out-edges) at F 128 / 64,
+# and a table at F 11 one element into its buffer (misaligned)
+GNN_LOW = ("bf16", "int8")
+# (e-2)'s step, cut from (c)'s GNN_STEP_BATCH to keep the script's wall
+# time (its CPU side is the largest part of (e-2)); the packed gradient
+# keeps GNN_PACKED_GRAPHS
+GNN_LOW_STEP_BATCH = 16
+BF16_CONVS = ("gin", "pna", "gat")
+BF16_BODIES = ("segment_aggregate_backward", "gather_scale_backward")
+BF16_HUB_EDGES = 3000
 
 
 def gnn_wrappers() -> dict:
-    """Each count phase 14 reads: (the wrapper, its counter's name)."""
+    """Each count phase 14 reads: (the wrapper, its counter's name[, the
+    key of a counter by storage]); the two backward kernels' bf16 bodies
+    are counted apart, by ``launches_by_dtype``."""
     from repro_torch.kernels.fused_gather_aggregate import ops as GO
     from repro_torch.kernels.segment_aggregate import ops as SO
     from repro_torch.kernels.segment_softmax import ops as XO
@@ -4948,16 +4994,27 @@ def gnn_wrappers() -> dict:
         "segment_softmax_backward": (XO.segment_softmax_backward,
                                      "launches"),
         "tiled_matmul": (tiled_matmul, "launches"),
+        "gather_scale_backward bf16": (GO.gather_scale_backward,
+                                       "launches_by_dtype", "bf16"),
+        "segment_aggregate_backward bf16": (SO.segment_aggregate_backward,
+                                            "launches_by_dtype", "bf16"),
     }
 
 
 def gnn_counts() -> dict:
-    return {k: getattr(w, a) for k, (w, a) in gnn_wrappers().items()}
+    out = {}
+    for k, (w, a, *key) in gnn_wrappers().items():
+        v = getattr(w, a)
+        out[k] = v[key[0]] if key else v
+    return out
 
 
 def zero_gnn_counts() -> None:
-    for w, a in gnn_wrappers().values():
-        setattr(w, a, 0)
+    from repro_torch.kernels.fused_gather_aggregate import ops as GO
+    for w, a, *key in gnn_wrappers().values():
+        setattr(w, a, dict.fromkeys(getattr(w, a), 0) if key else 0)
+    GO.fused_gather_aggregate.launches_by_dtype = dict.fromkeys(
+        GO.fused_gather_aggregate.launches_by_dtype, 0)
 
 
 def gnn_flat(tree, prefix=""):
@@ -4987,16 +5044,17 @@ def gnn_card_vs_plain(label: str, dev, cfg, loss: str, params: dict,
                       batch: dict) -> dict:
     """The loss, the global gradient norm and every gradient leaf of one
     batch on the card and on the CPU plain path from the same parameters,
-    within ``GNN_TRAIN_TOL``."""
+    within ``GNN_TRAIN_TOL`` of the config's policy."""
+    tol = GNN_TRAIN_TOL[cfg.gnn_precision]
     card = gnn_loss_grads(cfg, loss, params, batch, dev)
     host = gnn_loss_grads(cfg, loss, params, batch, torch.device("cpu"))
     out = {}
     for i, name in enumerate(("loss", "grad_norm")):
         got, want = card[i], host[i]
         rel = abs(got - want) / abs(want)
-        check(np.isfinite(got) and rel <= GNN_TRAIN_TOL,
+        check(np.isfinite(got) and rel <= tol,
               f"{label}: {name} {got} on the card against {want} on the CPU "
-              f"({rel:.3e} of it; bound {GNN_TRAIN_TOL})")
+              f"({rel:.3e} of it; bound {tol})")
         out[name] = dict(card=got, cpu=want, rel=rel)
     G, H = gnn_flat(card[2]), gnn_flat(host[2])
     worst = 0.0
@@ -5004,7 +5062,7 @@ def gnn_card_vs_plain(label: str, dev, cfg, loss: str, params: dict,
         got = G[k].cpu()
         gap = float((got - want).abs().max()) / max(
             float(want.abs().max()), 1e-30)
-        check(bool(torch.isfinite(got).all()) and gap <= GNN_TRAIN_TOL,
+        check(bool(torch.isfinite(got).all()) and gap <= tol,
               f"{label}: gradient {k} {gap:.3e} of its scale off the CPU's")
         worst = max(worst, gap)
     out["worst_leaf"] = worst
@@ -5253,41 +5311,33 @@ def scale_generic_check(dev) -> None:
         print(f"{label}: bit for bit the plain version", flush=True)
 
 
-def gnn_train_full_width_phase(dev) -> dict:
-    """(b) GCN at ``benchmark_config`` (11 -> 128 -> 64, projection skips,
-    add/mean/max pooling, MLP 192 -> 64 x 3 -> 1, fp32): its first step
-    at ``GNN_CHECK_BATCH`` graphs against the CPU plain path, then
-    ``GNN_TRAIN_STEPS`` steps of ``make_gnn_train_step`` at
-    ``GNN_TRAIN_BATCH`` padded graphs of ``graph_batch`` through the
-    ``Trainer`` (no checkpoint), the counts set to 0 just before and read
-    just after; then ``GNN_PROFILE_STEPS`` more steps traced."""
-    from repro_torch.configs.gnn import DATASETS, benchmark_config
+def gcn_trainer_run(dev, cfg, label: str) -> tuple:
+    """``GNN_TRAIN_STEPS`` steps of ``make_gnn_train_step`` for GCN at
+    ``cfg`` (its policy ``cfg.gnn_precision``) at ``GNN_TRAIN_BATCH``
+    padded graphs of ``graph_batch`` through the ``Trainer`` (no
+    checkpoint), from seed-0 parameters, the counts read just before and
+    just after: the loss falls (the mean of the last 5 below the first
+    5's), each step launches ``GCN_STEP_LAUNCHES[policy]`` and nothing
+    else, its gathers ``GCN_STEP_GATHERS[policy]`` by the table's
+    storage. Returns (figures, bundle, trainer, batch_fn)."""
+    from repro_torch.configs.gnn import DATASETS
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
+    from repro_torch.kernels.fused_gather_aggregate.ops import \
+        fused_gather_aggregate
     from repro_torch.launch.steps import make_gnn_train_step
     from repro_torch.nn.param import count_params, init_params, materialize
     from repro_torch.optim import adamw
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
-    cfg = benchmark_config(GNN_TRAIN_CONV)
-    check(G.layer_dims(cfg) == [(11, 128), (128, 64)]
-          and cfg.gnn_skip_connection
-          and cfg.global_pooling == ("add", "mean", "max")
-          and cfg.mlp_head.in_dim == 192 and cfg.mlp_head.hidden_dim == 64
-          and cfg.mlp_head.hidden_layers == 3
-          and cfg.mlp_head.out_dim == 1 and cfg.gnn_precision == "fp32",
-          f"[14] (b) {cfg}")
+    policy = cfg.gnn_precision
     ds = DATASETS["qm9"]
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
-    t0 = time.perf_counter()
-    vs = gnn_card_vs_plain("[14] (b) first step", dev, cfg, "mse_loss",
-                           params, P.graph_batch(ds, 0, GNN_CHECK_BATCH))
-    check_s = time.perf_counter() - t0
     bundle = make_gnn_train_step(cfg, batch=GNN_TRAIN_BATCH,
                                  opt_cfg=adamw.OptConfig(**GNN_TRAIN_OPT),
                                  device=dev)
     opt = materialize(bundle.abstract_args[1], None, dev)
-    batch_s, device_ms, events = [], [], []
+    batch_s, events = [], []
 
     def batch_fn(step):
         t = time.perf_counter()
@@ -5309,42 +5359,99 @@ def gnn_train_full_width_phase(dev) -> dict:
                       step_fn, batch_fn, params, opt, log=None)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    zero_gnn_counts()
+    gathers = dict(fused_gather_aggregate.launches_by_dtype)
+    before = gnn_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = trainer.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = gnn_counts()
+    counts = {k: v - before[k] for k, v in gnn_counts().items()}
+    gathers = {k: v - gathers[k] for k, v in
+               fused_gather_aggregate.launches_by_dtype.items() if v
+               - gathers[k]}
     peak = torch.cuda.max_memory_allocated(dev)
     device_ms = [s.elapsed_time(e) for s, e in events]
-    for k, n in GCN_STEP_LAUNCHES.items():
+    for k, n in GCN_STEP_LAUNCHES[policy].items():
         check(counts[k] == n * GNN_TRAIN_STEPS,
-              f"[14] (b) {k}: {counts[k]} launches over {GNN_TRAIN_STEPS} "
+              f"{label} {k}: {counts[k]} launches over {GNN_TRAIN_STEPS} "
               f"steps, expected {n} a step")
-    others = {k: v for k, v in counts.items() if k not in GCN_STEP_LAUNCHES}
-    check(not any(others.values()),
-          f"[14] (b) a GCN step launched {others}")
+    others = {k: v for k, v in counts.items()
+              if k not in GCN_STEP_LAUNCHES[policy]}
+    check(not any(others.values()), f"{label} a GCN step launched {others}")
+    want = {k: n * GNN_TRAIN_STEPS
+            for k, n in GCN_STEP_GATHERS[policy].items()}
+    check(gathers == want, f"{label} the gathers by storage {gathers}, "
+                           f"expected {want}")
     losses = out["losses"]
     check(len(losses) == GNN_TRAIN_STEPS and all(np.isfinite(losses)),
-          f"[14] (b) losses {losses}")
+          f"{label} losses {losses}")
     head, tail = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    check(tail < head, f"[14] (b) the loss did not fall: mean of the first "
+    check(tail < head, f"{label} the loss did not fall: mean of the first "
                        f"5 {head}, of the last 5 {tail}")
     step_ms = [s * 1e3 for s in trainer.step_s]
     median = statistics.median(step_ms[1:])
-    batch_ms = statistics.median(s * 1e3 for s in batch_s[1:])
-    dev_ms = statistics.median(device_ms[1:])
-    trace = gnn_profile(bundle, trainer, batch_fn)
     res = dict(
-        conv=GNN_TRAIN_CONV, params=count_params(G.model_plan(cfg)),
+        conv="gcn", policy=policy, params=count_params(G.model_plan(cfg)),
         batch=GNN_TRAIN_BATCH, steps=GNN_TRAIN_STEPS, loss_first=losses[0],
         loss_last=losses[-1], loss_first5=head, loss_last5=tail,
         first_step_ms=step_ms[0], median_step_ms=median,
         graphs_s=GNN_TRAIN_BATCH / median * 1e3,
-        median_batch_build_ms=batch_ms, median_step_stream_ms=dev_ms,
-        peak_gib=peak / 2 ** 30, launches_per_step=GCN_STEP_LAUNCHES,
-        first_step_vs_cpu=vs, trace=trace, wall_s=wall)
+        median_batch_build_ms=statistics.median(s * 1e3
+                                                for s in batch_s[1:]),
+        median_step_stream_ms=statistics.median(device_ms[1:]),
+        peak_gib=peak / 2 ** 30,
+        launches_per_step=GCN_STEP_LAUNCHES[policy],
+        gathers_by_storage_per_step=GCN_STEP_GATHERS[policy], wall_s=wall)
+    return res, bundle, trainer, batch_fn
+
+
+def trainer_line(res: dict) -> str:
+    """A ``gcn_trainer_run``'s figures, printed."""
+    return (f"{res['steps']} steps of {res['batch']} padded graphs "
+            f"(graph_batch, 600-node frames) through the Trainer: loss "
+            f"{res['loss_first']:.5f} -> {res['loss_last']:.5f} (mean of "
+            f"the first 5 {res['loss_first5']:.5f}, of the last 5 "
+            f"{res['loss_last5']:.5f}), first step "
+            f"{res['first_step_ms']:.1f} ms, median of the rest "
+            f"{res['median_step_ms']:.2f} ms ({res['graphs_s']:.1f} "
+            f"graphs/s): the host's graph_batch "
+            f"{res['median_batch_build_ms']:.2f} ms, the step's stream "
+            f"(copy in, forward, backward, AdamW) "
+            f"{res['median_step_stream_ms']:.2f} ms; peak memory "
+            f"{res['peak_gib']:.2f} GiB; launches a step "
+            f"{res['launches_per_step']}, gathers a step by storage "
+            f"{res['gathers_by_storage_per_step']}; {res['wall_s']:.1f} s")
+
+
+def gnn_train_full_width_phase(dev) -> dict:
+    """(b) GCN at ``benchmark_config`` (11 -> 128 -> 64, projection skips,
+    add/mean/max pooling, MLP 192 -> 64 x 3 -> 1, fp32): its first step
+    at ``GNN_CHECK_BATCH`` graphs against the CPU plain path, then
+    ``gcn_trainer_run``; then ``GNN_PROFILE_STEPS`` more steps traced."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core import gnn_model as G
+    from repro_torch.data import pipeline as P
+    from repro_torch.nn.param import init_params
+    cfg = benchmark_config(GNN_TRAIN_CONV)
+    check(G.layer_dims(cfg) == [(11, 128), (128, 64)]
+          and cfg.gnn_skip_connection
+          and cfg.global_pooling == ("add", "mean", "max")
+          and cfg.mlp_head.in_dim == 192 and cfg.mlp_head.hidden_dim == 64
+          and cfg.mlp_head.hidden_layers == 3
+          and cfg.mlp_head.out_dim == 1 and cfg.gnn_precision == "fp32",
+          f"[14] (b) {cfg}")
+    ds = DATASETS["qm9"]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    t0 = time.perf_counter()
+    vs = gnn_card_vs_plain("[14] (b) first step", dev, cfg, "mse_loss",
+                           params, P.graph_batch(ds, 0, GNN_CHECK_BATCH))
+    check_s = time.perf_counter() - t0
+    del params
+    res, bundle, trainer, batch_fn = gcn_trainer_run(dev, cfg, "[14] (b)")
+    res["trace"] = gnn_profile(bundle, trainer, batch_fn)
+    res["first_step_vs_cpu"] = vs
     print(f"[14] (b) {GNN_TRAIN_CONV} at benchmark_config (11 -> 128 -> 64, "
           f"projection skips, add/mean/max pooling, MLP 192 -> 64 x 3 -> 1, "
           f"fp32, {res['params']} parameters): first step at "
@@ -5353,18 +5460,9 @@ def gnn_train_full_width_phase(dev) -> dict:
           f"({vs['loss']['rel']:.3e}), grad norm "
           f"{vs['grad_norm']['card']:.6f} / {vs['grad_norm']['cpu']:.6f} "
           f"({vs['grad_norm']['rel']:.3e}), worst leaf "
-          f"{vs['worst_leaf']:.3e} (bound {GNN_TRAIN_TOL}; {check_s:.1f} s); "
-          f"{GNN_TRAIN_STEPS} steps of {GNN_TRAIN_BATCH} padded graphs "
-          f"(graph_batch, 600-node frames) through the Trainer: loss "
-          f"{losses[0]:.5f} -> {losses[-1]:.5f} (mean of the first 5 "
-          f"{head:.5f}, of the last 5 {tail:.5f}), first step "
-          f"{step_ms[0]:.1f} ms, median of the rest {median:.2f} ms "
-          f"({res['graphs_s']:.1f} graphs/s): the host's graph_batch "
-          f"{batch_ms:.2f} ms, the step's stream (copy in, forward, "
-          f"backward, AdamW) {dev_ms:.2f} ms; peak memory "
-          f"{res['peak_gib']:.2f} GiB; launches a step {GCN_STEP_LAUNCHES}; "
-          f"{wall:.1f} s")
-    del params, opt, out, trainer
+          f"{vs['worst_leaf']:.3e} (bound {GNN_TRAIN_TOL['fp32']}; "
+          f"{check_s:.1f} s); {trainer_line(res)}")
+    del bundle, trainer
     torch.cuda.empty_cache()
     return res
 
@@ -5447,7 +5545,7 @@ def gnn_every_conv_phase(dev, packed: dict) -> dict:
         for k in ("loss", "grad_norm"):
             got, want = metrics[0][k], metrics[1][k]
             gaps[k] = abs(got - want) / abs(want)
-            check(np.isfinite(got) and gaps[k] <= GNN_TRAIN_TOL,
+            check(np.isfinite(got) and gaps[k] <= GNN_TRAIN_TOL["fp32"],
                   f"[14] (c) {conv} step: {k} {got} on the card, {want} on "
                   f"the CPU ({gaps[k]:.3e} of it)")
         packed_vs = gnn_card_vs_plain(f"[14] (c) {conv} packed", dev, cfg,
@@ -5542,12 +5640,292 @@ def gnn_fault_phase(dev) -> dict:
     return out
 
 
+def bf16_body_calls(dev, packed: dict) -> dict:
+    """{(kernel, shapes, agg): (conv, args, kwargs)}: the distinct calls
+    of rows 2c's and 1c's bf16 bodies (bf16 messages, a bf16 table) in
+    ``mse_loss_packed``'s gradient at bf16 on the card, for each of
+    ``BF16_CONVS`` at ``benchmark_config``."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.nn.param import init_params
+    calls = {}
+    for conv in BF16_CONVS:
+        cfg = dataclasses.replace(benchmark_config(conv),
+                                  gnn_precision="bf16")
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        with captured_gnn_backward() as store:
+            gnn_loss_grads(cfg, "mse_loss_packed", params, packed, dev)
+        for name in BF16_BODIES:
+            for args, kwargs in store[name]:
+                table = args[1] if name == "gather_scale_backward" \
+                    else args[0]
+                if table.dtype != torch.bfloat16:
+                    continue
+                key = (name, tuple(tuple(a.shape) if isinstance(
+                    a, torch.Tensor) else a for a in args),
+                    tuple(sorted(kwargs.items())))
+                calls.setdefault(key, (conv, args, kwargs))
+    return calls
+
+
+def bf16_launches(name: str, args: tuple, kwargs: dict) -> list:
+    """(label, launch) of each launch geometry of a bf16-body call: the
+    default; the segment gradient at each columns-a-lane cap up to 8 on
+    the card's SMs and on 8; the scale gradient's vector body at each run
+    of edges a warp (x aligned to 4 elements, F % 4 == 0) and its generic
+    body."""
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+    from repro_torch.kernels.segment_aggregate import kernel as SK
+    from repro_torch.kernels.segment_aggregate.ref import agg_set
+    table = args[1] if name == "gather_scale_backward" else args[0]
+    sms = torch.cuda.get_device_properties(
+        table.device).multi_processor_count
+    if name == "gather_scale_backward":
+        e, f = args[2].numel(), args[0].shape[1]
+        aligned = args[0].data_ptr() % 16 == 0 and table.data_ptr() % 8 == 0
+        geos = [GK.scale_backward_geometry(e, f, sms, run=run, elem_bytes=2)
+                for run in (32, 16, 8, 4) if f % 4 == 0 and aligned]
+        geos.append(GK.scale_backward_geometry(e, f, sms, aligned=False,
+                                               elem_bytes=2))
+        launch = GK.gather_scale_backward_cuda
+    else:
+        perm, offsets = args[1:3]
+        geos = [SK.segment_backward_geometry(
+            offsets.numel() - 1, table.shape[1], perm.numel(), card,
+            len(agg_set(kwargs.get("agg", "sum"))), max_cols=cap,
+            elem_bytes=2) for card in (sms, 8) for cap in (1, 2, 4, 8)]
+        launch = SK.segment_aggregate_backward_cuda
+    return [("default", lambda: launch(*args, **kwargs))] + [
+        (str(g), lambda g=g: launch(*args, **kwargs, geometry=g))
+        for g in geos]
+
+
+def bf16_plain(name: str):
+    """The plain version of a bf16 body: the scale gradient's on the bf16
+    table, the segment gradient's (fp32) rounded once to bf16."""
+    from repro_torch.kernels.fused_gather_aggregate import ref as GR
+    from repro_torch.kernels.segment_aggregate import ref as SR
+    if name == "gather_scale_backward":
+        return GR.gather_scale_backward_ref
+    return lambda *a, **k: SR.segment_aggregate_backward_ref(
+        *a, **k).to(SR.grad_dtype(a[0]))
+
+
+def bf16_bits(label: str, name: str, args: tuple, kwargs: dict) -> tuple:
+    """A bf16-body call bit for bit its plain version at every launch
+    geometry (``bf16_launches``), and a second default launch bit for bit
+    the first. Returns (the first output, the geometries held)."""
+    want = bf16_plain(name)(*args, **kwargs)
+    launches = bf16_launches(name, args, kwargs)
+    first = launches[0][1]()
+    torch.cuda.synchronize()
+    check(first.dtype == want.dtype and same_bits(first, want),
+          f"{label}: not bit for bit the plain version (max |err| "
+          f"{float((first.float() - want.float()).abs().max())})")
+    check(same_bits(launches[0][1](), first),
+          f"{label}: a second launch differs")
+    for geo, fn in launches[1:]:
+        check(same_bits(fn(), first), f"{label}: {geo} gives other bits")
+    return first, len(launches) - 1
+
+
+def bf16_hostile_calls(dev) -> list:
+    """(label, kernel, args, kwargs) of the bf16 bodies on hostile
+    streams (ids from a seed): a segment of ``BF16_HUB_EDGES`` rows among
+    two-row ones (PNA's towers at F 128, a sum at F 128), a source with
+    ``BF16_HUB_EDGES`` out-edges (the scale gradient at F 64), and each
+    kernel on an F 11 bf16 table one element into its buffer, with ids
+    out of range."""
+    from repro_torch.core.aggregations import build_csr
+    from repro_torch.core.convs import PNA_AGGS
+    from repro_torch.kernels.segment_aggregate import kernel as SK
+    rng = np.random.default_rng(15)
+
+    def rows(e, f, shift=0):
+        flat = np.round(rng.standard_normal(e * f + shift) * 4) / 4
+        t = torch.from_numpy(flat.astype(np.float32)).to(
+            torch.bfloat16).to(dev)
+        return t[shift:].view(e, f)
+    out = []
+    s = 1000
+    seg = np.concatenate([np.zeros(BF16_HUB_EDGES), np.repeat(
+        np.arange(1, s), 2)]).astype(np.int32)
+    seg = seg[rng.permutation(seg.size)]
+    seg[:3] = [-1, s, -4]
+    for f, aggs, shift in ((128, PNA_AGGS, 0), (128, ("sum",), 0),
+                           (11, PNA_AGGS, 1)):
+        m = rows(seg.size, f, shift)
+        csr = build_csr(torch.from_numpy(seg).to(dev), s)
+        fwd = SK.segment_aggregate_cuda(m, csr.perm, csr.offsets, agg=aggs)
+        dout = torch.from_numpy(rng.standard_normal(tuple(fwd.shape)).astype(
+            np.float32)).to(dev)
+        out.append((f"segment hub of {BF16_HUB_EDGES} rows, F {f}, "
+                    f"{'/'.join(aggs)}, messages {shift} elements in",
+                    "segment_aggregate_backward",
+                    (m, csr.perm, csr.offsets, fwd, dout), dict(agg=aggs)))
+    n, s = 500, 2000
+    e = BF16_HUB_EDGES + 4000
+    src = rng.integers(-1, n + 1, e).astype(np.int32)
+    src[rng.choice(e, BF16_HUB_EDGES, replace=False)] = 7
+    dst = rng.integers(-1, s, e).astype(np.int32)
+    w = torch.from_numpy(rng.uniform(0.1, 1.0, e).astype(np.float32)).to(dev)
+    for f, shift in ((64, 0), (11, 1)):
+        dout = torch.from_numpy(rng.standard_normal((s, f)).astype(
+            np.float32)).to(dev)
+        out.append((f"source hub of {BF16_HUB_EDGES} out-edges, F {f}, x "
+                    f"{shift} elements in", "gather_scale_backward",
+                    (dout, rows(n, f, shift), torch.from_numpy(src).to(dev),
+                     torch.from_numpy(dst).to(dev), w), {}))
+    return out
+
+
+def bf16_bodies_phase(dev, packed: dict) -> list:
+    """(e-1) The bf16 bodies of rows 2c and 1c at the 1024-graph packed
+    batch's calls (``bf16_body_calls``) and on ``bf16_hostile_calls``'
+    streams, each bit for bit its plain version at every geometry and a
+    second launch the first's (``bf16_bits``); each served call timed
+    beside its bound (``kernels/_cost.py``) and beside the fp32 call of
+    the same shape (the table upcast), in turns (bf16, fp32, fp32, bf16),
+    and beside its plain version."""
+    from repro_torch.kernels import _cost
+    works = {"gather_scale_backward": _cost.gather_scale_work,
+             "segment_aggregate_backward": _cost.segment_bwd_work}
+    rows = []
+    for (name, shapes, _), (conv, args, kwargs) in bf16_body_calls(
+            dev, packed).items():
+        at = 1 if name == "gather_scale_backward" else 0
+        label = (f"[14] (e-1) {name} bf16 ({conv}, "
+                 f"{'; '.join(str(s) for s in shapes if s not in ((), None))}"
+                 f"{', ' + str(kwargs['agg']) if 'agg' in kwargs else ''})")
+        got, geos = bf16_bits(label, name, args, kwargs)
+        launch = bf16_launches(name, args, kwargs)[0][1]
+        wide = tuple(a.float() if i == at else a for i, a in enumerate(args))
+        fp32 = bf16_launches(name, wide, kwargs)[0][1]
+        turns = {"bf16": [], "fp32": []}
+        for which in ("bf16", "fp32", "fp32", "bf16"):
+            turns[which].append(cuda_ms(launch if which == "bf16" else fp32))
+        moved, ops = works[name](*args, **kwargs)
+        b_ms, by = bound_ms(moved, ops)
+        plain_ms = cuda_ms(lambda: bf16_plain(name)(*args, **kwargs),
+                           **PLAIN_TIMING)
+        ms, ms32 = (statistics.mean(turns[k]) for k in ("bf16", "fp32"))
+        rows.append(dict(kernel=name, conv=conv, shape=label[11:],
+                         bitwise=True, geometries=geos, ms=ms, fp32_ms=ms32,
+                         turns=turns, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, library_ms=None,
+                         library_note="no single PyTorch call takes a bf16 "
+                                      "table with an fp32 gradient"))
+        print(f"{label}: bit for bit the plain version at {geos} other "
+              f"geometries and across two launches; {ms:.6f} ms [bound "
+              f"{b_ms:.6f}, {by}] (turns bf16 {turns['bf16'][0]:.6f} / "
+              f"{turns['bf16'][1]:.6f}), the fp32 call of the same shape "
+              f"{turns['fp32'][0]:.6f} / {turns['fp32'][1]:.6f} ms, plain "
+              f"{plain_ms:.6f} ms", flush=True)
+    for name in BF16_BODIES:
+        check(any(r["kernel"] == name for r in rows),
+              f"[14] (e-1) no bf16 call of {name} in the models' gradients")
+    for label, name, args, kwargs in bf16_hostile_calls(dev):
+        _, geos = bf16_bits(f"[14] (e-1) {name} bf16, {label}", name, args,
+                            kwargs)
+        print(f"[14] (e-1) {name} bf16, {label}: bit for bit the plain "
+              f"version at {geos} other geometries and across two launches",
+              flush=True)
+    return rows
+
+
+def gnn_low_precision_phase(dev, packed: dict) -> dict:
+    """(e-2) Every conv at ``benchmark_config`` at each of ``GNN_LOW``:
+    one ``make_gnn_train_step`` step at ``GNN_LOW_STEP_BATCH`` padded graphs
+    on the card against the same step on the CPU plain path from the same
+    state (loss, grad norm), and ``mse_loss_packed``'s gradient at
+    ``GNN_PACKED_GRAPHS`` packed graphs against the CPU's (loss, grad
+    norm and every leaf), within ``GNN_TRAIN_TOL[policy]``; the gaps
+    printed."""
+    from repro_torch.configs.gnn import DATASETS, benchmark_config
+    from repro_torch.core.convs import CONV_TYPES
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch.steps import make_gnn_train_step
+    from repro_torch.nn.param import init_params, materialize
+    from repro_torch.optim import adamw
+    batch = P.graph_batch(DATASETS["qm9"], 0, GNN_LOW_STEP_BATCH)
+    out = {}
+    for conv in CONV_TYPES:
+        for policy in GNN_LOW:
+            cfg = dataclasses.replace(benchmark_config(conv),
+                                      gnn_precision=policy)
+            tol = GNN_TRAIN_TOL[policy]
+            params = init_params(cfg, torch.Generator(
+                device=dev).manual_seed(1), dev)
+            metrics = []        # the card's, then the CPU's
+            for d in (dev, torch.device("cpu")):
+                bundle = make_gnn_train_step(
+                    cfg, batch=GNN_LOW_STEP_BATCH, device=d)
+                p = adamw.tree_map(lambda t: t.to(d, copy=True), params)
+                o = materialize(bundle.abstract_args[1], None, d)
+                p, o, m = bundle.fn(p, o, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            gaps = {}
+            for k in ("loss", "grad_norm"):
+                got, want = metrics[0][k], metrics[1][k]
+                gaps[k] = abs(got - want) / abs(want)
+                check(np.isfinite(got) and gaps[k] <= tol,
+                      f"[14] (e-2) {conv} {policy} step: {k} {got} on the "
+                      f"card, {want} on the CPU ({gaps[k]:.3e} of it; "
+                      f"bound {tol})")
+            packed_vs = gnn_card_vs_plain(f"[14] (e-2) {conv} {policy} "
+                                          "packed", dev, cfg,
+                                          "mse_loss_packed", params, packed)
+            out[f"{conv} {policy}"] = dict(step=dict(metrics[0], rel=gaps),
+                                           packed=packed_vs)
+            print(f"[14] (e-2) {conv} at benchmark_config, {policy}: one "
+                  f"step at {GNN_LOW_STEP_BATCH} padded graphs, loss "
+                  f"{metrics[0]['loss']:.6f} ({gaps['loss']:.3e} of the "
+                  f"CPU's), grad norm {metrics[0]['grad_norm']:.6f} "
+                  f"({gaps['grad_norm']:.3e}); mse_loss_packed at "
+                  f"{GNN_PACKED_GRAPHS} graphs: loss "
+                  f"{packed_vs['loss']['rel']:.3e}, grad norm "
+                  f"{packed_vs['grad_norm']['rel']:.3e}, worst leaf "
+                  f"{packed_vs['worst_leaf']:.3e} of the CPU's (bound "
+                  f"{tol})", flush=True)
+            del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gcn_low_precision_phase(dev, fp32: dict) -> dict:
+    """(e-3) GCN at ``benchmark_config`` at each of ``GNN_LOW``:
+    ``gcn_trainer_run`` (the loss falls, ``GCN_STEP_LAUNCHES`` and
+    ``GCN_STEP_GATHERS`` of the policy), printed beside (b)'s fp32
+    figures from the same call (``fp32``)."""
+    from repro_torch.configs.gnn import benchmark_config
+    out = {}
+    for policy in GNN_LOW:
+        cfg = dataclasses.replace(benchmark_config("gcn"),
+                                  gnn_precision=policy)
+        res, bundle, trainer, _ = gcn_trainer_run(dev, cfg,
+                                                  f"[14] (e-3) {policy}")
+        out[policy] = res
+        print(f"[14] (e-3) gcn at benchmark_config, {policy}: "
+              f"{trainer_line(res)}; (b)'s fp32 in this call: "
+              f"{fp32['median_step_ms']:.2f} ms a step "
+              f"({fp32['graphs_s']:.1f} graphs/s), graph_batch "
+              f"{fp32['median_batch_build_ms']:.2f} ms, stream "
+              f"{fp32['median_step_stream_ms']:.2f} ms, peak "
+              f"{fp32['peak_gib']:.2f} GiB", flush=True)
+        del bundle, trainer
+        torch.cuda.empty_cache()
+    return out
+
+
 def gnn_train_phase(dev) -> dict:
     """Phase 14: GNN training. (a) the backward kernels against their
-    plain versions and timed; (b) GCN at full width through the Trainer;
-    (c) every conv's step and packed gradient against the CPU; (d) the
-    fault path. The kernel counts are set to 0 before (b) and read after
-    (d): the launches of the training path."""
+    plain versions and timed; (e-1) their bf16 bodies likewise; (b) GCN
+    at full width through the Trainer; (c) every conv's step and packed
+    gradient against the CPU; (d) the fault path; (e-2) every conv's
+    step and packed gradient at bf16 and int8 against the CPU; (e-3) GCN
+    at bf16 and int8 through the Trainer. The kernel counts are set to 0
+    after (e-1) and read after (e-3): the launches of the training
+    path."""
     from repro_torch.configs.gnn import DATASETS
     from repro_torch.data import pipeline as P
     from repro_torch.launch import serve
@@ -5558,6 +5936,9 @@ def gnn_train_phase(dev) -> dict:
     packed, _ = P.pack_graphs(graphs, nb, eb, GNN_PACKED_GRAPHS)
     rows = gnn_backward_kernels_phase(dev, packed)
     ta = time.perf_counter() - t0
+    te = time.perf_counter()
+    bf16_rows = bf16_bodies_phase(dev, packed)
+    te1 = time.perf_counter() - te
     zero_gnn_counts()
     tb = time.perf_counter()
     full = gnn_train_full_width_phase(dev)
@@ -5568,15 +5949,26 @@ def gnn_train_phase(dev) -> dict:
     td = time.perf_counter()
     fault = gnn_fault_phase(dev)
     td = time.perf_counter() - td
+    te = time.perf_counter()
+    low = gnn_low_precision_phase(dev, packed)
+    te2 = time.perf_counter() - te
+    te = time.perf_counter()
+    low_gcn = gcn_low_precision_phase(dev, full)
+    te3 = time.perf_counter() - te
     launches = gnn_counts()
     for k, n in launches.items():
         check(n > 0, f"[14] {k} was never launched on the training path")
     wall = time.perf_counter() - t0
     print(f"[14] phase 14 took {wall:.1f} s ((a) {ta:.1f}, (b) {tb:.1f}, "
-          f"(c) {tc:.1f}, (d) {td:.1f}; target {GNN_TARGET_S:.0f} s); "
-          f"launches on the training path ((b), (c), (d)): {launches}")
-    return dict(rows=rows, launches=launches, full_width=full,
-                every_conv=every, fault=fault, wall_s=wall)
+          f"(c) {tc:.1f}, (d) {td:.1f}, (e) {te1 + te2 + te3:.1f}: (e-1) "
+          f"{te1:.1f}, (e-2) {te2:.1f}, (e-3) {te3:.1f}; target "
+          f"{GNN_TARGET_S:.0f} s); launches on the training path ((b)-(e)): "
+          f"{launches}")
+    return dict(rows=rows, bf16_rows=bf16_rows, launches=launches,
+                full_width=full, every_conv=every, fault=fault,
+                low_precision=dict(every_conv=low, gcn=low_gcn,
+                                   wall_s=te1 + te2 + te3),
+                wall_s=wall)
 
 
 def summarize_gnn_backward(gnn: dict) -> list:
@@ -5618,6 +6010,19 @@ def summarize_gnn_backward(gnn: dict) -> list:
             "shapes": "phase 14 (a): " + "; ".join(r["shape"] for r in rows),
             "calls": rows,
         }
+        low = [r for r in gnn["bf16_rows"] if r["kernel"] == name]
+        if low:     # the bf16 body: (e-1)'s calls, (b)-(e)'s launches
+            entry["by_storage"] = {"bf16": {
+                "launches": gnn["launches"][f"{name} bf16"],
+                **{k: sum(r[k] for r in low) for k in (
+                    "ms", "fp32_ms", "plain_ms", "bound_ms")},
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                           for r in low) else "operations",
+                "library_ms": None, "library_note": low[0]["library_note"],
+                "bitwise": all(r["bitwise"] for r in low),
+                "shapes": "phase 14 (e-1): " + "; ".join(
+                    r["shape"] for r in low),
+                "calls": low}}
         out.append(entry)
     return out
 
@@ -5956,7 +6361,8 @@ def main() -> int:
             n += gnn["launches"]["fused_gather_aggregate dx"]
             k["backward_dx"] = gnn_dx_entry(gnn)
             k["gnn_training"] = {key: gnn[key] for key in (
-                "full_width", "every_conv", "fault", "wall_s")}
+                "full_width", "every_conv", "fault", "low_precision",
+                "wall_s")}
         k["launches_by_phase"]["14"] = n
         k["launches"] += n
     summary["kernels"] += summarize_gnn_backward(gnn)

@@ -22,11 +22,14 @@ path does: bf16 tables, or real int8 tables on the layer's activation
 grid whose power-of-two resolution ``s`` is undone in fp32: folded into
 the gather's per-edge scale, or multiplied onto the segment output (by
 ``s``, and by ``s^2`` for var). Accumulation is fp32 at every precision.
-In grad mode, with a table that requires grad, int8 storage takes the
-reference's XLA form on the CPU, the fake-quant fp32 grid with its
-straight-through gradient (the same values as the int8 table times
-``s``); bf16 and int8 storage have no backward on the card and raise
-there.
+In grad mode, with a table (or a gather's scale) that requires grad, the
+storage is the reference's training form on either device: a bf16 table
+is the cast, differentiable through it (the kernels' backwards read the
+bf16 rows, fold in fp32 and round the table's gradient to bf16 once,
+where JAX's transpose of ``take`` scatter-adds in bf16: ROADMAP §3's
+divergences); int8 is the fake-quant fp32 grid with its straight-through
+gradient (the same values as the int8 table times ``s``), which the
+fp32 kernels take. The real int8 tables stay on the inference path.
 
 Gradients: in grad mode the sum/mean gather, the segment aggregation
 and the softmax are autograd functions whose backwards are the kernels'
@@ -171,19 +174,17 @@ def _active(precision) -> Q.LayerPrecision | None:
     return precision
 
 
-def _stored(table: torch.Tensor, lp, name: str) -> tuple:
+def _stored(table: torch.Tensor, lp, scale=None) -> tuple:
     """``table`` at the layer's storage width, and the int8 grid's
-    resolution (None unless an int8 table). A table that must carry a
-    gradient: int8 takes the fake-quant grid on the CPU (module
-    docstring); on the card bf16 and int8 raise."""
+    resolution (None unless an int8 table). bf16: the cast. int8 where a
+    gradient must flow (the table or the gather's ``scale`` requires grad
+    in grad mode): the fake-quant grid, on either device (module
+    docstring)."""
     if lp is None:
         return table, None
-    if _build.trains(table) and not _build.runs_plain(table):
-        _build.refuse_grad(name, table, why=f"{lp.compute} storage has no "
-                                            "backward on the card")
     if lp.compute == "bf16":
         return table.to(torch.bfloat16), None
-    if _build.trains(table):
+    if _build.trains(table, scale):
         return Q.quantize(table, lp.act_fpx), None
     return Q.quantize_int8(table, lp.act_fpx), lp.act_fpx.resolution
 
@@ -236,7 +237,7 @@ def _aggregate_set(aggs: tuple, messages: torch.Tensor,
     for agg in aggs:
         if agg not in AGGREGATIONS:
             raise ValueError(agg)
-    stored, s = _stored(messages, _active(precision), "segment_aggregate")
+    stored, s = _stored(messages, _active(precision))
     stored = stored.contiguous()
     knobs = _KNOBS.get()
     if knobs.gather_mode == "onehot":
@@ -285,7 +286,7 @@ def gather_aggregate(agg: str, x: torch.Tensor, src: torch.Tensor,
     if agg not in GATHER_AGGREGATIONS:
         raise ValueError(f"gather_aggregate takes {GATHER_AGGREGATIONS}, "
                          f"got {agg!r}")
-    x, s = _stored(x, _active(precision), "gather_aggregate")
+    x, s = _stored(x, _active(precision), scale)
     if s is not None:
         scale = torch.full(src.shape, s, dtype=torch.float32,
                            device=x.device) if scale is None \

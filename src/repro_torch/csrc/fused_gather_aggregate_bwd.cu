@@ -21,6 +21,12 @@
 // order to +0.0; then a butterfly over the partials at offsets 16, 8, 4,
 // 2, 1. Both bodies below keep it, so both give the plain version's bits.
 //
+// x is the gather's table as it is stored: fp32, or bf16 (a bf16 layer's
+// table, read without an fp32 copy), each value upcast exactly before its
+// product, so a bf16 x gives the plain version's bits on the upcast
+// table. dout and the sums are fp32 either way. Each body is a template
+// on x's type; the entry point the launcher calls picks it by dtype.
+//
 // Bound on this card: bytes. Per valid edge two rows of F fp32 values
 // (the destination's output gradient, the source's row), its ids and one
 // output; GAT's 1024-graph batch holds ~55k edge slots over ~28k nodes,
@@ -30,15 +36,20 @@
 // (kernels/fused_gather_aggregate/kernel.py, scale_backward_geometry),
 // never a fallback:
 //
-// - the vector body (F a multiple of 4, both tables 16-byte aligned): a
+// - the vector body (F a multiple of 4, dout 16-byte aligned, x aligned
+//   to 4 of its elements): a
 //   warp takes a run of `run` consecutive edges (at most 32). Lane l
 //   loads the ids (and weight) of edge e0 + l, so the run's ids are one
 //   coalesced load each. The warp walks the run 4 edges a step, one edge
 //   to each group of 8 lanes, which take their edge's ids by shuffle.
 //   Lane j of a group loads float4s at columns 4j + 32t of both rows, so
 //   it holds partials 4j .. 4j + 3 in 4 registers, each folded in t
-//   order. The butterfly adds the same pairs, spread over the group's
-//   lanes (group_sum: 6 shuffles a step where a full butterfly on each
+//   order. A bf16 x row is read 4 columns a lane too, 8 bytes a load: the
+//   order gives a lane 4 partials, so 8 bf16 columns in one 16-byte load
+//   would reach 8 partials, half of them another lane's; the group's 8
+//   lanes still read 64 contiguous bytes, the same two sectors. The
+//   butterfly adds the same pairs, spread over the group's lanes
+//   (group_sum: 6 shuffles a step where a full butterfly on each
 //   register takes 12). Lane j of group g keeps the sum of step j; one
 //   shuffle at the end brings edge e0 + l's sum to lane l, and the run's
 //   outputs are one coalesced store. A lane loads CH float4s of each row
@@ -69,14 +80,36 @@ constexpr int kLanesPerEdge = 8;
 constexpr int kEdgesPerStep = 32 / kLanesPerEdge;
 constexpr int kMaxRun = 32;          // a lane holds one edge's ids
 
+// 4 columns of an x row at p (aligned to 4 elements) as fp32: one
+// 16-byte load of fp32, one 8-byte load of bf16 upcast exactly
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(q.x << 16),
+                     __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16),
+                     __uint_as_float(q.y & 0xffff0000u));
+}
+
+// one x value as fp32
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(
+                             reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+
 // a step's rows: CH float4s of the destination's dout and of the source's
 // x row, columns col0 + 32 c (zeros past F or for an edge not read)
 template <int CH>
 struct Rows {
   float4 d[CH], x[CH];
 
+  template <typename T>
   __device__ __forceinline__ void load(const float* __restrict__ dout,
-                                       const float* __restrict__ xt, int f,
+                                       const T* __restrict__ xt, int f,
                                        int dd, int ss, int col0) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
@@ -84,8 +117,7 @@ struct Rows {
       if (dd >= 0 && col < f) {
         d[c] = __ldg(reinterpret_cast<const float4*>(
             dout + static_cast<size_t>(dd) * f + col));
-        x[c] = __ldg(reinterpret_cast<const float4*>(
-            xt + static_cast<size_t>(ss) * f + col));
+        x[c] = load4(xt + static_cast<size_t>(ss) * f + col);
       } else {
         d[c] = x[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
@@ -130,11 +162,11 @@ __device__ __forceinline__ float group_sum(const float (&a)[4], int j) {
 }
 
 // the vector body (file comment): CH float4s a lane a row a step
-template <int CH>
+template <typename T, int CH>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 gather_scale_backward_kernel(const float* __restrict__ dout,
                              int num_segments, int f,
-                             const float* __restrict__ x, int n_src,
+                             const T* __restrict__ x, int n_src,
                              const int32_t* __restrict__ src,
                              const int32_t* __restrict__ dst,
                              const float* __restrict__ weight,
@@ -186,10 +218,11 @@ gather_scale_backward_kernel(const float* __restrict__ dout,
 }
 
 // the generic body (file comment): one warp an edge
+template <typename T>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 gather_scale_backward_generic_kernel(const float* __restrict__ dout,
                                      int num_segments, int f,
-                                     const float* __restrict__ x, int n_src,
+                                     const T* __restrict__ x, int n_src,
                                      const int32_t* __restrict__ src,
                                      const int32_t* __restrict__ dst,
                                      const float* __restrict__ weight,
@@ -205,9 +238,9 @@ gather_scale_backward_generic_kernel(const float* __restrict__ dout,
   float acc = 0.0f;
   if (ok) {
     const float* drow = dout + static_cast<size_t>(d) * f;
-    const float* xrow = x + static_cast<size_t>(s) * f;
+    const T* xrow = x + static_cast<size_t>(s) * f;
     for (int c = lane; c < f; c += 32)
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(drow + c), __ldg(xrow + c)));
+      acc = __fadd_rn(acc, __fmul_rn(__ldg(drow + c), load1(xrow + c)));
   }
 #pragma unroll
   for (int o = 16; o >= 1; o >>= 1)
@@ -221,31 +254,68 @@ gather_scale_backward_generic_kernel(const float* __restrict__ dout,
 
 // the vector body's instances: CH float4s a lane a row (1-4; a wider row
 // is folded in column blocks of 32 CH, any CH giving the same bits)
-template <int CH>
+template <typename T, int CH>
 void launch_vector(unsigned blocks, cudaStream_t stream, const float* dout,
-                   int num_segments, int f, const float* x, int n_src,
+                   int num_segments, int f, const T* x, int n_src,
                    const int32_t* src, const int32_t* dst,
                    const float* weight, int num_edges, int run, float* out) {
-  gather_scale_backward_kernel<CH><<<blocks, kThreadsPerBlock, 0, stream>>>(
-      dout, num_segments, f, x, n_src, src, dst, weight, num_edges, run, out);
+  gather_scale_backward_kernel<T, CH>
+      <<<blocks, kThreadsPerBlock, 0, stream>>>(
+          dout, num_segments, f, x, n_src, src, dst, weight, num_edges, run,
+          out);
 }
 
+template <typename T>
 using VectorLaunch = void (*)(unsigned, cudaStream_t, const float*, int, int,
-                              const float*, int, const int32_t*,
+                              const T*, int, const int32_t*,
                               const int32_t*, const float*, int, int, float*);
 
-VectorLaunch vector_instance(int chunks) {
+template <typename T>
+VectorLaunch<T> vector_instance(int chunks) {
   switch (chunks) {
-    case 1: return launch_vector<1>;
-    case 2: return launch_vector<2>;
-    case 3: return launch_vector<3>;
-    case 4: return launch_vector<4>;
+    case 1: return launch_vector<T, 1>;
+    case 2: return launch_vector<T, 2>;
+    case 3: return launch_vector<T, 3>;
+    case 4: return launch_vector<T, 4>;
     default: return nullptr;
   }
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// the entry points' checks and dispatch, for an x of T
+template <typename T>
+int launch_typed(const float* dout, int num_segments, int f, const T* x,
+                 int n_src, const int32_t* src, const int32_t* dst,
+                 const float* weight, int num_edges, int body, int run,
+                 int chunks, float* out, void* stream) {
+  if (num_segments < 0 || f < 0 || n_src < 0 || num_edges < 0 ||
+      (body != 0 && body != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (num_edges == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 0) {
+    const long long blocks =
+        (static_cast<long long>(num_edges) + kWarpsPerBlock - 1) /
+        kWarpsPerBlock;
+    gather_scale_backward_generic_kernel<T>
+        <<<static_cast<unsigned>(blocks), kThreadsPerBlock, 0, st>>>(
+            dout, num_segments, f, x, n_src, src, dst, weight, num_edges,
+            out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const VectorLaunch<T> launch = vector_instance<T>(chunks);
+  if (launch == nullptr || run < kEdgesPerStep || run > kMaxRun ||
+      run % kEdgesPerStep != 0 || f == 0 || f % 4 != 0 ||
+      !aligned(dout, 16) || !aligned(x, 4 * sizeof(T)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long warps = (static_cast<long long>(num_edges) + run - 1) / run;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  launch(static_cast<unsigned>(blocks), st, dout, num_segments, f, x, n_src,
+         src, dst, weight, num_edges, run, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -257,9 +327,9 @@ bool aligned16(const void* p) {
 // fp32. body 0: the generic body, one warp an edge (run and chunks
 // unread); body 1: the vector body, `run` edges a warp (a multiple of 4,
 // at most 32), `chunks` float4s a lane a row (1-4), F a multiple of 4,
-// dout and x 16-byte aligned. Returns cudaGetLastError() after the launch
-// (0 = launched), or cudaErrorInvalidValue for a negative size or a
-// vector launch it does not take.
+// dout 16-byte and x 4-element aligned. Returns cudaGetLastError() after
+// the launch (0 = launched), or cudaErrorInvalidValue for a negative size
+// or a vector launch it does not take.
 extern "C" int repro_gather_scale_backward(const float* dout,
                                            int num_segments, int f,
                                            const float* x, int n_src,
@@ -269,29 +339,24 @@ extern "C" int repro_gather_scale_backward(const float* dout,
                                            int num_edges, int body, int run,
                                            int chunks, float* out,
                                            void* stream) {
-  using namespace repro;
-  if (num_segments < 0 || f < 0 || n_src < 0 || num_edges < 0 ||
-      (body != 0 && body != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (num_edges == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (body == 0) {
-    const long long blocks =
-        (static_cast<long long>(num_edges) + kWarpsPerBlock - 1) /
-        kWarpsPerBlock;
-    gather_scale_backward_generic_kernel<<<static_cast<unsigned>(blocks),
-                                           kThreadsPerBlock, 0, st>>>(
-        dout, num_segments, f, x, n_src, src, dst, weight, num_edges, out);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const VectorLaunch launch = vector_instance(chunks);
-  if (launch == nullptr || run < kEdgesPerStep || run > kMaxRun ||
-      run % kEdgesPerStep != 0 || f == 0 || f % 4 != 0 ||
-      !aligned16(dout) || !aligned16(x))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps = (static_cast<long long>(num_edges) + run - 1) / run;
-  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  launch(static_cast<unsigned>(blocks), st, dout, num_segments, f, x, n_src,
-         src, dst, weight, num_edges, run, out);
-  return static_cast<int>(cudaGetLastError());
+  return repro::launch_typed(dout, num_segments, f, x, n_src, src, dst,
+                             weight, num_edges, body, run, chunks, out,
+                             stream);
+}
+
+// The same for a bf16 table x (n_src, f), 8-byte aligned for the vector
+// body.
+extern "C" int repro_gather_scale_backward_bf16(const float* dout,
+                                                int num_segments, int f,
+                                                const __nv_bfloat16* x,
+                                                int n_src,
+                                                const int32_t* src,
+                                                const int32_t* dst,
+                                                const float* weight,
+                                                int num_edges, int body,
+                                                int run, int chunks,
+                                                float* out, void* stream) {
+  return repro::launch_typed(dout, num_segments, f, x, n_src, src, dst,
+                             weight, num_edges, body, run, chunks, out,
+                             stream);
 }

@@ -1,8 +1,9 @@
 // Pieces of the CSR kernels that give a lane CPL consecutive columns of
 // a segment's output row (csrc/segment_aggregate.cu,
-// csrc/fused_gather_aggregate.cu): the launch geometry, a row load of up
-// to 16 bytes kept raw while it is in flight, and the store of CPL fp32
-// results in one or two vector stores.
+// csrc/fused_gather_aggregate.cu, csrc/segment_aggregate_bwd.cu): the
+// launch geometry, a row load of up to 16 bytes kept raw while it is in
+// flight, CPL fp32 values loaded 16 bytes at a time, and the store of CPL
+// results, fp32 or rounded once to bf16, in one or two vector stores.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,6 +76,25 @@ constexpr int deep_batch() {
   return 32 / Raw<T, CPL>::kWords;
 }
 
+// CPL fp32 values in loads of up to 16 bytes: the fp32 side of a kernel
+// whose streamed rows are narrower (bf16: 8 columns a lane, so two
+// 16-byte loads of each fp32 row); p aligned to min(CPL, 4) floats
+template <int CPL>
+struct Floats {
+  static constexpr int kPart = CPL < 4 ? CPL : 4;
+  static_assert(CPL % kPart == 0, "4, or a power of two below it, a load");
+  Raw<float, kPart> part[CPL / kPart];
+
+  __device__ __forceinline__ void load(const float* p) {
+#pragma unroll
+    for (int i = 0; i < CPL / kPart; ++i) part[i].load(p + kPart * i);
+  }
+
+  __device__ __forceinline__ float at(int q) const {
+    return part[q / kPart].at(q % kPart);
+  }
+};
+
 // CPL fp32 results at p, aligned to CPL floats
 template <int CPL>
 __device__ __forceinline__ void store(float* p, const float (&v)[CPL]) {
@@ -87,6 +107,34 @@ __device__ __forceinline__ void store(float* p, const float (&v)[CPL]) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   } else {
     p[0] = v[0];
+  }
+}
+
+// CPL results at p rounded once to bf16 (to nearest even, as PyTorch's
+// .to(torch.bfloat16)), aligned to CPL elements: one store of 2 CPL bytes
+template <int CPL>
+__device__ __forceinline__ void store(__nv_bfloat16* p,
+                                      const float (&v)[CPL]) {
+  static_assert(CPL == 1 || CPL == 2 || CPL == 4 || CPL == 8,
+                "at most 16 bytes of bf16");
+  if constexpr (CPL == 1) {
+    *reinterpret_cast<unsigned short*>(p) =
+        __bfloat16_as_ushort(__float2bfloat16_rn(v[0]));
+  } else {
+    uint32_t w[CPL / 2];
+#pragma unroll
+    for (int i = 0; i < CPL / 2; ++i)
+      w[i] = static_cast<uint32_t>(
+                 __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]))) |
+             static_cast<uint32_t>(
+                 __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])))
+                 << 16;
+    if constexpr (CPL == 8)
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (CPL == 4)
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<uint32_t*>(p) = w[0];
   }
 }
 

@@ -42,6 +42,11 @@ PTXAS_VERBOSE = ("-Xptxas", "-v")
 # codes of the C interface (enum Agg / enum Dtype in csrc/common.cuh)
 AGG_CODES = {"sum": 0, "mean": 1, "min": 2, "max": 3, "var": 4, "std": 5}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the name of each storage type of a streamed table (the key of a
+# wrapper's ``launches_by_dtype``), and the ones a backward kernel takes
+# (a body each: the segment aggregation's messages, the gather's table)
+STORAGE = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.int8: "int8"}
+GRAD_STORAGE = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 _INT_MAX = 2 ** 31 - 1
 
 _lib: ctypes.CDLL | None = None
@@ -224,6 +229,12 @@ def empty(like: torch.Tensor, *shape: int,
     return torch.empty(shape, dtype=dtype, device=like.device)
 
 
+def storage_name(t: torch.Tensor) -> str:
+    """``STORAGE``'s name of ``t``'s dtype: the key of a wrapper's
+    ``launches_by_dtype``."""
+    return STORAGE[t.dtype]
+
+
 def launched() -> int:
     """What a wrapper adds to its launch count after a launch function
     returns: 1, or 0 under a dry sink, which launched nothing."""
@@ -247,9 +258,10 @@ def refuse_grad(name: str, *tensors, why: str = "the CUDA kernel has no "
                 "backward") -> None:
     """The CUDA branch of a public wrapper that cannot carry a gradient
     for this call (the one-hot pair, the resident stack, the padded-table
-    aggregation; min/max gathers; bf16 or int8 storage): a launch on an
-    input that requires grad in grad mode would hand back an output with
-    no autograd history and silently lose its gradients. Raise instead."""
+    aggregation; min/max gathers; a gather's scale gradient over an int8
+    table): a launch on an input that requires grad in grad mode would
+    hand back an output with no autograd history and silently lose its
+    gradients. Raise instead."""
     if trains(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but {why} (ROADMAP item 12e, "

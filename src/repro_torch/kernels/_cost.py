@@ -197,9 +197,10 @@ def softmax_work(logits, perm, offsets, **_) -> tuple:
 def gather_scale_work(dout, x, src, dst, weight=None, **_) -> tuple:
     """The gather's scale gradient (``ops.gather_scale_backward``): per
     edge with both ids in range its two ids (and weight) and the dout
-    and x rows of the distinct destinations and sources, per other edge
-    its destination id; the (E,) output; 2 F operations (a multiply and
-    an add per column) per valid edge."""
+    and x rows of the distinct destinations and sources (x's at its
+    storage width: a bf16 table's rows half the fp32 one's), per other
+    edge its destination id; the (E,) output; 2 F operations (a multiply
+    and an add per column) per valid edge."""
     (s, f), n = dout.shape, x.shape[0]
     if dry():
         d, r = dst, src
@@ -223,17 +224,25 @@ _BWD_TERM_OPS = {"sum": 1, "mean": 2, "min": 3, "max": 3, "var": 5,
 def segment_bwd_work(messages, perm, offsets, out, dout, agg="sum",
                      **_) -> tuple:
     """The segment aggregation's gradient (``ops.
-    segment_aggregate_backward``): the valid rows with their 4-byte id,
-    the offsets, the forward's output and its gradient read once, every
-    row of the (E, F) gradient written once; per valid element and
-    column the first pass's sum (and a compare per min/max) and each
-    agg's term added."""
+    segment_aggregate_backward``): the valid rows' 4-byte ids, the
+    offsets and the output's gradient read once; the valid rows
+    themselves and the output's columns of each min, max, var or std
+    only where the set has such an agg (sum and mean need neither: their
+    terms are dout and dout / count); every row of the (E, F) gradient
+    written once at the messages' width (fp32, or bf16 for bf16 messages:
+    half the fp32 call's rows and gradient); per valid element and column
+    the first pass's sum where var or std is in the set (and a compare
+    per min/max) and each agg's term added."""
     aggs = (agg,) if isinstance(agg, str) else tuple(agg)
     e, f = messages.shape
     n_valid = _valid_count(offsets, perm.numel())
-    moved = (n_valid * (f * messages.element_size() + 4) + nbytes(offsets)
-             + nbytes(out, dout) + 4 * e * f)
-    first = 1 + ("min" in aggs) + ("max" in aggs)
+    reads = [a for a in aggs if a in ("min", "max", "var", "std")]
+    rows = n_valid * f * messages.element_size() if reads else 0
+    grad_bytes = 2 if messages.dtype == torch.bfloat16 else 4
+    moved = (4 * n_valid + rows + nbytes(offsets, dout)
+             + nbytes(out) * len(reads) // len(aggs) + grad_bytes * e * f)
+    first = (("var" in aggs or "std" in aggs) + ("min" in aggs)
+             + ("max" in aggs))
     ops = (first + sum(_BWD_TERM_OPS[a] + 1 for a in aggs)) * n_valid * f
     return moved, float(ops)
 

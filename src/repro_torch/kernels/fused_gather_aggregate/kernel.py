@@ -24,13 +24,15 @@ the ports of the two Pallas TPU kernels of
   is the port's own, the per-edge scale's gradient of the CSR gather
   (the JAX package differentiates its XLA gather; no Pallas kernel has
   a backward): the dot of each edge's destination output gradient with
-  its source's row in fp32, summed in the plain version's order. Two
-  bodies, chosen by ``scale_backward_geometry`` from the shape: the
-  vector body (F a multiple of 4, both tables 16-byte aligned) gives a
-  warp a run of edges whose ids are one coalesced load, 8 lanes an edge
-  and 16-byte row loads, and writes the run in one coalesced store; the
-  generic body (any other F or alignment, or a stream too short to fill
-  the card that way) one warp an edge.
+  its source's row in fp32, summed in the plain version's order, the
+  source's row read as it is stored (fp32, or bf16 upcast; an entry
+  point each). Two bodies, chosen by ``scale_backward_geometry`` from
+  the shape: the vector body (F a multiple of 4, dout 16-byte and x
+  4-element aligned) gives a warp a run of edges whose ids are one
+  coalesced load, 8 lanes an edge and 16-byte dout loads (8-byte bf16
+  x loads), and writes the run in one coalesced store; the generic
+  body (any other F or alignment, or a stream too short to fill the
+  card that way) one warp an edge.
   ``scale_backward_writes`` replays either body's stores, so that the
   CPU tests can hold every geometry to writing each edge once. The
   other half of the gather's gradient, dx, is
@@ -229,11 +231,14 @@ class ScaleGeometry:
 
 
 def scale_backward_geometry(num_edges: int, f: int, sms: int,
-                            aligned: bool = True, run: int | None = None
-                            ) -> ScaleGeometry:
-    """The launch of the scale gradient for E edges of F fp32 columns on
-    a card of ``sms`` SMs. The vector body where F is a positive
-    multiple of 4 and both tables are 16-byte ``aligned``: ``chunks`` =
+                            aligned: bool = True, run: int | None = None,
+                            elem_bytes: int = 4) -> ScaleGeometry:
+    """The launch of the scale gradient for E edges of F columns on a
+    card of ``sms`` SMs, x of ``elem_bytes`` storage (4 fp32, 2 bf16:
+    the vector body reads 4 columns of a row a lane either way, 16 or 8
+    bytes, so the launch is the same). The vector body where F is a
+    positive multiple of 4 and both tables are ``aligned`` (dout to 16
+    bytes, x to 4 elements): ``chunks`` =
     min(4, ceil(F / 32)) float4s a lane a row (a row of more than 128
     columns in column blocks of 128) and the longest of ``SCALE_RUNS``
     that gives ``SCALE_WARPS_PER_SM`` warps a SM for each column block
@@ -242,9 +247,9 @@ def scale_backward_geometry(num_edges: int, f: int, sms: int,
     for any other F or alignment, and for a stream too short to give that
     many warps even at 4 edges a warp (32 graphs), whose few edges it
     spreads over four times the warps."""
-    if num_edges < 0 or f < 0 or sms < 1:
+    if num_edges < 0 or f < 0 or sms < 1 or elem_bytes not in (2, 4):
         raise ValueError(f"no geometry for E={num_edges}, F={f}, "
-                         f"{sms} SMs")
+                         f"{sms} SMs, {elem_bytes}-byte x")
     generic = ScaleGeometry("generic", 1, 0, num_edges)
     if f == 0 or f % 4 or not aligned:
         return generic
@@ -302,6 +307,11 @@ _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p]
 
 
+# the scale gradient's entry point for each dtype of x
+SCALE_ENTRY = {torch.float32: "repro_gather_scale_backward",
+               torch.bfloat16: "repro_gather_scale_backward_bf16"}
+
+
 @_build.launcher(lambda dout, x, src, *_, **__: _build.empty(dout,
                                                               src.numel()))
 def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
@@ -309,38 +319,42 @@ def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
                                weight: torch.Tensor | None = None, *,
                                geometry: ScaleGeometry | None = None
                                ) -> torch.Tensor:
-    """dout: (S, F) fp32 output gradient; x: (N, F) fp32 node table;
-    src/dst: (E,) int32 each edge's source and destination (-1 for an
-    edge in no segment); weight: optional (E,) fp32. Returns (E,) float32
-    ``w_e * dot(dout[dst_e], x[src_e])``, 0 where an id is out of range
-    (``ref.gather_scale_backward_ref``, bit for bit). ``geometry``: by
-    default ``scale_backward_geometry`` for this shape, the device's SM
-    count and the alignment of both tables; a vector geometry the tables
-    do not take raises. Every geometry gives the same bits. Launches on
-    the current stream."""
+    """dout: (S, F) fp32 output gradient; x: (N, F) fp32 or bf16 node
+    table, read as stored; src/dst: (E,) int32 each edge's source and
+    destination (-1 for an edge in no segment); weight: optional (E,)
+    fp32. Returns (E,) float32 ``w_e * dot(dout[dst_e], x[src_e])``, 0
+    where an id is out of range (``ref.gather_scale_backward_ref``, bit
+    for bit). The body is chosen by x's dtype. ``geometry``: by default
+    ``scale_backward_geometry`` for this shape, the device's SM count
+    and the alignment of both tables; a vector geometry the tables do
+    not take raises. Every geometry gives the same bits. Launches on the
+    current stream."""
     _build.check_table("dout", dout)
     _build.check_table("x", x)
     dev = dout.device
-    if dout.dtype != torch.float32 or x.dtype != torch.float32 \
+    if dout.dtype != torch.float32 or x.dtype not in SCALE_ENTRY \
             or x.device != dev or x.shape[1] != dout.shape[1]:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} and x "
-                         f"{tuple(x.shape)} {x.dtype} must be fp32 tables "
-                         "of one width on one device")
+                         f"{tuple(x.shape)} {x.dtype} must be tables of "
+                         "one width on one device, dout fp32 and x fp32 "
+                         "or bf16")
     e = src.numel()
     _build.check_vector("src", src, torch.int32, dev)
     _build.check_vector("dst", dst, torch.int32, dev, e)
     if weight is not None:
         _build.check_vector("weight", weight, torch.float32, dev, e)
     (s, f), n = dout.shape, x.shape[0]
-    aligned = all(aligned_cols(t.data_ptr(), 4, 4) == 4 for t in (dout, x))
+    es = x.element_size()
+    aligned = aligned_cols(dout.data_ptr(), 4, 4) == 4 \
+        and aligned_cols(x.data_ptr(), es, 4) == 4
     g = geometry or scale_backward_geometry(
         e, f, torch.cuda.get_device_properties(dev).multi_processor_count,
-        aligned)
+        aligned, elem_bytes=es)
     if g.body == "vector" and (not aligned or f == 0 or f % 4):
-        raise ValueError(f"the vector body takes no F={f} rows or a table "
-                         "not 16-byte aligned")
+        raise ValueError(f"the vector body takes no F={f} rows, a dout not "
+                         "16-byte aligned or an x not 4-element aligned")
     out = torch.empty((e,), dtype=torch.float32, device=dev)
-    fn = _build.function("repro_gather_scale_backward", _BWD_ARGTYPES)
+    fn = _build.function(SCALE_ENTRY[x.dtype], _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(_build.pointer(dout), s, f, _build.pointer(x), n,
                     _build.pointer(src), _build.pointer(dst),

@@ -6,7 +6,9 @@ launches the CUDA kernel (``kernel.py``), which raises on what it does
 not take. ``fused_gather_aggregate`` walks a destination CSR (the
 ``gather_mode="dma"`` kernel), ``fused_gather_onehot`` the raw src/dst
 streams on the one-hot schedule (``gather_mode="onehot"``); each
-wrapper's ``launches`` counts its kernel's launches.
+wrapper's ``launches`` counts its kernel's launches
+(``fused_gather_aggregate.launches_by_dtype`` splits them by the
+table's storage).
 
 In grad mode, with x or the scale requiring grad, a sum or mean call of
 ``fused_gather_aggregate`` is an autograd function on either device:
@@ -15,11 +17,16 @@ its forward is the call above, and its backward is dx, the same kernel
 gathered (``fused_gather_aggregate.backward_launches`` counts those
 launches), and, where the scale requires grad (GAT's attention), dscale
 (``gather_scale_backward``, the port's own kernel
-``csrc/fused_gather_aggregate_bwd.cu``): never autograd of the plain
-version, so the CPU and the card differentiate by the same formulas
-(``ref.py``). A min or max gather, and bf16 or int8 storage, have no
-backward on the card and raise there in grad mode; on the CPU the plain
-version stays differentiable.
+``csrc/fused_gather_aggregate_bwd.cu``, on the table as it is stored):
+never autograd of the plain version, so the CPU and the card
+differentiate by the same formulas (``ref.py``). A bf16 table's dx is
+the fp32 fold rounded once to bf16, and its dscale reads the bf16 rows
+(the kernel's bf16 body; ``gather_scale_backward.launches_by_dtype``
+splits the launches by the table's storage). A min or max gather has no
+backward on the card and raises there in grad mode, and so does a scale
+gradient over an int8 table (``core.aggregations`` trains int8 on the
+fp32 fake-quant grid instead); on the CPU the plain version stays
+differentiable.
 """
 from __future__ import annotations
 
@@ -42,7 +49,9 @@ def _gather(x, src, scale, perm, offsets, agg: str) -> torch.Tensor:
         return fused_gather_aggregate_ref(x, src, scale, perm, offsets,
                                           agg=agg)
     out = fused_gather_aggregate_cuda(x, src, scale, perm, offsets, agg=agg)
-    fused_gather_aggregate.launches += _build.launched()
+    n = _build.launched()
+    fused_gather_aggregate.launches += n
+    fused_gather_aggregate.launches_by_dtype[_build.storage_name(x)] += n
     return out
 
 
@@ -80,8 +89,7 @@ class _FusedGather(torch.autograd.Function):
             dx = _gather_dx(dout, dst, coef, s_perm,
                             s_offsets).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dscale = gather_scale_backward(dout, x.to(torch.float32), src,
-                                           dst, weight)
+            dscale = gather_scale_backward(dout, x, src, dst, weight)
         return dx, dscale, None, None, None, None, None, None, None
 
 
@@ -108,16 +116,20 @@ def fused_gather_aggregate(x: torch.Tensor, src: torch.Tensor,
             return _gather(x, src, scale, perm, offsets, agg)
         _build.refuse_grad("fused_gather_aggregate", x, scale,
                            why=f"the {agg} gather has no backward kernel")
-    if not plain and x.dtype != torch.float32:
+    if not plain and x.dtype not in _build.GRAD_STORAGE:
         _build.refuse_grad("fused_gather_aggregate", x, scale,
-                           why=f"{x.dtype} storage has no backward on the "
-                               "card")
+                           why=f"the scale gradient takes no {x.dtype} "
+                               "table on the card")
     if transpose is None:
         transpose = transposed_csr(src, x.shape[0], perm, offsets)
     return _FusedGather.apply(x, scale, src, perm, offsets, agg, *transpose)
 
 
 fused_gather_aggregate.launches = 0
+# the forward launches by the table's storage (int8 training reads the
+# fp32 fake-quant grid where a gradient flows, an int8 table elsewhere)
+fused_gather_aggregate.launches_by_dtype = dict.fromkeys(
+    _build.STORAGE.values(), 0)
 fused_gather_aggregate.backward_launches = 0
 
 
@@ -128,18 +140,23 @@ def gather_scale_backward(dout: torch.Tensor, x: torch.Tensor,
                           ) -> torch.Tensor:
     """The gradient of the gather's per-edge scale: (E,) float32 ``w_e *
     dot(dout[dst_e], x[src_e])``, 0 for an edge in no segment (``dst``
-    -1) or with a source out of range. No edges gives an empty result
-    without a launch."""
+    -1) or with a source out of range; x fp32 or bf16, as stored. No
+    edges gives an empty result without a launch."""
     if src.numel() == 0:
         return torch.zeros((0,), dtype=torch.float32, device=dout.device)
     if _build.runs_plain(dout):
         return gather_scale_backward_ref(dout, x, src, dst, weight)
     out = gather_scale_backward_cuda(dout, x, src, dst, weight)
-    gather_scale_backward.launches += _build.launched()
+    n = _build.launched()
+    gather_scale_backward.launches += n
+    gather_scale_backward.launches_by_dtype[_build.storage_name(x)] += n
     return out
 
 
 gather_scale_backward.launches = 0
+# the launches by the table's storage (the kernel's two bodies)
+gather_scale_backward.launches_by_dtype = dict.fromkeys(
+    _build.GRAD_STORAGE.values(), 0)
 
 
 @priced(gather_onehot_work)

@@ -84,7 +84,9 @@ def gather_scale_backward_ref(dout: torch.Tensor, x: torch.Tensor,
                               ) -> torch.Tensor:
     """(E,) float32: ``w_e * sum_f dout[dst_e, f] * x[src_e, f]`` for an
     edge whose destination lies in [0, S) (``dst`` -1 for an edge in no
-    segment) and whose source lies in [0, N), 0 for every other edge.
+    segment) and whose source lies in [0, N), 0 for every other edge. x
+    may be stored narrower (bf16): each value is upcast to fp32 before its
+    product, so the products and their order are the fp32 ones.
     Summed as the kernel sums: lane l of the edge's warp adds the
     products of columns l, l + 32, ... in order, then the 32 lanes fold
     in a butterfly (offsets 16, 8, 4, 2, 1)."""

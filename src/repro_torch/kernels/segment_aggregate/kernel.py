@@ -27,9 +27,12 @@ ports of the two Pallas TPU kernels of
   forward's geometry (``segment_backward_geometry``): each lane walks its
   segment's CSR slice once for its columns, folds what the set needs
   (count, extremes and ties, the stream-order sum for var/std), then
-  writes each row's gradient from the rows still in registers.
-  ``backward_coverage`` replays its stores, so that the CPU tests can
-  hold every geometry to writing each gradient once.
+  writes each row's gradient from the rows still in registers. Two
+  bodies, by the messages' dtype: fp32 rows give an fp32 gradient, bf16
+  rows (read 8 columns a 16-byte load) a bf16 gradient rounded once
+  from the same fp32 terms. ``backward_coverage`` replays its stores, so
+  that the CPU tests can hold every geometry to writing each gradient
+  once.
 
 The sources carry the design notes.
 """
@@ -46,7 +49,8 @@ from repro_torch.kernels._geometry import (  # noqa: F401 (re-exported)
     aligned_cols, check_cols, coverage, lane_geometry, pow2_at_most,
     rows_in_flight)
 from repro_torch.kernels._onehot import scratch_layout
-from repro_torch.kernels.segment_aggregate.ref import AGGS, agg_set
+from repro_torch.kernels.segment_aggregate.ref import AGGS, agg_set, \
+    grad_dtype
 
 # columns a lane: at most 16 bytes of a row, and at most 8 (the
 # accumulators of every agg at once stay in registers)
@@ -94,8 +98,6 @@ def segment_geometry(num_segments: int, f: int, rows: int, elem_bytes: int,
                          more_warps)
 
 
-# columns a lane of the backward: one 16-byte load of fp32
-MAX_BWD_COLS_PER_LANE = 4
 # the floats of each row's dout a lane of the backward keeps, over the
 # set's aggs: more, and the launch falls to 2 blocks a SM (PNA's four
 # towers at 4 columns a lane: 100 registers)
@@ -104,45 +106,48 @@ BWD_TERMS_PER_LANE = 8
 
 def segment_backward_geometry(num_segments: int, f: int, rows: int,
                               sms: int, aggs: int = 1,
-                              max_cols: int = MAX_BWD_COLS_PER_LANE
-                              ) -> Geometry:
-    """The backward's launch for S segments of F fp32 columns over a CSR
-    of ``rows`` entries, for a set of ``aggs`` aggs, on a card of ``sms``
-    SMs: the forward's rule (``segment_geometry``) for fp32 rows. A lane
-    owns up to 4 columns (one 16-byte load) and at most
-    ``BWD_TERMS_PER_LANE`` columns of the set's dout (PNA's four towers:
-    2), halved until the launch has ``MIN_WARPS_PER_SM`` warps a SM and a
-    segment's mean length fits the rows a lane keeps in flight
+                              max_cols: int | None = None,
+                              elem_bytes: int = 4) -> Geometry:
+    """The backward's launch for S segments of F columns of
+    ``elem_bytes`` storage (4 fp32, 2 bf16) over a CSR of ``rows``
+    entries, for a set of ``aggs`` aggs, on a card of ``sms`` SMs: the
+    forward's rule (``segment_geometry``) for those rows. A lane owns up
+    to one 16-byte load of a row (4 fp32 or 8 bf16 columns) and at most
+    ``BWD_TERMS_PER_LANE`` columns of the set's fp32 dout (PNA's four
+    towers: 2), halved until the launch has ``MIN_WARPS_PER_SM`` warps a
+    SM and a segment's mean length fits the rows a lane keeps in flight
     (``rows_in_flight``: pooling's ~27 node slots a graph, at one column
     a lane, are read once and kept for the second pass). The kernel's
-    columns a lane are 1, 2 or 4. ``max_cols`` caps them (the wrapper
-    passes the alignment of the rows, the output and its gradient, in
-    elements)."""
-    if aggs < 1:
-        raise ValueError(f"no geometry for a set of {aggs} aggs")
-    cap = min(max_cols, MAX_BWD_COLS_PER_LANE,
+    columns a lane are 1, 2 or 4, and 8 for bf16. ``max_cols`` caps them
+    (the wrapper passes the alignment of the rows, the output and its
+    gradient, in columns)."""
+    if aggs < 1 or elem_bytes not in (2, 4):
+        raise ValueError(f"no geometry for a set of {aggs} aggs of "
+                         f"{elem_bytes}-byte elements")
+    widest = 16 // elem_bytes
+    cap = min(widest if max_cols is None else max_cols, widest,
               pow2_at_most(max(1, BWD_TERMS_PER_LANE // aggs)))
-    return segment_geometry(num_segments, f, rows, 4, sms, cap)
+    return segment_geometry(num_segments, f, rows, elem_bytes, sms, cap)
 
 
 def backward_coverage(g: Geometry, perm, offsets, num_rows: int, f: int,
-                      deep: bool) -> np.ndarray:
+                      deep: bool, elem_bytes: int = 4) -> np.ndarray:
     """(num_rows, F) count of the stores the backward kernel makes to
-    each element of the gradient under ``g``: the kernel's schedule
-    replayed in numpy. A lane's (segment, columns) come from the
-    forward's index arithmetic (``coverage``); it writes its segment's
-    rows in batches of ``rows_in_flight`` (``deep``) or
-    ``SHALLOW_BATCH`` rows, the last batch of its first pass from
-    registers, then the batches before it re-read; a row whose id lies
-    outside [0, num_rows) is skipped. The CSR's tail (entries past
+    each element of the gradient under ``g`` for rows of ``elem_bytes``
+    storage: the kernel's schedule replayed in numpy. A lane's (segment,
+    columns) come from the forward's index arithmetic (``coverage``); it
+    writes its segment's rows in batches of ``backward_batch`` rows, the
+    last batch of its first pass from registers, then the batches before
+    it re-read; a row whose id lies outside [0, num_rows) is skipped. The CSR's tail (entries past
     ``offsets[S]``) is zeroed by the whole grid, item t of (tail rows) x
-    (F / vec) by thread t mod threads, vec the widest of 4, 2, 1 that
-    divides F. Every entry is 1 where ``perm`` lists each row once."""
+    (F / vec) by thread t mod threads, vec the widest of 16 bytes of
+    elements (4 fp32, 8 bf16), 4, 2, 1 that divides F. Every entry is 1
+    where ``perm`` lists each row once."""
     perm = np.asarray(perm, np.int64)
     off = np.asarray(offsets, np.int64)
     s = off.size - 1
     lanes = coverage(g, s, f)                     # (S, F)
-    batch = rows_in_flight(g.cols_per_lane, 4) if deep else SHALLOW_BATCH
+    batch = backward_batch(g.cols_per_lane, deep)
     counts = np.zeros((num_rows, f), np.int64)
     lens = np.maximum(off[1:] - off[:-1], 0)
     seg = np.repeat(np.arange(s), lens)
@@ -153,7 +158,7 @@ def backward_coverage(g: Geometry, perm, offsets, num_rows: int, f: int,
     rows = perm[off[seg] + pos]
     ok = (rows >= 0) & (rows < num_rows)
     np.add.at(counts, rows[ok], lanes[seg[ok]] * writes[ok, None])
-    vec = 4 if f % 4 == 0 else 2 if f % 2 == 0 else 1
+    vec = next(v for v in (16 // elem_bytes, 4, 2, 1) if f % v == 0)
     vecs = f // vec
     threads = g.blocks * WARP * WARPS_PER_BLOCK
     n_items = max(perm.size - off[s], 0) * vecs
@@ -287,14 +292,40 @@ def agg_codes(aggs: tuple) -> int:
 
 
 def backward_deep(g: Geometry, rows: int, num_segments: int) -> bool:
-    """Whether the backward keeps 32 registers of rows in flight a lane
-    (long segments) rather than ``SHALLOW_BATCH`` rows."""
+    """Whether the backward keeps ``backward_batch(cpl, True)`` rows in
+    flight a lane (long segments) rather than ``SHALLOW_BATCH`` rows."""
     depth = -(-rows // num_segments)
     return rows_in_flight(g.cols_per_lane, 4, depth) > SHALLOW_BATCH
 
 
-@_build.launcher(lambda messages, *_, **__: _build.empty(messages,
-                                                           *messages.shape))
+def backward_batch(cols_per_lane: int, deep: bool) -> int:
+    """The rows a lane of the backward loads before it folds them: 32 /
+    columns a lane where ``deep`` (32 registers of fp32 rows, 16 of bf16:
+    a bf16 instance unrolls what its fp32 counterpart does), else
+    ``SHALLOW_BATCH``."""
+    return WARP // cols_per_lane if deep else SHALLOW_BATCH
+
+
+# the backward's entry point for each dtype of the messages (and of the
+# gradient it writes)
+BWD_ENTRY = {torch.float32: "repro_segment_aggregate_backward",
+             torch.bfloat16: "repro_segment_aggregate_backward_bf16"}
+
+
+def backward_cols_cap(ptrs: tuple, elem_bytes: int) -> int:
+    """The columns a lane the alignment of the backward's tables allows:
+    the rows' (``ptrs[0]``, of ``elem_bytes`` storage) in their elements,
+    up to one 16-byte load; the fp32 output and gradient's (``ptrs[1:]``)
+    in floats, any width (loads of 4 at a time) where they are 16-byte
+    aligned."""
+    widest = 16 // elem_bytes
+    fp32 = min(aligned_cols(p, 4, 4) for p in ptrs[1:])
+    return min(aligned_cols(ptrs[0], elem_bytes, widest),
+               widest if fp32 == 4 else fp32)
+
+
+@_build.launcher(lambda messages, *_, **__: _build.empty(
+    messages, *messages.shape, dtype=grad_dtype(messages)))
 def segment_aggregate_backward_cuda(messages: torch.Tensor,
                                     perm: torch.Tensor, offsets: torch.Tensor,
                                     out: torch.Tensor, dout: torch.Tensor, *,
@@ -302,19 +333,23 @@ def segment_aggregate_backward_cuda(messages: torch.Tensor,
                                     geometry: Geometry | None = None
                                     ) -> torch.Tensor:
     """The gradient of ``segment_aggregate_cuda(messages, perm, offsets,
-    agg=agg)``: messages (E, F) fp32; perm/offsets the segment CSR over S
-    >= 1 segments with every one of the E rows in ``perm`` (the rows past
-    ``offsets[S]`` get 0); out and dout (S, len(aggs) * F) fp32, the
-    forward's output and its gradient. Returns (E, F) float32
-    (``ref.segment_aggregate_backward_ref``). ``geometry``: by default
-    ``segment_backward_geometry`` for this shape and the device's SM
-    count; every geometry gives the same bits. Launches on the current
-    stream."""
+    agg=agg)``: messages (E, F) fp32 or bf16; perm/offsets the segment
+    CSR over S >= 1 segments with every one of the E rows in ``perm``
+    (the rows past ``offsets[S]`` get 0); out and dout (S, len(aggs) * F)
+    fp32, the forward's output and its gradient. Returns (E, F) at the
+    messages' dtype (``ref.grad_dtype``): fp32, or bf16 rounded once from
+    the fp32 gradient (``ref.segment_aggregate_backward_ref``, cast).
+    The body is chosen by that dtype. ``geometry``: by default
+    ``segment_backward_geometry`` for this shape, storage and the
+    device's SM count; every geometry gives the same bits. Launches on
+    the current stream."""
     aggs = agg_set(agg)
     _build.check_table("messages", messages)
     dev = messages.device
-    if messages.dtype != torch.float32:
-        raise ValueError(f"messages must be fp32, got {messages.dtype}")
+    if messages.dtype not in BWD_ENTRY:
+        raise ValueError(f"messages must be fp32 or bf16, got "
+                         f"{messages.dtype}")
+    es = messages.element_size()
     e, f = messages.shape
     _build.check_vector("perm", perm, torch.int32, dev, e)
     _build.check_vector("offsets", offsets, torch.int32, dev)
@@ -329,20 +364,21 @@ def segment_aggregate_backward_cuda(messages: torch.Tensor,
                              f"{tuple(t.shape)}")
     if num_segments < 1:
         raise ValueError("the CSR has no segment")
-    ptrs = [t.data_ptr() for t in (messages, out, dout)]
-    cap = min(aligned_cols(p, 4, MAX_BWD_COLS_PER_LANE) for p in ptrs)
+    ptrs = tuple(t.data_ptr() for t in (messages, out, dout))
     g = geometry or segment_backward_geometry(
         num_segments, f, e,
         torch.cuda.get_device_properties(dev).multi_processor_count,
-        len(aggs), max_cols=cap)
-    for p in ptrs:
-        check_cols(g.cols_per_lane, f, 4, p, MAX_BWD_COLS_PER_LANE)
-    dmsg = torch.empty((e, f), dtype=torch.float32, device=dev)
-    fn = _build.function("repro_segment_aggregate_backward", _BWD_ARGTYPES)
+        len(aggs), max_cols=backward_cols_cap(ptrs, es), elem_bytes=es)
+    cpl = g.cols_per_lane
+    check_cols(cpl, f, es, ptrs[0], 16 // es)
+    for p in ptrs[1:]:
+        check_cols(min(cpl, 4), f, 4, p, 4)
+    dmsg = torch.empty((e, f), dtype=messages.dtype, device=dev)
+    fn = _build.function(BWD_ENTRY[messages.dtype], _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(_build.pointer(messages), e, f, _build.pointer(perm),
                     _build.pointer(offsets), num_segments, len(aggs),
-                    agg_codes(aggs), g.cols_per_lane, g.lanes_per_row,
+                    agg_codes(aggs), cpl, g.lanes_per_row,
                     g.col_groups, g.passes, g.warps,
                     int(backward_deep(g, e, num_segments)),
                     _build.pointer(out), _build.pointer(dout),

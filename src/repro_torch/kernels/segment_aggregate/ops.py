@@ -16,8 +16,9 @@ for the agg set, or its plain version ``ref.
 segment_aggregate_backward_ref``), never autograd of the plain
 version: min and max split a gradient equally among tied rows, as the
 JAX package's ``segment_max`` does (autograd of a fold of
-``torch.maximum`` would not). bf16 or int8 messages have no backward on
-the card and raise there in grad mode.
+``torch.maximum`` would not). bf16 messages take the kernel's bf16 body,
+whose gradient is the fp32 one rounded once to bf16; the wrapper's
+``launches_by_dtype`` splits its launches by the messages' dtype.
 """
 from __future__ import annotations
 
@@ -30,8 +31,8 @@ from repro_torch.kernels.segment_aggregate.kernel import (
     segment_aggregate_backward_cuda, segment_aggregate_cuda,
     segment_aggregate_onehot_cuda)
 from repro_torch.kernels.segment_aggregate.ref import (
-    agg_set, segment_aggregate_backward_ref, segment_aggregate_onehot_ref,
-    segment_aggregate_ref)
+    agg_set, grad_dtype, segment_aggregate_backward_ref,
+    segment_aggregate_onehot_ref, segment_aggregate_ref)
 
 
 def _aggregate(messages, perm, offsets, agg) -> torch.Tensor:
@@ -75,10 +76,6 @@ def segment_aggregate(messages: torch.Tensor, perm: torch.Tensor,
                            dtype=torch.float32, device=messages.device)
     if not _build.trains(messages):
         return _aggregate(messages, perm, offsets, agg)
-    if not _build.runs_plain(messages) and messages.dtype != torch.float32:
-        _build.refuse_grad("segment_aggregate", messages,
-                           why=f"{messages.dtype} storage has no backward "
-                               "on the card")
     return _SegmentAggregate.apply(messages, perm, offsets, agg)
 
 
@@ -90,19 +87,27 @@ def segment_aggregate_backward(messages: torch.Tensor, perm: torch.Tensor,
                                offsets: torch.Tensor, out: torch.Tensor,
                                dout: torch.Tensor, *,
                                agg="sum") -> torch.Tensor:
-    """d messages (E, F) float32 of ``segment_aggregate(messages, perm,
-    offsets, agg=agg)`` given its output ``out`` and the output's
-    gradient ``dout``; ``perm`` lists all E rows (``build_csr``'s does)."""
+    """d messages (E, F) of ``segment_aggregate(messages, perm, offsets,
+    agg=agg)`` given its output ``out`` and the output's gradient
+    ``dout``, at ``grad_dtype(messages)`` (fp32; bf16 for bf16 messages,
+    rounded once); ``perm`` lists all E rows (``build_csr``'s does)."""
     if _build.runs_plain(messages):
-        return segment_aggregate_backward_ref(messages, perm, offsets, out,
-                                              dout, agg=agg)
+        return segment_aggregate_backward_ref(
+            messages, perm, offsets, out, dout,
+            agg=agg).to(grad_dtype(messages))
     dmsg = segment_aggregate_backward_cuda(messages, perm, offsets, out,
                                            dout, agg=agg)
-    segment_aggregate_backward.launches += _build.launched()
+    n = _build.launched()
+    segment_aggregate_backward.launches += n
+    segment_aggregate_backward.launches_by_dtype[
+        _build.storage_name(messages)] += n
     return dmsg
 
 
 segment_aggregate_backward.launches = 0
+# the launches by the messages' storage (the kernel's two bodies)
+segment_aggregate_backward.launches_by_dtype = dict.fromkeys(
+    _build.GRAD_STORAGE.values(), 0)
 
 
 @priced(segment_onehot_work)

@@ -26,7 +26,9 @@ the set's order, of its aggs' terms:
   0 where the forward's floor max(var, 1e-12) binds (a one-row segment
   among them: never inf or NaN).
 
-Rows in no segment get 0.
+Rows in no segment get 0. The gradient is fp32 and is taken at the
+messages' width by ``grad_dtype``: bf16 messages get it rounded once to
+bf16 (the gradient of their upcast to fp32), as the kernel writes it.
 """
 from __future__ import annotations
 
@@ -48,6 +50,14 @@ def agg_set(agg) -> tuple:
         raise ValueError(f"agg {agg!r}: one of {AGGS} or a tuple of "
                          "distinct ones expected")
     return aggs
+
+
+def grad_dtype(messages: torch.Tensor) -> torch.dtype:
+    """The dtype of the messages' gradient: bf16 for bf16 messages, else
+    fp32 (int8 messages never carry one: the training form is the fp32
+    fake-quant grid)."""
+    return torch.bfloat16 if messages.dtype == torch.bfloat16 \
+        else torch.float32
 
 
 def segment_aggregate_ref(messages: torch.Tensor, perm: torch.Tensor,

@@ -11,9 +11,11 @@ other four wrappers in ``kernels/*/ops.py`` (the one-hot pair, the
 resident stack, the padded-table aggregation) have no backward (ROADMAP
 item 12e): a launch hands back a fresh tensor with no autograd history,
 so each raises, before it launches, when grad mode is on and an input
-requires grad; so do a min or max gather and bf16 or int8 storage on
-the card. Under ``torch.no_grad()`` or ``torch.inference_mode()``
-(serving, ``Project``) every wrapper launches as before. On the CPU the
+requires grad; so does a min or max gather on the card. bf16 storage
+trains on the card (its backward launches take the bf16 table) and int8
+storage trains on the fp32 fake-quant grid. Under ``torch.no_grad()``
+or ``torch.inference_mode()`` (serving, ``Project``) every wrapper
+launches as before. On the CPU the
 plain version runs and stays differentiable.
 
 The CUDA branch is reached here without a card: ``_build.runs_plain``
@@ -340,28 +342,83 @@ def test_cuda_branch_refuses_a_min_max_gather(monkeypatch, agg):
     assert calls == []
 
 
+def _low_precision_stubs(monkeypatch, seen):
+    """The CSR gather's and the segment aggregation's launches replaced by
+    recorders of the tables they are handed (``seen``: (launch, dtype,
+    table)); each returns what its kernel would, at its dtype: the
+    forwards zeros, dx 3, dscale 2, the segment gradient 3 at the
+    messages' dtype."""
+    def gather(table, ids, sc, perm, offsets, *, agg="sum"):
+        if table.shape[0] == S:             # dx: dout over the source CSR
+            seen.append(("dx", table.dtype, table))
+            return torch.full((N, F), 3.0)
+        seen.append(("gather", table.dtype, table))
+        return torch.zeros((offsets.numel() - 1, table.shape[1]))
+
+    def dscale(dout, table, src, dst, weight=None):
+        seen.append(("dscale", table.dtype, table))
+        return torch.full((src.numel(),), 2.0)
+
+    def segment(messages, perm, offsets, *, agg="sum"):
+        seen.append(("segment", messages.dtype, messages))
+        return torch.zeros((offsets.numel() - 1, messages.shape[1]))
+
+    def segment_backward(messages, perm, offsets, out, dout, *, agg="sum"):
+        seen.append(("segment backward", messages.dtype, messages))
+        return torch.full(tuple(messages.shape), 3.0, dtype=messages.dtype)
+    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
+    for module, name, fn in (
+            (gather_ops, "fused_gather_aggregate_cuda", gather),
+            (gather_ops, "gather_scale_backward_cuda", dscale),
+            (segment_ops, "segment_aggregate_cuda", segment),
+            (segment_ops, "segment_aggregate_backward_cuda",
+             segment_backward)):
+        monkeypatch.setattr(module, name, fn)
+
+
 @pytest.mark.parametrize("name", ["fused_gather_aggregate",
                                   "segment_aggregate"])
 def test_cuda_branch_refuses_low_precision_storage(monkeypatch, name):
-    """A bf16 table that requires grad has no backward on the card."""
-    module, launch, inputs = WRAPPERS[name]
-    calls = []
-    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
-    monkeypatch.setattr(module, launch, lambda *a, **k: calls.append(1))
-    args, kwargs, leaf = inputs()
+    """A bf16 table that requires grad is no longer refused on the card:
+    the forward launch and the backward launches receive the bf16 table
+    as it is stored (the gather's dscale body reads its bf16 rows, the
+    segment backward's bf16 body its bf16 messages), dx is the fp32 fold
+    cast once to bf16, and the gradients reach the fp32 leaf through the
+    cast."""
+    seen = []
+    _low_precision_stubs(monkeypatch, seen)
+    args, kwargs, leaf = WRAPPERS[name][2]()
     table = leaf.to(torch.bfloat16)
-    with pytest.raises(RuntimeError, match="bfloat16 storage.*ROADMAP"):
-        getattr(module, name)(table, *args[1:], **kwargs)
-    assert calls == []
+    if name == "fused_gather_aggregate":
+        scale = args[2].clone().requires_grad_()
+        args = (table, args[1], scale) + args[3:]
+        want = [("gather", table), ("dx", None), ("dscale", table)]
+    else:
+        args = (table,) + args[1:]
+        want = [("segment", table), ("segment backward", table)]
+    out = getattr(WRAPPERS[name][0], name)(*args, **kwargs)
+    assert out.requires_grad
+    out.sum().backward()
+    assert [k for k, *_ in seen] == [k for k, _ in want]
+    for (kind, dtype, got), (_, table_in) in zip(seen, want):
+        if table_in is not None:        # the bf16 table, as stored
+            assert dtype == torch.bfloat16 and torch.equal(got, table_in)
+        else:                           # dx folds the fp32 dout
+            assert dtype == torch.float32
+    assert torch.equal(leaf.grad, torch.full_like(leaf, 3.0))
+    if name == "fused_gather_aggregate":
+        assert torch.equal(scale.grad, torch.full_like(scale, 2.0))
 
 
 @pytest.mark.parametrize("compute", ["bf16", "int8"])
 @pytest.mark.parametrize("kind", ["gather", "segment"])
 def test_aggregations_refuse_low_precision_training_on_the_card(
         monkeypatch, compute, kind):
-    """``core.aggregations`` at a bf16 or int8 layer precision: a table
-    that requires grad raises on the card (the int8 table would drop its
-    gradient); on the CPU it trains (int8 through the fake-quant grid)."""
+    """``core.aggregations`` at a bf16 or int8 layer precision trains on
+    either device: on the CPU (int8 through the fake-quant grid), and on
+    the card, where the launches (recorders) take bf16 as the bf16 table
+    and int8 as the fp32 grid (the fp32 kernels and their backwards),
+    and the gradient reaches the table."""
     from repro_torch.core import aggregations as A
     from repro_torch.core import quantization as Q
     rng = _rng()
@@ -377,9 +434,20 @@ def test_aggregations_refuse_low_precision_training_on_the_card(
     out = call()
     out.sum().backward()
     assert x.grad is not None and x.grad.abs().sum() > 0
-    monkeypatch.setattr(_build, "runs_plain", lambda t: False)
-    with pytest.raises(RuntimeError, match=f"{compute} storage.*ROADMAP"):
-        call()
+    x.grad = None
+    seen = []
+    _low_precision_stubs(monkeypatch, seen)
+    call().sum().backward()
+    assert x.grad is not None and x.grad.abs().sum() > 0
+    forward = "gather" if kind == "gather" else "segment"
+    backward = "dx" if kind == "gather" else "segment backward"
+    assert [k for k, *_ in seen] == [forward, backward]
+    table = x if kind == "gather" else x[src.long()]
+    stored = table.detach().to(torch.bfloat16) if compute == "bf16" \
+        else Q.quantize(table.detach(), lp.act_fpx)
+    assert seen[0][1] == stored.dtype and torch.equal(seen[0][2], stored)
+    if kind == "segment":   # the backward body of the stored width
+        assert seen[1][1] == stored.dtype
 
 
 @pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])

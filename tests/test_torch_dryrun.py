@@ -16,6 +16,7 @@ on the card's machine (``test_cuda_*``, skipped here); every kernel
 wrapper is held on fake ``cuda`` tensors here, in a subprocess. No JAX:
 the card test lives here."""
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -242,26 +243,96 @@ def test_gnn_flops_against_the_cpu_plain_path(gnn_record):
 
 
 def test_refuse_grad_still_raises_in_a_dry_trace(monkeypatch, no_library):
-    """bf16 GNN storage has no backward on the card: the dry trace of its
-    train step fails as the card would, and so does the wrapper alone."""
-    cfg = dataclasses.replace(D.gnn_config("gcn", reduced=True),
-                              gnn_precision="bf16")
-    monkeypatch.setattr(D, "gnn_config", lambda conv, reduced: cfg)
+    """A max gather has no backward on the card: the dry trace of a train
+    step that differentiates one fails as the card would, and so does the
+    wrapper alone."""
+    from repro_torch.core import convs
+    from repro_torch.kernels.fused_gather_aggregate.ops import \
+        fused_gather_aggregate
+    gather = convs.agg_mod.gather_aggregate
+    monkeypatch.setattr(convs.agg_mod, "gather_aggregate",
+                        lambda agg, *a, **k: gather("max", *a, **k))
     rec = D.run_gnn_cell("gcn", GNN_FRAMES, reduced=True)
     assert not rec["ok"]
     assert "ROADMAP item 12e" in rec["error"]
+    assert "max gather" in rec["error"]
     assert "RuntimeError" in rec["error"] and rec["traceback"]
-    from repro_torch.kernels.fused_gather_aggregate.ops import \
-        fused_gather_aggregate
     dev = D.fake_device()
     with FakeTensorMode(), C._OpCounter(dry=True) as sink, \
             _cost.pricing(sink):
-        x = torch.zeros(6, 4, dtype=torch.bfloat16, device=dev,
-                        requires_grad=True)
+        x = torch.zeros(6, 4, device=dev, requires_grad=True)
         ids = torch.zeros(5, dtype=torch.int32, device=dev)
         offsets = torch.tensor([0, 2, 5], dtype=torch.int32, device=dev)
         with pytest.raises(RuntimeError, match="ROADMAP item 12e"):
-            fused_gather_aggregate(x, ids, None, ids, offsets)
+            fused_gather_aggregate(x, ids, None, ids, offsets, agg="max")
+
+
+@pytest.fixture
+def priced_calls(monkeypatch):
+    """Each backward kernel call a dry trace prices: (kernel, bytes, the
+    table's dtype and shape, the CSR's entries), in call order."""
+    from repro_torch.kernels.fused_gather_aggregate import ops as GO
+    from repro_torch.kernels.segment_aggregate import ops as SO
+    calls, table = [], []
+    # (module, wrapper, the table's argument, the id stream's)
+    for module, name, at, ids in ((GO, "gather_scale_backward", 1, 2),
+                                  (SO, "segment_aggregate_backward", 0, 1)):
+        fn = getattr(module, name)
+
+        @functools.wraps(fn)        # its launch counts too
+        def spy(*args, fn=fn, at=at, ids=ids, **kwargs):
+            table.append((args[at].dtype, tuple(args[at].shape),
+                          args[ids].numel()))
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, spy)
+    kernel = C._OpCounter.kernel
+
+    def record(self, moved, ops, out, name=""):
+        if name in ("gather_scale_backward", "segment_aggregate_backward"):
+            calls.append((name, moved) + table.pop(0))
+        return kernel(self, moved, ops, out, name=name)
+    monkeypatch.setattr(C._OpCounter, "kernel", record)
+    return calls
+
+
+@pytest.mark.parametrize("conv", ["gcn", "gat", "pna"])
+def test_bf16_train_step_traces_and_prices_at_bf16(monkeypatch, no_library,
+                                                   priced_calls, conv):
+    """bf16 GNN training runs on the card: the dry trace of a bf16 train
+    step is ok and launches nothing. GAT's scale gradient (row 1c's
+    dscale) reads the bf16 table as stored and PNA's tower gradient (row
+    2c) the bf16 messages, each priced at bf16 bytes: the fp32 cell's
+    call less half its table rows (and, for 2c, half its written
+    gradient), the figures taken at the frame's capacity."""
+    cfg32 = D.gnn_config(conv, reduced=True)
+    rec32 = D.run_gnn_cell(conv, GNN_FRAMES, reduced=True)
+    fp32 = list(priced_calls)
+    priced_calls.clear()
+    cfg = dataclasses.replace(cfg32, gnn_precision="bf16")
+    monkeypatch.setattr(D, "gnn_config", lambda conv, reduced: cfg)
+    before = launch_counts()
+    rec = D.run_gnn_cell(conv, GNN_FRAMES, reduced=True)
+    assert rec["ok"] and rec32["ok"], rec.get("traceback")
+    assert launch_counts() == before
+    names = {"gat": "gather_scale_backward",
+             "pna": "segment_aggregate_backward"}
+    if conv == "gcn":           # no scale or segment gradient
+        assert priced_calls == fp32 == []
+        assert rec["kernels_by_name"]["_gather_dx"] \
+            == rec32["kernels_by_name"]["_gather_dx"] > 0
+        return
+    bf16 = [c for c in priced_calls if c[0] == names[conv]]
+    assert bf16 and len(bf16) == len([c for c in fp32
+                                      if c[0] == names[conv]])
+    for (name, moved, dtype, (e, f), slots), (_, moved32, dtype32, shape32,
+                                              _) in zip(bf16, fp32):
+        assert dtype == torch.bfloat16 and dtype32 == torch.float32
+        assert shape32 == (e, f)
+        if name == "gather_scale_backward":   # every edge's source, at most
+            rows = 2 * min(slots, e) * f      # the table's rows, 2 B less
+        else:                                 # every slot's row and the
+            rows = 2 * slots * f + 2 * e * f  # (E, F) gradient, 2 B less
+        assert moved == moved32 - rows
 
 
 # -------------------------------------------------- the fake card --

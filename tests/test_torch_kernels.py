@@ -280,6 +280,7 @@ def test_build_is_keyed_by_the_sources():
                                       "gnn_aggregate.cu",
                                       "segment_aggregate.cu",
                                       "segment_aggregate_bwd.cu",
+                                      "segment_aggregate_bwd_bf16.cu",
                                       "segment_aggregate_onehot.cu",
                                       "segment_softmax.cu",
                                       "segment_softmax_bwd.cu",
@@ -317,6 +318,19 @@ def test_build_is_keyed_by_the_sources():
     assert PK._ARGTYPES[11] is ctypes.c_longlong
     assert GK._ARGTYPES[15] is ctypes.c_longlong
     assert SK._ARGTYPES[12] is ctypes.c_longlong
+    # the backward launches: one argument list for each dtype's entry
+    # point (fp32, bf16), every one of them defined in its source
+    for argtypes, pointers in ((GK._BWD_ARGTYPES, (0, 3, 5, 6, 7, 12, 13)),
+                               (SK._BWD_ARGTYPES,
+                                (0, 3, 4, 14, 15, 16, 17))):
+        assert [i for i, t in enumerate(argtypes)
+                if t is ctypes.c_void_p] == list(pointers)
+    assert SK._BWD_ARGTYPES[12] is ctypes.c_longlong
+    text = "".join(p.read_text() for p in srcs)
+    for entries in (GK.SCALE_ENTRY, SK.BWD_ENTRY):
+        assert set(entries) == {torch.float32, torch.bfloat16}
+        for name in entries.values():
+            assert text.count(f'extern "C" int {name}(') == 1
 
 
 def test_codes_match_the_cuda_enums():
