@@ -393,7 +393,25 @@ Phases, in order; any failure exits non-zero with no result line:
    gradient flows), beside (b)'s fp32 figures. The counts are set to 0
    after (e-1) and read after (e-3): every one of rows 1-3 (and row 1's
    dx), row 8b, the three backward kernels and the bf16 bodies of 1c and
-   2c launched on the training path.
+   2c launched on the training path. (f) (ROADMAP item 12e-ii) a user's
+   conv that aggregates by max or min, registered for (f) alone
+   (``MINMAX_CONVS``: GraphSAGE with the max and the min aggregator, and
+   GAT's attention aggregated by max, whose weights take the scale
+   gradient): (f-1) the min/max gather's backward kernels (row 1d: the
+   tie weights, dx, the masked scale gradient) at the calls of the three
+   convs' packed gradients at 1024 graphs, fp32 and bf16, and on hostile
+   streams (a hub of ``BF16_HUB_EDGES`` tied in-edges and one of as many
+   out-edges, F 11 misaligned, F 130, a bf16 table, negative scales,
+   empty segments, bad ids), each bit for bit its plain version at every
+   geometry and across two launches, timed beside its bound and plain
+   version, and each gather's whole backward timed in turns beside the
+   sum gather's backward of the same shape and ``scatter_reduce_``'s
+   forward and backward; (f-2) each conv at ``MINMAX_POLICIES``: (e-2)'s
+   step and packed gradient against the CPU within ``GNN_TRAIN_TOL``;
+   (f-3) sage_max through the ``Trainer``, 20 steps at
+   ``MINMAX_TRAIN_BATCH`` frames: the loss falls, ``MINMAX_STEP_LAUNCHES``
+   a step. The counts are set to 0 after (f-1) and read after (f-3): the
+   three kernels and their bf16 bodies launched, added to (b)-(e)'s.
 
 The last lines are the card, the ``{"kernels": [...]}`` summary and
 ``{"ok": true, "device": {...}}``. Each of the six model-path kernels'
@@ -423,7 +441,12 @@ readings); the last three entries, ``gather_scale_backward``,
 phase 14 (a)'s calls and count their launches on that path; the first
 two carry ``by_storage["bf16"]``, their bf16 body's (e-1) calls summed
 (with the fp32 calls of the same shapes, timed in turns) and its
-launches on the training path.
+launches on the training path. The entries ``gather_tie_weights``,
+``gather_minmax_dx`` and ``gather_minmax_scale_backward`` (row 1d) sum
+phase 14 (f-1)'s fp32 calls (their bf16 calls in ``by_storage["bf16"]``)
+and count their launches in (f-2) and (f-3); the first also carries
+``backward_turns``, each gather's whole backward beside the sum
+gather's and ``scatter_reduce_``'s.
 """
 from __future__ import annotations
 
@@ -4972,6 +4995,33 @@ GNN_LOW_STEP_BATCH = 16
 BF16_CONVS = ("gin", "pna", "gat")
 BF16_BODIES = ("segment_aggregate_backward", "gather_scale_backward")
 BF16_HUB_EDGES = 3000
+# (f) a user's conv that aggregates by max or min (ROADMAP item 12e-ii),
+# registered in the port's registry for (f) alone: GraphSAGE with the max
+# (min) aggregator, PyG's SAGEConv(aggr="max"), and GAT's attention
+# aggregated by max, PyG's GATConv(aggr="max"), whose attention weights
+# take the gather's scale gradient
+MINMAX_CONVS = {"sage_max": "max", "sage_min": "min", "gat_max": "max"}
+MINMAX_KERNELS = ("gather_tie_weights", "gather_minmax_dx",
+                  "gather_minmax_scale_backward")
+# (f-2)'s policies by conv: both SAGE convs at every policy, gat_max at
+# fp32 and bf16 (the masked scale gradient's two bodies; its int8 step
+# reads the fp32 grid as fp32 does), cut to keep (f) near 25 s
+MINMAX_POLICIES = {"sage_max": PRECISIONS, "sage_min": PRECISIONS,
+                   "gat_max": ("fp32", "bf16")}
+# (f-3): sage_max through the Trainer, and its launches a step by policy:
+# a gather a layer, the tie weights and dx once (layer 1: layer 0 gathers
+# the input features), the row-stable products (W_self, W_neigh and the
+# skip projection a layer, the head's four layers)
+MINMAX_TRAIN_CONV = "sage_max"
+MINMAX_TRAIN_BATCH = 64
+MINMAX_STEP_LAUNCHES = {"fused_gather_aggregate": 2, "gather_tie_weights": 1,
+                        "gather_minmax_dx": 1, "tiled_matmul": 10}
+MINMAX_TARGET_S = 25.0      # (f)'s wall-time target, printed
+# (f-1)'s whole backwards timed in turns: sage_min's have sage_max's
+# shapes; the library's, 0.34-0.48 ms a call with a host-heavy autograd
+# pass, over 5 runs (its spread is 0.1 %)
+MINMAX_TURN_CONVS = ("sage_max", "gat_max")
+MINMAX_LIBRARY_REPS = 5
 
 
 def gnn_wrappers() -> dict:
@@ -4998,6 +5048,9 @@ def gnn_wrappers() -> dict:
                                        "launches_by_dtype", "bf16"),
         "segment_aggregate_backward bf16": (SO.segment_aggregate_backward,
                                             "launches_by_dtype", "bf16"),
+        **{k: (getattr(GO, k), "launches") for k in MINMAX_KERNELS},
+        **{f"{k} bf16": (getattr(GO, k), "launches_by_dtype", "bf16")
+           for k in MINMAX_KERNELS},
     }
 
 
@@ -5070,18 +5123,21 @@ def gnn_card_vs_plain(label: str, dev, cfg, loss: str, params: dict,
 
 
 @contextlib.contextmanager
-def captured_gnn_backward():
+def captured_gnn_backward(spots: dict | None = None):
     """The backward launches of the model's gradients, recorded: {kernel:
-    [(args, kwargs)]} (inputs cloned), each call still made."""
+    [(args, kwargs)]} (inputs cloned), each call still made; ``spots``
+    {kernel: (module, wrapper name)}, by default rows 1c-3c's and row 1's
+    dx. ``store["order"]`` lists the kernels in call order."""
     from repro_torch.kernels.fused_gather_aggregate import ops as GO
     from repro_torch.kernels.segment_aggregate import ops as SO
     from repro_torch.kernels.segment_softmax import ops as XO
-    spots = {"fused_gather_aggregate dx": (GO, "_gather_dx"),
-             "gather_scale_backward": (GO, "gather_scale_backward"),
-             "segment_aggregate_backward": (SO,
-                                            "segment_aggregate_backward"),
-             "segment_softmax_backward": (XO, "segment_softmax_backward")}
+    spots = spots or {
+        "fused_gather_aggregate dx": (GO, "_gather_dx"),
+        "gather_scale_backward": (GO, "gather_scale_backward"),
+        "segment_aggregate_backward": (SO, "segment_aggregate_backward"),
+        "segment_softmax_backward": (XO, "segment_softmax_backward")}
     store = {k: [] for k in spots}
+    order = []
     saved = {k: getattr(m, a) for k, (m, a) in spots.items()}
 
     class Spy:
@@ -5097,6 +5153,7 @@ def captured_gnn_backward():
             store[self.name].append((tuple(
                 a.clone() if isinstance(a, torch.Tensor) else a
                 for a in args), dict(kwargs)))
+            order.append(self.name)
             return self.fn(*args, **kwargs)
 
         def __getattr__(self, attr):
@@ -5107,7 +5164,7 @@ def captured_gnn_backward():
     for k, (m, a) in spots.items():
         setattr(m, a, Spy(k, saved[k]))
     try:
-        yield store
+        yield store, order
     finally:
         for k, (m, a) in spots.items():
             setattr(m, a, saved[k])
@@ -5224,7 +5281,7 @@ def gnn_backward_kernels_phase(dev, batch) -> list:
         cfg = benchmark_config(conv)
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
-        with captured_gnn_backward() as store:
+        with captured_gnn_backward() as (store, _):
             gnn_loss_grads(cfg, "mse_loss_packed", params, batch, dev)
         for name, got in store.items():
             for args, kwargs in got:
@@ -5311,7 +5368,9 @@ def scale_generic_check(dev) -> None:
         print(f"{label}: bit for bit the plain version", flush=True)
 
 
-def gcn_trainer_run(dev, cfg, label: str) -> tuple:
+def gcn_trainer_run(dev, cfg, label: str, launches: dict | None = None,
+                    gathers: dict | None = None,
+                    batch: int = GNN_TRAIN_BATCH) -> tuple:
     """``GNN_TRAIN_STEPS`` steps of ``make_gnn_train_step`` for GCN at
     ``cfg`` (its policy ``cfg.gnn_precision``) at ``GNN_TRAIN_BATCH``
     padded graphs of ``graph_batch`` through the ``Trainer`` (no
@@ -5319,7 +5378,9 @@ def gcn_trainer_run(dev, cfg, label: str) -> tuple:
     just after: the loss falls (the mean of the last 5 below the first
     5's), each step launches ``GCN_STEP_LAUNCHES[policy]`` and nothing
     else, its gathers ``GCN_STEP_GATHERS[policy]`` by the table's
-    storage. Returns (figures, bundle, trainer, batch_fn)."""
+    storage. Another conv's ``cfg`` passes its own ``launches`` and
+    ``gathers`` a step, and may take another ``batch`` of frames.
+    Returns (figures, bundle, trainer, batch_fn)."""
     from repro_torch.configs.gnn import DATASETS
     from repro_torch.core import gnn_model as G
     from repro_torch.data import pipeline as P
@@ -5330,10 +5391,12 @@ def gcn_trainer_run(dev, cfg, label: str) -> tuple:
     from repro_torch.optim import adamw
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     policy = cfg.gnn_precision
+    launches = launches or GCN_STEP_LAUNCHES[policy]
+    gathers_per_step = gathers or GCN_STEP_GATHERS[policy]
     ds = DATASETS["qm9"]
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
-    bundle = make_gnn_train_step(cfg, batch=GNN_TRAIN_BATCH,
+    bundle = make_gnn_train_step(cfg, batch=batch,
                                  opt_cfg=adamw.OptConfig(**GNN_TRAIN_OPT),
                                  device=dev)
     opt = materialize(bundle.abstract_args[1], None, dev)
@@ -5341,7 +5404,7 @@ def gcn_trainer_run(dev, cfg, label: str) -> tuple:
 
     def batch_fn(step):
         t = time.perf_counter()
-        b = P.graph_batch(ds, step, GNN_TRAIN_BATCH)
+        b = P.graph_batch(ds, step, batch)
         batch_s.append(time.perf_counter() - t)
         return b
 
@@ -5372,15 +5435,14 @@ def gcn_trainer_run(dev, cfg, label: str) -> tuple:
                - gathers[k]}
     peak = torch.cuda.max_memory_allocated(dev)
     device_ms = [s.elapsed_time(e) for s, e in events]
-    for k, n in GCN_STEP_LAUNCHES[policy].items():
+    for k, n in launches.items():
         check(counts[k] == n * GNN_TRAIN_STEPS,
               f"{label} {k}: {counts[k]} launches over {GNN_TRAIN_STEPS} "
               f"steps, expected {n} a step")
-    others = {k: v for k, v in counts.items()
-              if k not in GCN_STEP_LAUNCHES[policy]}
-    check(not any(others.values()), f"{label} a GCN step launched {others}")
-    want = {k: n * GNN_TRAIN_STEPS
-            for k, n in GCN_STEP_GATHERS[policy].items()}
+    others = {k: v for k, v in counts.items() if k not in launches}
+    check(not any(others.values()),
+          f"{label} a {cfg.gnn_conv} step launched {others}")
+    want = {k: n * GNN_TRAIN_STEPS for k, n in gathers_per_step.items()}
     check(gathers == want, f"{label} the gathers by storage {gathers}, "
                            f"expected {want}")
     losses = out["losses"]
@@ -5392,8 +5454,9 @@ def gcn_trainer_run(dev, cfg, label: str) -> tuple:
     step_ms = [s * 1e3 for s in trainer.step_s]
     median = statistics.median(step_ms[1:])
     res = dict(
-        conv="gcn", policy=policy, params=count_params(G.model_plan(cfg)),
-        batch=GNN_TRAIN_BATCH, steps=GNN_TRAIN_STEPS, loss_first=losses[0],
+        conv=cfg.gnn_conv, policy=policy,
+        params=count_params(G.model_plan(cfg)),
+        batch=batch, steps=GNN_TRAIN_STEPS, loss_first=losses[0],
         loss_last=losses[-1], loss_first5=head, loss_last5=tail,
         first_step_ms=step_ms[0], median_step_ms=median,
         graphs_s=GNN_TRAIN_BATCH / median * 1e3,
@@ -5401,8 +5464,8 @@ def gcn_trainer_run(dev, cfg, label: str) -> tuple:
                                                 for s in batch_s[1:]),
         median_step_stream_ms=statistics.median(device_ms[1:]),
         peak_gib=peak / 2 ** 30,
-        launches_per_step=GCN_STEP_LAUNCHES[policy],
-        gathers_by_storage_per_step=GCN_STEP_GATHERS[policy], wall_s=wall)
+        launches_per_step=launches,
+        gathers_by_storage_per_step=gathers_per_step, wall_s=wall)
     return res, bundle, trainer, batch_fn
 
 
@@ -5653,7 +5716,7 @@ def bf16_body_calls(dev, packed: dict) -> dict:
                                   gnn_precision="bf16")
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                              dev)
-        with captured_gnn_backward() as store:
+        with captured_gnn_backward() as (store, _):
             gnn_loss_grads(cfg, "mse_loss_packed", params, packed, dev)
         for name in BF16_BODIES:
             for args, kwargs in store[name]:
@@ -5833,8 +5896,10 @@ def bf16_bodies_phase(dev, packed: dict) -> list:
     return rows
 
 
-def gnn_low_precision_phase(dev, packed: dict) -> dict:
-    """(e-2) Every conv at ``benchmark_config`` at each of ``GNN_LOW``:
+def gnn_low_precision_phase(dev, packed: dict, cases=None,
+                            tag: str = "(e-2)") -> dict:
+    """(e-2) Every conv at ``benchmark_config`` at each of ``GNN_LOW``
+    (or each (conv, policy) of ``cases``, printed under ``tag``):
     one ``make_gnn_train_step`` step at ``GNN_LOW_STEP_BATCH`` padded graphs
     on the card against the same step on the CPU plain path from the same
     state (loss, grad norm), and ``mse_loss_packed``'s gradient at
@@ -5849,45 +5914,45 @@ def gnn_low_precision_phase(dev, packed: dict) -> dict:
     from repro_torch.optim import adamw
     batch = P.graph_batch(DATASETS["qm9"], 0, GNN_LOW_STEP_BATCH)
     out = {}
-    for conv in CONV_TYPES:
-        for policy in GNN_LOW:
-            cfg = dataclasses.replace(benchmark_config(conv),
-                                      gnn_precision=policy)
-            tol = GNN_TRAIN_TOL[policy]
-            params = init_params(cfg, torch.Generator(
-                device=dev).manual_seed(1), dev)
-            metrics = []        # the card's, then the CPU's
-            for d in (dev, torch.device("cpu")):
-                bundle = make_gnn_train_step(
-                    cfg, batch=GNN_LOW_STEP_BATCH, device=d)
-                p = adamw.tree_map(lambda t: t.to(d, copy=True), params)
-                o = materialize(bundle.abstract_args[1], None, d)
-                p, o, m = bundle.fn(p, o, batch)
-                metrics.append({k: float(v) for k, v in m.items()})
-            gaps = {}
-            for k in ("loss", "grad_norm"):
-                got, want = metrics[0][k], metrics[1][k]
-                gaps[k] = abs(got - want) / abs(want)
-                check(np.isfinite(got) and gaps[k] <= tol,
-                      f"[14] (e-2) {conv} {policy} step: {k} {got} on the "
-                      f"card, {want} on the CPU ({gaps[k]:.3e} of it; "
-                      f"bound {tol})")
-            packed_vs = gnn_card_vs_plain(f"[14] (e-2) {conv} {policy} "
-                                          "packed", dev, cfg,
-                                          "mse_loss_packed", params, packed)
-            out[f"{conv} {policy}"] = dict(step=dict(metrics[0], rel=gaps),
-                                           packed=packed_vs)
-            print(f"[14] (e-2) {conv} at benchmark_config, {policy}: one "
-                  f"step at {GNN_LOW_STEP_BATCH} padded graphs, loss "
-                  f"{metrics[0]['loss']:.6f} ({gaps['loss']:.3e} of the "
-                  f"CPU's), grad norm {metrics[0]['grad_norm']:.6f} "
-                  f"({gaps['grad_norm']:.3e}); mse_loss_packed at "
-                  f"{GNN_PACKED_GRAPHS} graphs: loss "
-                  f"{packed_vs['loss']['rel']:.3e}, grad norm "
-                  f"{packed_vs['grad_norm']['rel']:.3e}, worst leaf "
-                  f"{packed_vs['worst_leaf']:.3e} of the CPU's (bound "
-                  f"{tol})", flush=True)
-            del params
+    cases = cases or [(c, p) for c in CONV_TYPES for p in GNN_LOW]
+    for conv, policy in cases:
+        cfg = dataclasses.replace(benchmark_config(conv),
+                                  gnn_precision=policy)
+        tol = GNN_TRAIN_TOL[policy]
+        params = init_params(cfg, torch.Generator(
+            device=dev).manual_seed(1), dev)
+        metrics = []        # the card's, then the CPU's
+        for d in (dev, torch.device("cpu")):
+            bundle = make_gnn_train_step(
+                cfg, batch=GNN_LOW_STEP_BATCH, device=d)
+            p = adamw.tree_map(lambda t: t.to(d, copy=True), params)
+            o = materialize(bundle.abstract_args[1], None, d)
+            p, o, m = bundle.fn(p, o, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        gaps = {}
+        for k in ("loss", "grad_norm"):
+            got, want = metrics[0][k], metrics[1][k]
+            gaps[k] = abs(got - want) / abs(want)
+            check(np.isfinite(got) and gaps[k] <= tol,
+                  f"[14] {tag} {conv} {policy} step: {k} {got} on the "
+                  f"card, {want} on the CPU ({gaps[k]:.3e} of it; "
+                  f"bound {tol})")
+        packed_vs = gnn_card_vs_plain(f"[14] {tag} {conv} {policy} "
+                                      "packed", dev, cfg,
+                                      "mse_loss_packed", params, packed)
+        out[f"{conv} {policy}"] = dict(step=dict(metrics[0], rel=gaps),
+                                       packed=packed_vs)
+        print(f"[14] {tag} {conv} at benchmark_config, {policy}: one "
+              f"step at {GNN_LOW_STEP_BATCH} padded graphs, loss "
+              f"{metrics[0]['loss']:.6f} ({gaps['loss']:.3e} of the "
+              f"CPU's), grad norm {metrics[0]['grad_norm']:.6f} "
+              f"({gaps['grad_norm']:.3e}); mse_loss_packed at "
+              f"{GNN_PACKED_GRAPHS} graphs: loss "
+              f"{packed_vs['loss']['rel']:.3e}, grad norm "
+              f"{packed_vs['grad_norm']['rel']:.3e}, worst leaf "
+              f"{packed_vs['worst_leaf']:.3e} of the CPU's (bound "
+              f"{tol})", flush=True)
+        del params
     torch.cuda.empty_cache()
     return out
 
@@ -5917,6 +5982,441 @@ def gcn_low_precision_phase(dev, fp32: dict) -> dict:
     return out
 
 
+# --------------------------------- phase 14 (f): a user's max/min conv --
+def minmax_apply(agg: str, attention: bool):
+    """The apply of a user's conv that aggregates by ``agg``
+    (``MINMAX_CONVS``): SAGE's x' = W_self x_v + b + W_neigh agg_u x_u,
+    the neighbours aggregated at the input width, or GAT's attention with
+    its weighted messages aggregated by ``agg``."""
+    import torch.nn.functional as F
+    from repro_torch.core import aggregations as A
+    from repro_torch.core import convs as C
+    from repro_torch.nn.layers import linear, matmul
+
+    def sage(params, g, x, cfg):
+        src, dst = C.edge_endpoints(g)
+        aggr = A.gather_aggregate(agg, x, src, dst, x.shape[0], g["valid_e"],
+                                  csr=g.get("edge_csr"),
+                                  precision=cfg.precision).to(x.dtype)
+        return linear(params["w_self"], x) + linear(params["w_neigh"], aggr)
+
+    def gat(params, g, x, cfg):
+        src, dst = C.edge_endpoints(g)
+        n = x.shape[0]
+        h = matmul(x, params["w"]["w"])
+        hf = h.float()
+        logits = C._gather(matmul(hf, params["a_src"]), src) \
+            + C._gather(matmul(hf, params["a_dst"]), dst)
+        if "a_edge" in params:
+            logits = logits + matmul(g["edge_feat"].float(),
+                                     params["a_edge"]["w"].float())[:, 0]
+        csr = g.get("edge_csr")
+        alpha = A.segment_softmax(F.leaky_relu(logits, 0.2), dst, n,
+                                  g["valid_e"], csr=csr)
+        aggr = A.gather_aggregate(agg, h, src, dst, n, g["valid_e"], alpha,
+                                  csr=csr, precision=cfg.precision)
+        return linear(params["w_self"], x) + aggr.to(x.dtype) \
+            + params["w"]["b"]
+    return gat if attention else sage
+
+
+@contextlib.contextmanager
+def minmax_convs():
+    """``MINMAX_CONVS`` in the port's registry for the block, as a user
+    registers them (``register_conv``), and gone after it."""
+    from repro_torch.core import convs as C
+    names = []
+    try:
+        for name, agg in MINMAX_CONVS.items():
+            gat = name.startswith("gat")
+            C.register_conv(name, C.gat_plan if gat else C.sage_plan,
+                            minmax_apply(agg, gat), attention=gat, dse=False)
+            names.append(name)
+        yield
+    finally:
+        for name in reversed(names):
+            C.unregister_conv(name)
+
+
+def minmax_launchers() -> dict:
+    """{kernel: (launch, plain, work)} of the min/max gather's backward
+    kernels, each on its wrapper's arguments."""
+    from repro_torch.kernels import _cost
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+    from repro_torch.kernels.fused_gather_aggregate import ref as GR
+
+    def dscale(w, x, src, dst, ext, scale, **kw):
+        return GK.gather_scale_backward_cuda(w, x, src, dst, ext=ext,
+                                             scale=scale, **kw)
+
+    def dscale_plain(w, x, src, dst, ext, scale):
+        return GR.gather_scale_backward_ref(w, x, src, dst, ext=ext,
+                                            scale=scale)
+    return {
+        "gather_tie_weights": (GK.gather_tie_weights_cuda,
+                               GR.gather_tie_weights_ref,
+                               _cost.gather_tie_work),
+        "gather_minmax_dx": (GK.gather_minmax_dx_cuda,
+                             lambda *a: GR.gather_minmax_dx_ref(*a).to(
+                                 a[0].dtype),
+                             _cost.gather_minmax_dx_work),
+        "gather_minmax_scale_backward": (dscale, dscale_plain,
+                                         _cost.gather_minmax_scale_work),
+    }
+
+
+def minmax_geometries(name: str, args: tuple, kwargs: dict) -> list:
+    """(label, launch) of every other geometry of a min/max backward call:
+    the tie weights and dx at each columns-a-lane cap the tables allow on
+    the card's SMs, on 8 and on 1; the masked scale gradient at each run
+    of edges a warp of its vector body, and its generic body."""
+    from repro_torch.kernels._geometry import aligned_cols
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+    launch = minmax_launchers()[name][0]
+    sms = torch.cuda.get_device_properties(
+        args[0].device).multi_processor_count
+    if name == "gather_minmax_scale_backward":
+        w, x, src, _, ext, _ = args
+        e, f = src.numel(), w.shape[1]
+        aligned = w.data_ptr() % 16 == 0 and ext.data_ptr() % 16 == 0 \
+            and x.data_ptr() % (4 * x.element_size()) == 0
+        geos = [GK.scale_backward_geometry(e, f, sms, run=run)
+                for run in (32, 16, 8, 4) if f % 4 == 0 and aligned]
+        geos.append(GK.scale_backward_geometry(e, f, sms, aligned=False))
+    else:
+        tie = name == "gather_tie_weights"
+        rows = args[4].numel() - 1 if tie else args[0].shape[0]
+        tables = (args[0], args[5]) if tie else (args[0], args[2], args[3])
+        cap = min(aligned_cols(t.data_ptr(), t.element_size(), 4)
+                  for t in tables)
+        geos = [GK.minmax_geometry(rows, args[0].shape[1], card, max_cols=c)
+                for card in (sms, 8, 1) for c in (1, 2, 4) if c <= cap]
+    return [(str(g), lambda g=g: launch(*args, **kwargs, geometry=g))
+            for g in geos]
+
+
+def minmax_same(got, want) -> bool:
+    """Bit for bit, a pair of outputs (the tie weights' w and ext) or
+    one, of one dtype."""
+    if isinstance(got, tuple):
+        return all(minmax_same(g, w) for g, w in zip(got, want))
+    return got.dtype == want.dtype and same_bits(got, want)
+
+
+def minmax_err(got, want) -> float:
+    """max |got - want| over the outputs (a NaN extreme against a NaN
+    counts 0)."""
+    if isinstance(got, tuple):
+        return max(minmax_err(g, w) for g, w in zip(got, want))
+    return float((got.float() - want.float()).nan_to_num().abs().max()) \
+        if got.numel() else 0.0
+
+
+def minmax_bits(label: str, name: str, args: tuple, kwargs: dict,
+                want=None) -> tuple:
+    """A min/max backward call bit for bit its plain version (``want``
+    where the caller has it) at its default geometry, across two
+    launches and at every other geometry (``minmax_geometries``).
+    Returns (max |err|, the geometries held)."""
+    launch, plain, _ = minmax_launchers()[name]
+    if want is None:
+        want = plain(*args, **kwargs)
+    got = launch(*args, **kwargs)
+    again = launch(*args, **kwargs)
+    torch.cuda.synchronize()
+    err = minmax_err(got, want)
+    check(minmax_same(got, want),
+          f"{label}: not bit for bit the plain version (max |err| {err})")
+    check(minmax_same(again, got), f"{label}: a second launch differs")
+    geos = minmax_geometries(name, args, kwargs)
+    for geo, fn in geos:
+        check(minmax_same(fn(), got), f"{label}: {geo} gives other bits")
+    return err, len(geos)
+
+
+def minmax_calls(dev, packed: dict) -> tuple:
+    """The min/max backward launches of ``mse_loss_packed``'s gradient at
+    ``GNN_PACKED_GRAPHS`` graphs, each conv of ``MINMAX_CONVS`` at fp32
+    and bf16 (inputs cloned): (calls [(label, kernel, args, kwargs)],
+    groups [{"label", "tie": (args, kwargs), "gather_minmax_dx": args,
+    "gather_minmax_scale_backward": args}], one for each gather's
+    backward)."""
+    from repro_torch.configs.gnn import benchmark_config
+    from repro_torch.kernels.fused_gather_aggregate import ops as GO
+    from repro_torch.nn.param import init_params
+    spots = {k: (GO, k) for k in MINMAX_KERNELS}
+    calls, groups = [], []
+    for conv in MINMAX_CONVS:
+        for policy in ("fp32", "bf16"):
+            cfg = dataclasses.replace(benchmark_config(conv),
+                                      gnn_precision=policy)
+            params = init_params(cfg, torch.Generator(
+                device=dev).manual_seed(0), dev)
+            with captured_gnn_backward(spots) as (store, order):
+                gnn_loss_grads(cfg, "mse_loss_packed", params, packed, dev)
+            at = dict.fromkeys(store, 0)
+            for name in order:
+                args, kwargs = store[name][at[name]]
+                at[name] += 1
+                tie = name == "gather_tie_weights"
+                label = f"{conv} {policy}, gather backward " \
+                        f"{len(groups) - (not tie)}"
+                calls.append((label, name, args, kwargs))
+                if tie:
+                    groups.append(dict(label=label, policy=policy,
+                                       agg=kwargs["agg"], tie=args))
+                else:
+                    groups[-1][name] = args
+    return calls, groups
+
+
+def minmax_backward_fns(group: dict) -> dict:
+    """Three functions of one gather's backward, on its inputs: the min/max
+    kernels (the tie weights, then dx and, where the scale has a gradient,
+    the masked scale gradient); the sum gather's backward of the same
+    shape (dx over the source CSR, dscale); and the library, the forward
+    and backward of ``scatter_reduce_(reduce="amax"/"amin",
+    include_self=False)`` over ``x[src] * scale``."""
+    from repro_torch.kernels.fused_gather_aggregate import kernel as GK
+    x, src, scale, perm, offsets, dout = group["tie"]
+    _, _, w, ext, dst, s_perm, s_offsets = group["gather_minmax_dx"]
+    masked = group.get("gather_minmax_scale_backward")
+
+    def minmax():
+        w2, e2 = GK.gather_tie_weights_cuda(x, src, scale, perm, offsets,
+                                            dout, agg=group["agg"])
+        GK.gather_minmax_dx_cuda(x, scale, w2, e2, dst, s_perm, s_offsets)
+        if masked is not None:
+            GK.gather_scale_backward_cuda(w2, x, src, dst, ext=e2,
+                                          scale=scale)
+
+    def summed():
+        GK.fused_gather_aggregate_cuda(dout, dst, scale, s_perm, s_offsets)
+        if masked is not None:
+            GK.gather_scale_backward_cuda(dout, x, src, dst)
+
+    ok = dst >= 0
+    s_idx, d_idx = src[ok].long(), dst[ok].long()
+    d_idx = d_idx[:, None].expand(-1, x.shape[1])
+    x32 = x.float().requires_grad_()
+    sc = None if scale is None else scale[ok].clone().requires_grad_(
+        masked is not None)
+    leaves = [x32] + ([sc] if masked is not None else [])
+    reduce = "amax" if group["agg"] == "max" else "amin"
+
+    def library():
+        msg = x32[s_idx]
+        if sc is not None:
+            msg = msg * sc[:, None]
+        out = torch.zeros_like(dout).scatter_reduce(0, d_idx, msg, reduce,
+                                                    include_self=False)
+        torch.autograd.grad(out, leaves, dout)
+    return dict(minmax=minmax, sum=summed, library=library)
+
+
+def minmax_turns(groups: list) -> list:
+    """Each gather's backward of ``MINMAX_TURN_CONVS`` timed in turns
+    (min/max, sum, library, library, sum, min/max), the means kept."""
+    out = []
+    for g in groups:
+        if g["label"].split()[0] not in MINMAX_TURN_CONVS:
+            continue
+        fns = minmax_backward_fns(g)
+        turns = {k: [] for k in fns}
+        for k in ("minmax", "sum", "library", "library", "sum", "minmax"):
+            reps = MINMAX_LIBRARY_REPS if k == "library" else 25
+            try:
+                turns[k].append(cuda_ms(fns[k], reps=reps))
+            except PhaseError:      # the library call synchronises
+                turns[k].append(cuda_ms(fns[k], **PLAIN_TIMING))
+        x, _, _, _, offsets, dout = g["tie"]
+        out.append(dict(label=g["label"], policy=g["policy"],
+                        shape=f"x {tuple(x.shape)} {str(x.dtype)[6:]}, S "
+                              f"{offsets.numel() - 1}, dscale "
+                              f"{'gather_minmax_scale_backward' in g}",
+                        **{f"{k}_ms": statistics.mean(v)
+                           for k, v in turns.items()}, turns=turns))
+    return out
+
+
+def minmax_hostile_calls(dev) -> list:
+    """(label, agg, tie args, the source side of its CSR) of hostile
+    streams (ids from a seed), on a coarse grid (ties) with negative
+    scales, empty segments (0-2), -1 and out-of-range ids on both
+    streams: with hubs (a destination of ``BF16_HUB_EDGES`` in-edges
+    whose messages all tie, one source at scale 1, and a source of as
+    many out-edges) at F 128, fp32 and bf16; without (the plain versions
+    fold a hub slot by slot, seconds on the card) at F 11 one element
+    into its buffer (misaligned) and F 130 (not a multiple of 4)."""
+    from repro_torch.core.aggregations import gather_csr
+    rng = np.random.default_rng(16)
+    n, s = 500, 2000
+
+    def stream(hubs: bool):
+        e = 2 * BF16_HUB_EDGES * hubs + 4000
+        src = rng.integers(0, n, e)
+        dst = rng.integers(3, s, e)
+        src[rng.random(e) < 0.05] = -1
+        src[rng.random(e) < 0.03] = n + 2
+        dst[rng.random(e) < 0.05] = -1
+        dst[rng.random(e) < 0.03] = s + 1
+        scale = rng.choice([-1.0, 0.5, 1.0, 2.0], e).astype(np.float32)
+        if hubs:
+            hub = rng.permutation(e)
+            dst[hub[:BF16_HUB_EDGES]], src[hub[:BF16_HUB_EDGES]] = 5, 7
+            scale[hub[:BF16_HUB_EDGES]] = 1.0
+            src[hub[BF16_HUB_EDGES:2 * BF16_HUB_EDGES]] = 9
+        src_t = torch.from_numpy(src.astype(np.int32)).to(dev)
+        csr = gather_csr(src_t, torch.from_numpy(dst.astype(np.int32)).to(
+            dev), n, s, transpose=True)
+        return src_t, torch.from_numpy(scale).to(dev), csr
+    streams = {True: stream(True), False: stream(False)}
+    out = []
+    for f, dtype, shift, agg, hubs in (
+            (128, torch.float32, 0, "max", True),
+            (128, torch.bfloat16, 0, "min", True),
+            (11, torch.float32, 1, "max", False),
+            (130, torch.float32, 0, "min", False)):
+        src_t, sc, csr = streams[hubs]
+        flat = np.round(rng.standard_normal(n * f + shift) * 2) / 2
+        x = torch.from_numpy(flat.astype(np.float32)).to(dtype).to(dev)
+        x = x[shift:].view(n, f)
+        dout = torch.from_numpy(rng.standard_normal((s, f)).astype(
+            np.float32)).to(dev)
+        label = (f"hubs of {BF16_HUB_EDGES} tied in-edges and "
+                 f"{BF16_HUB_EDGES} out-edges, " if hubs else "") + \
+            f"F {f}, {str(dtype)[6:]}, x {shift} elements in, {agg}"
+        out.append((label, agg, (x, src_t, sc, csr.perm, csr.offsets, dout),
+                    csr.transpose))
+    return out
+
+
+def minmax_hostile_phase(dev) -> int:
+    """(f-1)'s hostile calls: each kernel bit for bit its plain version at
+    every geometry and across two launches (``minmax_bits``), with the
+    scale and, at F 11, also without. Returns the calls held."""
+    from repro_torch.kernels.fused_gather_aggregate import ref as GR
+    held = 0
+    for label, agg, tie, (dst, s_perm, s_off) in minmax_hostile_calls(dev):
+        x, src, scale = tie[:3]
+        for sc in (scale, None) if x.shape[1] == 11 else (scale,):
+            args = (x, src, sc) + tie[3:]
+            w, ext = GR.gather_tie_weights_ref(*args, agg=agg)
+            calls = (("gather_tie_weights", args, dict(agg=agg)),
+                     ("gather_minmax_dx",
+                      (x, sc, w, ext, dst, s_perm, s_off), {}),
+                     ("gather_minmax_scale_backward",
+                      (w, x, src, dst, ext, sc), {}))
+            for name, a, kw in calls:
+                tag = f"[14] (f-1) {name}, {label}" + (
+                    "" if sc is not None else ", no scale")
+                err, geos = minmax_bits(
+                    tag, name, a, kw,
+                    (w, ext) if name == "gather_tie_weights" else None)
+                held += 1
+                print(f"{tag}: bit for bit the plain version at {geos} "
+                      "other geometries and across two launches",
+                      flush=True)
+    return held
+
+
+def minmax_kernels_phase(dev, packed: dict) -> tuple:
+    """(f-1) The min/max backward kernels at the calls of
+    ``minmax_calls`` (sage_max's, sage_min's and gat_max's gradients at
+    1024 graphs, fp32 and bf16), each bit for bit its plain version at
+    every geometry and across two launches (``minmax_bits``), timed
+    beside its bound (``kernels/_cost.py``) and its plain version; each
+    gather's whole backward timed in turns beside the sum gather's
+    backward of the same shape and the library's scatter_reduce_
+    (``minmax_turns``); then ``minmax_hostile_phase``. Returns (rows,
+    turns, the hostile calls held)."""
+    t0 = time.perf_counter()
+    calls, groups = minmax_calls(dev, packed)
+    t_capture = time.perf_counter() - t0
+    rows = []
+    for label, name, args, kwargs in calls:
+        launch, plain, work = minmax_launchers()[name]
+        tag = f"[14] (f-1) {name} ({label})"
+        err, geos = minmax_bits(tag, name, args, kwargs)
+        moved, ops = work(*args, **kwargs)
+        b_ms, by = bound_ms(moved, ops)
+        ms = cuda_ms(lambda: launch(*args, **kwargs))
+        plain_ms = cuda_ms(lambda: plain(*args, **kwargs), **PLAIN_TIMING)
+        rows.append(dict(kernel=name, call=label,
+                         policy=label.split()[1].rstrip(","),
+                         shape=f"x {tuple(args[1 if name.endswith('scale_backward') else 0].shape)}",
+                         max_abs_err=err, bitwise=True, geometries=geos,
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by))
+        print(f"{tag}: bit for bit the plain version at {geos} other "
+              f"geometries and across two launches; {ms:.6f} ms [bound "
+              f"{b_ms:.6f}, {by}], plain {plain_ms:.6f} ms", flush=True)
+    for name in MINMAX_KERNELS:
+        for policy in ("fp32", "bf16"):
+            check(any(r["kernel"] == name and r["policy"] == policy
+                      for r in rows),
+                  f"[14] (f-1) no {policy} call of {name} in the convs' "
+                  "gradients")
+    t_rows = time.perf_counter() - t0 - t_capture
+    turns = minmax_turns(groups)
+    t_turns = time.perf_counter() - t0 - t_capture - t_rows
+    for t in turns:
+        print(f"[14] (f-1) backward of {t['label']} ({t['shape']}): "
+              f"min/max kernels {t['minmax_ms']:.6f} ms, the sum gather's "
+              f"backward of the same shape {t['sum_ms']:.6f} ms, "
+              f"scatter_reduce_ forward and backward {t['library_ms']:.6f} "
+              f"ms (in turns)", flush=True)
+    held = minmax_hostile_phase(dev)
+    print(f"[14] (f-1) took {time.perf_counter() - t0:.1f} s: the calls "
+          f"captured {t_capture:.1f}, held and timed {t_rows:.1f}, the "
+          f"backwards in turns {t_turns:.1f}, the hostile calls "
+          f"{time.perf_counter() - t0 - t_capture - t_rows - t_turns:.1f}",
+          flush=True)
+    return rows, turns, held
+
+
+def gnn_minmax_phase(dev, packed: dict) -> dict:
+    """(f) A user's conv that aggregates by max or min (``MINMAX_CONVS``,
+    registered for (f) alone): (f-1) ``minmax_kernels_phase``; then, the
+    counts set to 0, (f-2) each conv at ``benchmark_config`` at its
+    ``MINMAX_POLICIES``: (e-2)'s step and packed gradient against the CPU
+    plain path within ``GNN_TRAIN_TOL``; (f-3) ``MINMAX_TRAIN_CONV``
+    through the ``Trainer`` at ``MINMAX_TRAIN_BATCH`` frames: the loss
+    falls, ``MINMAX_STEP_LAUNCHES`` a step; the counts read after (f-3):
+    the three kernels and their bf16 bodies launched."""
+    from repro_torch.configs.gnn import benchmark_config
+    t0 = time.perf_counter()
+    with minmax_convs():
+        rows, turns, held = minmax_kernels_phase(dev, packed)
+        t1 = time.perf_counter()
+        zero_gnn_counts()
+        low = gnn_low_precision_phase(
+            dev, packed, [(c, p) for c, ps in MINMAX_POLICIES.items()
+                          for p in ps], tag="(f-2)")
+        t2 = time.perf_counter()
+        cfg = benchmark_config(MINMAX_TRAIN_CONV)
+        res, bundle, trainer, _ = gcn_trainer_run(
+            dev, cfg, "[14] (f-3)", launches=MINMAX_STEP_LAUNCHES,
+            gathers={"fp32": 2}, batch=MINMAX_TRAIN_BATCH)
+        launches = gnn_counts()
+        del bundle, trainer
+    t3 = time.perf_counter()
+    for k in MINMAX_KERNELS:
+        for key in (k, f"{k} bf16"):
+            check(launches[key] > 0,
+                  f"[14] (f) {key} was never launched on the training path")
+    print(f"[14] (f-3) {MINMAX_TRAIN_CONV} at benchmark_config, fp32: "
+          f"{trainer_line(res)}", flush=True)
+    print(f"[14] (f) took {t3 - t0:.1f} s ((f-1) {t1 - t0:.1f}, (f-2) "
+          f"{t2 - t1:.1f}, (f-3) {t3 - t2:.1f}; target "
+          f"{MINMAX_TARGET_S:.0f} s); (f-1) held {len(rows)} served and "
+          f"{held} hostile calls; launches on (f-2)-(f-3): "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, turns=turns, hostile_calls=held, low=low,
+                train=res, launches=launches, wall_s=t3 - t0)
+
+
 def gnn_train_phase(dev) -> dict:
     """Phase 14: GNN training. (a) the backward kernels against their
     plain versions and timed; (e-1) their bf16 bodies likewise; (b) GCN
@@ -5925,7 +6425,9 @@ def gnn_train_phase(dev) -> dict:
     step and packed gradient at bf16 and int8 against the CPU; (e-3) GCN
     at bf16 and int8 through the Trainer. The kernel counts are set to 0
     after (e-1) and read after (e-3): the launches of the training
-    path."""
+    path; then (f) a user's max/min conv (``gnn_minmax_phase``), whose
+    counts are set to 0 after its (f-1) and read after its (f-3), and
+    added."""
     from repro_torch.configs.gnn import DATASETS
     from repro_torch.data import pipeline as P
     from repro_torch.launch import serve
@@ -5957,18 +6459,21 @@ def gnn_train_phase(dev) -> dict:
     te3 = time.perf_counter() - te
     launches = gnn_counts()
     for k, n in launches.items():
-        check(n > 0, f"[14] {k} was never launched on the training path")
+        if k.split()[0] not in MINMAX_KERNELS:      # (f)'s, read after it
+            check(n > 0, f"[14] {k} was never launched on the training path")
+    minmax = gnn_minmax_phase(dev, packed)
+    launches = {k: v + minmax["launches"][k] for k, v in launches.items()}
     wall = time.perf_counter() - t0
     print(f"[14] phase 14 took {wall:.1f} s ((a) {ta:.1f}, (b) {tb:.1f}, "
           f"(c) {tc:.1f}, (d) {td:.1f}, (e) {te1 + te2 + te3:.1f}: (e-1) "
-          f"{te1:.1f}, (e-2) {te2:.1f}, (e-3) {te3:.1f}; target "
-          f"{GNN_TARGET_S:.0f} s); launches on the training path ((b)-(e)): "
-          f"{launches}")
+          f"{te1:.1f}, (e-2) {te2:.1f}, (e-3) {te3:.1f}; (f) "
+          f"{minmax['wall_s']:.1f}; target {GNN_TARGET_S:.0f} s for (a)-(e)); "
+          f"launches on the training path ((b)-(f)): {launches}")
     return dict(rows=rows, bf16_rows=bf16_rows, launches=launches,
                 full_width=full, every_conv=every, fault=fault,
                 low_precision=dict(every_conv=low, gcn=low_gcn,
                                    wall_s=te1 + te2 + te3),
-                wall_s=wall)
+                minmax=minmax, wall_s=wall)
 
 
 def summarize_gnn_backward(gnn: dict) -> list:
@@ -6023,6 +6528,57 @@ def summarize_gnn_backward(gnn: dict) -> list:
                 "shapes": "phase 14 (e-1): " + "; ".join(
                     r["shape"] for r in low),
                 "calls": low}}
+        out.append(entry)
+    return out
+
+
+def summarize_minmax(gnn: dict) -> list:
+    """The min/max gather's three backward kernels' entries (row 1d):
+    (f-1)'s fp32 calls summed (the bf16 body's under
+    ``by_storage["bf16"]``), the launches of phase 14's training path
+    ((f-2) and (f-3)); the tie weights' entry also carries each gather's
+    whole backward timed in turns (``backward_turns``)."""
+    mm = gnn["minmax"]
+    sources = {
+        "gather_tie_weights": "src/repro_torch/csrc/gather_minmax_bwd.cu",
+        "gather_minmax_dx": "src/repro_torch/csrc/gather_minmax_bwd.cu",
+        "gather_minmax_scale_backward":
+            "src/repro_torch/csrc/fused_gather_aggregate_bwd.cu"}
+
+    def summed(rows: list) -> dict:
+        return {**{k: sum(r[k] for r in rows) for k in (
+            "ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "bitwise": all(r["bitwise"] for r in rows),
+            "shapes": "phase 14 (f-1): " + "; ".join(
+                f"{r['call']}, {r['shape']}" for r in rows)}
+    out = []
+    for name, source in sources.items():
+        rows = [r for r in mm["rows"] if r["kernel"] == name]
+        fp32 = [r for r in rows if r["policy"] == "fp32"]
+        bf16 = [r for r in rows if r["policy"] == "bf16"]
+        entry = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/fused_gather_aggregate/"
+                        "kernel.py:259",
+            "replaces_note": "none: the backward of row 1's min/max "
+                             "gather; the JAX package differentiates its "
+                             "XLA form and its Pallas kernel has no VJP",
+            "launches": gnn["launches"][name],
+            "launches_by_phase": {"14": gnn["launches"][name]},
+            **summed(fp32), "library_ms": None,
+            "library_note": "no single PyTorch call computes this part of "
+                            "the gradient; the whole backward against "
+                            "scatter_reduce_'s forward and backward is in "
+                            "the tie weights' backward_turns",
+            "calls": fp32,
+            "by_storage": {"bf16": {
+                "launches": gnn["launches"][f"{name} bf16"], **summed(bf16),
+                "library_ms": None, "calls": bf16}}}
+        if name == "gather_tie_weights":
+            entry["backward_turns"] = mm["turns"]
         out.append(entry)
     return out
 
@@ -6366,6 +6922,7 @@ def main() -> int:
         k["launches_by_phase"]["14"] = n
         k["launches"] += n
     summary["kernels"] += summarize_gnn_backward(gnn)
+    summary["kernels"] += summarize_minmax(gnn)
     check(all(k["launches"] > 0 for k in summary["kernels"]),
           "a kernel was never launched on the serving path")
     print(f"chip_smoke: all phases passed in "

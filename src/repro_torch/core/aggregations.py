@@ -31,9 +31,10 @@ divergences); int8 is the fake-quant fp32 grid with its straight-through
 gradient (the same values as the int8 table times ``s``), which the
 fp32 kernels take. The real int8 tables stay on the inference path.
 
-Gradients: in grad mode the sum/mean gather, the segment aggregation
-and the softmax are autograd functions whose backwards are the kernels'
-own (``kernels/*/ops.py``). A gather's gradient walks the source side of
+Gradients: in grad mode the gather (every agg: a min or max splits a
+tied extreme's gradient equally, as JAX's), the segment aggregation and
+the softmax are autograd functions whose backwards are the kernels' own
+(``kernels/*/ops.py``). A gather's gradient walks the source side of
 its CSR, which ``gather_csr(..., transpose=True)`` builds once beside
 the destination CSR (``SegmentCSR.transpose``).
 

@@ -65,6 +65,17 @@
 //   reading columns l, l + 32, ... of both rows, then the butterfly over
 //   the 32 lanes (__shfl_xor_sync, offsets 16, 8, 4, 2, 1).
 //
+// The masked body (MASK = true) is a min or max gather's scale gradient
+// (csrc/gather_minmax_bwd.cu has the rest of that gradient): dout is the
+// tie weights w (S, F), and each column's product w[dst_e, c] * x[src_e,
+// c] is added only where the edge's message x[src_e, c] * scale_e (one
+// rounded multiply, as the forward's) equals ext[dst_e, c], the extreme
+// the tie weights wrote (NaN where none won); +0.0 elsewhere, which leaves
+// a partial unchanged, as the plain version's masked zero does. The
+// scale rides the weight's slot (each edge's lane loads it, the group's
+// lanes take it by shuffle), and a lane loads each ext row beside the w
+// row, 16 bytes a step; no weight multiplies the sum.
+//
 // A warp's edge or run is uniform over its lanes, so every lane reaches
 // the shuffles. Arithmetic: the explicitly rounded intrinsics, which
 // nvcc never contracts into an FMA, so the sum rounds step for step as
@@ -101,39 +112,58 @@ __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
                          << 16);
 }
 
-// a step's rows: CH float4s of the destination's dout and of the source's
-// x row, columns col0 + 32 c (zeros past F or for an edge not read)
-template <int CH>
+// one column's term: dout * x, or under MASK the same where the edge's
+// message x * sc equals the extreme ext, else +0.0
+template <bool MASK>
+__device__ __forceinline__ float term(float d, float x, float ext,
+                                      float sc) {
+  if constexpr (MASK) {
+    if (__fmul_rn(x, sc) != ext) return 0.0f;
+  }
+  return __fmul_rn(d, x);
+}
+
+// a step's rows: CH float4s of the destination's dout (and, under MASK,
+// ext) and of the source's x row, columns col0 + 32 c (zeros past F or
+// for an edge not read)
+template <int CH, bool MASK>
 struct Rows {
-  float4 d[CH], x[CH];
+  float4 d[CH], x[CH], e[MASK ? CH : 1];
 
   template <typename T>
   __device__ __forceinline__ void load(const float* __restrict__ dout,
+                                       const float* __restrict__ ext,
                                        const T* __restrict__ xt, int f,
                                        int dd, int ss, int col0) {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
       const int col = col0 + 32 * c;
+      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (dd >= 0 && col < f) {
-        d[c] = __ldg(reinterpret_cast<const float4*>(
-            dout + static_cast<size_t>(dd) * f + col));
+        const size_t at = static_cast<size_t>(dd) * f + col;
+        d[c] = __ldg(reinterpret_cast<const float4*>(dout + at));
         x[c] = load4(xt + static_cast<size_t>(ss) * f + col);
+        if constexpr (MASK)
+          e[c] = __ldg(reinterpret_cast<const float4*>(ext + at));
       } else {
-        d[c] = x[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        d[c] = x[c] = zero;
+        if constexpr (MASK) e[c] = zero;
       }
     }
   }
 
   // a zero product adds +0.0, which leaves a partial unchanged: a partial
   // that starts at +0.0 is never -0.0 (the plain version adds the zero
-  // padding past F the same way)
-  __device__ __forceinline__ void fold(float (&a)[4]) const {
+  // padding past F the same way). Under MASK a zero row's ext is 0.0 and
+  // its message 0.0 * sc: a tie or not, its term is a zero product
+  __device__ __forceinline__ void fold(float (&a)[4], float sc) const {
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      a[0] = __fadd_rn(a[0], __fmul_rn(d[c].x, x[c].x));
-      a[1] = __fadd_rn(a[1], __fmul_rn(d[c].y, x[c].y));
-      a[2] = __fadd_rn(a[2], __fmul_rn(d[c].z, x[c].z));
-      a[3] = __fadd_rn(a[3], __fmul_rn(d[c].w, x[c].w));
+      const float4 ec = MASK ? e[MASK ? c : 0] : d[c];
+      a[0] = __fadd_rn(a[0], term<MASK>(d[c].x, x[c].x, ec.x, sc));
+      a[1] = __fadd_rn(a[1], term<MASK>(d[c].y, x[c].y, ec.y, sc));
+      a[2] = __fadd_rn(a[2], term<MASK>(d[c].z, x[c].z, ec.z, sc));
+      a[3] = __fadd_rn(a[3], term<MASK>(d[c].w, x[c].w, ec.w, sc));
     }
   }
 };
@@ -161,10 +191,12 @@ __device__ __forceinline__ float group_sum(const float (&a)[4], int j) {
   return __fadd_rn(e, __shfl_xor_sync(kFull, e, 2));
 }
 
-// the vector body (file comment): CH float4s a lane a row a step
-template <typename T, int CH>
+// the vector body (file comment): CH float4s a lane a row a step. Under
+// MASK, `weight` is the edges' scale (null: 1) and multiplies no sum
+template <typename T, int CH, bool MASK>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 gather_scale_backward_kernel(const float* __restrict__ dout,
+                             const float* __restrict__ ext,
                              int num_segments, int f,
                              const T* __restrict__ x, int n_src,
                              const int32_t* __restrict__ src,
@@ -196,11 +228,12 @@ gather_scale_backward_kernel(const float* __restrict__ dout,
     const int owner = step * kEdgesPerStep + grp;
     const int de = __shfl_sync(kFull, dd, owner);
     const int se = __shfl_sync(kFull, s, owner);
+    const float sc = MASK ? __shfl_sync(kFull, w, owner) : 1.0f;
     float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int col0 = 4 * j; col0 < f; col0 += 32 * CH) {
-      Rows<CH> r;
-      r.load(dout, x, f, de, se, col0);
-      r.fold(a);
+      Rows<CH, MASK> r;
+      r.load(dout, ext, x, f, de, se, col0);
+      r.fold(a, sc);
     }
     const float sum = group_sum(a, j);
     if (j == step) kept = sum;
@@ -212,15 +245,17 @@ gather_scale_backward_kernel(const float* __restrict__ dout,
                        lane / kEdgesPerStep);
   if (lane < n) {
     float v = 0.0f;
-    if (ok) v = weight != nullptr ? __fmul_rn(mine, w) : mine;
+    if (ok) v = !MASK && weight != nullptr ? __fmul_rn(mine, w) : mine;
     out[e0 + lane] = v;
   }
 }
 
-// the generic body (file comment): one warp an edge
-template <typename T>
+// the generic body (file comment): one warp an edge; `weight` as the
+// vector body's
+template <typename T, bool MASK>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 gather_scale_backward_generic_kernel(const float* __restrict__ dout,
+                                     const float* __restrict__ ext,
                                      int num_segments, int f,
                                      const T* __restrict__ x, int n_src,
                                      const int32_t* __restrict__ src,
@@ -237,46 +272,52 @@ gather_scale_backward_generic_kernel(const float* __restrict__ dout,
   const bool ok = d >= 0 && d < num_segments && s >= 0 && s < n_src;
   float acc = 0.0f;
   if (ok) {
-    const float* drow = dout + static_cast<size_t>(d) * f;
+    const size_t row = static_cast<size_t>(d) * f;
     const T* xrow = x + static_cast<size_t>(s) * f;
+    const float sc = MASK && weight != nullptr ? __ldg(weight + e) : 1.0f;
     for (int c = lane; c < f; c += 32)
-      acc = __fadd_rn(acc, __fmul_rn(__ldg(drow + c), load1(xrow + c)));
+      acc = __fadd_rn(acc, term<MASK>(__ldg(dout + row + c), load1(xrow + c),
+                                      MASK ? __ldg(ext + row + c) : 0.0f,
+                                      sc));
   }
 #pragma unroll
   for (int o = 16; o >= 1; o >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, o));
   if (lane == 0) {
     float v = 0.0f;
-    if (ok) v = weight != nullptr ? __fmul_rn(acc, __ldg(weight + e)) : acc;
+    if (ok)
+      v = !MASK && weight != nullptr ? __fmul_rn(acc, __ldg(weight + e))
+                                     : acc;
     out[e] = v;
   }
 }
 
 // the vector body's instances: CH float4s a lane a row (1-4; a wider row
 // is folded in column blocks of 32 CH, any CH giving the same bits)
-template <typename T, int CH>
+template <typename T, int CH, bool MASK>
 void launch_vector(unsigned blocks, cudaStream_t stream, const float* dout,
-                   int num_segments, int f, const T* x, int n_src,
-                   const int32_t* src, const int32_t* dst,
+                   const float* ext, int num_segments, int f, const T* x,
+                   int n_src, const int32_t* src, const int32_t* dst,
                    const float* weight, int num_edges, int run, float* out) {
-  gather_scale_backward_kernel<T, CH>
+  gather_scale_backward_kernel<T, CH, MASK>
       <<<blocks, kThreadsPerBlock, 0, stream>>>(
-          dout, num_segments, f, x, n_src, src, dst, weight, num_edges, run,
-          out);
+          dout, ext, num_segments, f, x, n_src, src, dst, weight, num_edges,
+          run, out);
 }
 
 template <typename T>
-using VectorLaunch = void (*)(unsigned, cudaStream_t, const float*, int, int,
-                              const T*, int, const int32_t*,
-                              const int32_t*, const float*, int, int, float*);
+using VectorLaunch = void (*)(unsigned, cudaStream_t, const float*,
+                              const float*, int, int, const T*, int,
+                              const int32_t*, const int32_t*, const float*,
+                              int, int, float*);
 
-template <typename T>
+template <typename T, bool MASK>
 VectorLaunch<T> vector_instance(int chunks) {
   switch (chunks) {
-    case 1: return launch_vector<T, 1>;
-    case 2: return launch_vector<T, 2>;
-    case 3: return launch_vector<T, 3>;
-    case 4: return launch_vector<T, 4>;
+    case 1: return launch_vector<T, 1, MASK>;
+    case 2: return launch_vector<T, 2, MASK>;
+    case 3: return launch_vector<T, 3, MASK>;
+    case 4: return launch_vector<T, 4, MASK>;
     default: return nullptr;
   }
 }
@@ -285,14 +326,14 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// the entry points' checks and dispatch, for an x of T
-template <typename T>
-int launch_typed(const float* dout, int num_segments, int f, const T* x,
-                 int n_src, const int32_t* src, const int32_t* dst,
-                 const float* weight, int num_edges, int body, int run,
-                 int chunks, float* out, void* stream) {
+// the entry points' checks and dispatch, for an x of T (MASK: ext given)
+template <typename T, bool MASK>
+int launch_typed(const float* dout, const float* ext, int num_segments,
+                 int f, const T* x, int n_src, const int32_t* src,
+                 const int32_t* dst, const float* weight, int num_edges,
+                 int body, int run, int chunks, float* out, void* stream) {
   if (num_segments < 0 || f < 0 || n_src < 0 || num_edges < 0 ||
-      (body != 0 && body != 1))
+      (body != 0 && body != 1) || (MASK && ext == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (num_edges == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -300,21 +341,22 @@ int launch_typed(const float* dout, int num_segments, int f, const T* x,
     const long long blocks =
         (static_cast<long long>(num_edges) + kWarpsPerBlock - 1) /
         kWarpsPerBlock;
-    gather_scale_backward_generic_kernel<T>
+    gather_scale_backward_generic_kernel<T, MASK>
         <<<static_cast<unsigned>(blocks), kThreadsPerBlock, 0, st>>>(
-            dout, num_segments, f, x, n_src, src, dst, weight, num_edges,
-            out);
+            dout, ext, num_segments, f, x, n_src, src, dst, weight,
+            num_edges, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const VectorLaunch<T> launch = vector_instance<T>(chunks);
+  const VectorLaunch<T> launch = vector_instance<T, MASK>(chunks);
   if (launch == nullptr || run < kEdgesPerStep || run > kMaxRun ||
       run % kEdgesPerStep != 0 || f == 0 || f % 4 != 0 ||
-      !aligned(dout, 16) || !aligned(x, 4 * sizeof(T)))
+      !aligned(dout, 16) || (MASK && !aligned(ext, 16)) ||
+      !aligned(x, 4 * sizeof(T)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long warps = (static_cast<long long>(num_edges) + run - 1) / run;
   const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  launch(static_cast<unsigned>(blocks), st, dout, num_segments, f, x, n_src,
-         src, dst, weight, num_edges, run, out);
+  launch(static_cast<unsigned>(blocks), st, dout, ext, num_segments, f, x,
+         n_src, src, dst, weight, num_edges, run, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -339,9 +381,9 @@ extern "C" int repro_gather_scale_backward(const float* dout,
                                            int num_edges, int body, int run,
                                            int chunks, float* out,
                                            void* stream) {
-  return repro::launch_typed(dout, num_segments, f, x, n_src, src, dst,
-                             weight, num_edges, body, run, chunks, out,
-                             stream);
+  return repro::launch_typed<float, false>(dout, nullptr, num_segments, f, x,
+                                          n_src, src, dst, weight, num_edges,
+                                          body, run, chunks, out, stream);
 }
 
 // The same for a bf16 table x (n_src, f), 8-byte aligned for the vector
@@ -356,7 +398,26 @@ extern "C" int repro_gather_scale_backward_bf16(const float* dout,
                                                 int num_edges, int body,
                                                 int run, int chunks,
                                                 float* out, void* stream) {
-  return repro::launch_typed(dout, num_segments, f, x, n_src, src, dst,
-                             weight, num_edges, body, run, chunks, out,
-                             stream);
+  return repro::launch_typed<__nv_bfloat16, false>(
+      dout, nullptr, num_segments, f, x, n_src, src, dst, weight, num_edges,
+      body, run, chunks, out, stream);
+}
+
+// The masked body, a min or max gather's scale gradient: w (num_segments,
+// f) fp32, its tie weights, in dout's place; ext (num_segments, f) fp32,
+// its extremes (16-byte aligned for the vector body); scale (num_edges,)
+// fp32 or null (1), the forward's. x fp32 (`bf16` 0) or bf16 (`bf16` 1).
+// Otherwise as repro_gather_scale_backward, with no weight.
+extern "C" int repro_gather_minmax_scale_backward(
+    const float* w, const float* ext, const float* scale, int num_segments,
+    int f, const void* x, int bf16, int n_src, const int32_t* src,
+    const int32_t* dst, int num_edges, int body, int run, int chunks,
+    float* out, void* stream) {
+  if (bf16)
+    return repro::launch_typed<__nv_bfloat16, true>(
+        w, ext, num_segments, f, static_cast<const __nv_bfloat16*>(x), n_src,
+        src, dst, scale, num_edges, body, run, chunks, out, stream);
+  return repro::launch_typed<float, true>(
+      w, ext, num_segments, f, static_cast<const float*>(x), n_src, src, dst,
+      scale, num_edges, body, run, chunks, out, stream);
 }

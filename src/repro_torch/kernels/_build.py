@@ -258,17 +258,18 @@ def refuse_grad(name: str, *tensors, why: str = "the CUDA kernel has no "
                 "backward") -> None:
     """The CUDA branch of a public wrapper that cannot carry a gradient
     for this call (the one-hot pair, the resident stack, the padded-table
-    aggregation; min/max gathers; a gather's scale gradient over an int8
-    table): a launch on an input that requires grad in grad mode would
-    hand back an output with no autograd history and silently lose its
-    gradients. Raise instead."""
+    aggregation, whose Pallas counterparts the JAX package cannot
+    differentiate either; a gather's scale gradient over an int8 table,
+    which training never asks for): a launch on an input that requires
+    grad in grad mode would hand back an output with no autograd history
+    and silently lose its gradients. Raise instead."""
     if trains(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but {why} (ROADMAP item 12e, "
-            "what GNN training on the card leaves): its output would carry "
-            "no gradient. Call it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors, whose plain "
-            "version is differentiable")
+            "not a port: the JAX package cannot differentiate its Pallas "
+            "counterpart either): its output would carry no gradient. "
+            "Call it under torch.no_grad() or torch.inference_mode(), or "
+            "on CPU tensors, whose plain version is differentiable")
 
 
 def pointer(t: torch.Tensor | None) -> ctypes.c_void_p:

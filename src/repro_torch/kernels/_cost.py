@@ -194,13 +194,17 @@ def softmax_work(logits, perm, offsets, **_) -> tuple:
             8.0 * n_valid)
 
 
-def gather_scale_work(dout, x, src, dst, weight=None, **_) -> tuple:
+def gather_scale_work(dout, x, src, dst, weight=None, *, masked=False,
+                      **_) -> tuple:
     """The gather's scale gradient (``ops.gather_scale_backward``): per
     edge with both ids in range its two ids (and weight) and the dout
     and x rows of the distinct destinations and sources (x's at its
     storage width: a bf16 table's rows half the fp32 one's), per other
     edge its destination id; the (E,) output; 2 F operations (a multiply
-    and an add per column) per valid edge."""
+    and an add per column) per valid edge. ``masked``: the min/max
+    gather's masked body (``gather_minmax_scale_work``), whose ``weight``
+    slot is the edges' scale: each distinct destination's extreme row
+    read too, and 2 F more operations (the message and its compare)."""
     (s, f), n = dout.shape, x.shape[0]
     if dry():
         d, r = dst, src
@@ -208,11 +212,55 @@ def gather_scale_work(dout, x, src, dst, weight=None, **_) -> tuple:
         ok = (dst >= 0) & (dst < s) & (src >= 0) & (src < n)
         d, r = dst[ok], src[ok]
     n_valid = int(d.numel())
-    rows = (_distinct(lambda: d, n_valid, s) * dout.element_size()
+    dests = _distinct(lambda: d, n_valid, s)
+    rows = ((1 + masked) * dests * dout.element_size()
             + _distinct(lambda: r, n_valid, n) * x.element_size()) * f
     moved = (rows + (12 if weight is not None else 8) * n_valid
              + 4 * (src.numel() - n_valid) + 4 * src.numel())
-    return moved, 2.0 * n_valid * f
+    return moved, (2.0 + 2 * masked) * n_valid * f
+
+
+def gather_minmax_scale_work(w, x, src, dst, ext, scale, **_) -> tuple:
+    """A min or max gather's scale gradient (``ops.
+    gather_minmax_scale_backward``): ``gather_scale_work`` of the masked
+    body, the tie weights ``w`` in dout's place."""
+    return gather_scale_work(w, x, src, dst, scale, masked=True)
+
+
+def gather_tie_work(x, src, scale, perm, offsets, dout, **_) -> tuple:
+    """A min or max gather's tie weights (``ops.gather_tie_weights``):
+    the forward's reads (``gather_work``: the distinct sources' x rows,
+    the valid edges' ids and scales, the offsets) with dout (S, F) read
+    and the weights and extremes (S, F) each written in the forward's
+    output's place; per valid edge and column the message, its fold and
+    its tie compare, and a divide per output."""
+    moved, ops = gather_work(x, src, scale, perm, offsets)
+    out = 4 * (offsets.numel() - 1) * x.shape[1]
+    return moved + 2 * out, 1.5 * ops + out // 4
+
+
+def gather_minmax_dx_work(x, scale, w, ext, dst, s_perm, s_offsets,
+                          **_) -> tuple:
+    """A min or max gather's dx (``ops.gather_minmax_dx``): per valid edge
+    of the source CSR its entry, destination id (and scale); the weight
+    and extreme rows of the distinct destinations; the x rows of the
+    distinct sources that have such an edge, at x's storage width; the
+    (N + 1) offsets; the (N, F) gradient written at x's width. Per valid
+    edge and column the message, its compare and the term's add (and,
+    with a scale, its multiply)."""
+    n, f = x.shape
+    n_valid = _valid_count(s_offsets, s_perm.numel())
+
+    def dests_of():
+        d = dst[s_perm[:n_valid].long()]
+        return d[(d >= 0) & (d < w.shape[0])]
+    dests = _distinct(dests_of, n_valid, w.shape[0])
+    sources = _distinct(
+        lambda: torch.nonzero(s_offsets[1:] > s_offsets[:-1]), n_valid, n)
+    es = x.element_size()
+    moved = ((12 if scale is not None else 8) * n_valid + 8 * dests * f
+             + es * sources * f + 4 * (n + 1) + es * n * f)
+    return moved, (4.0 if scale is not None else 3.0) * n_valid * f
 
 
 # operations a valid element and column of each agg's gradient term (the

@@ -37,7 +37,17 @@ the ports of the two Pallas TPU kernels of
   CPU tests can hold every geometry to writing each edge once. The
   other half of the gather's gradient, dx, is
   ``fused_gather_aggregate_cuda`` itself over the source CSR
-  (``ops.py``).
+  (``ops.py``). Given ``ext`` and ``scale``, the same bodies are a min
+  or max gather's scale gradient (the masked body: a column's product
+  counts only where the edge's message ties its destination's extreme).
+* ``gather_tie_weights_cuda`` and ``gather_minmax_dx_cuda``
+  (``csrc/gather_minmax_bwd.cu``), the port's own too, are the rest of
+  a min or max gather's gradient (JAX's, ties split equally): each
+  output's tie weight and raw extreme over the destination CSR, then
+  dx over the source CSR. Both take the forward's lane geometry at fp32
+  rows (``minmax_geometry``: their widest loads are the fp32 tables)
+  with four edges a lane in flight; either body, fp32 or bf16, is
+  picked by x's dtype.
 
 The sources carry the design notes.
 """
@@ -310,6 +320,13 @@ _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
 # the scale gradient's entry point for each dtype of x
 SCALE_ENTRY = {torch.float32: "repro_gather_scale_backward",
                torch.bfloat16: "repro_gather_scale_backward_bf16"}
+# the masked body's (a min or max gather's), for either dtype of x
+_MASKED_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p]
 
 
 @_build.launcher(lambda dout, x, src, *_, **__: _build.empty(dout,
@@ -317,6 +334,8 @@ SCALE_ENTRY = {torch.float32: "repro_gather_scale_backward",
 def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
                                src: torch.Tensor, dst: torch.Tensor,
                                weight: torch.Tensor | None = None, *,
+                               ext: torch.Tensor | None = None,
+                               scale: torch.Tensor | None = None,
                                geometry: ScaleGeometry | None = None
                                ) -> torch.Tensor:
     """dout: (S, F) fp32 output gradient; x: (N, F) fp32 or bf16 node
@@ -327,8 +346,12 @@ def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
     for bit). The body is chosen by x's dtype. ``geometry``: by default
     ``scale_backward_geometry`` for this shape, the device's SM count
     and the alignment of both tables; a vector geometry the tables do
-    not take raises. Every geometry gives the same bits. Launches on the
-    current stream."""
+    not take raises. Every geometry gives the same bits. ``ext``: the
+    masked body, a min or max gather's scale gradient (``ref.
+    gather_scale_backward_ref`` with ``ext`` and ``scale``): dout is its
+    tie weights, ext (S, F) fp32 its extremes, ``scale`` the forward's
+    optional (E,) fp32 scale; no weight. Launches on the current
+    stream."""
     _build.check_table("dout", dout)
     _build.check_table("x", x)
     dev = dout.device
@@ -343,10 +366,19 @@ def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
     _build.check_vector("dst", dst, torch.int32, dev, e)
     if weight is not None:
         _build.check_vector("weight", weight, torch.float32, dev, e)
+    if ext is not None:
+        _build.check_table("ext", ext)
+        if weight is not None or ext.dtype != torch.float32 \
+                or ext.shape != dout.shape:
+            raise ValueError(f"ext {tuple(ext.shape)} {ext.dtype} must be "
+                             "fp32 of dout's shape, with no weight")
+        if scale is not None:
+            _build.check_vector("scale", scale, torch.float32, dev, e)
     (s, f), n = dout.shape, x.shape[0]
     es = x.element_size()
     aligned = aligned_cols(dout.data_ptr(), 4, 4) == 4 \
-        and aligned_cols(x.data_ptr(), es, 4) == 4
+        and aligned_cols(x.data_ptr(), es, 4) == 4 \
+        and (ext is None or aligned_cols(ext.data_ptr(), 4, 4) == 4)
     g = geometry or scale_backward_geometry(
         e, f, torch.cuda.get_device_properties(dev).multi_processor_count,
         aligned, elem_bytes=es)
@@ -354,12 +386,171 @@ def gather_scale_backward_cuda(dout: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"the vector body takes no F={f} rows, a dout not "
                          "16-byte aligned or an x not 4-element aligned")
     out = torch.empty((e,), dtype=torch.float32, device=dev)
-    fn = _build.function(SCALE_ENTRY[x.dtype], _BWD_ARGTYPES)
     with torch.cuda.device(dev):
-        status = fn(_build.pointer(dout), s, f, _build.pointer(x), n,
-                    _build.pointer(src), _build.pointer(dst),
-                    _build.pointer(weight), e, SCALE_BODIES[g.body], g.run,
-                    g.chunks, _build.pointer(out),
-                    _build.stream_pointer(dev))
+        if ext is None:
+            fn = _build.function(SCALE_ENTRY[x.dtype], _BWD_ARGTYPES)
+            status = fn(_build.pointer(dout), s, f, _build.pointer(x), n,
+                        _build.pointer(src), _build.pointer(dst),
+                        _build.pointer(weight), e, SCALE_BODIES[g.body],
+                        g.run, g.chunks, _build.pointer(out),
+                        _build.stream_pointer(dev))
+        else:
+            fn = _build.function("repro_gather_minmax_scale_backward",
+                                 _MASKED_ARGTYPES)
+            status = fn(_build.pointer(dout), _build.pointer(ext),
+                        _build.pointer(scale), s, f, _build.pointer(x),
+                        int(x.dtype == torch.bfloat16), n,
+                        _build.pointer(src), _build.pointer(dst), e,
+                        SCALE_BODIES[g.body], g.run, g.chunks,
+                        _build.pointer(out), _build.stream_pointer(dev))
     _build.check(status, "gather_scale_backward")
     return out
+
+
+def minmax_geometry(rows: int, f: int, sms: int,
+                    max_cols: int = 4) -> Geometry:
+    """The launch of ``gather_tie_weights_cuda`` (over the S destination
+    rows) and ``gather_minmax_dx_cuda`` (over the N source rows): the
+    forward's ``gather_geometry`` at fp32 rows, whose widest loads are
+    the fp32 tables (dout, w, ext: at most 4 columns a lane, one 16-byte
+    load), capped by ``max_cols``, the tables' alignment in elements."""
+    return gather_geometry(rows, f, 4, sms, max_cols=min(max_cols, 4))
+
+
+def _minmax_cols(tables, rows: int, f: int, dev,
+                 geometry: Geometry | None) -> Geometry:
+    """The geometry of a min/max gradient launch over ``rows`` rows: the
+    given one or ``minmax_geometry`` capped by every table's alignment;
+    raises unless its columns a lane fit every table."""
+    cap = min(aligned_cols(t.data_ptr(), t.element_size(), 4)
+              for t in tables)
+    g = geometry or minmax_geometry(
+        rows, f, torch.cuda.get_device_properties(dev).multi_processor_count,
+        max_cols=cap)
+    for t in tables:
+        check_cols(g.cols_per_lane, f, t.element_size(), t.data_ptr(), 4)
+    return g
+
+
+def _check_grad_table(x: torch.Tensor) -> None:
+    _build.check_table("x", x)
+    if x.dtype not in _build.GRAD_STORAGE:
+        raise ValueError(f"x must be fp32 or bf16, got {x.dtype}")
+
+
+def _check_rows(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
+    """An fp32 (rows, F) table of a min/max gradient on ``dev``."""
+    _build.check_table(name, t)
+    if t.dtype != torch.float32 or tuple(t.shape) != shape \
+            or t.device != dev:
+        raise ValueError(f"{name} must be an fp32 {shape} table on {dev}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+_TIE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+@_build.launcher(lambda x, src, scale, perm, offsets, dout, **_: (
+    _build.empty(dout, *dout.shape), _build.empty(dout, *dout.shape)))
+def gather_tie_weights_cuda(x: torch.Tensor, src: torch.Tensor,
+                            scale: torch.Tensor | None, perm: torch.Tensor,
+                            offsets: torch.Tensor, dout: torch.Tensor, *,
+                            agg: str,
+                            geometry: Geometry | None = None) -> tuple:
+    """x: (N, F) fp32 or bf16 table, as the forward read it; src, scale,
+    perm, offsets: the forward's streams and destination CSR over S
+    segments; dout: (S, F) fp32 output gradient; agg "min" or "max".
+    Returns (w, ext), each (S, F) float32 (``ref.gather_tie_weights_ref``,
+    bit for bit). ``geometry``: by default ``minmax_geometry`` over the S
+    rows, capped by the alignment of x and dout. Launches on the current
+    stream."""
+    if agg not in ("min", "max"):
+        raise ValueError(f"agg {agg!r} has no tie weights")
+    _check_grad_table(x)
+    dev = x.device
+    n_src, f = x.shape
+    e = src.numel()
+    _build.check_vector("src", src, torch.int32, dev)
+    if scale is not None:
+        _build.check_vector("scale", scale, torch.float32, dev, e)
+    _build.check_vector("perm", perm, torch.int32, dev)
+    _build.check_vector("offsets", offsets, torch.int32, dev)
+    num_segments = offsets.numel() - 1
+    if perm.numel() > e or num_segments < 1:
+        raise ValueError(f"CSR of {perm.numel()} ids / {offsets.numel()} "
+                         f"offsets does not fit {e} edges, or has no "
+                         "segment")
+    _check_rows("dout", dout, (num_segments, f), dev)
+    g = _minmax_cols((x, dout), num_segments, f, dev, geometry)
+    w = torch.empty_like(dout)
+    ext = torch.empty_like(dout)
+    fn = _build.function("repro_gather_tie_weights", _TIE_ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(_build.pointer(x), _build.DTYPE_CODES[x.dtype], n_src, f,
+                    _build.pointer(src), _build.pointer(scale), e,
+                    _build.pointer(perm), _build.pointer(offsets),
+                    num_segments, _build.AGG_CODES[agg], g.cols_per_lane,
+                    g.lanes_per_row, g.col_groups, g.passes, g.warps,
+                    _build.pointer(dout), _build.pointer(w),
+                    _build.pointer(ext), _build.stream_pointer(dev))
+    _build.check(status, "gather_tie_weights")
+    return w, ext
+
+
+_DX_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_void_p]
+
+
+@_build.launcher(lambda x, *_, **__: _build.empty(x, *x.shape,
+                                                  dtype=x.dtype))
+def gather_minmax_dx_cuda(x: torch.Tensor, scale: torch.Tensor | None,
+                          w: torch.Tensor, ext: torch.Tensor,
+                          dst: torch.Tensor, s_perm: torch.Tensor,
+                          s_offsets: torch.Tensor, *,
+                          geometry: Geometry | None = None) -> torch.Tensor:
+    """x: (N, F) fp32 or bf16 table; scale: the forward's optional (E,)
+    fp32 scale; w, ext: (S, F) fp32 from ``gather_tie_weights_cuda``;
+    dst: (E,) int32 each edge's destination (-1 for none); s_perm,
+    s_offsets: the source CSR over the N rows. Returns dx (N, F) at x's
+    dtype (``ref.gather_minmax_dx_ref``, rounded once to bf16 for a bf16
+    x; bit for bit). ``geometry``: by default ``minmax_geometry`` over
+    the N rows, capped by the alignment of x, w and ext. Launches on the
+    current stream."""
+    _check_grad_table(x)
+    dev = x.device
+    n_src, f = x.shape
+    e = dst.numel()
+    _build.check_vector("dst", dst, torch.int32, dev)
+    if scale is not None:
+        _build.check_vector("scale", scale, torch.float32, dev, e)
+    _build.check_vector("s_perm", s_perm, torch.int32, dev)
+    _build.check_vector("s_offsets", s_offsets, torch.int32, dev,
+                        n_src + 1)
+    num_segments = w.shape[0]
+    _check_rows("w", w, (num_segments, f), dev)
+    _check_rows("ext", ext, (num_segments, f), dev)
+    if n_src < 1 or s_perm.numel() > e:
+        raise ValueError(f"a source CSR of {s_perm.numel()} ids over "
+                         f"{n_src} rows does not fit {e} edges")
+    g = _minmax_cols((x, w, ext), n_src, f, dev, geometry)
+    dx = torch.empty_like(x)
+    fn = _build.function("repro_gather_minmax_dx", _DX_ARGTYPES)
+    with torch.cuda.device(dev):
+        status = fn(_build.pointer(x), _build.DTYPE_CODES[x.dtype], n_src, f,
+                    _build.pointer(scale), _build.pointer(w),
+                    _build.pointer(ext), num_segments, _build.pointer(dst),
+                    e, _build.pointer(s_perm), _build.pointer(s_offsets),
+                    g.cols_per_lane, g.lanes_per_row, g.col_groups,
+                    g.passes, g.warps, _build.pointer(dx),
+                    _build.stream_pointer(dev))
+    _build.check(status, "gather_minmax_dx")
+    return dx

@@ -10,38 +10,56 @@ wrapper's ``launches`` counts its kernel's launches
 (``fused_gather_aggregate.launches_by_dtype`` splits them by the
 table's storage).
 
-In grad mode, with x or the scale requiring grad, a sum or mean call of
-``fused_gather_aggregate`` is an autograd function on either device:
-its forward is the call above, and its backward is dx, the same kernel
-(or plain version) over the source CSR with the destination stream
-gathered (``fused_gather_aggregate.backward_launches`` counts those
-launches), and, where the scale requires grad (GAT's attention), dscale
-(``gather_scale_backward``, the port's own kernel
-``csrc/fused_gather_aggregate_bwd.cu``, on the table as it is stored):
-never autograd of the plain version, so the CPU and the card
-differentiate by the same formulas (``ref.py``). A bf16 table's dx is
-the fp32 fold rounded once to bf16, and its dscale reads the bf16 rows
-(the kernel's bf16 body; ``gather_scale_backward.launches_by_dtype``
-splits the launches by the table's storage). A min or max gather has no
-backward on the card and raises there in grad mode, and so does a scale
-gradient over an int8 table (``core.aggregations`` trains int8 on the
-fp32 fake-quant grid instead); on the CPU the plain version stays
-differentiable.
+In grad mode, with x or the scale requiring grad, a call of
+``fused_gather_aggregate`` is an autograd function on either device,
+whose backward is the port's kernels (or their plain versions), never
+autograd of the plain version, so the CPU and the card differentiate by
+the same formulas (``ref.py``):
+
+* sum and mean: dx is the same gather kernel over the source CSR with
+  the destination stream gathered (``fused_gather_aggregate.
+  backward_launches`` counts those launches), and, where the scale
+  requires grad (GAT's attention), dscale is ``gather_scale_backward``
+  (``csrc/fused_gather_aggregate_bwd.cu``) on the table as it is stored;
+* min and max (JAX's split of a tied extreme): ``gather_tie_weights``
+  over the destination CSR gives each output's tie weight and raw
+  extreme, then dx is ``gather_minmax_dx`` over the source CSR
+  (``csrc/gather_minmax_bwd.cu``) and dscale ``gather_minmax_scale_
+  backward``, the dscale kernel's masked body.
+
+Each backward wrapper counts its launches in ``launches`` and, by the
+table's storage, ``launches_by_dtype``. A bf16 table's dx is the fp32
+fold rounded once to bf16, and the backward kernels read the bf16 rows
+(their bf16 bodies). A scale gradient over an int8 table raises on the
+card (``core.aggregations`` trains int8 on the fp32 fake-quant grid
+instead, whose gradient is the fp32 kernels').
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._cost import (gather_onehot_work, gather_scale_work,
-                                       gather_work, priced)
+from repro_torch.kernels._cost import (gather_minmax_dx_work,
+                                       gather_minmax_scale_work,
+                                       gather_onehot_work, gather_scale_work,
+                                       gather_tie_work, gather_work, priced)
 from repro_torch.kernels._csr_ref import transposed_csr
 from repro_torch.kernels.fused_gather_aggregate.kernel import (
     fused_gather_aggregate_cuda, fused_gather_onehot_cuda,
-    gather_scale_backward_cuda)
+    gather_minmax_dx_cuda, gather_scale_backward_cuda,
+    gather_tie_weights_cuda)
 from repro_torch.kernels.fused_gather_aggregate.ref import (
     backward_coefficients, fused_gather_aggregate_ref,
-    fused_gather_onehot_ref, gather_scale_backward_ref)
+    fused_gather_onehot_ref, gather_minmax_dx_ref, gather_scale_backward_ref,
+    gather_tie_weights_ref)
+
+
+def _count(wrapper, x: torch.Tensor) -> None:
+    """One launch of ``wrapper``'s kernel over the table ``x``: its
+    ``launches`` and ``launches_by_dtype`` of x's storage."""
+    n = _build.launched()
+    wrapper.launches += n
+    wrapper.launches_by_dtype[_build.storage_name(x)] += n
 
 
 def _gather(x, src, scale, perm, offsets, agg: str) -> torch.Tensor:
@@ -49,9 +67,7 @@ def _gather(x, src, scale, perm, offsets, agg: str) -> torch.Tensor:
         return fused_gather_aggregate_ref(x, src, scale, perm, offsets,
                                           agg=agg)
     out = fused_gather_aggregate_cuda(x, src, scale, perm, offsets, agg=agg)
-    n = _build.launched()
-    fused_gather_aggregate.launches += n
-    fused_gather_aggregate.launches_by_dtype[_build.storage_name(x)] += n
+    _count(fused_gather_aggregate, x)
     return out
 
 
@@ -69,27 +85,40 @@ def _gather_dx(dout, dst, coef, s_perm, s_offsets) -> torch.Tensor:
 
 
 class _FusedGather(torch.autograd.Function):
-    """The sum or mean gather with its backward (module docstring)."""
+    """The gather with its backward (module docstring)."""
 
     @staticmethod
     def forward(ctx, x, scale, src, perm, offsets, agg, dst, s_perm,
                 s_offsets):
-        ctx.save_for_backward(x, scale, src, offsets, dst, s_perm,
+        ctx.save_for_backward(x, scale, src, perm, offsets, dst, s_perm,
                               s_offsets)
         ctx.agg = agg
         return _gather(x, src, scale, perm, offsets, agg)
 
     @staticmethod
     def backward(ctx, dout):
-        x, scale, src, offsets, dst, s_perm, s_offsets = ctx.saved_tensors
+        x, scale, src, perm, offsets, dst, s_perm, s_offsets = \
+            ctx.saved_tensors
         dout = dout.contiguous()
-        coef, weight = backward_coefficients(ctx.agg, scale, dst, offsets)
+        want_dx, want_dscale = ctx.needs_input_grad[:2]
         dx = dscale = None
-        if ctx.needs_input_grad[0]:
-            dx = _gather_dx(dout, dst, coef, s_perm,
-                            s_offsets).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dscale = gather_scale_backward(dout, x, src, dst, weight)
+        if ctx.agg in ("min", "max"):
+            w, ext = gather_tie_weights(x, src, scale, perm, offsets, dout,
+                                        agg=ctx.agg)
+            if want_dx:
+                dx = gather_minmax_dx(x, scale, w, ext, dst, s_perm,
+                                      s_offsets)
+            if want_dscale:
+                dscale = gather_minmax_scale_backward(w, x, src, dst, ext,
+                                                      scale)
+        else:
+            coef, weight = backward_coefficients(ctx.agg, scale, dst,
+                                                 offsets)
+            if want_dx:
+                dx = _gather_dx(dout, dst, coef, s_perm,
+                                s_offsets).to(x.dtype)
+            if want_dscale:
+                dscale = gather_scale_backward(dout, x, src, dst, weight)
         return dx, dscale, None, None, None, None, None, None, None
 
 
@@ -108,15 +137,9 @@ def fused_gather_aggregate(x: torch.Tensor, src: torch.Tensor,
     if src.numel() == 0 or num_segments <= 0:
         return torch.zeros((max(num_segments, 0), x.shape[1]),
                            dtype=torch.float32, device=x.device)
-    plain = _build.runs_plain(x)
     if not _build.trains(x, scale):
         return _gather(x, src, scale, perm, offsets, agg)
-    if agg not in ("sum", "mean"):
-        if plain:       # autograd of the plain version
-            return _gather(x, src, scale, perm, offsets, agg)
-        _build.refuse_grad("fused_gather_aggregate", x, scale,
-                           why=f"the {agg} gather has no backward kernel")
-    if not plain and x.dtype not in _build.GRAD_STORAGE:
+    if not _build.runs_plain(x) and x.dtype not in _build.GRAD_STORAGE:
         _build.refuse_grad("fused_gather_aggregate", x, scale,
                            why=f"the scale gradient takes no {x.dtype} "
                                "table on the card")
@@ -147,9 +170,7 @@ def gather_scale_backward(dout: torch.Tensor, x: torch.Tensor,
     if _build.runs_plain(dout):
         return gather_scale_backward_ref(dout, x, src, dst, weight)
     out = gather_scale_backward_cuda(dout, x, src, dst, weight)
-    n = _build.launched()
-    gather_scale_backward.launches += n
-    gather_scale_backward.launches_by_dtype[_build.storage_name(x)] += n
+    _count(gather_scale_backward, x)
     return out
 
 
@@ -157,6 +178,70 @@ gather_scale_backward.launches = 0
 # the launches by the table's storage (the kernel's two bodies)
 gather_scale_backward.launches_by_dtype = dict.fromkeys(
     _build.GRAD_STORAGE.values(), 0)
+
+
+@priced(gather_tie_work)
+def gather_tie_weights(x: torch.Tensor, src: torch.Tensor,
+                       scale: torch.Tensor | None, perm: torch.Tensor,
+                       offsets: torch.Tensor, dout: torch.Tensor, *,
+                       agg: str) -> tuple:
+    """(w, ext), each (S, F) float32, of a min or max gather's output
+    gradient ``dout`` (S, F) float32 over its destination CSR: ``ext``
+    each output's raw extreme (NaN where it is not finite), ``w`` its
+    gradient split among the edges that tie it (``ref.
+    gather_tie_weights_ref``). x fp32 or bf16, as stored."""
+    if _build.runs_plain(x):
+        return gather_tie_weights_ref(x, src, scale, perm, offsets, dout,
+                                      agg=agg)
+    out = gather_tie_weights_cuda(x, src, scale, perm, offsets, dout,
+                                  agg=agg)
+    _count(gather_tie_weights, x)
+    return out
+
+
+@priced(gather_minmax_dx_work)
+def gather_minmax_dx(x: torch.Tensor, scale: torch.Tensor | None,
+                     w: torch.Tensor, ext: torch.Tensor, dst: torch.Tensor,
+                     s_perm: torch.Tensor,
+                     s_offsets: torch.Tensor) -> torch.Tensor:
+    """A min or max gather's dx (N, F) at x's dtype (fp32, or bf16 rounded
+    once from the fp32 fold) from ``gather_tie_weights``' (w, ext), over
+    the source CSR (``ref.gather_minmax_dx_ref``). No rows gives an
+    empty result without a launch."""
+    if s_offsets.numel() < 2:
+        return torch.zeros_like(x)
+    if _build.runs_plain(x):
+        return gather_minmax_dx_ref(x, scale, w, ext, dst, s_perm,
+                                    s_offsets).to(x.dtype)
+    out = gather_minmax_dx_cuda(x, scale, w, ext, dst, s_perm, s_offsets)
+    _count(gather_minmax_dx, x)
+    return out
+
+
+@priced(gather_minmax_scale_work)
+def gather_minmax_scale_backward(w: torch.Tensor, x: torch.Tensor,
+                                 src: torch.Tensor, dst: torch.Tensor,
+                                 ext: torch.Tensor,
+                                 scale: torch.Tensor | None) -> torch.Tensor:
+    """A min or max gather's scale gradient (E,) float32 from
+    ``gather_tie_weights``' (w, ext): ``gather_scale_backward`` with each
+    column's product masked to the edges that tie its extreme (the
+    kernel's masked body; ``ref.gather_scale_backward_ref``)."""
+    if src.numel() == 0:
+        return torch.zeros((0,), dtype=torch.float32, device=w.device)
+    if _build.runs_plain(w):
+        return gather_scale_backward_ref(w, x, src, dst, ext=ext,
+                                         scale=scale)
+    out = gather_scale_backward_cuda(w, x, src, dst, ext=ext, scale=scale)
+    _count(gather_minmax_scale_backward, x)
+    return out
+
+
+for _w in (gather_tie_weights, gather_minmax_dx,
+           gather_minmax_scale_backward):
+    _w.launches = 0
+    # the launches by the table's storage (each kernel's two bodies)
+    _w.launches_by_dtype = dict.fromkeys(_build.GRAD_STORAGE.values(), 0)
 
 
 @priced(gather_onehot_work)

@@ -4,14 +4,16 @@ Five wrappers carry a gradient on the card. In grad mode, with an input
 that requires grad, each CUDA branch is an autograd function:
 ``flash_attention``'s backward launches the delta, dK/dV and dQ
 kernels from the forward's lse2; the CSR gather's (sum, mean) launches the gather itself over
-the source CSR for dx and the scale-gradient kernel for dscale; the
+the source CSR for dx and the scale-gradient kernel for dscale, and its
+min and max launch the tie weights, then the min/max dx and the masked
+scale gradient; the
 segment aggregation's and the segment softmax's launch their backward
 kernels; ``tiled_matmul``'s takes ``torch.matmul`` for dX and dW. The
 other four wrappers in ``kernels/*/ops.py`` (the one-hot pair, the
 resident stack, the padded-table aggregation) have no backward (ROADMAP
 item 12e): a launch hands back a fresh tensor with no autograd history,
 so each raises, before it launches, when grad mode is on and an input
-requires grad; so does a min or max gather on the card. bf16 storage
+requires grad. bf16 storage
 trains on the card (its backward launches take the bf16 table) and int8
 storage trains on the fp32 fake-quant grid. Under ``torch.no_grad()``
 or ``torch.inference_mode()`` (serving, ``Project``) every wrapper
@@ -329,17 +331,54 @@ def test_gather_backward_launches_are_counted(monkeypatch):
 
 
 @pytest.mark.parametrize("agg", ["min", "max"])
-def test_cuda_branch_refuses_a_min_max_gather(monkeypatch, agg):
-    """No backward kernel for a min or max gather: it raises in grad
-    mode on the card, before it launches."""
+def test_cuda_branch_carries_a_min_max_gather_gradient(monkeypatch, agg):
+    """A min or max gather in grad mode on the card is the autograd
+    function: the forward launch, then the tie weights over the
+    destination CSR, dx over the source CSR and the masked scale
+    gradient, each on the table as stored; every launch counted."""
     calls = []
     monkeypatch.setattr(_build, "runs_plain", lambda t: False)
-    monkeypatch.setattr(gather_ops, "fused_gather_aggregate_cuda",
-                        lambda *a, **k: calls.append(1))
-    args, _, _ = gather_inputs(False)
-    with pytest.raises(RuntimeError, match=f"{agg} gather.*ROADMAP item 12"):
-        gather_ops.fused_gather_aggregate(*args, agg=agg)
-    assert calls == []
+    args, _, x = gather_inputs(False)
+    scale = args[2].clone().requires_grad_()
+    args = (x, args[1], scale) + args[3:]
+
+    def forward(table, ids, sc, perm, offsets, *, agg="sum"):
+        calls.append(("forward", agg, table is x))
+        return torch.zeros((offsets.numel() - 1, table.shape[1]))
+
+    def ties(table, src, sc, perm, offsets, dout, *, agg):
+        calls.append(("ties", agg, table is x))
+        return torch.full((S, F), 5.0), torch.zeros((S, F))
+
+    def dx(table, sc, w, ext, dst, s_perm, s_offsets):
+        calls.append(("dx", table is x, bool((w == 5.0).all())))
+        return torch.full((N, F), 3.0)
+
+    def dscale(w, table, src, dst, weight=None, *, ext=None, scale=None):
+        calls.append(("dscale", table is x, ext is not None,
+                      scale is sc_seen[0]))
+        return torch.full((E,), 2.0)
+    sc_seen = [scale]
+    for name, fn in (("fused_gather_aggregate_cuda", forward),
+                     ("gather_tie_weights_cuda", ties),
+                     ("gather_minmax_dx_cuda", dx),
+                     ("gather_scale_backward_cuda", dscale)):
+        monkeypatch.setattr(gather_ops, name, fn)
+    wrappers = (gather_ops.gather_tie_weights, gather_ops.gather_minmax_dx,
+                gather_ops.gather_minmax_scale_backward)
+    for w in wrappers:
+        monkeypatch.setattr(w, "launches", 0)
+        monkeypatch.setattr(w, "launches_by_dtype", {"fp32": 0, "bf16": 0})
+    out = gather_ops.fused_gather_aggregate(*args, agg=agg)
+    assert out.requires_grad and calls == [("forward", agg, True)]
+    out.sum().backward()
+    assert calls[1:] == [("ties", agg, True), ("dx", True, True),
+                         ("dscale", True, True, True)]
+    assert torch.equal(x.grad, torch.full((N, F), 3.0))
+    assert torch.equal(scale.grad, torch.full((E,), 2.0))
+    for w in wrappers:
+        assert (w.launches, w.launches_by_dtype) == (1, {"fp32": 1,
+                                                         "bf16": 0})
 
 
 def _low_precision_stubs(monkeypatch, seen):

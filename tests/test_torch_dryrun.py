@@ -74,6 +74,9 @@ def launch_counts() -> dict:
             "sa_bwd": SA.segment_aggregate_backward.launches,
             "sm": SM.segment_softmax.launches,
             "sm_bwd": SM.segment_softmax_backward.launches,
+            "g_minmax": [w.launches for w in (
+                G.gather_tie_weights, G.gather_minmax_dx,
+                G.gather_minmax_scale_backward)],
             "mm": tiled_matmul.launches}
 
 
@@ -243,28 +246,57 @@ def test_gnn_flops_against_the_cpu_plain_path(gnn_record):
 
 
 def test_refuse_grad_still_raises_in_a_dry_trace(monkeypatch, no_library):
-    """A max gather has no backward on the card: the dry trace of a train
-    step that differentiates one fails as the card would, and so does the
-    wrapper alone."""
+    """The one-hot gather has no backward on the card: the dry trace of a
+    train step that differentiates one fails as the card would, and so
+    does the wrapper alone."""
     from repro_torch.core import convs
+    from repro_torch.core.aggregations import aggregation_scope
     from repro_torch.kernels.fused_gather_aggregate.ops import \
-        fused_gather_aggregate
+        fused_gather_onehot
     gather = convs.agg_mod.gather_aggregate
-    monkeypatch.setattr(convs.agg_mod, "gather_aggregate",
-                        lambda agg, *a, **k: gather("max", *a, **k))
+
+    def onehot(*a, **k):
+        with aggregation_scope(gather_mode="onehot"):
+            return gather(*a, **k)
+    monkeypatch.setattr(convs.agg_mod, "gather_aggregate", onehot)
     rec = D.run_gnn_cell("gcn", GNN_FRAMES, reduced=True)
     assert not rec["ok"]
     assert "ROADMAP item 12e" in rec["error"]
-    assert "max gather" in rec["error"]
+    assert "fused_gather_onehot" in rec["error"]
     assert "RuntimeError" in rec["error"] and rec["traceback"]
     dev = D.fake_device()
     with FakeTensorMode(), C._OpCounter(dry=True) as sink, \
             _cost.pricing(sink):
         x = torch.zeros(6, 4, device=dev, requires_grad=True)
         ids = torch.zeros(5, dtype=torch.int32, device=dev)
-        offsets = torch.tensor([0, 2, 5], dtype=torch.int32, device=dev)
         with pytest.raises(RuntimeError, match="ROADMAP item 12e"):
-            fused_gather_aggregate(x, ids, None, ids, offsets, agg="max")
+            fused_gather_onehot(x, ids, ids, None, 2, agg="max")
+
+
+@pytest.mark.parametrize("conv", ["sage_max", "gat_max"])
+def test_minmax_train_step_traces_and_prices_its_kernels(no_library, conv):
+    """A user's conv that aggregates by max (``tests/sage_minmax.py``)
+    trains on the card: the dry trace of its train step is ok, launches
+    nothing, and prices the min/max gather's backward kernels at the
+    frame's capacity: dx once a layer whose gathered table requires grad
+    (SAGE: layer 1, as layer 0 gathers the input features; GAT gathers
+    its projection in both), the masked scale gradient once a layer
+    whose attention weights do (GAT's two), and the tie weights once a
+    layer that needs either."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import sage_minmax
+    before = launch_counts()
+    with sage_minmax.registered():
+        rec = D.run_gnn_cell(conv, GNN_FRAMES, reduced=True)
+    assert rec["ok"], rec.get("traceback")
+    assert launch_counts() == before
+    by = rec["kernels_by_name"]
+    attention = conv == "gat_max"
+    assert by["gather_minmax_dx"] == by["gather_tie_weights"] \
+        == 1 + attention
+    assert by.get("gather_minmax_scale_backward", 0) == 2 * attention
+    assert by["fused_gather_aggregate"] == 2 and "_gather_dx" not in by
+    assert rec["upper_bound"]
 
 
 @pytest.fixture

@@ -277,6 +277,7 @@ def test_build_is_keyed_by_the_sources():
                                       "fused_gather_aggregate_bwd.cu",
                                       "fused_gather_onehot.cu",
                                       "fused_layer_stack.cu",
+                                      "gather_minmax_bwd.cu",
                                       "gnn_aggregate.cu",
                                       "segment_aggregate.cu",
                                       "segment_aggregate_bwd.cu",
@@ -303,7 +304,13 @@ def test_build_is_keyed_by_the_sources():
                                (FK._GRADS_ARGTYPES,
                                 (0, 1, 2, 3, 4, 5, 14, 15, 16, 17)),
                                (FK._BWD_WGMMA_ARGTYPES,
-                                (0, 1, 2, 3, 4, 5, 13, 14, 15, 16))):
+                                (0, 1, 2, 3, 4, 5, 13, 14, 15, 16)),
+                               (GK._TIE_ARGTYPES,
+                                (0, 4, 5, 7, 8, 16, 17, 18, 19)),
+                               (GK._DX_ARGTYPES,
+                                (0, 4, 5, 6, 8, 10, 11, 17, 18)),
+                               (GK._MASKED_ARGTYPES,
+                                (0, 1, 2, 5, 8, 9, 14, 15))):
         assert [i for i, t in enumerate(argtypes)
                 if t is ctypes.c_void_p] == list(pointers)
     assert FK._ARGTYPES[12] is ctypes.c_float       # the softmax scale
@@ -317,6 +324,7 @@ def test_build_is_keyed_by_the_sources():
     # and the padded-table, segment and gather kernels' warp counts
     assert PK._ARGTYPES[11] is ctypes.c_longlong
     assert GK._ARGTYPES[15] is ctypes.c_longlong
+    assert GK._TIE_ARGTYPES[15] is GK._DX_ARGTYPES[16] is ctypes.c_longlong
     assert SK._ARGTYPES[12] is ctypes.c_longlong
     # the backward launches: one argument list for each dtype's entry
     # point (fp32, bf16), every one of them defined in its source
