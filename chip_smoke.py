@@ -5550,7 +5550,10 @@ def gnn_profile(bundle, trainer, batch_fn) -> dict:
     from torch.autograd import DeviceType
 
     def device_us(e) -> float:
-        if e.device_type != DeviceType.CUDA:
+        # a host span's mirror on the device (repro_torch.tracing) spans
+        # kernels it would count twice
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False):
             return 0.0
         for name in ("device_time_total", "cuda_time_total"):
             v = getattr(e, name, None)

@@ -32,6 +32,11 @@ conv's output, each layer's activation, the pooled vector and each head
 layer onto its grid, the testbench semantics of
 ``core.project.Project(float_or_fixed="fixed")`` (whose caller quantizes
 the weights).
+
+Tracing: the served path names its phases as host spans
+(``repro_torch.tracing``: ``gnn.to_device``, ``gnn.forward`` and inside
+it ``gnn.inputs``, ``gnn.conv<i>``, ``gnn.pool``, ``gnn.head``), recorded
+only while a torch profiler records.
 """
 from __future__ import annotations
 
@@ -50,6 +55,8 @@ from repro_torch.device import l2_cache_bytes, resolve_device
 from repro_torch.kernels.fused_layer_stack.ops import fused_layer_stack
 from repro_torch.nn.layers import act, linear, linear_plan, row_stable_products
 from repro_torch.nn.param import init_params
+from repro_torch.tracing import (FORWARD, HEAD, INPUTS, POOL, TO_DEVICE,
+                                 conv_spans, span)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,8 +165,9 @@ def packed_to_device(batch: dict, device="cuda") -> dict:
     """Host GraphBatch (or one padded graph) -> tensors on ``device``,
     stripping the host-only target buffer ``y``."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.asarray(v), device=dev)
-            for k, v in batch.items() if k != "y"}
+    with span(TO_DEVICE):
+        return {k: torch.as_tensor(np.asarray(v), device=dev)
+                for k, v in batch.items() if k != "y"}
 
 
 def _edge_inputs(edge_index: torch.Tensor, n: int, indeg=None,
@@ -168,18 +176,20 @@ def _edge_inputs(edge_index: torch.Tensor, n: int, indeg=None,
     graph or batch: degrees (unless given), the GCN scales and the
     destination CSR every layer walks; in grad mode also its source side,
     which every gather's gradient walks."""
-    valid_e = edge_index[:, 0] >= 0
-    if indeg is None or outdeg is None:
-        d_in, d_out = degrees(edge_index, n, valid_e)
-        indeg = d_in if indeg is None else indeg
-        outdeg = d_out if outdeg is None else outdeg
-    edge_scale, self_scale = C.gcn_normalization(edge_index, indeg, valid_e)
-    return {"edge_index": edge_index, "valid_e": valid_e, "in_deg": indeg,
-            "out_deg": outdeg, "gcn_edge_scale": edge_scale,
-            "gcn_self_scale": self_scale,
-            "edge_csr": gather_csr(edge_index[:, 0], edge_index[:, 1], n, n,
-                                   valid_e,
-                                   transpose=torch.is_grad_enabled())}
+    with span(INPUTS):
+        valid_e = edge_index[:, 0] >= 0
+        if indeg is None or outdeg is None:
+            d_in, d_out = degrees(edge_index, n, valid_e)
+            indeg = d_in if indeg is None else indeg
+            outdeg = d_out if outdeg is None else outdeg
+        edge_scale, self_scale = C.gcn_normalization(edge_index, indeg,
+                                                     valid_e)
+        return {"edge_index": edge_index, "valid_e": valid_e,
+                "in_deg": indeg, "out_deg": outdeg,
+                "gcn_edge_scale": edge_scale, "gcn_self_scale": self_scale,
+                "edge_csr": gather_csr(edge_index[:, 0], edge_index[:, 1],
+                                       n, n, valid_e,
+                                       transpose=torch.is_grad_enabled())}
 
 
 def graph_inputs(batch_el: dict) -> tuple:
@@ -274,30 +284,31 @@ def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
     boundary rows with their owners' values so that the next layer
     aggregates over up-to-date neighbours."""
     nl = cfg.gnn_num_layers
-    for i in range(nl):
-        cc = cfg.conv_cfg(i)
-        p_i = params["convs"][f"c{i}"]
-        x_in = x
-        lp = policy.layer(i) if policy is not None else None
-        if lp is not None and lp.compute != "fp32":
-            cc = dataclasses.replace(cc, precision=lp)
-            x_in = lp.cast_activation(x)
-        h = C.conv_apply(p_i, g, x_in, cc)
-        if record is not None:
-            record.append(torch.maximum(x.abs().max(), h.abs().max()))
-        if quant is not None:
-            h = Q.quantize(h, quant)
-        if cfg.gnn_skip_connection:
-            skip = x
-            if f"skip{i}" in params:
-                skip = linear(params[f"skip{i}"], x)
-            h = h + skip            # fp32: a bf16 h is lifted exactly
-        else:
-            h = h.to(torch.float32)
-        x = act(cfg.gnn_activation)(h)
-        x = x * node_mask[:, None]
-        if quant is not None:
-            x = Q.quantize(x, quant)
+    for i, name in enumerate(conv_spans(nl)):
+        with span(name):
+            cc = cfg.conv_cfg(i)
+            p_i = params["convs"][f"c{i}"]
+            x_in = x
+            lp = policy.layer(i) if policy is not None else None
+            if lp is not None and lp.compute != "fp32":
+                cc = dataclasses.replace(cc, precision=lp)
+                x_in = lp.cast_activation(x)
+            h = C.conv_apply(p_i, g, x_in, cc)
+            if record is not None:
+                record.append(torch.maximum(x.abs().max(), h.abs().max()))
+            if quant is not None:
+                h = Q.quantize(h, quant)
+            if cfg.gnn_skip_connection:
+                skip = x
+                if f"skip{i}" in params:
+                    skip = linear(params[f"skip{i}"], x)
+                h = h + skip            # fp32: a bf16 h is lifted exactly
+            else:
+                h = h.to(torch.float32)
+            x = act(cfg.gnn_activation)(h)
+            x = x * node_mask[:, None]
+            if quant is not None:
+                x = Q.quantize(x, quant)
         if exchange is not None and i < nl - 1:
             x = exchange(x)
     return x
@@ -306,13 +317,14 @@ def _backbone(params: dict, cfg: GNNModelConfig, g: dict, x: torch.Tensor,
 def _head(params: dict, cfg: GNNModelConfig, pooled: torch.Tensor,
           quant: Q.FPX | None = None,
           policy: Q.PrecisionPolicy | None = None) -> torch.Tensor:
-    if quant is not None:
-        pooled = Q.quantize(pooled, quant)
-    out = mlp_head_apply(params["mlp"], pooled, cfg.mlp_head, quant,
-                         policy.head if policy is not None else None)
-    if cfg.output_activation:
-        out = act(cfg.output_activation)(out)
-    return out
+    with span(HEAD):
+        if quant is not None:
+            pooled = Q.quantize(pooled, quant)
+        out = mlp_head_apply(params["mlp"], pooled, cfg.mlp_head, quant,
+                             policy.head if policy is not None else None)
+        if cfg.output_activation:
+            out = act(cfg.output_activation)(out)
+        return out
 
 
 def _packed_tail(params: dict, cfg: GNNModelConfig, batch: dict,
@@ -325,9 +337,10 @@ def _packed_tail(params: dict, cfg: GNNModelConfig, batch: dict,
     if cfg.task == "node":
         return x
     num_graphs = batch["graph_valid"].shape[0]
-    pooled = segment_global_pooling(
-        cfg.global_pooling, x, graph_id, num_graphs, node_mask,
-        csr=build_csr(graph_id, num_graphs, node_mask))
+    with span(POOL):
+        pooled = segment_global_pooling(
+            cfg.global_pooling, x, graph_id, num_graphs, node_mask,
+            csr=build_csr(graph_id, num_graphs, node_mask))
     return _head(params, cfg, pooled, quant, policy)
 
 
@@ -371,17 +384,18 @@ def apply_packed(params: dict, cfg: GNNModelConfig, batch: dict,
     (N, F) node table after the conv stack, the per-rank body of the
     partitioned program, which pools only after reassembling the global
     node order."""
-    params = cast_for_policy(params, cfg, policy)
-    pol = None if params.policy.is_fp32 else params.policy
-    g, x, node_mask, graph_id = packed_inputs(batch)
-    if quant is not None:
-        x = Q.quantize(x, quant)
-    x = _backbone(params, cfg, g, x, node_mask, quant, pol,
-                  exchange=halo_exchange)
-    if return_node_features:
-        return x
-    return _packed_tail(params, cfg, batch, x, node_mask, graph_id, quant,
-                        pol)
+    with span(FORWARD):
+        params = cast_for_policy(params, cfg, policy)
+        pol = None if params.policy.is_fp32 else params.policy
+        g, x, node_mask, graph_id = packed_inputs(batch)
+        if quant is not None:
+            x = Q.quantize(x, quant)
+        x = _backbone(params, cfg, g, x, node_mask, quant, pol,
+                      exchange=halo_exchange)
+        if return_node_features:
+            return x
+        return _packed_tail(params, cfg, batch, x, node_mask, graph_id,
+                            quant, pol)
 
 
 def apply_batch(params: dict, cfg: GNNModelConfig, batch: dict,

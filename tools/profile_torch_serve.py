@@ -41,8 +41,10 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 def _device_us(evt) -> float:
     """Device time of a device-side event (a kernel, copy or memset);
     0 for host-side operator events, whose totals repeat their
-    kernels'."""
-    if evt.device_type != DeviceType.CUDA:
+    kernels', and for the device's mirror of a host span
+    (``repro_torch.tracing``), which spans them."""
+    if evt.device_type != DeviceType.CUDA \
+            or getattr(evt, "is_user_annotation", False):
         return 0.0
     for name in ("device_time_total", "cuda_time_total"):
         v = getattr(evt, name, None)
